@@ -2,26 +2,43 @@
 """Smoke run of lightgbm_tpu_torch on one NVIDIA Hopper card.
 
     python3 chip_smoke.py                 # the full run (one card)
-    python3 chip_smoke.py --rows 1000000 --iters 3 --small-rows 20000
+    python3 chip_smoke.py --rows 1000000 --iters 3 --small-rows 20000 \
+        --repeat-iters 3                  # a shorter Higgs cell
 
 Phases (any failure raises, and the script exits non-zero without a
 result line):
   1. device: needs torch.cuda; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from lightgbm_tpu_torch/csrc;
-  3. kernels: calls each kernel's wrapper at the main path's shapes
-     (--rows x 28 features, 64 bins) and holds it against its plain
-     PyTorch version on the same inputs; times both with CUDA events;
-  4. small end to end: --small-rows x 28 trained on the card and on the
-     CPU (plain versions) — splits, predictions and AUC must agree;
-  5. the slice at full width: Higgs-shaped binary data (--rows plus a
+  3. kernels: calls each kernel's wrapper at its path's shapes and holds
+     it against its plain PyTorch version on the same inputs; times both
+     with CUDA events.  Binary path: --rows x 28 features, 64 bins.
+     Multiclass path: the covertype cell's bundled training matrix
+     (12 EFB columns, 63 bins, K=7 score channels, 40 channels);
+  4. small end to end: --small-rows x 28 (binary) and 100,000
+     Covertype-shaped rows (K=7, 3 iterations) trained on the card and on
+     the CPU (plain versions) — splits, predictions and AUC / multi
+     logloss must agree;
+  5. "higgs-10.5M" at full width: Higgs-shaped binary data (--rows plus a
      500k held-out set), max_bin=63, num_leaves=255, learning_rate=0.1,
      min_data_in_leaf=1, min_sum_hessian_in_leaf=100, --iters
      iterations; prints s/iter, held-out AUC, peak memory and the
      launch counts of every kernel, then a run with the level grower off
-     (so split_stream carries every split) and a repeat of the main run
-     to show whether two runs give byte-identical model text.
-The line before last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+     (so split_stream carries every split) and a repeat of the main run's
+     first --repeat-iters iterations, to show whether two runs give
+     byte-identical trees;
+  6. "covertype-581k" at full width: Covertype-shaped data (581,012 rows,
+     54 columns: 10 integer numeric, a 4-column and a 40-column one-hot,
+     7 classes at Covertype's counts), the first 464,809 train and the
+     last 116,203 are held out; objective=multiclass, the Higgs cell's
+     training parameters, 20 iterations; prints s/iter,
+     held-out multi_logloss and accuracy, peak memory, launches and the
+     idle share; then a 2-iteration one-vs-all run, and one tree grown
+     with root_hist=None (hist_segments with the level grower on,
+     hist_dyn off) against the tree of update_multi_and_hists's class-0
+     histogram.
+Every driven path starts with the launch counts at 0 and reads them at
+its end.  The line before last is a JSON object with one entry per
+kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -39,18 +56,34 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 TRAIN_PARAMS = dict(objective="binary", max_bin=63, num_leaves=255, learning_rate=0.1,
                     min_data_in_leaf=1, min_sum_hessian_in_leaf=100, verbose=-1)
+COV_PARAMS = dict(TRAIN_PARAMS, objective="multiclass", num_class=7)
 REPLACES = {
     "update_and_root_hist": "lightgbm_tpu/ops/pkernels.py:542",
+    "update_multi_and_hists": "lightgbm_tpu/ops/pkernels.py:700",
     "level_stream": "lightgbm_tpu/ops/pkernels.py:1309",
     "split_stream": "lightgbm_tpu/ops/pkernels.py:1378",
     "score_add": "lightgbm_tpu/ops/pkernels.py:825",
+    "hist_dyn": "lightgbm_tpu/ops/pkernels.py:349",
+    "hist_segments": "lightgbm_tpu/ops/histogram_pallas.py:360",
 }
 SOURCES = {
     "update_and_root_hist": "lightgbm_tpu_torch/csrc/update_hist.cu",
+    "update_multi_and_hists": "lightgbm_tpu_torch/csrc/update_multi_hist.cu",
     "level_stream": "lightgbm_tpu_torch/csrc/partition_hist.cu",
     "split_stream": "lightgbm_tpu_torch/csrc/partition_hist.cu",
     "score_add": "lightgbm_tpu_torch/csrc/score_add.cu",
+    "hist_dyn": "lightgbm_tpu_torch/csrc/segment_hist.cu",
+    "hist_segments": "lightgbm_tpu_torch/csrc/segment_hist.cu",
 }
+# Covertype (UCI, Blackard & Dean 1998): rows per class, and the ranges of
+# the 10 integer columns (Elevation, Aspect, Slope, the hydrology
+# distances, roadways, the three hillshades, fire points)
+COV_CLASS_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+COV_NUMERIC = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7117),
+               (0, 254), (0, 254), (0, 254), (0, 7173))
+COV_TRAIN_ROWS = 464_809  # the first 80 %; the last 116,203 are held out
+COV_ITERS = 20
+COV_SMALL_ROWS, COV_SMALL_ITERS = 100_000, 3  # the multiclass card-vs-CPU phase
 _TASK_SEED = 20260730  # bench.py: the task's informative weights never vary
 _N_INFORM = 8
 
@@ -65,6 +98,66 @@ def make_higgs_shaped(n_rows, n_features=28, seed=7):
     prob = 1.0 / (1.0 + np.exp(-margin / margin.std()))
     y = (rng.rand(n_rows) < prob).astype(np.float32)
     return X, y
+
+
+def make_covertype_shaped(seed=13):
+    """Covertype-shaped data: 581,012 rows of 10 integer columns over
+    Covertype's ranges, a one-hot over 4 (wilderness) and over 40 (soil)
+    columns, and 7 classes at Covertype's counts.  The label is a fixed
+    function of the features plus seeded noise: a latent score (elevation
+    first, the other columns, a soil and a wilderness effect) is ranked,
+    and the classes take consecutive blocks of the ranking in the order
+    of their mean elevation in Covertype, so every class has exactly its
+    count.  Returns (X (N, 54) float32, y (N,) float32 class index)."""
+    n = sum(COV_CLASS_COUNTS)
+    rng = np.random.RandomState(seed)
+    task = np.random.RandomState(_TASK_SEED)
+    X = np.zeros((n, 54), np.float32)
+    for j, (lo, hi) in enumerate(COV_NUMERIC):
+        X[:, j] = np.clip(np.rint(rng.normal((lo + hi) / 2, (hi - lo) / 6, n)), lo, hi)
+    wild = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    soil = rng.choice(40, n, p=0.8 * task.dirichlet(np.ones(40)) + 0.2 / 40)
+    X[np.arange(n), 10 + wild] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    z = (X[:, :10] - X[:, :10].mean(0)) / X[:, :10].std(0)
+    w = task.randn(10) * 0.3
+    w[0] = 1.5
+    latent = (z @ w + 0.4 * z[:, 1] * z[:, 6] + task.randn(40)[soil] * 0.6
+              + task.randn(4)[wild] * 0.5 + 0.5 * rng.randn(n))
+    order = np.argsort(latent, kind="stable")
+    y = np.empty(n, np.float32)
+    pos = 0
+    for c in (3, 2, 5, 4, 1, 0, 6):  # Cottonwood/Willow lowest ... Krummholz highest
+        y[order[pos:pos + COV_CLASS_COUNTS[c]]] = c
+        pos += COV_CLASS_COUNTS[c]
+    return X, y
+
+
+def multi_logloss(y, prob):
+    """Mean negative log probability of the true class (multi_logloss)."""
+    p = np.clip(prob[np.arange(len(y)), np.asarray(y, np.int64)], 1e-15, 1.0)
+    return float(-np.mean(np.log(p)))
+
+
+def prior_entropy():
+    """multi_logloss of predicting Covertype's class frequencies."""
+    p = np.asarray(COV_CLASS_COUNTS, np.float64) / sum(COV_CLASS_COUNTS)
+    return float(-(p * np.log(p)).sum())
+
+
+def driven(name, fn, required):
+    """Run one path of the port with every launch count set to 0 first;
+    returns (fn's result, the path's counts) and fails if a kernel in
+    ``required`` was never launched."""
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    pk.reset_launch_counts()
+    res = fn()
+    counts = pk.launch_counts()
+    log(f"path {name}: launches {json.dumps(counts)}")
+    for k in required:
+        assert counts[k] > 0, f"{k} was not launched on the {name} path"
+    return res, counts
 
 
 def auc(y, p):
@@ -119,21 +212,51 @@ HIST_TOL = 1e-5
 
 def check_hist(name, hk, hr):
     """Kernel histogram against the plain version's.  Counts are integers
-    below 2^24, exact in float32 in any order: bit-equal.  The g and h
-    sums, each channel relative to its largest bin, within HIST_TOL: the
-    plain version sums in float64 and rounds once, the kernel adds float32
-    per-block partials with atomics in an order that varies per run."""
+    below 2^24, exact in any order: bit-equal.  The g and h sums, each
+    channel relative to its largest bin, within HIST_TOL: both versions
+    sum in float64 and round once, in different orders, so they are
+    bit-equal unless a sum lies within ~1e-16 of a float32 rounding
+    boundary; the line reports whether they were."""
     import torch
 
     assert torch.equal(hk[..., 2], hr[..., 2]), f"{name}: histogram counts differ"
     (eg, ag), (eh, ah) = rel_err(hk[..., 0], hr[..., 0]), rel_err(hk[..., 1], hr[..., 1])
     log(f"  {name} hist: g rel err {eg:.3e}, h rel err {eh:.3e} (tol {HIST_TOL:g}); "
-        f"counts bit-equal")
+        f"counts bit-equal; sums bit-equal {torch.equal(hk, hr)}")
     assert eg <= HIST_TOL and eh <= HIST_TOL, f"{name}: histogram differs from plain"
     return max(ag, ah)
 
 
 # ----------------------------------------------------------------------
+def finish_bounds(out):
+    """bound_ms / bound_by from each entry's bytes and operations."""
+    for v in out.values():
+        t_bytes = v.pop("bytes") / PEAK_BYTES_PER_S * 1e3
+        t_ops = v.pop("ops") / PEAK_F32_OPS_PER_S * 1e3
+        v["bound_ms"] = max(t_bytes, t_ops)
+        v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def check_channels(name, Pk, Pr, rows, gh_rows):
+    """The kernel's matrix against the plain version's: gradient rows
+    within 1e-6 relative (expf vs torch.exp), every other row and the
+    tail bit-equal."""
+    import torch
+
+    err = 0.0
+    for r in range(Pk.shape[0]):
+        if r in gh_rows:
+            e, _ = rel_err(Pk[r, :rows].view(torch.float32), Pr[r, :rows].view(torch.float32))
+            err = max(err, e)
+        elif not torch.equal(Pk[r], Pr[r]):
+            raise AssertionError(f"{name}: channel {r} differs from plain")
+    assert torch.equal(Pk[:, rows:], Pr[:, rows:]), f"{name} wrote the tail"
+    log(f"kernel {name}: grad/hess rel err {err:.3e} (tol 1e-6)")
+    assert err <= 1e-6
+    return err
+
+
 def phase_kernels(rows, dev, seed=11):
     """Each kernel against its plain version on the card, at the main
     path's shapes.  Returns {name: {...measurements}}."""
@@ -258,12 +381,158 @@ def phase_kernels(rows, dev, seed=11):
     del P0, Pk, Pr
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    for v in out.values():
-        t_bytes = v.pop("bytes") / PEAK_BYTES_PER_S * 1e3
-        t_ops = v.pop("ops") / PEAK_F32_OPS_PER_S * 1e3
-        v["bound_ms"] = max(t_bytes, t_ops)
-        v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return out
+    return finish_bounds(out)
+
+
+def _multi_objective(name, K, label):
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.objective import create_objective
+
+    obj = create_objective(Config.from_params({"objective": name, "num_class": K}))
+    md = Metadata(len(label))
+    md.set_label(label)
+    obj.init(md, len(label))
+    return obj
+
+
+def phase_kernels_multi(bds, dev, seed=5):
+    """The multiclass path's kernels on the covertype cell's bundled
+    training matrix (G=12 columns, BH=63 bins, K=7: 40 channels) against
+    their plain versions: update_multi_and_hists (softmax and one-vs-all,
+    and a K=16 x 28 x 64 matrix whose histogram needs feature tiles),
+    hist_segments, hist_dyn, and level_stream over EFB-remapped segments.
+    Returns {name: {...measurements}}."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import pkernels as pk
+    from lightgbm_tpu_torch.ops.pgrow import BundleMeta, _meta_table
+    from lightgbm_tpu_torch.ops.split import FeatureMeta
+
+    K = 7
+    mat, label = bds.bundled, bds.metadata.label
+    rows, G = mat.shape
+    BH = int(bds.bundle.max_col_bin)
+    lay = pk.PLayout(G, num_score=K)
+    log(f"multiclass kernels: {rows} rows, G={G} columns of {BH} bins, K={K}, C={lay.C}")
+    rng = np.random.default_rng(seed)
+    P0 = pk.pack_matrix(mat, lay, label=label, device=dev)
+    for k in range(K):
+        pk.f32_row(P0, lay.SCORE + k, rows).copy_(
+            torch.from_numpy(rng.standard_normal(rows).astype(np.float32)).to(dev))
+    out = {}
+    kw = dict(num_rows=rows, num_features=G, num_bins=BH)
+    gh = {r for k in range(K) for r in (lay.g_row(k), lay.h_row(k))}
+
+    # ---- update_multi_and_hists, softmax and one-vs-all
+    for name in ("multiclass", "multiclassova"):
+        obj = _multi_objective(name, K, label)
+        Pk, Pr = P0.clone(), P0.clone()
+        _, hk = pk.update_multi_and_hists(Pk, lay, obj, **kw)
+        _, hr = pk.update_multi_and_hists_ref(Pr, lay, obj, **kw)
+        sync(dev)
+        check_channels(f"update_multi_and_hists {name}", Pk, Pr, rows, gh)
+        habs = max(check_hist(f"update_multi_and_hists {name} class {k}", hk[k], hr[k])
+                   for k in range(K))
+        ms = time_cuda(lambda: pk.update_multi_and_hists(Pk, lay, obj, **kw), 10)
+        plain = time_cuda(lambda: pk.update_multi_and_hists_ref(Pr, lay, obj, **kw), 3)
+        log(f"  update_multi_and_hists {name}: {ms:.4f} ms, plain {plain:.2f} ms")
+        if name == "multiclass":
+            P1 = Pk.clone()  # fresh g/h channels for the histogram kernels
+            # reads W words + K scores + label + select, writes 2K channels
+            out["update_multi_and_hists"] = dict(
+                max_abs_err=habs, ms=ms, plain_ms=plain,
+                bytes=rows * 4 * (lay.W + K + 2 + 2 * K) + G * BH * (2 * K + 1) * 4,
+                # softmax (~16 ops a class with its exp) and 2K+1 adds per column
+                ops=rows * (16 * K + (2 * K + 1) * G), library_ms=None)
+        del Pk, Pr
+
+    # ---- the feature-tiled form: K=16 at 28 x 64 needs 236 KB of bins
+    Kw, Fw, Bw, nw = 16, 28, 64, 200_000
+    layw = pk.PLayout(Fw, num_score=Kw)
+    labw = rng.integers(0, Kw, nw).astype(np.float32)
+    Pw = pk.pack_matrix(rng.integers(0, Bw, size=(nw, Fw), dtype=np.uint8), layw, label=labw,
+                        device=dev)
+    objw = _multi_objective("multiclass", Kw, labw)
+    Pk, Pr = Pw.clone(), Pw.clone()
+    kww = dict(num_rows=nw, num_features=Fw, num_bins=Bw)
+    _, hk = pk.update_multi_and_hists(Pk, layw, objw, **kww)
+    _, hr = pk.update_multi_and_hists_ref(Pr, layw, objw, **kww)
+    sync(dev)
+    check_channels("update_multi_and_hists K=16 tiled", Pk, Pr, nw,
+                   {r for k in range(Kw) for r in (layw.g_row(k), layw.h_row(k))})
+    for k in (0, Kw - 1):
+        check_hist(f"update_multi_and_hists K=16 class {k}", hk[k], hr[k])
+    del Pw, Pk, Pr
+
+    # ---- hist_segments: empty, tiny unaligned, one-row and large segments
+    q = rows // 3
+    segs = [(0, 0), (5, 1000), (1005, 1), (1006, q), (1006 + q, rows - 1006 - q)]
+    tab = np.zeros((8, 2), np.int64)
+    tab[:len(segs)] = segs
+    hkw = dict(num_features=G, num_bins=BH, bits=8, rows=lay.class_rows(2), smax=8)
+    hk = pk.hist_segments(P1, tab, len(segs), **hkw)
+    hr = pk.hist_segments_ref(P1, tab, len(segs), **hkw)
+    sync(dev)
+    habs = max(check_hist(f"hist_segments segment {i}", hk[i], hr[i]) for i in range(len(segs)))
+    ms = time_cuda(lambda: pk.hist_segments(P1, tab, len(segs), **hkw), 10)
+    plain = time_cuda(lambda: pk.hist_segments_ref(P1, tab, len(segs), **hkw), 3)
+    log(f"  hist_segments: {ms:.4f} ms, plain {plain:.2f} ms")
+    active = int(tab[:, 1].sum())
+    # reads W words + g, h, select of every active row
+    out["hist_segments"] = dict(max_abs_err=habs, ms=ms, plain_ms=plain,
+                                bytes=active * 4 * (lay.W + 3) + len(segs) * G * BH * 3 * 4,
+                                ops=active * (2 + 3 * G), library_ms=None)
+
+    # ---- hist_dyn: the root segment (all rows), class 0
+    dkw = dict(bits=8, rows=lay.class_rows(0))
+    hk = pk.hist_dyn(P1, 0, rows, G, BH, **dkw)
+    hr = pk.hist_dyn_ref(P1, 0, rows, G, BH, **dkw)
+    sync(dev)
+    habs = check_hist("hist_dyn", hk, hr)
+    ms = time_cuda(lambda: pk.hist_dyn(P1, 0, rows, G, BH, **dkw), 10)
+    plain = time_cuda(lambda: pk.hist_dyn_ref(P1, 0, rows, G, BH, **dkw), 3)
+    log(f"  hist_dyn: {ms:.4f} ms, plain {plain:.2f} ms")
+    out["hist_dyn"] = dict(max_abs_err=habs, ms=ms, plain_ms=plain,
+                           bytes=rows * 4 * (lay.W + 3) + G * BH * 3 * 4,
+                           ops=rows * (2 + 3 * G), library_ms=None)
+
+    # ---- level_stream on the K=7 layout over EFB-remapped segments:
+    # a numerical column, a wilderness and two soil features (bundle
+    # range remaps), an empty and a tiny unaligned segment
+    meta = FeatureMeta.from_dataset(bds)
+    mtab = _meta_table(meta, BundleMeta.build(bds.bundle, bds, bds.max_num_bin), meta.num_bins.shape[0], 8)
+    names = bds.used_feature_map
+
+    def seg_row(start, cnt, feat, thr):
+        db, cat, col, lo, hi, bias = (int(v) for v in mtab[feat])
+        return [start, cnt, col // 4, (col % 4) * 8, db, db, thr, cat, lo, hi, bias, 0]
+
+    inner = {int(real): i for i, real in enumerate(names)}
+    specs = [(0, q, inner[0], 30), (q, 0, inner[1], 10), (q + 3, 7, inner[10], 0),
+             (q + 10, q, inner[14 + 29], 0), (2 * q + 10, rows - 2 * q - 10, inner[14 + 3], 0)]
+    ltab = np.asarray([seg_row(*sp) for sp in specs], np.int64)
+    assert (ltab[2:, 8] > 0).all(), "the one-hot segments are not bundle remaps"
+    lkw = dict(num_features=G, num_bins=BH, bits=8, rows=lay.class_rows(3), smax=8)
+    Pk, Pr = P1.clone(), P1.clone()
+    _, nlk, hk = pk.level_stream(Pk, ltab, len(specs), **lkw)
+    _, nlr, hr = pk.level_stream_ref(Pr, ltab, len(specs), **lkw)
+    sync(dev)
+    assert torch.equal(nlk.cpu(), nlr.cpu()), "level_stream C=40: left counts differ"
+    assert torch.equal(Pk, Pr), "level_stream C=40: partitioned matrix differs from plain"
+    habs = check_hist("level_stream C=40", hk, hr)
+    ms = time_cuda(lambda: pk.level_stream(Pk, ltab, len(specs), **lkw), 10)
+    plain = time_cuda(lambda: pk.level_stream_ref(Pr, ltab, len(specs), **lkw), 3)
+    active = int(ltab[:, 1].sum())
+    lvl = finish_bounds({"x": dict(bytes=active * lay.C * 4 * 2 + len(specs) * 2 * G * BH * 12,
+                                   ops=active * (6 + 3 * G))})["x"]
+    log(f"kernel level_stream C={lay.C} EFB: nl {nlk[:len(specs)].tolist()}; matrix "
+        f"bit-identical; {ms:.4f} ms, plain {plain:.2f} ms, bound {lvl['bound_ms']:.4f} ms "
+        f"({lvl['bound_by']}), max abs err {habs:.3e}")
+    del P0, P1, Pk, Pr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return finish_bounds(out)
 
 
 def model_splits(text):
@@ -293,29 +562,167 @@ def phase_small(rows, iters, dev):
         out[name] = (bst.model_to_string(), p, auc(yv, p))
         log(f"small {name}: {rows}x28, {iters} iterations, {time.perf_counter() - t0:.1f} s, "
             f"AUC {out[name][2]:.6f}")
-    tc, tg = model_splits(out["cpu"][0]), model_splits(out["cuda"][0])
-    ndiff, first = 0, None
-    for ti, (a, b) in enumerate(zip(tc, tg)):
-        for i, fa, fb, ta, tb in zip(range(10**9), a["split_feature"], b["split_feature"],
-                                     a["threshold"], b["threshold"]):
-            if (fa, ta) != (fb, tb):
-                ndiff += 1
-                if first is None:
-                    first = (ti, i, float(a["split_gain"][i]), float(b["split_gain"][i]))
+    ndiff = compare_models("small cuda vs cpu", out["cpu"][0], out["cuda"][0])
     dpred = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
     dauc = abs(out["cuda"][2] - out["cpu"][2])
     log(f"small cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} (tol 1e-3), "
         f"|dAUC| {dauc:.3e} (tol 1e-3)")
-    if first is not None:
-        ti, i, ga, gb = first
-        rel = abs(ga - gb) / max(abs(ga), 1e-12)
-        log(f"first differing split: tree {ti} node {i}, gains {ga!r} vs {gb!r} "
-            f"(rel {rel:.3e}; near-tie tol 1e-3)")
-        assert rel <= 1e-3, "a split differs and is not a near-tie"
     assert dpred <= 1e-3 and dauc <= 1e-3
 
 
-def profile_iters(ds, dev, n_iter=3, top=12):
+def near_tie(ga, gb):
+    """Two split gains are a near-tie when they agree within 1e-3
+    relative.  Returns (near-tie, relative difference)."""
+    rel = abs(ga - gb) / max(abs(ga), abs(gb), 1e-30)
+    return rel <= 1e-3, rel
+
+
+def trees_text(text):
+    """A model's text without its feature importances, which count the
+    splits of every tree the booster holds even when ``num_iteration``
+    cuts the trees written (as the JAX package does)."""
+    return text.split("feature importances:")[0]
+
+
+def compare_models(what, text_a, text_b):
+    """Split differences of two models' trees; the first differing split
+    must be a near-tie.  Returns the number of differing splits."""
+    ta, tb = model_splits(text_a), model_splits(text_b)
+    assert len(ta) == len(tb), f"{what}: {len(ta)} vs {len(tb)} trees"
+    ndiff, first = 0, None
+    for ti, (a, b) in enumerate(zip(ta, tb)):
+        for i, fa, fb, xa, xb in zip(range(10**9), a["split_feature"], b["split_feature"],
+                                     a["threshold"], b["threshold"]):
+            if (fa, xa) != (fb, xb):
+                ndiff += 1
+                if first is None:
+                    first = (ti, i, float(a["split_gain"][i]), float(b["split_gain"][i]))
+    if first is not None:
+        ti, i, ga, gb = first
+        ok, rel = near_tie(ga, gb)
+        log(f"{what}: first differing split: tree {ti} node {i}, gains {ga!r} vs {gb!r} "
+            f"(rel {rel:.3e}); near-tie: {ok}")
+        assert ok, f"{what}: a split differs and is not a near-tie"
+    return ndiff
+
+
+def phase_small_multi(X, y, rows, iters, dev):
+    """Multiclass on Covertype-shaped rows, on the card and on the CPU
+    (plain versions): splits, probabilities and multi_logloss agree."""
+    import lightgbm_tpu_torch as lgt
+
+    Xv, yv = X[-50_000:], y[-50_000:]
+    out = {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        bst = lgt.train(COV_PARAMS, lgt.Dataset(X[:rows], label=y[:rows]), iters, device=d)
+        prob = bst.predict(Xv)
+        out[name] = (bst.model_to_string(), prob, multi_logloss(yv, prob))
+        log(f"small multiclass {name}: {rows}x54, K=7, {iters} iterations, "
+            f"{time.perf_counter() - t0:.1f} s, multi_logloss {out[name][2]:.6f}")
+    ndiff = compare_models("small multiclass cuda vs cpu", out["cpu"][0], out["cuda"][0])
+    dprob = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    dll = abs(out["cuda"][2] - out["cpu"][2])
+    log(f"small multiclass cuda vs cpu: {ndiff} split differences, max |dprob| {dprob:.3e} "
+        f"(tol 1e-3), |d multi_logloss| {dll:.3e} (tol 1e-3)")
+    assert dprob <= 1e-3 and dll <= 1e-3
+
+
+def _tree_splits(res):
+    """(feature, threshold bin, gain) per split of a PTreeResult."""
+    n = res.num_splits
+    return list(zip(res.rec_feat[:n].tolist(), res.rec_thr[:n].tolist(),
+                    res.rec_gain[:n].tolist()))
+
+
+def phase_covertype(ds, Xv, yv, iters, dev):
+    """The multiclass main path at full width ("covertype-581k").
+    Returns the launch counts of its two counted paths."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import pkernels as pk
+    from lightgbm_tpu_torch.ops.pgrow import grow_tree_partitioned
+
+    bds = ds.construct(COV_PARAMS)
+    sizes = sorted(len(g) for g in bds.bundle.groups)
+    log(f"covertype: bundle of {bds.bundle.num_cols} columns (group sizes {sizes}), "
+        f"max {bds.bundle.max_col_bin} bins per column")
+    assert bds.bundle.num_cols == 12 and sizes == [1] * 10 + [4, 40], "unexpected bundling"
+
+    def run(params, n_iter):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        bst = lgt.train(params, ds, n_iter, device=dev)
+        sync(dev)
+        return bst, time.perf_counter() - t
+
+    (bst, wall), counts = driven("covertype-581k", lambda: run(COV_PARAMS, iters),
+                                 ("update_multi_and_hists", "level_stream", "split_stream",
+                                  "score_add"))
+    its = bst.boosting.ptrainer.iter_seconds
+    s_iter = float(np.median(its[1:])) if len(its) > 1 else float(its[0])
+    prob = bst.predict(Xv)
+    ll = multi_logloss(yv, prob)
+    acc = float(np.mean(np.argmax(prob, axis=1) == yv))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    log(f"covertype: {iters} iterations ({bst.num_trees} trees) in {wall:.2f} s; s/iter "
+        f"{s_iter:.4f} (median after the first; first {its[0]:.3f} s); held-out "
+        f"multi_logloss {ll:.6f} (prior entropy {prior_entropy():.6f}), accuracy {acc:.6f}; "
+        f"peak device memory {peak:.2f} GiB")
+    assert prob.shape == (len(yv), 7) and np.all(np.isfinite(prob))
+    assert ll < prior_entropy(), "held-out multi_logloss is not below the class prior's"
+    if dev.type == "cuda":
+        # one iteration is 7 trees, as many launches as ~7 binary iterations
+        profile_iters(ds, dev, COV_PARAMS, n_iter=1)
+
+    (ova, wall), _ = driven("covertype-581k one-vs-all",
+                            lambda: run(dict(COV_PARAMS, objective="multiclassova"), 2),
+                            ("update_multi_and_hists", "level_stream", "score_add"))
+    pv = ova.predict(Xv)
+    log(f"covertype one-vs-all: 2 iterations in {wall:.2f} s; held-out accuracy "
+        f"{float(np.mean(np.argmax(pv, axis=1) == yv)):.6f}")
+    assert pv.shape == (len(yv), 7) and np.all(np.isfinite(pv))
+    del ova
+
+    # one tree from the trained state: its root histogram from
+    # update_multi_and_hists (class 0), then built by the grower itself
+    pt = bst.boosting.ptrainer
+    pt._canonical_order()
+    lay, params = pt.layout, pt.params
+    p, hists = pk.update_multi_and_hists(pt.p.clone(), lay, pt.objective, num_rows=pt.num_rows,
+                                         num_features=params.cols, num_bins=params.bins_hist,
+                                         bits=params.bits)
+    args = (pt.feature_mask, pt.meta, pt.hyper)
+    want, _ = grow_tree_partitioned(p.clone(), *args, params, hists[0], rows=lay.class_rows(0),
+                                    bmeta=pt.bmeta)
+
+    def grow_without_root():
+        return [grow_tree_partitioned(p.clone(), *args, params._replace(levelwise=lw), None,
+                                      rows=lay.class_rows(0), bmeta=pt.bmeta)[0]
+                for lw in (True, False)]
+
+    got, c_root = driven("root_hist=None", grow_without_root, ("hist_segments", "hist_dyn"))
+    for what, res in zip(("hist_segments (level grower on)", "hist_dyn (level grower off)"),
+                         got):
+        a, b = _tree_splits(want), _tree_splits(res)
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x[:2] != y[:2]), None)
+        log(f"root_hist=None via {what}: {res.num_splits} splits vs {want.num_splits}; "
+            f"first differing split: {first}")
+        if first is not None:
+            ok, rel = near_tie(a[first][2], b[first][2])
+            log(f"  gains {a[first][2]!r} vs {b[first][2]!r} (rel {rel:.3e}); near-tie: {ok}")
+            assert ok, f"root_hist=None via {what}: a split differs beyond a near-tie"
+        else:
+            assert res.num_splits == want.num_splits
+    del bst, pt, p, hists
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return [counts, c_root], dict(s_iter=s_iter, logloss=ll, accuracy=acc, peak_gib=peak)
+
+
+def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
     """Device busy share of steady training iterations, and the device
     time by kernel, from torch.profiler.  The first iteration runs before
     the window; the window ends in a synchronize."""
@@ -324,7 +731,7 @@ def profile_iters(ds, dev, n_iter=3, top=12):
 
     import lightgbm_tpu_torch as lgt
 
-    bst = lgt.Booster(TRAIN_PARAMS, ds, device=dev)
+    bst = lgt.Booster(params, ds, device=dev)
     bst.boosting.train_iters_partitioned(1)
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -336,6 +743,7 @@ def profile_iters(ds, dev, n_iter=3, top=12):
     def dev_us(e):
         return e.self_device_time_total
 
+    t = time.perf_counter()
     # device-side events only (kernels, copies, memsets): a host op's own
     # device total would count its kernels a second time
     evs = sorted((e for e in prof.key_averages()
@@ -346,16 +754,17 @@ def profile_iters(ds, dev, n_iter=3, top=12):
         log("profile: the profiler recorded no device time; busy share not measured")
         return
     log(f"profile: {n_iter} iterations, wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}%")
+        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}% "
+        f"(the profiler's tables took {time.perf_counter() - t:.1f} s)")
     for e in evs[:top]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
     del bst
     torch.cuda.empty_cache()
 
 
-def phase_full(rows, iters, dev):
-    """The slice's main path at full width.  Returns the launch counts of
-    the main run."""
+def phase_full(rows, iters, dev, repeat_iters):
+    """The binary main path at full width ("higgs-10.5M").  Returns the
+    launch counts of the main run."""
     import torch
 
     import lightgbm_tpu_torch as lgt
@@ -377,9 +786,9 @@ def phase_full(rows, iters, dev):
         sync(dev)
         return bst, time.perf_counter() - t
 
-    pk.reset_launch_counts()
-    bst, wall = run(iters)
-    counts = pk.launch_counts()
+    (bst, wall), counts = driven("higgs-10.5M", lambda: run(iters),
+                                 ("update_and_root_hist", "level_stream", "split_stream",
+                                  "score_add"))
     its = bst.boosting.ptrainer.iter_seconds
     s_iter = float(np.median(its[1:])) if len(its) > 1 else float(its[0])
     pred = bst.predict(Xv)
@@ -390,9 +799,6 @@ def phase_full(rows, iters, dev):
         f"{peak:.2f} GiB; launches {json.dumps(counts)}")
     assert np.all(np.isfinite(pred)) and pred.shape == (yv.shape[0],)
     assert 0.6 < a <= 1.0, "held-out AUC out of range"
-    for name in ("update_and_root_hist", "level_stream", "split_stream", "score_add"):
-        assert counts[name] > 0, f"{name} was not launched on the main path"
-    text = bst.model_to_string()
 
     os.environ["LIGHTGBM_TPU_LEVELGROW"] = "0"
     try:
@@ -403,15 +809,16 @@ def phase_full(rows, iters, dev):
         del os.environ["LIGHTGBM_TPU_LEVELGROW"]
     log(f"full, level grower off: 2 iterations in {wall0:.2f} s; launches {json.dumps(c0)}; "
         f"same 2 trees as the level grower: "
-        f"{bst0.model_to_string() == bst.model_to_string(num_iteration=2)}")
+        f"{trees_text(bst0.model_to_string()) == trees_text(bst.model_to_string(2))}")
     assert c0["split_stream"] > 0 and c0["level_stream"] == 0
     del bst0
     if dev.type == "cuda":
         profile_iters(ds, dev)
 
-    bst2, _ = run(iters)
-    same = bst2.model_to_string() == text
-    log(f"full: repeat run gives byte-identical model text: {same}")
+    bst2, _ = run(repeat_iters)
+    same = trees_text(bst2.model_to_string()) == trees_text(bst.model_to_string(repeat_iters))
+    log(f"full: a repeat run of {repeat_iters} iterations gives byte-identical model text: "
+        f"{same}")
     return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak, deterministic=same)
 
 
@@ -421,6 +828,7 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--small-rows", type=int, default=200_000)
     ap.add_argument("--small-iters", type=int, default=5)
+    ap.add_argument("--repeat-iters", type=int, default=10)
     args = ap.parse_args(argv)
 
     import torch
@@ -442,22 +850,40 @@ def main(argv=None):
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path()})")
 
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.config import Config
+
     t0 = time.perf_counter()
     dev = torch.device("cuda")
+    Xc, yc = make_covertype_shaped()
+    nc = COV_TRAIN_ROWS
+    cov = lgt.Dataset(Xc[:nc], label=yc[:nc])
+    cov.construct(COV_PARAMS).ensure_bundles(Config.from_params(COV_PARAMS))
+    log(f"covertype data: {len(yc)}x54, {nc} train rows binned and bundled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     kern = phase_kernels(args.rows, dev)
+    kern.update(phase_kernels_multi(cov.construct(COV_PARAMS), dev))
     log(f"kernels checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_small(args.small_rows, args.small_iters, dev)
+    phase_small_multi(Xc, yc, COV_SMALL_ROWS, COV_SMALL_ITERS, dev)
     log(f"small end to end in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts, full = phase_full(args.rows, args.iters, dev)
-    log(f"full width in {time.perf_counter() - t0:.1f} s")
+    counts, full = phase_full(args.rows, args.iters, dev, args.repeat_iters)
+    log(f"higgs-10.5M in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cov_counts, cov_full = phase_covertype(cov, Xc[nc:], yc[nc:], COV_ITERS, dev)
+    log(f"covertype-581k in {time.perf_counter() - t0:.1f} s")
 
     entries = []
-    for name in ("update_and_root_hist", "level_stream", "split_stream", "score_add"):
+    for name in ("update_and_root_hist", "update_multi_and_hists", "level_stream",
+                 "split_stream", "score_add", "hist_dyn", "hist_segments"):
         k = kern[name]
+        launches = counts[name] + sum(c[name] for c in cov_counts)
+        assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
-                            replaces=REPLACES[name], launches=counts[name],
+                            replaces=REPLACES[name], launches=launches,
                             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
                             library_ms=k["library_ms"]))

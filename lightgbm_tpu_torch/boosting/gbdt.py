@@ -19,7 +19,7 @@ from ..ops.split import FeatureMeta, SplitHyper
 from ..utils.log import Log
 
 
-def unsupported_feature(config, train_set=None):
+def unsupported_feature(config):
     """The first configured feature this slice of the port does not run
     yet, or None."""
     if config.boosting_type.lower() != "gbdt":
@@ -28,8 +28,6 @@ def unsupported_feature(config, train_set=None):
         return "bagging"
     if config.feature_fraction < 1.0:
         return "feature_fraction<1"
-    if config.num_class > 1:
-        return "multiclass"
     if config.quantized_training:
         return "quantized training"
     if config.linear_tree:
@@ -40,10 +38,6 @@ def unsupported_feature(config, train_set=None):
         return f"tree_learner={config.tree_learner}"
     if str(config.out_of_core).lower() in ("true", "1", "on", "yes"):
         return "out-of-core training"
-    if train_set is not None:
-        train_set.ensure_bundles(config)
-        if train_set.bundle is not None:
-            return "EFB bundles"
     return None
 
 
@@ -72,8 +66,9 @@ class GBDT:
         trainer (the port's only tree learner)."""
         from .ptrainer import PartitionedTrainer, eligible
 
-        why = unsupported_feature(config, train_set) or eligible(
-            config, train_set, objective, 1)
+        num_tree = objective.num_tree_per_iteration if objective is not None else max(
+            config.num_class, 1)
+        why = unsupported_feature(config) or eligible(config, train_set, objective, num_tree)
         if why:
             raise NotImplementedError(f"lightgbm_tpu_torch does not support {why} yet")
         self.config = config
@@ -81,6 +76,7 @@ class GBDT:
         self.objective = objective
         self.num_data = train_set.num_data
         self.num_class = config.num_class
+        self.num_tree_per_iteration = num_tree
         self.max_feature_idx = train_set.num_total_features - 1
         self.label_idx = getattr(train_set, "label_idx", 0)
         self.feature_names = train_set.feature_names
@@ -92,7 +88,10 @@ class GBDT:
         self.ptrainer = PartitionedTrainer(train_set, config, objective, self.meta, self.hyper,
                                            self.device)
         if self.has_init_score:
-            self.ptrainer.add_score(np.asarray(train_set.metadata.init_score, np.float32))
+            # (K, N) or the flat class-major K*N layout of the reference
+            init = np.asarray(train_set.metadata.init_score, np.float32).reshape(num_tree, -1)
+            for k in range(num_tree):
+                self.ptrainer.add_score(init[k], k)
         Log.info("Using partitioned tree learner on %s", self.device)
 
     # ------------------------------------------------------------------
@@ -113,10 +112,14 @@ class GBDT:
             return False
         self._boost_from_average()
         trees, self.scores, n_done = self.ptrainer.train_chunk(num_iters, self.shrinkage_rate)
-        for res in trees:
-            tree = Tree.from_grow_result(res, self.train_set)
-            tree.shrinkage(self.shrinkage_rate)
-            self.models.append(tree)
+        for iter_trees in trees:
+            for res in iter_trees:
+                if res.num_splits > 0:
+                    tree = Tree.from_grow_result(res, self.train_set)
+                    tree.shrinkage(self.shrinkage_rate)
+                else:
+                    tree = Tree(2)  # a class with no split: an empty tree keeps alignment
+                self.models.append(tree)
         self.iter += n_done
         if n_done < num_iters:
             Log.warning("Stopped training because there are no more leaves that meet "
@@ -140,21 +143,23 @@ class GBDT:
         return self.models[:num_used]
 
     def predict_raw_scores(self, data: np.ndarray, num_iteration: int = -1) -> np.ndarray:
-        """(1, N) raw scores over raw (unbinned) features."""
+        """(K, N) raw scores over raw (unbinned) features; class k sums the
+        trees i with i % K == k."""
         models = self._used_models(num_iteration)
-        n = data.shape[0]
+        k = self.num_tree_per_iteration
         if not models:
-            return np.zeros((1, n))
+            return np.zeros((k, data.shape[0]))
         arrays = TreeArrays.from_stacked(stack_trees(models), self.device)
-        return predict_raw(data, arrays)[None, :]
+        return predict_raw(data, arrays, num_class=k)
 
     def predict(self, data: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
+        """(N,) or, for K > 1, (N, K) predictions."""
         raw = self.predict_raw_scores(np.asarray(data, np.float64), num_iteration)
-        if raw_score or self.objective is None:
-            return raw[0]
-        score = torch.as_tensor(raw, dtype=torch.float32, device=self.device)
-        return self.objective.convert_output(score).double().cpu().numpy()[0]
+        if not raw_score and self.objective is not None:
+            score = torch.as_tensor(raw, dtype=torch.float32, device=self.device)
+            raw = self.objective.convert_output(score).double().cpu().numpy()
+        return raw[0] if raw.shape[0] == 1 else raw.T
 
     # ------------------------------------------------------------------
     def save_model_to_string(self, num_iteration: int = -1) -> str:
@@ -194,8 +199,6 @@ class GBDT:
                 Log.fatal("Model file doesn't specify %s", key)
         self.num_class = int(kv["num_class"])
         self.num_tree_per_iteration = int(kv.get("num_tree_per_iteration", self.num_class))
-        if self.num_tree_per_iteration != 1:
-            raise NotImplementedError("lightgbm_tpu_torch does not support multiclass yet")
         self.label_idx = int(kv["label_index"])
         self.max_feature_idx = int(kv["max_feature_idx"])
         self.boost_from_average_ = "boost_from_average" in header.splitlines()
@@ -208,7 +211,7 @@ class GBDT:
                     continue
                 body = blk.partition("\n")[2].split("\nfeature importances:")[0]
                 self.models.append(Tree.from_string(body))
-        self.num_init_iteration = len(self.models)
+        self.num_init_iteration = len(self.models) // max(self.num_tree_per_iteration, 1)
         self.iter = 0
 
     def feature_importance_pairs(self):

@@ -14,6 +14,25 @@ namespace lgbt {
 
 constexpr int kThreads = 256;  // every kernel here launches 256-thread blocks
 
+// Histogram accumulator.  The kernels add the float32 (g*sel, h*sel, sel)
+// of each row into float64 cells (shared memory, then global), and the
+// wrappers round each sum to float32 once.  The float64 sum of float32
+// terms is the same in any order up to ~1e-16 relative, so the rounded
+// histogram is the correctly rounded one nearly always: equal to the
+// plain versions' (which sum in float64 too) and the same from run to
+// run, whatever order the atomics land in.  Split search compares gains
+// that are often tied exactly (equal row sets, two-valued gradients of a
+// first multiclass iteration); with float32 atomics those ties broke by
+// the order of the additions.
+using hacc = double;
+
+// exp of a float32, taken in float64 and rounded once: the correctly
+// rounded value (but for ~2^-29 of arguments).  The plain PyTorch
+// versions take the objectives' exp the same way; float32 expf and
+// PyTorch's CPU exp each miss it by an ulp on some arguments, which made
+// the card's gradients differ from the CPU's.
+__device__ __forceinline__ float exp_f32(float x) { return (float)exp((double)x); }
+
 __device__ __forceinline__ float f32_at(const int32_t* P, long long ld, int row, long long r) {
   return __int_as_float(P[(long long)row * ld + r]);
 }

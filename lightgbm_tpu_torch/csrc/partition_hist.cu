@@ -11,7 +11,7 @@
 // read and written once by the function (128 B/row at C=16); this
 // implementation moves them twice (scatter into a scratch matrix, then
 // copy back), plus one extra read of the bin word for the counts, and
-// issues 3*F shared-memory atomics per row for the histograms.
+// issues 3*F shared-memory float64 atomics per row for the histograms.
 //
 // Design: the TPU kernel's two-ended in-place protocol exists because
 // Mosaic has no scatter.  Here the partition is a plain stable
@@ -24,14 +24,16 @@
 //                        prefix (stable), writes all C channels of the
 //                        row to the scratch matrix at its left or right
 //                        slot, and accumulates it into the block's
-//                        shared-memory left/right histograms (flushed to
-//                        global memory with atomicAdd, zeros skipped);
+//                        float64 shared-memory left/right histograms
+//                        (common.cuh hacc; flushed to global memory with
+//                        atomicAdd, zeros skipped);
 //                        features are tiled over gridDim.y (tile y > 0
 //                        only histograms) so any F*B fits 227 KB;
 //   (d) copyback_kernel — the active segments move back from scratch.
 // Columns outside the active segments are never written.  The
-// partition is stable, so it is deterministic; the float atomics make
-// the histograms' summation order vary from run to run.
+// partition is stable, so it is deterministic, and the float64
+// accumulation makes the rounded histograms independent of the order in
+// which the atomics land.
 #include "common.cuh"
 
 namespace lgbt {
@@ -50,7 +52,7 @@ struct PartArgs {
   int32_t* nl;         // (>= n_seg,)
   int bits, nf, nb, f_tile;
   int row_g, row_h, row_sel;
-  float* hist;  // (n_seg, 2, F, B, 3)
+  hacc* hist;  // (n_seg, 2, F, B, 3)
 };
 
 __device__ __forceinline__ void tile_range(const PartArgs& a, int b, int* s, SegParams* p,
@@ -94,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(PartArgs a) {
 }
 
 __global__ void __launch_bounds__(kThreads) scatter_kernel(PartArgs a) {
-  extern __shared__ float sh[];
+  extern __shared__ hacc sh[];
   __shared__ int warp_l[32];
   int s;
   SegParams p;
@@ -105,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(PartArgs a) {
   const int f1 = min(f0 + a.f_tile, a.nf);
   const int span = (f1 - f0) * a.nb * 3;
   const bool do_scatter = blockIdx.y == 0;
-  for (int i = threadIdx.x; i < 2 * span; i += blockDim.x) sh[i] = 0.0f;
+  for (int i = threadIdx.x; i < 2 * span; i += blockDim.x) sh[i] = 0.0;
   __syncthreads();
 
   const int t = blockIdx.x - a.tile_base[s];
@@ -139,11 +141,11 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(PartArgs a) {
       const float sv = f32_at(a.P, a.ld, a.row_sel, r);
       const float gv = f32_at(a.P, a.ld, a.row_g, r) * sv;
       const float hv = f32_at(a.P, a.ld, a.row_h, r) * sv;
-      float* hs = sh + (gl ? 0 : span);
+      hacc* hs = sh + (gl ? 0 : span);
       for (int f = f0; f < f1; ++f) {
         int b = bin_of(a.P, a.ld, r, f, a.bits);
         if (b >= a.nb) continue;
-        float* cell = hs + ((f - f0) * a.nb + b) * 3;
+        hacc* cell = hs + ((f - f0) * a.nb + b) * 3;
         atomicAdd(cell, gv);
         atomicAdd(cell + 1, hv);
         atomicAdd(cell + 2, sv);
@@ -156,12 +158,12 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(PartArgs a) {
   }
 
   const long long fb3 = (long long)a.nf * a.nb * 3;
-  float* outl = a.hist + (long long)s * 2 * fb3 + (long long)f0 * a.nb * 3;
-  float* outr = outl + fb3;
+  hacc* outl = a.hist + (long long)s * 2 * fb3 + (long long)f0 * a.nb * 3;
+  hacc* outr = outl + fb3;
   for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    float vl = sh[i], vr = sh[span + i];
-    if (vl != 0.0f) atomicAdd(outl + i, vl);
-    if (vr != 0.0f) atomicAdd(outr + i, vr);
+    const hacc vl = sh[i], vr = sh[span + i];
+    if (vl != 0.0) atomicAdd(outl + i, vl);
+    if (vr != 0.0) atomicAdd(outr + i, vr);
   }
 }
 
@@ -201,12 +203,13 @@ extern "C" int lgbt_partition_hist(void* P, void* S, long long ld, int C, void* 
   a.row_g = row_g;
   a.row_h = row_h;
   a.row_sel = row_sel;
-  a.hist = (float*)hist;
+  a.hist = (lgbt::hacc*)hist;
   cudaStream_t st = (cudaStream_t)stream;
   if (n_seg <= 0) return 0;
 
-  const int cell2 = 2 * nb * 3 * (int)sizeof(float);
-  a.f_tile = std::max(1, std::min(nf, lgbt::max_smem_optin() / cell2));
+  const int cell2 = 2 * nb * 3 * (int)sizeof(lgbt::hacc);
+  // the scatter kernel's static warp_l[] shares the block's limit
+  a.f_tile = std::max(1, std::min(nf, (lgbt::max_smem_optin() - 1024) / cell2));
   const int ftiles = (nf + a.f_tile - 1) / a.f_tile;
   const size_t smem = (size_t)a.f_tile * cell2;
 

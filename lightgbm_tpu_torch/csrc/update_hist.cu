@@ -16,9 +16,9 @@
 // f32 sums directly.
 //
 // Design: grid-stride rows, one row per thread per step, coalesced over
-// the row-major channels.  Each block owns an f32 sub-histogram of its
-// feature tile in shared memory and flushes it to the global histogram
-// with atomicAdd (zeros skipped).  Features are tiled over gridDim.y so
+// the row-major channels.  Each block owns a float64 sub-histogram of its
+// feature tile in shared memory (common.cuh hacc) and flushes it to the
+// global histogram with atomicAdd (zeros skipped).  Features are tiled over gridDim.y so
 // any F*B fits the 227 KB block limit; when more than one tile is
 // needed, the channel update runs as its own launch first and the
 // histogram launch reads the freshly written channels, so no block ever
@@ -38,7 +38,7 @@ __device__ __forceinline__ void gradients(float score, float label, float weight
     bool pos = label > 0.0f;
     float sign = pos ? 1.0f : -1.0f;
     float lw = pos ? w_pos : w_neg;
-    float response = (-sign * sigmoid) / (1.0f + expf(sign * sigmoid * score));
+    float response = (-sign * sigmoid) / (1.0f + exp_f32(sign * sigmoid * score));
     float ar = fabsf(response);
     *g = response * lw;
     *h = ar * (sigmoid - ar) * lw;
@@ -62,19 +62,19 @@ struct UpdArgs {
   int row_g, row_h, row_sel, row_score, row_label, row_weight, use_weight;
   float sigmoid, w_pos, w_neg;
   int nf, nb, bits, f_tile;
-  float* hist;  // (F, B, 3)
+  hacc* hist;  // (F, B, 3)
 };
 
 // UPDATE: recompute and write the channels.  HIST: accumulate the
 // histogram (from the fresh values when UPDATE, else from the channels).
 template <int KIND, bool UPDATE, bool HIST>
 __global__ void __launch_bounds__(kThreads) upd_hist_kernel(UpdArgs a) {
-  extern __shared__ float sh[];
+  extern __shared__ hacc sh[];
   const int f0 = blockIdx.y * a.f_tile;
   const int f1 = min(f0 + a.f_tile, a.nf);
   const int span = (f1 - f0) * a.nb * 3;
   if (HIST) {
-    for (int i = threadIdx.x; i < span; i += blockDim.x) sh[i] = 0.0f;
+    for (int i = threadIdx.x; i < span; i += blockDim.x) sh[i] = 0.0;
     __syncthreads();
   }
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -101,7 +101,7 @@ __global__ void __launch_bounds__(kThreads) upd_hist_kernel(UpdArgs a) {
       for (int f = f0; f < f1; ++f) {
         int b = bin_of(a.P, a.ld, r, f, a.bits);
         if (b >= a.nb) continue;
-        float* cell = sh + ((f - f0) * a.nb + b) * 3;
+        hacc* cell = sh + ((f - f0) * a.nb + b) * 3;
         atomicAdd(cell, gs);
         atomicAdd(cell + 1, hs);
         atomicAdd(cell + 2, s);
@@ -110,10 +110,10 @@ __global__ void __launch_bounds__(kThreads) upd_hist_kernel(UpdArgs a) {
   }
   if (HIST) {
     __syncthreads();
-    float* out = a.hist + (long long)f0 * a.nb * 3;
+    hacc* out = a.hist + (long long)f0 * a.nb * 3;
     for (int i = threadIdx.x; i < span; i += blockDim.x) {
-      float v = sh[i];
-      if (v != 0.0f) atomicAdd(out + i, v);
+      hacc v = sh[i];
+      if (v != 0.0) atomicAdd(out + i, v);
     }
   }
 }
@@ -131,7 +131,7 @@ cudaError_t launch_one(const UpdArgs& a, dim3 grid, size_t smem, cudaStream_t st
 
 template <int KIND>
 cudaError_t run(UpdArgs a, cudaStream_t stream) {
-  const int cell = a.nb * 3 * (int)sizeof(float);
+  const int cell = a.nb * 3 * (int)sizeof(hacc);
   const int max_smem = max_smem_optin();
   a.f_tile = std::max(1, std::min(a.nf, max_smem / cell));
   const int tiles = (a.nf + a.f_tile - 1) / a.f_tile;
@@ -173,7 +173,7 @@ extern "C" int lgbt_update_root_hist(void* P, long long ld, int n, void* delta, 
   a.nb = nb;
   a.bits = bits;
   a.f_tile = nf;
-  a.hist = (float*)hist;
+  a.hist = (lgbt::hacc*)hist;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = (obj_kind == lgbt::kBinary) ? lgbt::run<lgbt::kBinary>(a, s)
                                               : lgbt::run<lgbt::kL2>(a, s);

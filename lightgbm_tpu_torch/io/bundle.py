@@ -1,6 +1,5 @@
-"""Exclusive Feature Bundling (EFB) decision — copied from
-lightgbm_tpu/io/bundle.py (the port decides bundling exactly as the JAX
-package does; it does not train bundled matrices yet).  Counterpart of
+"""Exclusive Feature Bundling (EFB) — copied from lightgbm_tpu/io/bundle.py
+(the port bundles exactly as the JAX package does).  Counterpart of
 Dataset::FindGroups / FastFeatureBundling (src/io/dataset.cpp:64-208) and
 the FeatureGroup bin-offset layout (include/LightGBM/feature_group.h:30-76).
 
@@ -174,3 +173,24 @@ def find_bundles(binned: np.ndarray, mappers, config) -> Optional[BundleInfo]:
         f, info.num_cols, info.max_col_bin,
     )
     return info
+
+
+def build_bundled_matrix(binned: np.ndarray, mappers, info: BundleInfo) -> np.ndarray:
+    """(N, G) uint8 bundled bins from the (N, F) per-feature bins
+    (FeatureGroup::PushData, feature_group.h:128-136: value -> bin,
+    skip default, add offset, minus one when default_bin == 0; later
+    features overwrite on conflict)."""
+    n, f = binned.shape
+    out = np.zeros((n, info.num_cols), np.uint8)
+    default_bin = np.asarray([m.default_bin for m in mappers], np.int64)
+    for g, feats in enumerate(info.groups):
+        if len(feats) == 1 and info.off_lo[feats[0]] == 0:
+            out[:, g] = binned[:, feats[0]]  # singleton: raw bins
+            continue
+        colv = out[:, g]  # view: assignments below mutate ``out``
+        for fe in feats:
+            b = binned[:, fe].astype(np.int32)
+            nz = b != default_bin[fe]
+            vals = b + int(info.off_lo[fe]) - int(info.bias[fe])
+            colv[nz] = vals[nz].astype(np.uint8)
+    return out

@@ -79,6 +79,7 @@ class BinnedDataset:
         self.max_bin: int = 255
         self.label_idx: int = 0
         self.bundle = None  # EFB BundleInfo (io/bundle.py); None = unbundled
+        self.bundled: Optional[np.ndarray] = None  # (N, G) uint8 bundle bins
         # raw (unbinned) copy is not kept — predictions on training data run
         # on the binned representation like the reference's score updater.
 
@@ -166,16 +167,19 @@ class BinnedDataset:
 
     def ensure_bundles(self, config) -> None:
         """Decide EFB bundling lazily, exactly as the JAX package does
-        (io/bundle.py find_bundles).  The port does not train bundled
-        matrices yet: it records the bundling so the trainer can decline."""
+        (io/bundle.py find_bundles), and build the (N, G) matrix of bundle
+        bins that the partitioned trainer packs in place of ``binned``."""
         if self.bundle is not None or getattr(self, "_bundle_checked", False):
             return
         self._bundle_checked = True
         if not getattr(config, "enable_bundle", True) or self.binned.dtype != np.uint8:
             return
-        from .bundle import find_bundles
+        from .bundle import build_bundled_matrix, find_bundles
 
-        self.bundle = find_bundles(self.binned, self.bin_mappers, config)
+        info = find_bundles(self.binned, self.bin_mappers, config)
+        if info is not None:
+            self.bundle = info
+            self.bundled = build_bundled_matrix(self.binned, self.bin_mappers, info)
 
     # ------------------------------------------------------------------
     def feature_infos(self) -> List[str]:

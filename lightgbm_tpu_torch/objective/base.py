@@ -4,6 +4,14 @@ PyTorch counterpart of lightgbm_tpu/objective/base.py."""
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor, taken in float64 and rounded once — the
+    correctly rounded value, as the CUDA kernels take it (csrc/common.cuh
+    exp_f32), so gradients agree bit for bit between the card and the CPU."""
+    return torch.exp(x.double()).float()
 
 
 class ObjectiveFunction:

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 from ..utils.log import Log
-from .base import ObjectiveFunction
+from .base import ObjectiveFunction, exp_f32
 
 KIND_BINARY = 0  # csrc/update_hist.cu ObjKind
 
@@ -16,16 +16,18 @@ class BinaryLogloss(ObjectiveFunction):
     name = "binary"
     rowwise = True
 
-    def __init__(self, config):
+    def __init__(self, config, is_pos=None):
         self.is_unbalance = bool(config.is_unbalance)
         self.sigmoid = float(config.sigmoid)
         if self.sigmoid <= 0.0:
             Log.fatal("Sigmoid parameter %f should be greater than zero", self.sigmoid)
         self.scale_pos_weight = float(config.scale_pos_weight)
+        # which labels are positive (one-vs-all's class k: label == k)
+        self._is_pos = is_pos if is_pos is not None else (lambda lab: lab > 0)
 
     def init(self, metadata, num_data: int) -> None:
         super().init(metadata, num_data)
-        pos_mask = self.label > 0
+        pos_mask = self._is_pos(self.label)
         cnt_positive = int(np.sum(pos_mask))
         cnt_negative = num_data - cnt_positive
         if cnt_positive == 0 or cnt_negative == 0:
@@ -46,11 +48,11 @@ class BinaryLogloss(ObjectiveFunction):
     def gradients_rowwise(self, score, label, weight):
         """response = -y*sig / (1 + exp(y*sig*score)) (hpp:95-99), with the
         sign and class weight recomputed from the label channel."""
-        pos = label > 0
+        pos = self._is_pos(label)
         sign = torch.where(pos, 1.0, -1.0).to(torch.float32)
         lw = torch.where(pos, self._weight_pos, self._weight_neg).to(torch.float32)
         sig = self.sigmoid
-        response = -sign * sig / (1.0 + torch.exp(sign * sig * score))
+        response = -sign * sig / (1.0 + exp_f32(sign * sig * score))
         abs_response = torch.abs(response)
         grad = response * lw
         hess = abs_response * (sig - abs_response) * lw

@@ -41,6 +41,9 @@ SIGNATURES = {
     "lgbt_partition_hist": [_P, _P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _P, _P],
     "lgbt_score_add": [_P, _L, _I, _P, _I, _P],
+    "lgbt_update_multi_hist": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,
+                               _I, _I, _P, _P],
+    "lgbt_segment_hist": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -20,6 +20,10 @@ host in float32 numpy and the device runs the kernels and the split
 search; every level and every fallback split reads its results back
 (one host sync each).  Leaf outputs are computed at one host site for
 both phases, so accepted values depend only on the children's sums.
+
+EFB: with a bundle the matrix holds G bundle columns of BH bins; the
+kernels stream those, and the split search expands each (G, BH, 3)
+histogram to the real features' (F, B, 3) first (``BundleMeta``).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .pkernels import PLayout, level_stream, split_stream
+from .pkernels import PLayout, hist_dyn, hist_segments, level_stream, split_stream
 from .split import (
     NEG_INF,
     FeatureMeta,
@@ -50,8 +54,22 @@ class PGrowParams(NamedTuple):
     max_depth: int = -1
     use_missing: bool = True
     has_categorical: bool = True
+    # EFB: physical matrix columns / histogram bins per column; 0 means
+    # unbundled (columns == features, bins == num_bins)
+    num_cols: int = 0
+    num_bins_hist: int = 0
     bits: int = 8
     levelwise: bool = True
+
+    @property
+    def cols(self) -> int:
+        """Columns of the packed matrix (G)."""
+        return self.num_cols or self.num_features
+
+    @property
+    def bins_hist(self) -> int:
+        """Histogram bins per matrix column (BH)."""
+        return self.num_bins_hist or self.num_bins
 
 
 MAX_LEVELS = 24  # phase-1 depth cap (the JAX package's default)
@@ -61,6 +79,63 @@ def levelgrow_env_params() -> dict:
     """The level-grower switch, read once at trainer construction
     (LIGHTGBM_TPU_LEVELGROW=0 forces the per-split path)."""
     return {"levelwise": os.environ.get("LIGHTGBM_TPU_LEVELGROW", "1") != "0"}
+
+
+class BundleMeta(NamedTuple):
+    """EFB maps (io/bundle.py BundleInfo) on the device.
+
+    idx maps (feature, feature-bin) to a flat bundle-histogram slot, with
+    default and padding bins pointing at an appended zero slot; the
+    default bin's mass is rebuilt as leaf totals minus the non-default
+    sums (the reference's bias/zero-bin subtraction in
+    FeatureHistogram::FindBestThreshold)."""
+
+    col: torch.Tensor  # (F,) int64 bundle column per feature
+    off_lo: torch.Tensor  # (F,) int64
+    off_hi: torch.Tensor  # (F,) int64
+    bias: torch.Tensor  # (F,) int64
+    idx: torch.Tensor  # (F, B) int64 into (G*BH [+1 zero slot], 3)
+    defmask: torch.Tensor  # (F, B) bool
+
+    @classmethod
+    def build(cls, bundle, train_set, num_bins: int, device="cpu") -> "BundleMeta":
+        """From the dataset's BundleInfo and bin mappers
+        (ptrainer.py:1585 _build_bundle_meta)."""
+        f, b, bh = train_set.num_features, num_bins, int(bundle.max_col_bin)
+        default_bin = [m.default_bin for m in train_set.bin_mappers]
+        nb = [m.num_bin for m in train_set.bin_mappers]
+        idx = np.full((f, b), bundle.num_cols * bh, np.int64)  # the zero slot
+        defmask = np.zeros((f, b), bool)
+        for fe in range(f):
+            base = int(bundle.col[fe]) * bh
+            if int(bundle.off_lo[fe]) == 0:
+                # singleton raw column: every bin (default too) maps direct
+                idx[fe, :nb[fe]] = base + np.arange(nb[fe])
+                continue
+            for bi in range(nb[fe]):
+                if bi == default_bin[fe]:
+                    defmask[fe, bi] = True
+                else:
+                    idx[fe, bi] = base + int(bundle.off_lo[fe]) + bi - int(bundle.bias[fe])
+
+        def t(x, dtype=torch.int64):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+        return cls(t(bundle.col), t(bundle.off_lo), t(bundle.off_hi), t(bundle.bias), t(idx),
+                   t(defmask, torch.bool))
+
+
+def _expand_bundle_hist(hist_g: torch.Tensor, sums: torch.Tensor, bmeta: BundleMeta, f: int,
+                        b: int) -> torch.Tensor:
+    """(S, G, BH, 3) bundle histograms -> (S, F, B, 3) per-feature
+    histograms, given each leaf's (S, 3) totals."""
+    s = hist_g.shape[0]
+    flat = torch.cat([hist_g.reshape(s, -1, 3),
+                      torch.zeros((s, 1, 3), dtype=hist_g.dtype, device=hist_g.device)], dim=1)
+    hf = flat[:, bmeta.idx.reshape(-1)].reshape(s, f, b, 3)
+    nd = torch.sum(hf.double(), dim=2).float()  # (S, F, 3): non-default mass
+    dfl = sums[:, None, :] - nd  # the default bin's mass
+    return torch.where(bmeta.defmask[None, :, :, None], dfl[:, :, None, :], hf)
 
 
 class PTreeResult(NamedTuple):
@@ -116,36 +191,47 @@ class PTreeResult(NamedTuple):
         return self.recs_raw[:, 9]
 
 
-def _meta_table(meta: FeatureMeta, f: int, bits: int) -> np.ndarray:
+def _meta_table(meta: FeatureMeta, bmeta, f: int, bits: int) -> np.ndarray:
     """(F, 6) int64 per-feature partition constants: [default_bin,
-    is_cat, col, off_lo, off_hi, bias] (unbundled: col = feature)."""
+    is_cat, col, off_lo, off_hi, bias] (unbundled: col = feature, the
+    whole bin field in range)."""
+    if bmeta is not None:
+        col, off_lo, off_hi, bias = (x.cpu().numpy() for x in bmeta[:4])
+    else:
+        col, off_lo = np.arange(f), np.zeros(f, np.int64)
+        off_hi, bias = np.full(f, 1 << bits), np.zeros(f, np.int64)
     return np.stack([
         meta.default_bin.cpu().numpy(), meta.is_categorical.cpu().numpy().astype(np.int64),
-        np.arange(f), np.zeros(f, np.int64), np.full(f, 1 << bits), np.zeros(f, np.int64),
-    ], axis=1).astype(np.int64)
+        col, off_lo, off_hi, bias], axis=1).astype(np.int64)
 
 
 def grow_tree_partitioned(p: torch.Tensor, feature_mask: torch.Tensor, meta: FeatureMeta,
-                          hyper: SplitHyper, params: PGrowParams, root_hist: torch.Tensor,
-                          rows: tuple = None):
+                          hyper: SplitHyper, params: PGrowParams, root_hist=None,
+                          rows: tuple = None, bmeta: BundleMeta = None):
     """Grow one leaf-wise tree over the partitioned matrix ``p`` (updated
-    in place).  ``root_hist`` is the (F, B, 3) histogram of all rows with
-    the g/h/sel channels freshly written.  Returns (PTreeResult, p)."""
+    in place).  ``root_hist`` is the (G, BH, 3) histogram of all rows with
+    the g/h/sel channels freshly written; without it the grower builds it
+    (``hist_segments`` over the one root segment when the level grower is
+    on, ``hist_dyn`` when it is off).  ``rows`` is the (g, h, sel) triple
+    of the tree's class (PLayout.class_rows(k)).  Returns (PTreeResult, p)."""
     L, F, B, n = params.num_leaves, params.num_features, params.num_bins, params.num_rows
+    G, BH = params.cols, params.bins_hist  # what the kernels stream
     bits = params.bits
     per = 32 // bits
-    rows = rows or PLayout(F, bits=bits).rows
-    mtab = _meta_table(meta, F, bits)
+    rows = rows or PLayout(G, bits=bits).rows
+    mtab = _meta_table(meta, bmeta, F, bits)
     l1, l2 = np.float32(hyper.lambda_l1), np.float32(hyper.lambda_l2)
     levelwise = params.levelwise and L > 4
     dev = p.device
 
     def find(hist, sums, depth_ok):
-        """Best split of each leaf of a batch: hist (S, F, B, 3) on the
+        """Best split of each leaf of a batch: hist (S, G, BH, 3) on the
         device, sums (S, 3) f32 numpy, depth_ok (S,) bool numpy ->
         (S, 8) f32 numpy best-split rows [gain, feat, thr, dbz, lg, lh,
         lc, 0]."""
         s = torch.from_numpy(np.ascontiguousarray(sums, np.float32)).to(dev)
+        if bmeta is not None:
+            hist = _expand_bundle_hist(hist, s, bmeta, F, B)
         r = best_split_all_features(hist, s[:, 0], s[:, 1], s[:, 2], meta, hyper,
                                     feature_mask, params.use_missing,
                                     params.has_categorical)
@@ -165,7 +251,15 @@ def grow_tree_partitioned(p: torch.Tensor, feature_mask: torch.Tensor, meta: Fea
     def depth_ok(depth):
         return np.ones(depth.shape, bool) if params.max_depth <= 0 else depth < params.max_depth
 
-    root_sums = root_hist[0].sum(dim=0).cpu().numpy()  # totals via feature 0
+    if root_hist is None:
+        if levelwise:
+            seg0 = np.zeros((8, 2), np.int64)
+            seg0[0, 1] = n
+            root_hist = level_hists(p, seg0, 1, params, rows=rows)[0]
+        else:
+            root_hist = hist_dyn(p, 0, n, G, BH, bits=bits, rows=rows)
+    # totals via column 0, summed in float64 and rounded once (split.py)
+    root_sums = root_hist[0].double().sum(dim=0).float().cpu().numpy()
     root_bs = find(root_hist[None], root_sums[None], np.ones(1, bool))[0]
     root_leaf = np.array([root_sums[0], root_sums[1], root_sums[2],
                           leaf_output_np(root_sums[0], root_sums[1], l1, l2),
@@ -196,14 +290,14 @@ def grow_tree_partitioned(p: torch.Tensor, feature_mask: torch.Tensor, meta: Fea
             tab = np.asarray([seg_row(int(segs[i, 0]), int(segs[i, 1]), int(feat[i]),
                                       int(bsr[i, 2]), int(bsr[i, 3])) for i in range(n_act)],
                              np.int64)
-            p, nl_t, hists = level_stream(p, torch.from_numpy(tab), n_act, num_features=F,
-                                          num_bins=B, bits=bits, rows=rows, smax=SMAX)
+            p, nl_t, hists = level_stream(p, torch.from_numpy(tab), n_act, num_features=G,
+                                          num_bins=BH, bits=bits, rows=rows, smax=SMAX)
             nl = nl_t[:n_act].cpu().numpy().astype(np.int64)
             lsums = bsr[:, 4:7]
             rsums = c_leaf[aslots, 0:3] - lsums
             cdepth = c_leaf[aslots, 5] + np.float32(1.0)
             sums2 = np.stack([lsums, rsums], axis=1).reshape(2 * n_act, 3)
-            res = find(hists[:n_act].reshape(2 * n_act, F, B, 3), sums2,
+            res = find(hists[:n_act].reshape(2 * n_act, G, BH, 3), sums2,
                        np.repeat(depth_ok(cdepth), 2))
             il = cand_n + 2 * np.arange(n_act)
             ir = il + 1
@@ -251,7 +345,7 @@ def grow_tree_partitioned(p: torch.Tensor, feature_mask: torch.Tensor, meta: Fea
         else:
             tabrow = seg_row(start, cnt, feat, thr, dbz)
             p, nl_t, lhist, rhist = split_stream(
-                p, *tabrow[:11], num_features=F, num_bins=B, bits=bits, rows=rows)
+                p, *tabrow[:11], num_features=G, num_bins=BH, bits=bits, rows=rows)
             nl = int(nl_t)
             sums2 = np.stack([left, leafrow[0:3] - left]).astype(np.float32)
             child_depth = leafrow[5] + np.float32(1.0)
@@ -275,6 +369,17 @@ def grow_tree_partitioned(p: torch.Tensor, feature_mask: torch.Tensor, meta: Fea
     res = PTreeResult(num_splits=s, starts=seg[:, 0].copy(), cnts=seg[:, 1].copy(),
                       leaf_value=leaf[:, 3].copy(), leaf_cnt=leaf[:, 4].copy(), recs_raw=recs)
     return res, p
+
+
+def level_hists(p, seg_tab, n_active, params: PGrowParams, rows=None) -> torch.Tensor:
+    """(smax, G, BH, 3) histograms of every active leaf segment of a
+    level in one ``hist_segments`` launch, for segment histograms outside
+    a partition (the grower's own root with the level grower on).
+    seg_tab: (smax, 2) rows of [start, cnt]."""
+    rows = rows or PLayout(params.cols, bits=params.bits).rows
+    return hist_segments(p, seg_tab, n_active, num_features=params.cols,
+                         num_bins=params.bins_hist, bits=params.bits, rows=rows,
+                         smax=int(seg_tab.shape[0]))
 
 
 def segment_values(tree: PTreeResult, num_rows: int, values, device="cpu") -> torch.Tensor:

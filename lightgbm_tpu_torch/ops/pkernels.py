@@ -1,25 +1,30 @@
-"""The partitioned trainer's packed matrix and its four kernels.
+"""The partitioned trainer's packed matrix and its kernels.
 
-PyTorch counterpart of lightgbm_tpu/ops/pkernels.py.  The training
+PyTorch counterpart of lightgbm_tpu/ops/pkernels.py (and of
+``hist_segments`` in lightgbm_tpu/ops/histogram_pallas.py).  The training
 matrix ``P`` keeps the JAX package's layout exactly: one (C, N + BLK)
 int32 tensor whose rows are
 
-    0..W-1      : packed bin words, 32/bits bins per int32
-    W..WPAD-1   : padding (WPAD = W rounded up to 8)
-    WPAD + 0    : grad   (f32 bit pattern)
-    WPAD + 1    : hess   (f32 bit pattern)
-    WPAD + 2    : select (f32 bit pattern; 0/1 row mask)
-    WPAD + 3..  : score, label, row id, weight (the 8-aligned "band")
+    0..W-1          : packed bin words, 32/bits bins per int32
+    W..WPAD-1       : padding (WPAD = W rounded up to 8)
+    WPAD + 2k       : grad of class k  (f32 bit pattern), k < K
+    WPAD + 2k + 1   : hess of class k  (f32 bit pattern)
+    WPAD + 2K       : select (f32 bit pattern; 0/1 row mask)
+    WPAD + 2K + 1.. : K scores, label, row id, weight (the 8-aligned "band")
 
+K = 1 gives the single-tree order (grad, hess, select, score, ...).
 Rows are kept physically partitioned by leaf: each leaf owns a
 contiguous column range [start, start + cnt).
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
-    update_and_root_hist  /  update_and_root_hist_ref
-    level_stream          /  level_stream_ref
-    split_stream          /  split_stream_ref
-    score_add             /  score_add_ref
+    update_and_root_hist    /  update_and_root_hist_ref
+    update_multi_and_hists  /  update_multi_and_hists_ref
+    level_stream            /  level_stream_ref
+    split_stream            /  split_stream_ref
+    score_add               /  score_add_ref
+    hist_dyn                /  hist_dyn_ref
+    hist_segments           /  hist_segments_ref
 
 A wrapper given a tensor on the CPU runs the plain version; given a CUDA
 tensor it launches the hand-written kernel (``csrc/``, built by
@@ -30,7 +35,9 @@ The matrix is updated IN PLACE (the JAX package donates it through
 ``input_output_aliases``); the wrappers still return it so call sites
 read like the JAX ones.  Histograms are returned as f32 (F, B, 3) of
 (sum g*sel, sum h*sel, sum sel) — the JAX kernels' 3-term bf16 planes
-are already re-summed.
+are already re-summed.  Kernels and plain versions alike sum in float64
+and round once (csrc/common.cuh ``hacc``), so both give the correctly
+rounded sums, whatever the order of the additions.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ from . import _build
 
 BLK = 1024  # tail columns past the last row (the JAX kernels' DMA block)
 PART_TILE = 8192  # rows per block of the CUDA partition kernels
+HIST_TILE = 4096  # rows per block of the CUDA segment-histogram kernel
+MAX_CLASSES = 16  # score channels update_multi_and_hists takes (csrc kMaxK)
 
 
 def num_words(num_features: int, bits: int = 8) -> int:
@@ -49,34 +58,45 @@ def num_words(num_features: int, bits: int = 8) -> int:
 
 
 class PLayout:
-    """Channel-row indices inside the packed matrix (single score
-    channel: the slice trains one tree per iteration)."""
+    """Channel-row indices inside the packed matrix: K (grad, hess) row
+    pairs and K score rows for ``num_score = K`` trees per iteration
+    (multiclass computes all K gradient planes once per iteration,
+    gbdt.cpp:692-700)."""
 
     def __init__(self, num_features: int, num_score: int = 1, with_weight: bool = True,
                  bits: int = 8):
-        if num_score != 1:
-            raise NotImplementedError("multiclass: more than one score channel")
         self.F = num_features
         self.bits = bits
         self.per = 32 // bits
         self.W = num_words(num_features, bits)
         self.WPAD = -(-self.W // 8) * 8
-        self.num_score = num_score
-        self.G = self.WPAD
+        K = num_score
+        self.num_score = K
+        self.G = self.WPAD  # class-0 pair (g_row(0), h_row(0))
         self.H = self.WPAD + 1
-        self.SEL = self.WPAD + 2
-        self.SCORE = self.SEL + 1
-        self.LABEL = self.SCORE + num_score
+        self.SEL = self.WPAD + 2 * K
+        self.SCORE = self.SEL + 1  # .. SCORE + K - 1
+        self.LABEL = self.SCORE + K
         self.ROWID = self.LABEL + 1
         self.WEIGHT = self.ROWID + 1 if with_weight else -1
         self.with_weight = with_weight
-        band = 2 + 1 + num_score + 2 + (1 if with_weight else 0)
+        band = 2 * K + 1 + K + 2 + (1 if with_weight else 0)
         self.BAND = -(-band // 8) * 8
         self.C = self.WPAD + self.BAND
 
+    def g_row(self, k: int) -> int:
+        return self.WPAD + 2 * k
+
+    def h_row(self, k: int) -> int:
+        return self.WPAD + 2 * k + 1
+
+    def class_rows(self, k: int):
+        """(g, h, sel) row indices of class k."""
+        return (self.g_row(k), self.h_row(k), self.SEL)
+
     @property
     def rows(self):
-        """(g, h, sel) row indices."""
+        """(g, h, sel) row indices of class 0."""
         return (self.G, self.H, self.SEL)
 
 
@@ -84,8 +104,8 @@ def pack_matrix(bins: np.ndarray, layout: PLayout, label=None, weight=None,
                 num_real=None, device="cpu") -> torch.Tensor:
     """The (C, N + BLK) packed matrix from (N, F) uint8 bins, built on the
     host in row chunks and moved to ``device``.  grad/hess start at 0,
-    select at 1 (0 for rows >= ``num_real``), scores at 0; rowid is the
-    original row index."""
+    select at 1 (0 for rows >= ``num_real``), the K scores at 0; rowid is
+    the original row index."""
     bins = np.asarray(bins)
     n, f = bins.shape
     assert f == layout.F
@@ -143,11 +163,17 @@ def _hist_cols(cols: torch.Tensor, rows, num_features: int, num_bins: int,
 
 def _hist_values(bins, g, h, sel, num_features: int, num_bins: int) -> torch.Tensor:
     """(F, B, 3) float32 histogram of the (g, h, sel) rows by each
+    feature's bin."""
+    return _hist_matrix(bins, torch.stack([g, h, sel], dim=1), num_features, num_bins)
+
+
+def _hist_matrix(bins, vals, num_features: int, num_bins: int) -> torch.Tensor:
+    """(F, B, V) float32 histogram of the (n, V) value columns by each
     feature's bin: one ``index_add_`` per feature, summed in float64 and
-    rounded once, so the plain version gives the correctly rounded sums
-    that the kernels' float32 atomics approximate in some order."""
-    vals = torch.stack([g, h, sel], dim=1).double()
-    out = torch.zeros((num_features, num_bins, 3), dtype=torch.float64, device=bins.device)
+    rounded once, as the kernels do."""
+    vals = vals.double()
+    out = torch.zeros((num_features, num_bins, vals.shape[1]), dtype=torch.float64,
+                      device=bins.device)
     for f in range(num_features):
         keep = bins[f] < num_bins
         out[f].index_add_(0, bins[f][keep], vals[keep])
@@ -221,7 +247,7 @@ def update_and_root_hist(p, layout: PLayout, objective, delta=None, sel=None, *,
     n = int(num_rows)
     d = _vec(delta, n, p.device) if delta is not None else None
     s = _vec(sel, n, p.device) if sel is not None else None
-    hist = torch.zeros((num_features, num_bins, 3), dtype=torch.float32, device=p.device)
+    hist = torch.zeros((num_features, num_bins, 3), dtype=torch.float64, device=p.device)
     kind, sigmoid, w_pos, w_neg = objective.kernel_params()
     with torch.cuda.device(p.device):
         rc = _build.lib().lgbt_update_root_hist(
@@ -232,10 +258,80 @@ def update_and_root_hist(p, layout: PLayout, objective, delta=None, sel=None, *,
             num_features, num_bins, bits, hist.data_ptr(), _stream(p))
     _build.check(rc, "update_and_root_hist")
     update_and_root_hist.launches += 1
-    return p, hist
+    return p, hist.float()
 
 
 update_and_root_hist.launches = 0
+
+
+# ======================================================================
+# update_multi_and_hists: K gradient planes + K root histograms
+# ======================================================================
+def _multi_hists(out: torch.Tensor, K: int) -> torch.Tensor:
+    """(F, B, 2K+1) sums [g_0, h_0, .., g_{K-1}, h_{K-1}, cnt] ->
+    (K, F, B, 3) histograms sharing the count plane."""
+    g = out[..., 0:2 * K:2].permute(2, 0, 1)
+    h = out[..., 1:2 * K:2].permute(2, 0, 1)
+    c = out[..., 2 * K].expand(K, *out.shape[:2])
+    return torch.stack([g, h, c], dim=-1).contiguous()
+
+
+def update_multi_and_hists_ref(p, layout: PLayout, objective, sel=None, *, num_rows,
+                               num_features, num_bins, bits=8):
+    """Plain version: all K (g, h) planes from the K score channels
+    (``objective.gradients_rowwise_all``), select = sel, written in
+    place over the first ``num_rows`` columns; returns (p, (K, F, B, 3)
+    root histograms of the fresh values)."""
+    n, K = int(num_rows), layout.num_score
+    scores = torch.stack([f32_row(p, layout.SCORE + k, n) for k in range(K)])
+    label = f32_row(p, layout.LABEL, n)
+    weight = f32_row(p, layout.WEIGHT, n) if _use_weight(layout, objective) else None
+    g, h = objective.gradients_rowwise_all(scores, label, weight)
+    selv = _vec(sel, n, p.device) if sel is not None else f32_row(p, layout.SEL, n).clone()
+    for k in range(K):
+        f32_row(p, layout.g_row(k), n).copy_(g[k])
+        f32_row(p, layout.h_row(k), n).copy_(h[k])
+    if sel is not None:
+        f32_row(p, layout.SEL, n).copy_(selv)
+    vals = torch.stack([g * selv, h * selv], dim=1).reshape(K * 2, n)
+    vals = torch.cat([vals, selv[None]], dim=0).t()
+    out = _hist_matrix(unpack_bins(p, layout, 0, n), vals, num_features, num_bins)
+    return p, _multi_hists(out, K)
+
+
+def update_multi_and_hists(p, layout: PLayout, objective, sel=None, *, num_rows,
+                           num_features, num_bins, bits=8):
+    """One pass over all rows: every class's (g, h) from the same score
+    snapshot (softmax across the K scores of a row, or one-vs-all), the
+    select channel = sel, in place; and the K root (F, B, 3) histograms
+    of the fresh values, sharing one count plane.  GBDT::Boosting + the
+    root ConstructHistogram for the K trees of a multiclass iteration
+    (gbdt.cpp:692-700).  Returns (p, (K, F, B, 3))."""
+    if p.device.type == "cpu":
+        return update_multi_and_hists_ref(p, layout, objective, sel, num_rows=num_rows,
+                                          num_features=num_features, num_bins=num_bins,
+                                          bits=bits)
+    _check_matrix(p)
+    n, K = int(num_rows), layout.num_score
+    kind, kk, sigmoid, w_pos, w_neg = objective.kernel_params()
+    if kk != K or not 1 <= K <= MAX_CLASSES:
+        raise ValueError(f"objective of {kk} classes for a layout of {K} score channels "
+                         f"(at most {MAX_CLASSES})")
+    s = _vec(sel, n, p.device) if sel is not None else None
+    wts = torch.from_numpy(np.concatenate([w_pos, w_neg]).astype(np.float32)).to(p.device)
+    out = torch.zeros((num_features, num_bins, 2 * K + 1), dtype=torch.float64, device=p.device)
+    with torch.cuda.device(p.device):
+        rc = _build.lib().lgbt_update_multi_hist(
+            p.data_ptr(), p.shape[1], n, None if s is None else s.data_ptr(),
+            layout.G, layout.SEL, layout.SCORE, layout.LABEL, layout.WEIGHT,
+            int(_use_weight(layout, objective)), kind, K, sigmoid, wts.data_ptr(),
+            num_features, num_bins, bits, out.data_ptr(), _stream(p))
+    _build.check(rc, "update_multi_and_hists")
+    update_multi_and_hists.launches += 1
+    return p, _multi_hists(out.float(), K)
+
+
+update_multi_and_hists.launches = 0
 
 
 # ======================================================================
@@ -292,10 +388,10 @@ def _launch_partition(p, tab: np.ndarray, num_features, num_bins, bits, rows, sm
     if n_seg > smax:
         raise ValueError(f"{n_seg} segments exceed smax={smax}")
     nl = torch.zeros((smax,), dtype=torch.int32, device=p.device)
-    hists = torch.zeros((smax, 2, num_features, num_bins, 3), dtype=torch.float32,
+    hists = torch.zeros((smax, 2, num_features, num_bins, 3), dtype=torch.float64,
                         device=p.device)
     if n_seg == 0:
-        return nl, hists, False
+        return nl, hists.float(), False
     cnt = np.maximum(tab[:, 1], 0)
     if (tab[:, 0] < 0).any() or (tab[:, 0] + cnt > p.shape[1] - BLK).any():
         raise ValueError("segment outside the matrix's rows")
@@ -316,7 +412,7 @@ def _launch_partition(p, tab: np.ndarray, num_features, num_bins, bits, rows, sm
             bits, num_features, num_bins, g_row, h_row, sel_row, hists.data_ptr(),
             _stream(p))
     _build.check(rc, what)
-    return nl, hists, True
+    return nl, hists.float(), True
 
 
 def level_stream(p, seg_tab, n_active, *, num_features, num_bins, bits=8, rows=None,
@@ -414,7 +510,97 @@ def score_add(p, layout: PLayout, delta, k: int = 0, *, num_rows):
 
 score_add.launches = 0
 
-KERNELS = (update_and_root_hist, level_stream, split_stream, score_add)
+
+# ======================================================================
+# hist_dyn / hist_segments: histograms of contiguous leaf segments
+# ======================================================================
+def hist_segments_ref(p, seg_tab, n_active, *, num_features, num_bins, bits=8, rows=None,
+                      smax):
+    """Plain version of hist_segments."""
+    rows = rows or PLayout(num_features, bits=bits).rows
+    tab = _host_table(seg_tab)
+    out = torch.zeros((smax, num_features, num_bins, 3), dtype=torch.float32, device=p.device)
+    for s in range(int(n_active)):
+        start, cnt = int(tab[s, 0]), max(int(tab[s, 1]), 0)
+        out[s] = _hist_cols(p[:, start:start + cnt], rows, num_features, num_bins, bits)
+    return out
+
+
+def _launch_segment_hist(p, tab: np.ndarray, num_features, num_bins, bits, rows, smax, what):
+    """Run the CUDA segment-histogram kernel over the host table ``tab``
+    (n_seg, >= 2) of [start, cnt] rows; returns ((smax, F, B, 3), launched)."""
+    _check_matrix(p)
+    n_seg = tab.shape[0]
+    if n_seg > smax:
+        raise ValueError(f"{n_seg} segments exceed smax={smax}")
+    hist = torch.zeros((smax, num_features, num_bins, 3), dtype=torch.float64, device=p.device)
+    cnt = np.maximum(tab[:, 1], 0)
+    if n_seg == 0 or int(cnt.sum()) == 0:
+        return hist.float(), False
+    if (tab[:, 0] < 0).any() or (tab[:, 0] + cnt > p.shape[1] - BLK).any():
+        raise ValueError("segment outside the matrix's rows")
+    tiles = (cnt + HIST_TILE - 1) // HIST_TILE
+    tile_base = np.concatenate([[0], np.cumsum(tiles)])
+    g_row, h_row, sel_row = rows
+    segs = np.stack([tab[:, 0], cnt], axis=1)
+    host = np.concatenate([segs.astype(np.int32).ravel(), tile_base.astype(np.int32)])
+    dev = torch.from_numpy(host).to(p.device)
+    with torch.cuda.device(p.device):
+        rc = _build.lib().lgbt_segment_hist(
+            p.data_ptr(), p.shape[1], dev.data_ptr(), dev.data_ptr() + 4 * 2 * n_seg, n_seg,
+            int(tile_base[-1]), HIST_TILE, bits, num_features, num_bins, g_row, h_row,
+            sel_row, hist.data_ptr(), _stream(p))
+    _build.check(rc, what)
+    return hist.float(), True
+
+
+def hist_segments(p, seg_tab, n_active, *, num_features, num_bins, bits=8, rows=None, smax):
+    """(smax, F, B, 3) histograms of (g*sel, h*sel, sel) over the first
+    ``n_active`` leaf segments of ``seg_tab`` ((>= n_active, 2) rows of
+    [start, cnt]) in one launch; rows s >= n_active are zero (the JAX
+    contract leaves them undefined).  ``rows`` is the (g, h, sel)
+    channel-row triple, by default PLayout's class-0 rows."""
+    if p.device.type == "cpu":
+        return hist_segments_ref(p, seg_tab, n_active, num_features=num_features,
+                                 num_bins=num_bins, bits=bits, rows=rows, smax=smax)
+    rows = rows or PLayout(num_features, bits=bits).rows
+    tab = _host_table(seg_tab)[: int(n_active)]
+    hist, launched = _launch_segment_hist(p, tab, num_features, num_bins, bits, rows, smax,
+                                          "hist_segments")
+    if launched:
+        hist_segments.launches += 1
+    return hist
+
+
+hist_segments.launches = 0
+
+
+def hist_dyn_ref(p, start, cnt, num_features, num_bins, bits=8, rows=None):
+    """Plain version of hist_dyn."""
+    return hist_segments_ref(p, np.asarray([[int(start), int(cnt)]]), 1,
+                             num_features=num_features, num_bins=num_bins, bits=bits,
+                             rows=rows, smax=1)[0]
+
+
+def hist_dyn(p, start, cnt, num_features, num_bins, bits=8, rows=None):
+    """(F, B, 3) histogram of the leaf segment [start, start+cnt) —
+    DenseBin::ConstructHistogram (dense_bin.hpp:66) over the leaf's
+    contiguous rows; the one-segment call of the segment-histogram
+    kernel."""
+    if p.device.type == "cpu":
+        return hist_dyn_ref(p, start, cnt, num_features, num_bins, bits=bits, rows=rows)
+    rows = rows or PLayout(num_features, bits=bits).rows
+    hist, launched = _launch_segment_hist(p, np.asarray([[int(start), int(cnt)]], np.int64),
+                                          num_features, num_bins, bits, rows, 1, "hist_dyn")
+    if launched:
+        hist_dyn.launches += 1
+    return hist[0]
+
+
+hist_dyn.launches = 0
+
+KERNELS = (update_and_root_hist, update_multi_and_hists, level_stream, split_stream,
+           score_add, hist_dyn, hist_segments)
 
 
 def launch_counts() -> dict:

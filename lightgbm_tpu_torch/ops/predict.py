@@ -52,9 +52,10 @@ class TreeArrays:
         return cls(**out)
 
 
-def predict_raw(data: np.ndarray, trees: TreeArrays) -> np.ndarray:
-    """(N,) float64 raw scores: the float32 sum over trees of each row's
-    leaf value."""
+def predict_raw(data: np.ndarray, trees: TreeArrays, num_class: int = 1) -> np.ndarray:
+    """(K, N) float64 raw scores, K = ``num_class``: class k is the
+    float32 sum of each row's leaf value over the trees i with
+    i % K == k (the model stores the K trees of an iteration in turn)."""
     dev = trees.leaf_value.device
     planes = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
               for x in split_hi_lo(np.asarray(data, np.float64))]
@@ -85,4 +86,5 @@ def predict_raw(data: np.ndarray, trees: TreeArrays) -> np.ndarray:
         nxt = torch.where(goes_left, at(trees.left_child, j), at(trees.right_child, j))
         node = torch.where(node >= 0, nxt, node)
     vals = torch.gather(trees.leaf_value, 1, ~node)
-    return vals.sum(dim=0).double().cpu().numpy()
+    return torch.stack([vals[k::num_class].sum(dim=0) for k in range(num_class)]
+                       ).double().cpu().numpy()

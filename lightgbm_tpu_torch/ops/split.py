@@ -11,6 +11,10 @@ order and the same tie preferences as the JAX package —
 - thresholds: the highest wins for zero-left/natural (right-to-left
   scans), the lowest for zero-right.
 
+Sums across bins are taken in float64 and rounded once, so the card and
+the CPU, which reduce in different orders, compute the same float32
+gains and break exact ties the same way.
+
 The JAX package ``vmap``s the per-leaf search; here the leaf batch is a
 written-out leading dimension S.  Per-element arithmetic does not depend
 on S, so a leaf's result is the same alone or in a batch.
@@ -133,7 +137,9 @@ def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
     gain_shift = leaf_split_gain(sum_g, sum_h, l1, l2)
     min_gain_shift = (gain_shift + _f32(hyper.min_gain_to_split, hist))[:, None, None]
 
-    cum = torch.cumsum(hist, dim=2)  # (S, F, B, 3)
+    # prefix sums in float64, rounded once: the same float32 values on the
+    # card (parallel scan) as on the CPU (sequential), so gains tie alike
+    cum = torch.cumsum(hist.double(), dim=2).float()  # (S, F, B, 3)
     db = meta.default_bin  # (F,)
     nb = meta.num_bins
     hist_db = _take(hist, db[None, :].expand(S, F))  # (S, F, 3)

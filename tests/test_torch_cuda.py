@@ -9,9 +9,9 @@ a machine that has only PyTorch for CUDA:
 
 Tolerances: left counts, partitioned matrices (the partition is stable in
 both versions), histogram counts and score_add bit-exact; histogram g/h
-sums within 1e-5 of the largest bin per channel (the plain version sums
-in float64 and rounds once, the kernels add float32 partials with
-atomics); recomputed gradients within 1e-6 relative.
+sums within 1e-5 of the largest bin per channel (both versions sum in
+float64 and round once, in different orders); recomputed gradients
+within 1e-6 relative.
 """
 
 import numpy as np
@@ -49,8 +49,8 @@ def _packed(b=32, bits=8, seed=7):
     return torch.from_numpy(P), lay, label, weight
 
 
-def _objective(name, label, weight):
-    obj = create_objective(Config.from_params({"objective": name}))
+def _objective(name, label, weight, **params):
+    obj = create_objective(Config.from_params(dict(params, objective=name)))
     md = Metadata(len(label))
     md.set_label(label)
     md.set_weights(weight)
@@ -149,6 +149,103 @@ def test_score_add(dev):
     pk.score_add_ref(Pr, lay, delta, num_rows=N)
     torch.cuda.synchronize()
     assert torch.equal(Pk, Pr)
+
+
+def _packed_multi(K, b=32, seed=9):
+    rng = np.random.default_rng(seed)
+    lay = pk.PLayout(F, num_score=K)
+    bins = rng.integers(0, b, size=(N, F), dtype=np.uint8)
+    label = rng.integers(0, K, N).astype(np.float32)
+    weight = (rng.random(N) + 0.5).astype(np.float32)
+    P = pk.pack_matrix(bins, lay, label=label, weight=weight).numpy()
+    for k in range(K):
+        P[lay.SCORE + k, :N] = rng.standard_normal(N).astype(np.float32).view(np.int32)
+        P[lay.g_row(k), :N] = rng.standard_normal(N).astype(np.float32).view(np.int32)
+        P[lay.h_row(k), :N] = rng.random(N).astype(np.float32).view(np.int32)
+    P[lay.SEL, :N] = (rng.random(N) < 0.85).astype(np.float32).view(np.int32)
+    return torch.from_numpy(P), lay, label, weight
+
+
+@pytest.mark.parametrize("name,K,with_sel", [("multiclass", 7, False), ("multiclass", 16, True),
+                                             ("multiclassova", 5, False)])
+def test_update_multi_and_hists(dev, name, K, with_sel):
+    """K=16 at F=11, B=32 fits one feature tile; the tiled path runs in
+    chip_smoke.py's wide check."""
+    P, lay, label, weight = _packed_multi(K)
+    extra = {"is_unbalance": True} if name == "multiclassova" else {}
+    obj = _objective(name, label, weight, num_class=K, **extra)
+    sel = (torch.rand(N, generator=torch.Generator().manual_seed(3)) < 0.7).float() \
+        if with_sel else None
+    Pk, Pr = P.to(dev), P.to(dev)
+    before = pk.update_multi_and_hists.launches
+    _, hk = pk.update_multi_and_hists(Pk, lay, obj, sel=sel, num_rows=N, num_features=F,
+                                      num_bins=32)
+    assert pk.update_multi_and_hists.launches == before + 1
+    _, hr = pk.update_multi_and_hists_ref(Pr, lay, obj, sel=sel, num_rows=N, num_features=F,
+                                          num_bins=32)
+    torch.cuda.synchronize()
+    gh = [r for k in range(K) for r in (lay.g_row(k), lay.h_row(k))]
+    for r in gh:
+        a, b = Pk[r, :N].view(torch.float32), Pr[r, :N].view(torch.float32)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+    other = [r for r in range(lay.C) if r not in gh]
+    assert torch.equal(Pk[other], Pr[other])
+    for k in range(K):
+        _assert_hist(hk[k], hr[k])
+
+
+HIST_SEGS = [(0, 0), (3, 700), (703, 1), (1024, 9000), (10024, 9976)]
+
+
+@pytest.mark.parametrize("bits,nbins", [(8, 32), (4, 16)])
+def test_hist_segments_and_dyn(dev, bits, nbins):
+    P, lay, *_ = _packed(b=nbins, bits=bits)
+    tab = torch.zeros((8, 2), dtype=torch.int64)
+    tab[: len(HIST_SEGS)] = torch.tensor(HIST_SEGS)
+    kw = dict(num_features=F, num_bins=nbins, bits=bits, smax=8)
+    Pk = P.to(dev)
+    before = (pk.hist_segments.launches, pk.hist_dyn.launches)
+    hk = pk.hist_segments(Pk, tab, len(HIST_SEGS), **kw)
+    dk = pk.hist_dyn(Pk, 37, N - 40, F, nbins, bits=bits)
+    assert (pk.hist_segments.launches, pk.hist_dyn.launches) == (before[0] + 1, before[1] + 1)
+    hr = pk.hist_segments_ref(Pk, tab, len(HIST_SEGS), **kw)
+    dr = pk.hist_dyn_ref(Pk, 37, N - 40, F, nbins, bits=bits)
+    torch.cuda.synchronize()
+    _assert_hist(hk, hr)
+    _assert_hist(dk, dr)
+
+
+def test_level_stream_multiclass_layout(dev):
+    """level_stream on a K=7 layout (C=40) reads class 3's g/h rows."""
+    P, lay, *_ = _packed_multi(7)
+    tab = _tab(8)
+    Pk, Pr = P.to(dev), P.to(dev)
+    kw = dict(num_features=F, num_bins=32, bits=8, smax=8, rows=lay.class_rows(3))
+    _, nk, hk = pk.level_stream(Pk, tab, len(SEGMENTS), **kw)
+    _, nr, hr = pk.level_stream_ref(Pr, tab, len(SEGMENTS), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nk.cpu(), nr.cpu())
+    assert torch.equal(Pk, Pr)
+    _assert_hist(hk, hr)
+
+
+def test_train_multiclass_cuda_matches_cpu(dev):
+    import lightgbm_tpu_torch as lgt
+
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((20000, 6)).astype(np.float32)
+    cat = rng.integers(0, 5, 20000)
+    X = np.concatenate([X, np.eye(5, dtype=np.float32)[cat]], axis=1)
+    y = np.digitize(X[:, 0] + 0.5 * (cat == 2), [-0.4, 0.5]).astype(np.float32)
+    params = dict(objective="multiclass", num_class=3, num_leaves=31, learning_rate=0.2,
+                  max_bin=31, min_data_in_leaf=20, verbose=-1)
+    pk.reset_launch_counts()
+    bc = lgt.train(params, lgt.Dataset(X, label=y), 3)
+    counts = pk.launch_counts()
+    assert counts["update_multi_and_hists"] == 3 and counts["score_add"] > 0
+    assert bc.boosting.ptrainer.bmeta is not None
+    bp = lgt.train(params, lgt.Dataset(X, label=y), 3, device="cpu")
+    np.testing.assert_allclose(bc.predict(X), bp.predict(X), rtol=1e-3, atol=1e-4)
 
 
 def test_train_cuda_matches_cpu(dev):

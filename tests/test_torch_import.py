@@ -41,7 +41,8 @@ def test_no_file_imports_jax(path):
 
 def test_kernel_sources_present():
     names = {p.name for p in (PKG / "csrc").glob("*.cu")}
-    assert {"update_hist.cu", "partition_hist.cu", "score_add.cu"} <= names
+    assert {"update_hist.cu", "partition_hist.cu", "score_add.cu", "update_multi_hist.cu",
+            "segment_hist.cu"} <= names
 
 
 def test_train_without_device_raises_when_no_card(monkeypatch):
@@ -72,6 +73,9 @@ def test_wrappers_count_no_launch_on_cpu():
     lay = pk.PLayout(5)
     p = pk.pack_matrix(np.zeros((100, 5), np.uint8), lay)
     pk.score_add(p, lay, np.ones(100, np.float32), num_rows=100)
-    assert pk.launch_counts() == {"update_and_root_hist": 0, "level_stream": 0,
-                                  "split_stream": 0, "score_add": 0}
+    pk.hist_dyn(p, 0, 100, 5, 4)
+    pk.hist_segments(p, np.asarray([[0, 60], [60, 40]]), 2, num_features=5, num_bins=4, smax=2)
+    assert pk.launch_counts() == {"update_and_root_hist": 0, "update_multi_and_hists": 0,
+                                  "level_stream": 0, "split_stream": 0, "score_add": 0,
+                                  "hist_dyn": 0, "hist_segments": 0}
     assert float(pk.f32_row(p, lay.SCORE, 100).sum()) == 100.0

@@ -6,7 +6,8 @@ packed matrix, built the way tests/test_pgrow.py builds it.  Tolerances:
 left counts, row sets and untouched columns exact; histograms 2e-3
 relative (interpret mode emulates the TPU's bf16 3-term sums,
 tests/test_pgrow.py:53); recomputed gradient channels 1e-6 relative
-(exp differs by an ulp between XLA and PyTorch); score_add bit-exact.
+(exp differs by an ulp between XLA and PyTorch); score_add bit-exact;
+segment histograms: counts exact, sums 2e-3.
 
 The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda.py compares them with the plain versions there.
@@ -18,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
+from lightgbm_tpu.ops import histogram_pallas as jhp
 from lightgbm_tpu.ops import pkernels as jpk
 from lightgbm_tpu_torch.ops import pkernels as tpk
 
@@ -215,14 +217,175 @@ class TestScoreAdd:
         np.testing.assert_array_equal(Pt[:, n:], P[:, n:])
 
 
+LAYOUT_FIELDS = ("W", "WPAD", "G", "H", "SEL", "SCORE", "LABEL", "ROWID", "WEIGHT", "BAND", "C")
+
+
 class TestLayout:
     @pytest.mark.parametrize("f,bits", [(28, 8), (11, 8), (11, 4), (300, 8)])
     def test_rows_match_jax(self, f, bits):
         j, t = jpk.PLayout(f, bits=bits), tpk.PLayout(f, bits=bits)
-        for k in ("W", "WPAD", "G", "H", "SEL", "SCORE", "LABEL", "ROWID", "WEIGHT", "BAND",
-                  "C"):
+        for k in LAYOUT_FIELDS:
             assert getattr(j, k) == getattr(t, k), k
+
+    @pytest.mark.parametrize("f,bits,k", [(12, 8, 7), (28, 8, 16), (11, 4, 3)])
+    def test_multiclass_rows_match_jax(self, f, bits, k):
+        j, t = jpk.PLayout(f, num_score=k, bits=bits), tpk.PLayout(f, num_score=k, bits=bits)
+        for a in LAYOUT_FIELDS:
+            assert getattr(j, a) == getattr(t, a), a
+        for c in range(k):
+            assert j.class_rows(c) == t.class_rows(c)
 
     def test_slice_shape(self):
         lay = tpk.PLayout(28)
         assert (lay.W, lay.WPAD, lay.BAND, lay.C) == (7, 8, 8, 16)
+
+    def test_covertype_shape(self):
+        """12 EFB columns, 7 classes: 40 channels."""
+        lay = tpk.PLayout(12, num_score=7)
+        assert (lay.W, lay.WPAD, lay.BAND, lay.C) == (3, 8, 32, 40)
+
+
+def _make_packed_multi(K, n=5000, f=9, b=32, seed=17):
+    rng = np.random.default_rng(seed)
+    lay = jpk.PLayout(f, num_score=K)
+    bins = rng.integers(0, b, size=(n, f), dtype=np.uint8)
+    label = rng.integers(0, K, n).astype(np.float32)
+    weight = (rng.random(n) + 0.5).astype(np.float32)
+    P = np.asarray(jpk.pack_matrix(bins, lay, label=label, weight=weight)).copy()
+    for k in range(K):
+        P[lay.SCORE + k, :n] = rng.standard_normal(n).astype(np.float32).view(np.int32)
+        P[lay.g_row(k), :n] = rng.standard_normal(n).astype(np.float32).view(np.int32)
+        P[lay.h_row(k), :n] = rng.standard_normal(n).astype(np.float32).view(np.int32)
+    P[lay.SEL, :n] = (rng.random(n) < 0.8).astype(np.float32).view(np.int32)
+    return P, lay, label, weight
+
+
+def _multi_objectives(name, K, label, weight):
+    """The multiclass objective in both packages, bound to the same
+    labels (OVA with is_unbalance, so each class has its own weights)."""
+    from lightgbm_tpu.config import Config as JConfig
+    from lightgbm_tpu.io.dataset import Metadata as JMeta
+    from lightgbm_tpu.objective import create_objective as jcreate
+    from lightgbm_tpu_torch.config import Config as TConfig
+    from lightgbm_tpu_torch.io.dataset import Metadata as TMeta
+    from lightgbm_tpu_torch.objective import create_objective as tcreate
+
+    params = {"objective": name, "num_class": K}
+    if name == "multiclassova":
+        params["is_unbalance"] = True
+    out = []
+    for create, Config, Meta in ((jcreate, JConfig, JMeta), (tcreate, TConfig, TMeta)):
+        obj = create(Config.from_params(params))
+        md = Meta(len(label))
+        md.set_label(label)
+        md.set_weights(weight)
+        obj.init(md, len(label))
+        out.append(obj)
+    return out
+
+
+class TestUpdateMultiAndHists:
+    @pytest.mark.parametrize("name,K", [("multiclass", 3), ("multiclass", 7),
+                                        ("multiclassova", 4)])
+    @pytest.mark.parametrize("with_sel,with_weight", [(False, False), (True, True),
+                                                      (False, True)],
+                             ids=["plain", "sel-weight", "weight"])
+    def test_matches_jax(self, name, K, with_sel, with_weight):
+        n, B = 5000, 32
+        P, lay, label, weight = _make_packed_multi(K, n=n)
+        jobj, tobj = _multi_objectives(name, K, label, weight if with_weight else None)
+        sel = ((np.random.default_rng(3).random(n) < 0.6).astype(np.float32)
+               if with_sel else None)
+
+        def grad_all_fn(scores, lab, w):
+            return jobj.gradients_rowwise_all(scores, lab, w if with_weight else None)
+
+        Pj, hj = jpk.update_multi_and_hists(
+            jnp.asarray(P), lay, grad_all_fn, sel=sel, num_rows=n, num_features=lay.F,
+            num_bins=B, interpret=INTERP)
+        Pj = np.asarray(Pj)
+        Pt, ht = tpk.update_multi_and_hists(
+            torch.from_numpy(P.copy()), tpk.PLayout(lay.F, num_score=K), tobj, sel=sel,
+            num_rows=n, num_features=lay.F, num_bins=B)
+        Pt = Pt.numpy()
+        gh = [r for k in range(K) for r in (lay.g_row(k), lay.h_row(k))]
+        for r in gh:
+            assert _rel(Pt[r, :n].view(np.float32), Pj[r, :n].view(np.float32)) < 1e-6
+        other = [r for r in range(lay.C) if r not in gh]
+        np.testing.assert_array_equal(Pt[other, :n], Pj[other, :n])
+        if not with_sel:
+            np.testing.assert_array_equal(Pt[lay.SEL], P[lay.SEL])
+        np.testing.assert_array_equal(Pt[:, n:], P[:, n:])
+        assert ht.shape == (K, lay.F, B, 3)
+        for k in range(K):
+            np.testing.assert_array_equal(ht[k, ..., 2].numpy(), np.asarray(hj[k])[..., 2])
+            assert _rel(ht[k].numpy(), np.asarray(hj[k])) < HIST_TOL
+
+
+# [start, cnt] segment tables: empty, unaligned, block-spanning and large
+HIST_SEGS = [(0, 0), (3, 700), (703, 1), (1024, 2048), (3072, 2800), (5872, 128)]
+
+
+class TestSegmentHists:
+    @pytest.mark.parametrize("bits,nbins", [(8, 32), (4, 16)])
+    def test_hist_segments_match_jax(self, bits, nbins):
+        P, lay, *_ = _make_packed(n=6000, b=nbins, bits=bits)
+        tab = np.zeros((8, 2), np.int32)
+        tab[: len(HIST_SEGS)] = HIST_SEGS
+        kw = dict(num_features=lay.F, num_bins=nbins, bits=bits, rows=lay.rows, smax=8)
+        hj = np.asarray(jhp.hist_segments(jnp.asarray(P), jnp.asarray(tab), len(HIST_SEGS),
+                                          interpret=INTERP, **kw))
+        ht = tpk.hist_segments(torch.from_numpy(P.copy()), torch.from_numpy(tab),
+                               len(HIST_SEGS), **kw).numpy()
+        assert ht.shape == (8, lay.F, nbins, 3)
+        for s in range(len(HIST_SEGS)):
+            np.testing.assert_array_equal(ht[s, ..., 2], hj[s, ..., 2])
+            assert _rel(ht[s], hj[s]) < HIST_TOL
+        assert not ht[len(HIST_SEGS):].any()
+
+    @pytest.mark.parametrize("seg", [(0, 6000), (1024, 0), (37, 4001)],
+                             ids=["all", "empty", "unaligned"])
+    def test_hist_dyn_matches_jax(self, seg):
+        P, lay, *_ = _make_packed(n=6000)
+        start, cnt = seg
+        hj = np.asarray(jpk.hist_dyn(jnp.asarray(P), start, cnt, lay.F, 32, rows=lay.rows,
+                                     interpret=INTERP))
+        ht = tpk.hist_dyn(torch.from_numpy(P.copy()), start, cnt, lay.F, 32,
+                          rows=lay.rows).numpy()
+        np.testing.assert_array_equal(ht[..., 2], hj[..., 2])
+        assert _rel(ht, hj) < HIST_TOL
+
+    def test_class_rows(self):
+        """A multiclass layout's class-k (g, h) rows feed the histogram."""
+        P, lay, *_ = _make_packed_multi(3, n=3000)
+        rows = lay.class_rows(2)
+        t = torch.from_numpy(P.copy())
+        got = tpk.hist_dyn(t, 0, 3000, lay.F, 32, rows=rows)
+        want = tpk.hist_segments(t, np.asarray([[0, 3000]]), 1, num_features=lay.F,
+                                 num_bins=32, rows=rows, smax=1)[0]
+        hj = np.asarray(jpk.hist_dyn(jnp.asarray(P), 0, 3000, lay.F, 32, rows=rows,
+                                     interpret=INTERP))
+        assert torch.equal(got, want)
+        assert _rel(got.numpy(), hj) < HIST_TOL
+
+    @pytest.mark.parametrize("bundled", [False, True], ids=["plain", "bundled"])
+    def test_pgrow_level_hists_matches_jax(self, bundled):
+        """pgrow.level_hists (the grower's root with the level grower on)
+        streams G columns of BH bins: the matrix's, not the features'."""
+        from lightgbm_tpu.ops.pgrow import PGrowParams as JParams, level_hists as jlevel
+        from lightgbm_tpu_torch.ops.pgrow import PGrowParams as TParams, level_hists as tlevel
+
+        P, lay, *_ = _make_packed(n=6000)
+        shape = (dict(num_features=3 * lay.F, num_bins=16, num_cols=lay.F, num_bins_hist=32)
+                 if bundled else dict(num_features=lay.F, num_bins=32))
+        tab = np.zeros((4, 2), np.int32)
+        tab[:2] = [(0, 2500), (2500, 3500)]
+        hj = np.asarray(jlevel(jnp.asarray(P), jnp.asarray(tab), jnp.int32(2),
+                               JParams(num_leaves=7, num_rows=6000, **shape), rows=lay.rows,
+                               interpret=INTERP))
+        ht = tlevel(torch.from_numpy(P.copy()), tab, 2,
+                    TParams(num_leaves=7, num_rows=6000, **shape), rows=lay.rows).numpy()
+        assert ht.shape == (4, lay.F, 32, 3)
+        for s in range(2):
+            np.testing.assert_array_equal(ht[s, ..., 2], hj[s, ..., 2])
+            assert _rel(ht[s], hj[s]) < HIST_TOL
