@@ -17,21 +17,88 @@ measurement:
 - CUDA-event milliseconds (median) of update_and_root_hist,
   level_stream (one segment of all rows) and split_stream (the root
   segment) at 10.5M x 28 features, 64 and 256 bins.
+
+``--cells`` times instead one cell against another inside one process:
+it trains one binned dataset (10.5M Higgs-shaped rows, the higgs cell's
+parameters, 16 iterations per run) in the order
+
+    plain, goss, bagging, [profiler window], plain, bagging, goss, plain
+
+and prints one line starting with "CELL" per run: its place, its s/iter
+(median after the first iteration), the host CPU time, the load average
+and the card's SM clock, power and temperature after it, and, for GOSS,
+the medians of its warm-up and sampled iterations beside the plain runs'
+medians over the same iterations.  The profiler window is chip_smoke.py's
+``profile_iters`` over one iteration of the plain cell.
 """
 
 import argparse
+import json
 import os
+import subprocess
 import sys
+import time
 
 import numpy as np
 
 TRAIN_ROWS, KERNEL_ROWS = 3_000_000, 10_500_000
 ITERS = {63: 12, 255: 6}  # max_bin: iterations
+CELL_ROWS, CELL_ITERS = 10_500_000, 16
+CELL_ORDER = ("plain", "goss", "bagging", "profile", "plain", "bagging", "goss", "plain")
+
+
+def gpu_state() -> str:
+    """The card's SM clock, power draw and temperature now, from
+    nvidia-smi."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return "card state not read"
+    return f"card {smi.stdout.strip()}"
+
+
+def run_cells(cs, lgt, dev):
+    """Train each cell of CELL_ORDER on one dataset and print its CELL
+    line; returns [(cell, iteration seconds), ...], the profiler window
+    left out."""
+    params = {"plain": cs.TRAIN_PARAMS, "bagging": cs.BAG_PARAMS, "goss": cs.GOSS_PARAMS}
+    X, y = cs.make_higgs_shaped(CELL_ROWS, seed=7)
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(cs.TRAIN_PARAMS)
+    del X
+    out = []
+    for place, cell in enumerate(CELL_ORDER):
+        if cell == "profile":
+            cs.profile_iters(ds, dev, n_iter=1)
+            continue
+        cpu0 = time.process_time()
+        bst = lgt.train(params[cell], ds, CELL_ITERS, device=dev, verbose_eval=False)
+        cs.sync(dev)
+        its = list(bst.boosting.ptrainer.iter_seconds)
+        out.append((cell, its))
+        print(f"CELL {place} {cell}: s/iter {np.median(its[1:]):.4f} (median after the "
+              f"first); host CPU {time.process_time() - cpu0:.2f} s over {sum(its):.2f} s of "
+              f"iterations; load average {os.getloadavg()[0]:.2f}; {gpu_state()}; "
+              f"iterations {json.dumps([round(t, 4) for t in its])}", flush=True)
+        del bst
+    warm = int(1.0 / cs.GOSS_PARAMS["learning_rate"])
+    plain = np.asarray([its for cell, its in out if cell == "plain"])
+    for i, (cell, its) in enumerate(out):
+        if cell == "goss":
+            print(f"CELL goss run {i}: warm-up {np.median(its[1:warm]):.4f}, sampled "
+                  f"{np.median(its[warm:]):.4f}; plain runs at the same iterations "
+                  f"{np.median(plain[:, 1:warm]):.4f} and {np.median(plain[:, warm:]):.4f}",
+                  flush=True)
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tree")
+    ap.add_argument("--cells", action="store_true",
+                    help="time the plain, bagging and GOSS cells in turns instead")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -51,6 +118,9 @@ def main(argv=None):
         print("chip_ab: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    if args.cells:
+        run_cells(cs, lgt, dev)
+        return 0
 
     # ---- kernels at 64 and 256 bins
     F, n = 28, KERNEL_ROWS

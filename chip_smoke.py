@@ -11,13 +11,17 @@ result line):
   2. build: compiles the CUDA kernels from lightgbm_tpu_torch/csrc;
   3. kernels: calls each kernel's wrapper at its path's shapes and holds
      it against its plain PyTorch version on the same inputs; times both
-     with CUDA events.  Binary path: --rows x 28 features, 64 bins.
-     Multiclass path: the covertype cell's bundled training matrix
-     (12 EFB columns, 63 bins, K=7 score channels, 40 channels);
+     with CUDA events.  Binary path: --rows x 28 features, 64 bins
+     (update_channels, and update_and_root_hist with a select and a GOSS
+     multiplier, among them).  Multiclass path: the covertype cell's
+     bundled training matrix (12 EFB columns, 63 bins, K=7 score
+     channels, 40 channels);
   4. small end to end: --small-rows x 28 (binary) and 100,000
      Covertype-shaped rows (K=7, 3 iterations) trained on the card and on
      the CPU (plain versions) — splits, predictions and AUC / multi
-     logloss must agree;
+     logloss must agree; then --small-rows x 28 at learning_rate=0.5 for
+     6 iterations with bagging and feature_fraction, and with GOSS, on
+     both, with the bagging masks compared;
   5. "higgs-10.5M" at full width: Higgs-shaped binary data (--rows plus a
      500k held-out set), max_bin=63, num_leaves=255, learning_rate=0.1,
      min_data_in_leaf=1, min_sum_hessian_in_leaf=100, --iters
@@ -26,6 +30,17 @@ result line):
      (so split_stream carries every split) and a repeat of the main run's
      first --repeat-iters iterations, to show whether two runs give
      byte-identical trees;
+  5b. "higgs-10.5M-bagging": the same binned data and tree parameters
+     with feature_fraction=0.9, bagging_fraction=0.8, bagging_freq=5
+     (LightGBM's examples/python-guide/simple_example.py), the 500k
+     held-out rows as a validation set with metric auc and
+     binary_logloss, early_stopping_rounds=5, 20 iterations; prints
+     s/iter, the validation AUC, the last evals_result entries,
+     best_iteration and peak memory;
+  5c. "higgs-10.5M-goss": the same with boosting=goss, top_rate=0.2,
+     other_rate=0.1, 20 iterations (10 warm-up, 10 sampled at
+     learning_rate 0.1); prints s/iter of each kind, the held-out AUC
+     and update_channels' launches;
   6. "covertype-581k" at full width: Covertype-shaped data (581,012 rows,
      54 columns: 10 integer numeric, a 4-column and a 40-column one-hot,
      7 classes at Covertype's counts), the first 464,809 train and the
@@ -65,6 +80,7 @@ REPLACES = {
     "score_add": "lightgbm_tpu/ops/pkernels.py:825",
     "hist_dyn": "lightgbm_tpu/ops/pkernels.py:349",
     "hist_segments": "lightgbm_tpu/ops/histogram_pallas.py:360",
+    "update_channels": "lightgbm_tpu/ops/pkernels.py:1565",
 }
 SOURCES = {
     "update_and_root_hist": "lightgbm_tpu_torch/csrc/update_hist.cu",
@@ -74,7 +90,15 @@ SOURCES = {
     "score_add": "lightgbm_tpu_torch/csrc/score_add.cu",
     "hist_dyn": "lightgbm_tpu_torch/csrc/segment_hist.cu",
     "hist_segments": "lightgbm_tpu_torch/csrc/segment_hist.cu",
+    "update_channels": "lightgbm_tpu_torch/csrc/update_channels.cu",
 }
+KERNEL_NAMES = ("update_and_root_hist", "update_multi_and_hists", "level_stream",
+                "split_stream", "score_add", "hist_dyn", "hist_segments", "update_channels")
+# simple_example.py's sampling (LightGBM v2.0 examples/python-guide)
+BAG_PARAMS = dict(TRAIN_PARAMS, feature_fraction=0.9, bagging_fraction=0.8, bagging_freq=5)
+GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2, other_rate=0.1)
+SAMPLED_ITERS = 20
+SMALL_SAMPLED_ITERS = 6  # at learning_rate 0.5 GOSS samples from iteration 2 on
 # Covertype (UCI, Blackard & Dean 1998): rows per class, and the ranges of
 # the 10 integer columns (Elevation, Aspect, Slope, the hydrology
 # distances, roadways, the three hillshades, fire points)
@@ -309,6 +333,44 @@ def phase_kernels(rows, dev, seed=11):
                                        bytes=nbytes, ops=nops, library_ms=None)
     P0 = Pk.clone()  # fresh g/h channels for the partition kernels
     del Pk, Pr
+
+    # ---- update_channels (GOSS's prep pass: score += delta, fresh g/h)
+    Pk, Pr = P0.clone(), P0.clone()
+    pk.update_channels(Pk, lay, obj, delta=delta, num_rows=rows)
+    pk.update_channels_ref(Pr, lay, obj, delta=delta, num_rows=rows)
+    sync(dev)
+    assert torch.equal(Pk, Pr), "update_channels differs from plain"
+    log("kernel update_channels: matrix bit-identical (score, g, h; tail untouched)")
+    ms = time_cuda(lambda: pk.update_channels(Pk, lay, obj, delta=delta, num_rows=rows), 20)
+    plain = time_cuda(lambda: pk.update_channels_ref(Pr, lay, obj, delta=delta, num_rows=rows),
+                      3)
+    # reads score, label, delta; writes score, g, h: 4 B per row each
+    out["update_channels"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bytes=rows * 4 * 6,
+                                  ops=rows * 12, library_ms=None)
+
+    # ---- update_and_root_hist with a select and GOSS's multiplier
+    sel = (torch.rand(rows, device=dev) < 0.3).float()
+    mul = torch.where(torch.rand(rows, device=dev) < 0.5, 8.5, 1.0).float()
+    Pk, Pr = P0.clone(), P0.clone()
+    _, hk = pk.update_and_root_hist(Pk, lay, obj, sel=sel, mul=mul, **kw)
+    _, hr = pk.update_and_root_hist_ref(Pr, lay, obj, sel=sel, mul=mul, **kw)
+    sync(dev)
+    assert torch.equal(Pk, Pr), "update_and_root_hist (sel, mul): channels differ from plain"
+    check_hist("update_and_root_hist (sel, mul)", hk, hr)
+    ms = time_cuda(lambda: pk.update_and_root_hist(Pk, lay, obj, sel=sel, mul=mul, **kw), 10)
+    log(f"kernel update_and_root_hist (sel, mul): channels bit-identical; {ms:.4f} ms")
+    # the rest of a sampled GOSS iteration's prep pass: the |g*h| ranking
+    # and the rest's draw at GOSS_PARAMS' rates (one call of goss_select)
+    from lightgbm_tpu_torch.boosting.ptrainer import goss_select
+    from lightgbm_tpu_torch.utils import threefry
+
+    gscore = (pk.f32_row(Pk, lay.G, rows) * pk.f32_row(Pk, lay.H, rows)).abs()
+    top, other = int(rows * GOSS_PARAMS["top_rate"]), int(rows * GOSS_PARAMS["other_rate"])
+    key = threefry.fold_in(threefry.fold_in(threefry.PRNGKey(0), 2), 10)
+    ms = time_cuda(lambda: goss_select(gscore, top, other / (rows - top), (rows - top) / other,
+                                       key), 5)
+    log(f"  GOSS selection (stable sort of |g*h|, threefry draw) at {rows} rows: {ms:.4f} ms")
+    del Pk, Pr, sel, mul, gscore
 
     # ---- level_stream: empty, tiny unaligned, block-aligned and large
     # segments, numerical / categorical / zero-bin remap / EFB remap
@@ -570,6 +632,45 @@ def phase_small(rows, iters, dev):
     assert dpred <= 1e-3 and dauc <= 1e-3
 
 
+def phase_small_sampled(rows, dev):
+    """Bagging with feature_fraction, and GOSS, on the card and on the CPU
+    (plain versions) at learning_rate 0.5: the same trees (or a first
+    differing split that is a near-tie), and the same bagging masks."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    X, y = make_higgs_shaped(rows, seed=5)
+    iters = SMALL_SAMPLED_ITERS
+    for name, params in (("bagging", BAG_PARAMS), ("goss", GOSS_PARAMS)):
+        params = dict(params, learning_rate=0.5)
+        out = {}
+        for where, d in (("cuda", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            pk.reset_launch_counts()
+            bst = lgt.train(params, lgt.Dataset(X, label=y), iters, device=d)
+            out[where] = bst
+            log(f"small {name} {where}: {rows}x28, {iters} iterations, "
+                f"{time.perf_counter() - t0:.1f} s; update_channels launches "
+                f"{pk.launch_counts()['update_channels']}")
+        ndiff = compare_models(f"small {name} cuda vs cpu", out["cpu"].model_to_string(),
+                               out["cuda"].model_to_string())
+        p = [out[w].predict(X[:50_000]) for w in ("cuda", "cpu")]
+        dpred = float(np.abs(p[0] - p[1]).max())
+        log(f"small {name} cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
+            f"(tol 1e-3)")
+        assert dpred <= 1e-3
+        if name == "bagging":
+            pts = [out[w].boosting.ptrainer for w in ("cuda", "cpu")]
+            same = all(torch.equal(pts[0]._draws(it)[0].cpu(), pts[1]._draws(it)[0])
+                       and torch.equal(pts[0]._draws(it)[1].cpu(), pts[1]._draws(it)[1])
+                       for it in range(iters))
+            log(f"small bagging: bagging and feature masks of all {iters} iterations equal on "
+                f"the card and the CPU: {same}")
+            assert same, "the card's bagging masks differ from the CPU's"
+
+
 def near_tie(ga, gb):
     """Two split gains are a near-tie when they agree within 1e-3
     relative.  Returns (near-tie, relative difference)."""
@@ -819,7 +920,95 @@ def phase_full(rows, iters, dev, repeat_iters):
     same = trees_text(bst2.model_to_string()) == trees_text(bst.model_to_string(repeat_iters))
     log(f"full: a repeat run of {repeat_iters} iterations gives byte-identical model text: "
         f"{same}")
-    return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak, deterministic=same)
+    return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak, deterministic=same,
+                        iter_seconds=its), (ds, Xv, yv)
+
+
+def phase_sampled(ds, Xv, yv, dev, higgs_its):
+    """The sampled cells on the Higgs cell's binned data: bagging with a
+    validation set and early stopping, then GOSS; ``higgs_its`` are the
+    unsampled cell's iteration times, the yardstick at the same
+    iterations.  Returns the launch counts of both paths."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.model.ensemble import stack_trees
+    from lightgbm_tpu_torch.ops.predict import predict_binned
+
+    t0 = time.perf_counter()
+    dv = lgt.Dataset(Xv, label=yv, reference=ds)
+    dv.construct()
+    log(f"sampled: the {len(yv)} held-out rows binned with the training mappers in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(params, **kw):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        bst = lgt.train(params, ds, SAMPLED_ITERS, device=dev, verbose_eval=False, **kw)
+        sync(dev)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+        return bst, time.perf_counter() - t, peak
+
+    path = ("update_and_root_hist", "level_stream", "split_stream", "score_add")
+    ev = {}
+    (bst, wall, peak), c_bag = driven(
+        "higgs-10.5M-bagging",
+        lambda: run(dict(BAG_PARAMS, metric=["auc", "binary_logloss"]), valid_sets=[dv],
+                    valid_names=["heldout"], early_stopping_rounds=5, evals_result=ev), path)
+    its = bst.boosting.ptrainer.iter_seconds
+    s_iter = float(np.median(its[1:]))
+    last = {m: v[-1] for m, v in ev["heldout"].items()}
+    a = last["auc"]
+    pred_auc = auc(yv, bst.predict(Xv, num_iteration=-1))
+    log(f"higgs-10.5M-bagging: {bst.current_iteration()} iterations in {wall:.2f} s; s/iter "
+        f"{s_iter:.4f} (training only, median after the first; first {its[0]:.3f} s; the whole "
+        f"train() call {wall / len(its):.4f} s per iteration, set-up and validation included); "
+        f"held-out AUC {a:.6f} (rank AUC of "
+        f"predict {pred_auc:.6f}); last evals_result {json.dumps(last)}; best_iteration "
+        f"{bst.best_iteration}, best_score {json.dumps(bst.best_score)}; peak device memory "
+        f"{peak:.2f} GiB; higgs-10.5M's s/iter in this run {np.median(higgs_its[1:]):.4f}")
+    assert 0.6 < a <= 1.0 and abs(a - pred_auc) <= 1e-4, "held-out AUC out of range"
+    assert 1 <= bst.best_iteration <= bst.current_iteration()
+    # one iteration's validation pass, in its two parts
+    g = bst.boosting
+    t = time.perf_counter()
+    predict_binned(g.valid_bins[0], stack_trees(g.models[-1:]))
+    sync(dev)
+    t_trav = time.perf_counter() - t
+    t = time.perf_counter()
+    bst.eval_valid()
+    t_eval = time.perf_counter() - t
+    log(f"higgs-10.5M-bagging: one iteration's validation pass: the last tree over the "
+        f"{len(yv)} held-out bins {1e3 * t_trav:.1f} ms, the two metrics {1e3 * t_eval:.1f} ms")
+    bag = dict(s_iter=s_iter, auc=a, best_iteration=bst.best_iteration, peak_gib=peak)
+    del bst, g
+
+    (bst, wall, peak), c_goss = driven(
+        "higgs-10.5M-goss", lambda: run(GOSS_PARAMS), path + ("update_channels",))
+    its = bst.boosting.ptrainer.iter_seconds
+    warm = bst.boosting.ptrainer.goss_constants()[3]
+    s_warm, s_samp = float(np.median(its[1:warm])), float(np.median(its[warm:]))
+    # the unsampled cell at the same iterations: its trees also grow
+    # slower as boosting goes on, so warm-up against sampled alone
+    # would mix that in
+    h_warm, h_late = (float(np.median(v)) if len(v) else float("nan")
+                      for v in (higgs_its[1:warm], higgs_its[warm:]))
+    pred = bst.predict(Xv)
+    a = auc(yv, pred)
+    log(f"higgs-10.5M-goss: {SAMPLED_ITERS} iterations in {wall:.2f} s; s/iter warm-up "
+        f"{s_warm:.4f} (median of iterations 1-{warm - 1}), sampled {s_samp:.4f} (median of "
+        f"iterations {warm}-{len(its) - 1}); higgs-10.5M at the same iterations {h_warm:.4f} "
+        f"and {h_late:.4f}; held-out AUC {a:.6f}; update_channels launches "
+        f"{c_goss['update_channels']} (expected {SAMPLED_ITERS - warm}); peak device memory "
+        f"{peak:.2f} GiB")
+    assert np.all(np.isfinite(pred)) and 0.6 < a <= 1.0, "held-out AUC out of range"
+    assert c_goss["update_channels"] == SAMPLED_ITERS - warm
+    del bst
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    goss = dict(s_warm=s_warm, s_sampled=s_samp, auc=a, peak_gib=peak)
+    return [c_bag, c_goss], dict(bagging=bag, goss=goss)
 
 
 def main(argv=None):
@@ -868,19 +1057,23 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_small(args.small_rows, args.small_iters, dev)
     phase_small_multi(Xc, yc, COV_SMALL_ROWS, COV_SMALL_ITERS, dev)
+    phase_small_sampled(args.small_rows, dev)
     log(f"small end to end in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts, full = phase_full(args.rows, args.iters, dev, args.repeat_iters)
+    counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
     log(f"higgs-10.5M in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sampled_counts, _ = phase_sampled(*higgs, dev, full["iter_seconds"])
+    del higgs
+    log(f"higgs-10.5M-bagging and higgs-10.5M-goss in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cov_counts, cov_full = phase_covertype(cov, Xc[nc:], yc[nc:], COV_ITERS, dev)
     log(f"covertype-581k in {time.perf_counter() - t0:.1f} s")
 
     entries = []
-    for name in ("update_and_root_hist", "update_multi_and_hists", "level_stream",
-                 "split_stream", "score_add", "hist_dyn", "hist_segments"):
+    for name in KERNEL_NAMES:
         k = kern[name]
-        launches = counts[name] + sum(c[name] for c in cov_counts)
+        launches = sum(c[name] for c in [counts] + cov_counts + sampled_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,

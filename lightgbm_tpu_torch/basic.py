@@ -1,6 +1,8 @@
 """User-facing Dataset and Booster — PyTorch counterpart of
 lightgbm_tpu/basic.py (python-package/lightgbm/basic.py Dataset:551,
-Booster:1176) for in-memory arrays."""
+Booster:1176) for in-memory arrays.  A validation Dataset built with
+``reference=`` bins with the training set's mappers and is evaluated on
+its unbundled bins."""
 
 from __future__ import annotations
 
@@ -8,9 +10,10 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .boosting import GBDT
+from .boosting import create_boosting
 from .config import Config
 from .io.dataset import BinnedDataset
+from .metric import create_metric, metric_names_for_objective
 from .objective import create_objective, objective_from_string
 from .utils.device import resolve_device
 from .utils.log import Log
@@ -86,13 +89,22 @@ class Booster:
         self.params = dict(params) if params else {}
         self.device = resolve_device(device)
         self.config = Config.from_params(self.params)
-        self.boosting = GBDT(self.device)
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self._name_to_index: Dict[str, int] = {}
         if train_set is not None:
             binned = train_set.construct(extra_params=self.params)
             self.train_dataset = train_set
             self.objective = create_objective(self.config)
-            self.boosting.init(self.config, binned, self.objective)
+            self.boosting = create_boosting(self.config.boosting_type, self.device)
+            # training metrics only when asked (is_provide_training_metric);
+            # the engine evaluates "training" as a validation set instead
+            training_metrics = (self._make_metrics(binned) if self.config.is_training_metric
+                                else [])
+            self.boosting.init(self.config, binned, self.objective, training_metrics)
+            self._num_datasets = 1
         elif model_file is not None or model_str is not None:
+            self.boosting = create_boosting("gbdt", self.device)
             if model_file is not None:
                 with open(model_file) as f:
                     model_str = f.read()
@@ -101,9 +113,34 @@ class Booster:
             self.objective = objective_from_string(self.boosting.objective_name_loaded)
             self.boosting.objective = self.objective
             self.train_dataset = None
+            self._num_datasets = 0
         else:
             Log.fatal("Booster needs a train_set, model_file or model_str")
-        self.best_iteration = -1
+
+    def _make_metrics(self, binned):
+        """The configured metrics (the objective's name when none is set),
+        bound to ``binned``'s labels and weights; unknown names warn."""
+        names = self.config.metric or metric_names_for_objective(self.config.objective)
+        metrics = []
+        for name in names:
+            if name.lower() in ("none", "null", ""):
+                continue
+            m = create_metric(name, self.config)
+            if m is None:
+                Log.warning("Unknown metric %s", name)
+                continue
+            m.init(binned.metadata, binned.num_data)
+            metrics.append(m)
+        return metrics
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Evaluate ``data`` (built with ``reference=`` the training
+        Dataset) under ``name`` after every iteration."""
+        binned = data.construct()
+        self.boosting.add_valid(binned, self._make_metrics(binned), name)
+        self._name_to_index[name] = self._num_datasets
+        self._num_datasets += 1
+        return self
 
     def update(self) -> bool:
         """One boosting iteration; True when training should stop."""
@@ -116,7 +153,38 @@ class Booster:
     def num_trees(self) -> int:
         return self.boosting.num_trees
 
-    def predict(self, data, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:
+    # ------------------------------------------------------------------
+    def eval_train(self):
+        """[(data name, metric name, value, bigger_is_better), ...] of the
+        training set's metrics."""
+        return self._inner_eval("training", 0)
+
+    def eval_valid(self):
+        """The same for every validation set, in the order added."""
+        out = []
+        for name, idx in self._name_to_index.items():
+            out.extend(self._inner_eval(name, idx))
+        return out
+
+    def eval(self, data: Dataset, name: str):
+        """The metrics of the validation set added as ``name``."""
+        if name not in self._name_to_index:
+            Log.fatal("Dataset %s was not added with add_valid", name)
+        return self._inner_eval(name, self._name_to_index[name])
+
+    def _inner_eval(self, data_name: str, data_idx: int):
+        return [(data_name, name, val, bigger)
+                for name, val, bigger in self.boosting.get_eval_at(data_idx)]
+
+    # ------------------------------------------------------------------
+    def predict(self, data, num_iteration: Optional[int] = None,
+                raw_score: bool = False) -> np.ndarray:
+        """Predictions of the first ``num_iteration`` iterations; ``None``
+        takes the best iteration when training recorded one (early
+        stopping), else all (python-package basic.py Booster.predict);
+        -1 takes all."""
+        if num_iteration is None:
+            num_iteration = self.best_iteration if self.best_iteration > 0 else -1
         return self.boosting.predict(_to_2d_float(data), num_iteration=num_iteration,
                                      raw_score=raw_score)
 

@@ -6,9 +6,19 @@ Per iteration, exactly as the JAX package's fused chunk program, one tree
 
   canonical row order restored (one gather through the ROWID channel, so
     every tree's float sums are independent of the previous tree's
-    partition history)
+    partition history, and every random draw below is tied to an
+    original row)
+  -> the iteration's draws from the threefry key stream (bagging select,
+     feature_fraction mask; see ``_draws``)
   -> update_and_root_hist   (score += the previous tree's pending delta,
-                             fresh gradients, root histogram)   [kernel]
+                             fresh gradients, bagging select, root
+                             histogram)                           [kernel]
+     or, for GOSS after its warm-up iterations:
+     update_channels        (score += pending delta, fresh gradients)
+                                                                  [kernel]
+     -> |g*h| ranking, exact top rows + a Bernoulli sample of the rest
+     -> update_and_root_hist (select, the rest's gradients up-weighted,
+                              root histogram)                     [kernel]
   -> grow_tree_partitioned  (level_stream / split_stream)        [kernels]
   -> the tree's score delta stays PENDING for the next update (the row
      layout does not change in between)
@@ -16,9 +26,10 @@ and at the end of the run score_add settles the last delta [kernel];
 
 or K trees (multiclass, gbdt.cpp:445-480):
 
-  canonical row order restored
-  -> update_multi_and_hists (all K gradient planes and K root histograms
-                             from one score snapshot)            [kernel]
+  canonical row order restored, the iteration's draws
+  -> update_multi_and_hists (all K gradient planes, the bagging select
+                             and K root histograms from one score
+                             snapshot)                            [kernel]
   -> for each class k: grow_tree_partitioned on class k's g/h rows,
      then score_add of tree k's delta at once, while its partition
      layout is current (the precomputed gradient planes make that safe;
@@ -27,6 +38,12 @@ or K trees (multiclass, gbdt.cpp:445-480):
 The scores are gathered back to original row order through ROWID.  With
 EFB bundles the matrix packs the dataset's (N, G) bundle bins and the
 grower expands bundle histograms through ``BundleMeta``.
+
+The random draws are the JAX package's bits (utils/threefry.py): one
+base key ``PRNGKey((bagging_seed << 1) ^ feature_fraction_seed)``
+folded with a purpose tag (0 bagging, 1 feature_fraction, 2 GOSS) and
+then with the global iteration number (for bagging, the iteration
+divided by bagging_freq), so a sampled run grows the JAX package's trees.
 
 The JAX package runs a chunk of iterations as one device program; here
 the iteration loop is Python and the grower reads each level's results
@@ -54,9 +71,11 @@ from ..ops.pkernels import (
     pack_matrix,
     score_add,
     update_and_root_hist,
+    update_channels,
     update_multi_and_hists,
 )
 from ..ops.split import FeatureMeta, SplitHyper
+from ..utils import threefry
 
 
 class PartitionedTrainer:
@@ -108,6 +127,8 @@ class PartitionedTrainer:
         )
         self.feature_mask = torch.ones(f, dtype=torch.float32, device=self.device)
         self.iter_seconds = []  # wall time of each iteration (device-synced)
+        self._base_key = threefry.PRNGKey(
+            (int(config.bagging_seed) << 1) ^ int(config.feature_fraction_seed))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -142,26 +163,77 @@ class PartitionedTrainer:
         lval = np.clip(lr32 * tree.leaf_value, np.float32(-100.0), np.float32(100.0))
         return segment_values(tree, self.num_rows, lval, device=self.device)
 
-    def train_chunk(self, T: int, lr: float):
-        """Run up to T boosting iterations.  Returns (one list of K
-        PTreeResults per iteration, original-order scores (K, N) f32
-        tensor, n_done); stops early at the first iteration in which no
-        tree found a split."""
-        if self.K > 1:
-            return self._train_chunk_multi(T, lr)
+    def _draws(self, it: int):
+        """(bagging select (N,) float32 or None, feature mask (F,) float32)
+        of global iteration ``it``."""
+        cfg, F = self.config, self.params.num_features
+        sel = None
+        if cfg.bagging_fraction < 1.0 and cfg.bagging_freq > 0:
+            sel = bagging_select(self._base_key, it, int(cfg.bagging_freq),
+                                 cfg.bagging_fraction, self.num_rows, self.device)
+        fmask = self.feature_mask
+        if cfg.feature_fraction < 1.0:
+            used = max(1, int(F * cfg.feature_fraction))
+            fmask = feature_mask(self._base_key, it, F, used).to(self.device)
+        return sel, fmask
+
+    def goss_constants(self):
+        """(top_cnt, rest probability, rest multiplier, warm-up iterations)
+        of GOSS (ptrainer.py:296-301) from the current config, or None
+        without GOSS.  Taken once per chunk, as the JAX package bakes them
+        into each chunk program it builds."""
+        cfg, n = self.config, self.num_rows
+        if cfg.boosting_type.lower() != "goss":
+            return None
+        top = max(1, int(n * float(cfg.top_rate)))
+        other = max(1, int(n * float(cfg.other_rate)))
+        return (top, float(other / max(n - top, 1)), float((n - top) / other),
+                int(1.0 / float(cfg.learning_rate)))
+
+    def _update_single(self, it: int, delta, sel, goss):
+        """The iteration's channel update and root histogram (K = 1).  A
+        sampled GOSS iteration (goss.hpp:126-198, ptrainer.py:369-404)
+        first settles the delta and refreshes the gradients, then keeps
+        the top_cnt rows by |g*h| and a sample of the rest, whose
+        gradients it up-weights."""
         lay, n, params = self.layout, self.num_rows, self.params
-        G, BH = params.cols, params.bins_hist
+        kw = dict(num_rows=n, num_features=params.cols, num_bins=params.bins_hist,
+                  bits=params.bits)
+        if goss is not None and it >= goss[3]:
+            self.p = update_channels(self.p, lay, self.objective, delta=delta, num_rows=n)
+            gscore = (f32_row(self.p, lay.G, n) * f32_row(self.p, lay.H, n)).abs()
+            selv, mulv = goss_select(gscore, *goss[:3],
+                                     threefry.fold_in(threefry.fold_in(self._base_key, 2), it))
+            return update_and_root_hist(self.p, lay, self.objective, sel=selv, mul=mulv, **kw)
+        if goss is not None:
+            # a GOSS warm-up iteration (GOSS forbids bagging, so sel is
+            # None): every row with weight 1, the JAX package's two passes
+            # with sel = mul = 1 in one.  The select is written, not
+            # inherited: a learning-rate schedule can lead back into
+            # warm-up after a sampled iteration left its selection in P.
+            sel = torch.ones((n,), dtype=torch.float32, device=self.device)
+        return update_and_root_hist(self.p, lay, self.objective, delta=delta, sel=sel, **kw)
+
+    def train_chunk(self, T: int, lr: float, iter0: int = 0):
+        """Run up to T boosting iterations, the first of which is global
+        iteration ``iter0`` (the random draws fold it in).  Returns (one
+        list of K PTreeResults per iteration, original-order scores (K, N)
+        f32 tensor, n_done); stops early at the first iteration in which
+        no tree found a split."""
+        if self.K > 1:
+            return self._train_chunk_multi(T, lr, iter0)
+        lay, n, params = self.layout, self.num_rows, self.params
         lr32 = np.float32(lr)
+        goss = self.goss_constants()
         delta = torch.zeros((n,), dtype=torch.float32, device=self.device)
         trees = []
-        for _ in range(int(T)):
+        for t in range(int(T)):
             t0 = time.perf_counter()
             delta = self._canonical_order(delta)
-            self.p, root_hist = update_and_root_hist(
-                self.p, lay, self.objective, delta=delta, num_rows=n, num_features=G,
-                num_bins=BH, bits=params.bits)
-            tree, self.p = grow_tree_partitioned(self.p, self.feature_mask, self.meta,
-                                                 self.hyper, params, root_hist, bmeta=self.bmeta)
+            sel, fmask = self._draws(iter0 + t)
+            self.p, root_hist = self._update_single(iter0 + t, delta, sel, goss)
+            tree, self.p = grow_tree_partitioned(self.p, fmask, self.meta, self.hyper, params,
+                                                 root_hist, bmeta=self.bmeta)
             if tree.num_splits == 0:
                 delta = torch.zeros_like(delta)
                 break
@@ -173,21 +245,22 @@ class PartitionedTrainer:
         self.p = score_add(self.p, lay, delta, 0, num_rows=n)
         return trees, self._scores(), len(trees)
 
-    def _train_chunk_multi(self, T: int, lr: float):
+    def _train_chunk_multi(self, T: int, lr: float, iter0: int):
         lay, n, params = self.layout, self.num_rows, self.params
         G, BH = params.cols, params.bins_hist
         lr32 = np.float32(lr)
         trees = []
-        for _ in range(int(T)):
+        for t in range(int(T)):
             t0 = time.perf_counter()
             self._canonical_order()
+            sel, fmask = self._draws(iter0 + t)
             self.p, hists = update_multi_and_hists(
-                self.p, lay, self.objective, num_rows=n, num_features=G, num_bins=BH,
+                self.p, lay, self.objective, sel=sel, num_rows=n, num_features=G, num_bins=BH,
                 bits=params.bits)
             iter_trees = []
             for k in range(self.K):
                 tree, self.p = grow_tree_partitioned(
-                    self.p, self.feature_mask, self.meta, self.hyper, params, hists[k],
+                    self.p, fmask, self.meta, self.hyper, params, hists[k],
                     rows=lay.class_rows(k), bmeta=self.bmeta)
                 if tree.num_splits > 0:
                     self.p = score_add(self.p, lay, self._tree_delta(tree, lr32), k,
@@ -208,6 +281,43 @@ class PartitionedTrainer:
         for k in range(self.K):
             scores[k, rowid] = f32_row(self.p, lay.SCORE + k, n)
         return scores
+
+
+def bagging_select(key, it: int, freq: int, fraction: float, n: int, device):
+    """(N,) float32 bagging select of global iteration ``it``
+    (ptrainer.py:351-357): Bernoulli(fraction) per row under the bagging
+    stream's key for ``it // freq``, so the mask holds for ``freq``
+    iterations."""
+    bkey = threefry.fold_in(threefry.fold_in(key, 0), it // freq)
+    return threefry.bernoulli(bkey, fraction, n, device).float()
+
+
+def feature_mask(key, it: int, num_features: int, used: int) -> torch.Tensor:
+    """(F,) float32 feature_fraction mask of global iteration ``it`` on
+    the CPU (ptrainer.py:358-362): the ``used`` features with the largest
+    uniforms, ties to the lower index as ``jax.lax.top_k`` breaks them."""
+    u = threefry.uniform(threefry.fold_in(threefry.fold_in(key, 1), it), num_features)
+    mask = torch.zeros(num_features, dtype=torch.float32)
+    mask[torch.sort(u, descending=True, stable=True).indices[:used]] = 1.0
+    return mask
+
+
+def goss_select(gscore: torch.Tensor, top_cnt: int, prob: float, mult: float, key):
+    """GOSS's (select, multiplier) from the (N,) |g*h| scores: the first
+    ``top_cnt`` rows of a stable descending sort (``jax.lax.top_k``'s
+    selection, lower index first on ties), and each other row whose
+    ``uniform(key)`` draw is below ``prob``, its gradients multiplied by
+    ``mult`` (ptrainer.py:385-397)."""
+    n = gscore.shape[0]
+    top_idx = torch.sort(gscore, descending=True, stable=True).indices[:top_cnt]
+    is_top = torch.zeros(n, dtype=torch.bool, device=gscore.device)
+    is_top[top_idx] = True
+    u = threefry.uniform(key, n, gscore.device)
+    sampled = ~is_top & (u < torch.tensor(np.float32(prob), device=gscore.device))
+    sel = (is_top | sampled).float()
+    one = torch.ones((), dtype=torch.float32, device=gscore.device)
+    mul = torch.where(sampled, torch.tensor(np.float32(mult), device=gscore.device), one)
+    return sel, mul
 
 
 def eligible(config, train_set, objective, num_tree_per_iteration: int):
@@ -232,7 +342,7 @@ def eligible(config, train_set, objective, num_tree_per_iteration: int):
             return f"objective {objective.name} (not row-local)"
         if num_tree_per_iteration > MAX_CLASSES:
             return f"more than {MAX_CLASSES} classes"
-        if getattr(config, "boosting", "gbdt") == "goss":
+        if config.boosting_type.lower() == "goss":
             return "GOSS with more than one tree per iteration"
     if config.tree_learner != "serial":
         return f"tree_learner={config.tree_learner}"

@@ -37,6 +37,34 @@ __device__ __forceinline__ float f32_at(const int32_t* P, long long ld, int row,
   return __int_as_float(P[(long long)row * ld + r]);
 }
 
+// The row-local objectives of the single-tree update kernels
+// (update_hist.cu, update_channels.cu), chosen at compile time.
+enum ObjKind { kBinary = 0, kL2 = 1 };
+
+template <int KIND>
+__device__ __forceinline__ void gradients(float score, float label, float weight, int use_weight,
+                                          float sigmoid, float w_pos, float w_neg, float* g,
+                                          float* h) {
+  if (KIND == kBinary) {
+    // objective/binary.py gradients_rowwise (binary_objective.hpp:95-99)
+    bool pos = label > 0.0f;
+    float sign = pos ? 1.0f : -1.0f;
+    float lw = pos ? w_pos : w_neg;
+    float response = (-sign * sigmoid) / (1.0f + exp_f32(sign * sigmoid * score));
+    float ar = fabsf(response);
+    *g = response * lw;
+    *h = ar * (sigmoid - ar) * lw;
+  } else {
+    // objective/regression.py RegressionL2Loss
+    *g = score - label;
+    *h = 1.0f;
+  }
+  if (use_weight) {
+    *g = *g * weight;
+    *h = *h * weight;
+  }
+}
+
 // Split predicate of one row (pkernels.py _run_segment): bin field, EFB
 // range remap, zero-bin -> default-bin-for-zero, then == (categorical)
 // or <= (numerical) against the threshold bin.

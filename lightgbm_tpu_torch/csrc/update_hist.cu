@@ -3,9 +3,11 @@
 // Replaces lightgbm_tpu/ops/pkernels.py update_and_root_hist
 // (_upd_hist_kernel): one pass over all N rows of the packed matrix that
 // settles score += delta, recomputes (grad, hess) from the objective,
-// optionally overwrites the select channel, writes those channels back
-// in place and accumulates the root (F, B, 3) histogram of
-// (grad*sel, hess*sel, sel) from the fresh values.
+// optionally scales them by a per-row multiplier (GOSS's up-weighting of
+// the sampled rest), optionally overwrites the select channel, writes
+// those channels back in place and accumulates the root (F, B, 3)
+// histogram of (grad*sel, hess*sel, sel) from the fresh values.  With
+// with_hist = 0 only the channel update runs.
 //
 // What bounds it on this card: the bytes are small (the W bin words plus
 // ~4 band channels read, 3 written: ~56 B/row, ~0.18 ms at 10.5M rows
@@ -27,38 +29,13 @@
 
 namespace lgbt {
 
-enum ObjKind { kBinary = 0, kL2 = 1 };
-
-template <int KIND>
-__device__ __forceinline__ void gradients(float score, float label, float weight, int use_weight,
-                                          float sigmoid, float w_pos, float w_neg, float* g,
-                                          float* h) {
-  if (KIND == kBinary) {
-    // objective/binary.py gradients_rowwise (binary_objective.hpp:95-99)
-    bool pos = label > 0.0f;
-    float sign = pos ? 1.0f : -1.0f;
-    float lw = pos ? w_pos : w_neg;
-    float response = (-sign * sigmoid) / (1.0f + exp_f32(sign * sigmoid * score));
-    float ar = fabsf(response);
-    *g = response * lw;
-    *h = ar * (sigmoid - ar) * lw;
-  } else {
-    // objective/regression.py RegressionL2Loss
-    *g = score - label;
-    *h = 1.0f;
-  }
-  if (use_weight) {
-    *g = *g * weight;
-    *h = *h * weight;
-  }
-}
-
 struct UpdArgs {
   int32_t* P;
   long long ld;
   int n;
   const float* delta;  // (n,) or null
   const float* sel;    // (n,) or null
+  const float* mul;    // (n,) or null: g, h *= mul before they are written
   int row_g, row_h, row_sel, row_score, row_label, row_weight, use_weight;
   float sigmoid, w_pos, w_neg;
   int nf, nb, bits, f_tile;
@@ -86,6 +63,11 @@ __global__ void __launch_bounds__(kThreads) upd_hist_kernel(UpdArgs a) {
       float label = f32_at(a.P, a.ld, a.row_label, r);
       float w = a.use_weight ? f32_at(a.P, a.ld, a.row_weight, r) : 1.0f;
       gradients<KIND>(score, label, w, a.use_weight, a.sigmoid, a.w_pos, a.w_neg, &g, &h);
+      if (a.mul) {
+        const float m = a.mul[r];
+        g = g * m;
+        h = h * m;
+      }
       s = a.sel ? a.sel[r] : f32_at(a.P, a.ld, a.row_sel, r);
       a.P[(long long)a.row_g * a.ld + r] = __float_as_int(g);
       a.P[(long long)a.row_h * a.ld + r] = __float_as_int(h);
@@ -130,13 +112,14 @@ cudaError_t launch_one(const UpdArgs& a, dim3 grid, size_t smem, cudaStream_t st
 }
 
 template <int KIND>
-cudaError_t run(UpdArgs a, cudaStream_t stream) {
+cudaError_t run(UpdArgs a, int with_hist, cudaStream_t stream) {
+  long long want = ((long long)a.n + kThreads - 1) / kThreads;
+  int gx = (int)std::min<long long>(std::max<long long>(want, 1), 4LL * num_sms());
+  if (!with_hist) return launch_one<KIND, true, false>(a, dim3(gx, 1), 0, stream);
   const int cell = a.nb * 3 * (int)sizeof(hacc);
   const int max_smem = max_smem_optin();
   a.f_tile = std::max(1, std::min(a.nf, max_smem / cell));
   const int tiles = (a.nf + a.f_tile - 1) / a.f_tile;
-  long long want = ((long long)a.n + kThreads - 1) / kThreads;
-  int gx = (int)std::min<long long>(std::max<long long>(want, 1), 4LL * num_sms());
   size_t smem = (size_t)a.f_tile * cell;
   if (tiles == 1) {
     return launch_one<KIND, true, true>(a, dim3(gx, 1), smem, stream);
@@ -149,6 +132,7 @@ cudaError_t run(UpdArgs a, cudaStream_t stream) {
 }  // namespace lgbt
 
 extern "C" int lgbt_update_root_hist(void* P, long long ld, int n, void* delta, void* sel,
+                                     void* mul, int with_hist,
                                      int row_g, int row_h, int row_sel, int row_score,
                                      int row_label, int row_weight, int use_weight, int obj_kind,
                                      float sigmoid, float w_pos, float w_neg, int nf, int nb,
@@ -159,6 +143,7 @@ extern "C" int lgbt_update_root_hist(void* P, long long ld, int n, void* delta, 
   a.n = n;
   a.delta = (const float*)delta;
   a.sel = (const float*)sel;
+  a.mul = (const float*)mul;
   a.row_g = row_g;
   a.row_h = row_h;
   a.row_sel = row_sel;
@@ -175,7 +160,7 @@ extern "C" int lgbt_update_root_hist(void* P, long long ld, int n, void* delta, 
   a.f_tile = nf;
   a.hist = (lgbt::hacc*)hist;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = (obj_kind == lgbt::kBinary) ? lgbt::run<lgbt::kBinary>(a, s)
-                                              : lgbt::run<lgbt::kL2>(a, s);
+  cudaError_t e = (obj_kind == lgbt::kBinary) ? lgbt::run<lgbt::kBinary>(a, with_hist, s)
+                                              : lgbt::run<lgbt::kL2>(a, with_hist, s);
   return (int)e;
 }

@@ -31,6 +31,10 @@ def stack_trees(trees: List) -> dict:
     m = max(max((tr.num_leaves - 1 for tr in trees), default=1), 1)
     L = max(max((tr.num_leaves for tr in trees), default=1), 1)
     split_feature = np.zeros((t, m), np.int32)
+    split_feature_inner = np.zeros((t, m), np.int32)
+    threshold_bin = np.zeros((t, m), np.int32)
+    zero_bin = np.zeros((t, m), np.int32)
+    dbz = np.zeros((t, m), np.int32)
     threshold_real = np.zeros((t, m), np.float64)
     default_value = np.zeros((t, m), np.float64)
     is_cat = np.zeros((t, m), np.bool_)
@@ -41,10 +45,15 @@ def stack_trees(trees: List) -> dict:
         n = tr.num_leaves
         if n <= 1:
             threshold_real[i, 0] = np.inf
+            threshold_bin[i, 0] = np.iinfo(np.int32).max
             leaf_value[i, 0] = tr.leaf_value[0]
             continue
         k = n - 1
         split_feature[i, :k] = tr.split_feature[:k]
+        split_feature_inner[i, :k] = tr.split_feature_inner[:k]
+        threshold_bin[i, :k] = tr.threshold_in_bin[:k]
+        zero_bin[i, :k] = tr.zero_bin[:k]
+        dbz[i, :k] = tr.default_bin_for_zero[:k]
         threshold_real[i, :k] = tr.threshold[:k]
         default_value[i, :k] = tr.default_value[:k]
         is_cat[i, :k] = tr.decision_type[:k] == 1
@@ -55,6 +64,10 @@ def stack_trees(trees: List) -> dict:
     dv_hi, dv_lo, dv_lo2 = split_hi_lo(default_value)
     return {
         "split_feature_real": split_feature,
+        "split_feature_inner": split_feature_inner,
+        "threshold_bin": threshold_bin,
+        "zero_bin": zero_bin,
+        "default_bin_for_zero": dbz,
         "threshold_real": thr_hi,
         "threshold_real_lo": thr_lo,
         "threshold_real_lo2": thr_lo2,

@@ -9,7 +9,7 @@ import torch
 from ..utils.log import Log
 from .base import ObjectiveFunction, exp_f32
 
-KIND_BINARY = 0  # csrc/update_hist.cu ObjKind
+KIND_BINARY = 0  # csrc/common.cuh ObjKind
 
 
 class BinaryLogloss(ObjectiveFunction):

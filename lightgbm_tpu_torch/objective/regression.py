@@ -7,7 +7,7 @@ import torch
 
 from .base import ObjectiveFunction
 
-KIND_L2 = 1  # csrc/update_hist.cu ObjKind
+KIND_L2 = 1  # csrc/common.cuh ObjKind
 
 
 class RegressionL2Loss(ObjectiveFunction):

@@ -36,8 +36,10 @@ _LIB = None
 # are c_void_p so ctypes never truncates them to 32 bits
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    "lgbt_update_root_hist": [_P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _F, _F, _F, _I, _I, _I, _P, _P],
+    "lgbt_update_root_hist": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _F, _F, _I, _I, _I, _P, _P],
+    "lgbt_update_channels": [_P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _P],
     "lgbt_partition_hist": [_P, _P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _P, _P],
     "lgbt_score_add": [_P, _L, _I, _P, _I, _P],

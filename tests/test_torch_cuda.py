@@ -11,7 +11,8 @@ Tolerances: left counts, partitioned matrices (the partition is stable in
 both versions), histogram counts and score_add bit-exact; histogram g/h
 sums within 1e-5 of the largest bin per channel (both versions sum in
 float64 and round once, in different orders); recomputed gradients
-within 1e-6 relative.
+within 1e-6 relative, and bit-exact for update_channels (both sides take
+the objectives' exp in float64 and round once).
 """
 
 import numpy as np
@@ -262,3 +263,63 @@ def test_train_cuda_matches_cpu(dev):
     assert counts["update_and_root_hist"] == 3 and counts["level_stream"] > 0
     bp = lgt.train(params, lgt.Dataset(X, label=y), 3, device="cpu")
     np.testing.assert_allclose(bc.predict(X), bp.predict(X), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+@pytest.mark.parametrize("with_sel", [False, True])
+def test_update_channels(dev, objective, with_sel):
+    P, lay, label, weight = _packed()
+    obj = _objective(objective, label, weight)
+    rng = np.random.default_rng(4)
+    delta = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    sel = torch.from_numpy((rng.random(N) < 0.5).astype(np.float32)) if with_sel else None
+    Pk, Pr = P.to(dev), P.to(dev)
+    before = pk.update_channels.launches
+    pk.update_channels(Pk, lay, obj, delta=delta, sel=sel, num_rows=N)
+    assert pk.update_channels.launches == before + 1
+    pk.update_channels_ref(Pr, lay, obj, delta=delta, sel=sel, num_rows=N)
+    torch.cuda.synchronize()
+    assert torch.equal(Pk, Pr)
+
+
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_update_and_root_hist_sel_mul(dev, objective):
+    P, lay, label, weight = _packed()
+    obj = _objective(objective, label, weight)
+    rng = np.random.default_rng(5)
+    sel = torch.from_numpy((rng.random(N) < 0.4).astype(np.float32))
+    mul = torch.from_numpy(np.where(rng.random(N) < 0.3, 7.0, 1.0).astype(np.float32))
+    Pk, Pr = P.to(dev), P.to(dev)
+    kw = dict(sel=sel, mul=mul, num_rows=N, num_features=F, num_bins=32)
+    _, hk = pk.update_and_root_hist(Pk, lay, obj, **kw)
+    _, hr = pk.update_and_root_hist_ref(Pr, lay, obj, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(Pk, Pr)
+    _assert_hist(hk, hr)
+    # with_hist=False: the same channel writes, no histogram
+    Pn = P.to(dev)
+    _, none = pk.update_and_root_hist(Pn, lay, obj, with_hist=False, **kw)
+    assert none is None and torch.equal(Pn, Pk)
+
+
+@pytest.mark.parametrize("params", [
+    dict(bagging_fraction=0.8, bagging_freq=2, feature_fraction=0.7),
+    dict(boosting="goss"),
+], ids=["bagging", "goss"])
+def test_train_sampled_cuda_matches_cpu(dev, params):
+    import lightgbm_tpu_torch as lgt
+
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((20000, 8)).astype(np.float32)
+    y = (rng.random(20000) < 1 / (1 + np.exp(-(X @ rng.standard_normal(8))))).astype(np.float32)
+    params = dict(params, objective="binary", num_leaves=31, learning_rate=0.5, max_bin=31,
+                  min_data_in_leaf=20, verbose=-1)
+    pk.reset_launch_counts()
+    bc = lgt.train(params, lgt.Dataset(X, label=y), 4)
+    if "boosting" in params:
+        assert pk.launch_counts()["update_channels"] == 2  # iterations 2 and 3 sample
+    bp = lgt.train(params, lgt.Dataset(X, label=y), 4, device="cpu")
+    np.testing.assert_allclose(bc.predict(X), bp.predict(X), rtol=1e-3, atol=1e-4)
+    sel = [b.boosting.ptrainer._draws(3)[0] for b in (bc, bp)]
+    if sel[0] is not None:
+        assert torch.equal(sel[0].cpu(), sel[1])

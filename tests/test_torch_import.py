@@ -1,6 +1,7 @@
-"""lightgbm_tpu_torch stands alone: it imports torch and numpy, never jax
-or the JAX package, builds its kernels lazily, and its entry points
-refuse to fall back to the CPU silently."""
+"""lightgbm_tpu_torch stands alone: it and the chip scripts at the repo
+root import torch and numpy, never jax or the JAX package; it builds its
+kernels lazily, and its entry points refuse to fall back to the CPU
+silently."""
 
 import os
 import re
@@ -32,8 +33,12 @@ def test_import_pulls_in_no_jax():
 IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|lightgbm_tpu)(?:[\s.]|$)", re.M)
 
 
+# the scripts at the repo root that run the port on the card
+CHIP_SCRIPTS = ["chip_ab.py", "chip_smoke.py"]
+
+
 @pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix()
-                                        for p in PKG.rglob("*.py")))
+                                        for p in PKG.rglob("*.py")) + CHIP_SCRIPTS)
 def test_no_file_imports_jax(path):
     src = (REPO / path).read_text()
     assert not IMPORT_RE.search(src), f"{path} imports jax or lightgbm_tpu"
@@ -42,7 +47,7 @@ def test_no_file_imports_jax(path):
 def test_kernel_sources_present():
     names = {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert {"update_hist.cu", "partition_hist.cu", "score_add.cu", "update_multi_hist.cu",
-            "segment_hist.cu"} <= names
+            "segment_hist.cu", "update_channels.cu"} <= names
 
 
 def test_train_without_device_raises_when_no_card(monkeypatch):
@@ -75,7 +80,18 @@ def test_wrappers_count_no_launch_on_cpu():
     pk.score_add(p, lay, np.ones(100, np.float32), num_rows=100)
     pk.hist_dyn(p, 0, 100, 5, 4)
     pk.hist_segments(p, np.asarray([[0, 60], [60, 40]]), 2, num_features=5, num_bins=4, smax=2)
+    pk.update_channels(p, lay, _L2(), delta=np.ones(100, np.float32), num_rows=100)
     assert pk.launch_counts() == {"update_and_root_hist": 0, "update_multi_and_hists": 0,
                                   "level_stream": 0, "split_stream": 0, "score_add": 0,
-                                  "hist_dyn": 0, "hist_segments": 0}
-    assert float(pk.f32_row(p, lay.SCORE, 100).sum()) == 100.0
+                                  "hist_dyn": 0, "hist_segments": 0, "update_channels": 0}
+    assert float(pk.f32_row(p, lay.SCORE, 100).sum()) == 200.0
+    assert float(pk.f32_row(p, lay.G, 100).sum()) == 200.0  # L2: g = score - label
+
+
+class _L2:
+    """Unweighted L2 gradients, enough for the wrapper on the CPU."""
+
+    weights = None
+
+    def gradients_rowwise(self, score, label, weight):
+        return score - label, torch.ones_like(score)

@@ -13,8 +13,10 @@ plain PyTorch versions).  Binary logloss and weighted L2, 7 and 31 leaves.
 
 EFB-bundled binary data is held to the same split structure and
 predictions.  The features the port does not take yet raise
-NotImplementedError, naming themselves.  (Multiclass has its own file,
-tests/test_torch_multiclass.py.)
+NotImplementedError, naming themselves; bagging with GOSS raises the
+reference's own error.  (Multiclass has its own file,
+tests/test_torch_multiclass.py; sampling and validation have
+tests/test_torch_sampling.py and tests/test_torch_valid.py.)
 """
 
 import os
@@ -27,6 +29,7 @@ import jax._src.core
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch import LightGBMError
 from lightgbm_tpu_torch.convert import booster_from_model_string
 
 ROUNDS = 4
@@ -149,18 +152,23 @@ def test_jax_model_loads_into_port(trained, case):
 
 
 DECLINED = [
-    ("bagging", dict(bagging_fraction=0.5, bagging_freq=1), {}),
-    ("feature_fraction<1", dict(feature_fraction=0.5), {}),
-    ("boosting=goss", dict(boosting="goss"), {}),
+    ("boosting=dart", dict(boosting="dart"), {}),
+    ("GOSS with more than one tree per iteration",
+     dict(boosting="goss", objective="multiclass", num_class=3), {}),
+    ("Cannot use bagging in GOSS", dict(boosting="goss", bagging_fraction=0.5, bagging_freq=1),
+     {}),
     ("more than 16 classes", dict(objective="multiclass", num_class=17), {}),
     ("quantized training", dict(use_quantized_grad=True), {}),
     ("linear trees", dict(linear_tree=True), {}),
     ("monotone constraints", dict(monotone_constraints=[1, 0, 0, 0]), {}),
     ("tree_learner=data", dict(tree_learner="data"), {}),
     ("out-of-core training", dict(out_of_core=True), {}),
-    ("valid_sets", {}, dict(valid_sets="self")),
-    ("callbacks", {}, dict(callbacks=[])),
+    ("fobj", {}, dict(fobj=lambda preds, data: (preds, preds))),
+    ("feval", {}, dict(feval=lambda preds, data: ("m", 0.0, False))),
+    ("init_model", {}, dict(init_model="model.txt")),
 ]
+# the reference's own error (goss.py:38); the rest are not ported yet
+RAISES = {"Cannot use bagging in GOSS": LightGBMError}
 
 
 # the id "multiclass" is kept from the first slice, which declined every
@@ -172,11 +180,11 @@ DECLINED_IDS = [{"more than 16 classes": "multiclass"}.get(d[0], d[0]) for d in 
 def test_declined_feature_raises(what, params, kwargs):
     rng = np.random.default_rng(3)
     X = rng.standard_normal((500, 4))
-    y = (rng.random(500) < 0.5).astype(np.float32)
+    y = rng.integers(0, 3, 500).astype(np.float32)
+    if params.get("objective") != "multiclass":
+        y = (y > 0).astype(np.float32)
     ds = lgt.Dataset(X, label=y)
-    if kwargs.get("valid_sets") == "self":
-        kwargs = dict(valid_sets=[ds])
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(RAISES.get(what, NotImplementedError), match=what):
         lgt.train(dict(dict(objective="binary", verbose=-1), **params), ds, 2, device="cpu",
                   **kwargs)
 
