@@ -15,13 +15,19 @@ result line):
      (update_channels, and update_and_root_hist with a select and a GOSS
      multiplier, among them).  Multiclass path: the covertype cell's
      bundled training matrix (12 EFB columns, 63 bins, K=7 score
-     channels, 40 channels);
+     channels, 40 channels).  Mask grower: hist_segment and
+     hist_segment_q at --rows x 28, 64 bins, over a sub-range with
+     unselected rows, and at 1M rows of 512 bins (16-bit words); the
+     quantized levels of the card against the CPU's;
   4. small end to end: --small-rows x 28 (binary) and 100,000
-     Covertype-shaped rows (K=7, 3 iterations) trained on the card and on
+     Covertype-shaped rows (K=7, 2 iterations) trained on the card and on
      the CPU (plain versions) — splits, predictions and AUC / multi
      logloss must agree; then --small-rows x 28 at learning_rate=0.5 for
      6 iterations with bagging and feature_fraction, and with GOSS, on
-     both, with the bagging masks compared;
+     both, with the bagging masks compared; then on the mask grower (31
+     leaves) quantized binary and quantized L2 on --small-rows x 28 (5
+     iterations) and multiclass GOSS on the 100,000 Covertype-shaped rows
+     (4 iterations at learning_rate 0.5: 2 warm-up, 2 sampled);
   5. "higgs-10.5M" at full width: Higgs-shaped binary data (--rows plus a
      500k held-out set), max_bin=63, num_leaves=255, learning_rate=0.1,
      min_data_in_leaf=1, min_sum_hessian_in_leaf=100, --iters
@@ -41,6 +47,11 @@ result line):
      other_rate=0.1, 20 iterations (10 warm-up, 10 sampled at
      learning_rate 0.1); prints s/iter of each kind, the held-out AUC
      and update_channels' launches;
+  5d. "higgs-10.5M-quantized": the Higgs cell's binned data and
+     parameters with use_quantized_grad (5 bits) on the mask grower, 20
+     iterations; prints s/iter, the held-out AUC (within 0.005 of the
+     Higgs cell's), peak memory, hist_segment_q's launches, a 3-iteration
+     profiler window and the host syncs of one more iteration;
   6. "covertype-581k" at full width: Covertype-shaped data (581,012 rows,
      54 columns: 10 integer numeric, a 4-column and a 40-column one-hot,
      7 classes at Covertype's counts), the first 464,809 train and the
@@ -51,6 +62,10 @@ result line):
      with root_hist=None (hist_segments with the level grower on,
      hist_dyn off) against the tree of update_multi_and_hists's class-0
      histogram.
+  6b. "covertype-581k-goss": the covertype cell's data and parameters with
+     boosting=goss (top_rate 0.2, other_rate 0.1) on the mask grower, 20
+     iterations (10 warm-up, 10 sampled); prints s/iter of each kind,
+     held-out multi_logloss and accuracy, hist_segment's launches.
 Every driven path starts with the launch counts at 0 and reads them at
 its end.  The line before last is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.
@@ -81,6 +96,8 @@ REPLACES = {
     "hist_dyn": "lightgbm_tpu/ops/pkernels.py:349",
     "hist_segments": "lightgbm_tpu/ops/histogram_pallas.py:360",
     "update_channels": "lightgbm_tpu/ops/pkernels.py:1565",
+    "hist_segment": "lightgbm_tpu/ops/histogram_pallas.py:191",
+    "hist_segment_q": "lightgbm_tpu/ops/histogram_pallas.py:479",
 }
 SOURCES = {
     "update_and_root_hist": "lightgbm_tpu_torch/csrc/update_hist.cu",
@@ -91,14 +108,24 @@ SOURCES = {
     "hist_dyn": "lightgbm_tpu_torch/csrc/segment_hist.cu",
     "hist_segments": "lightgbm_tpu_torch/csrc/segment_hist.cu",
     "update_channels": "lightgbm_tpu_torch/csrc/update_channels.cu",
+    "hist_segment": "lightgbm_tpu_torch/csrc/segment_hist.cu",
+    "hist_segment_q": "lightgbm_tpu_torch/csrc/segment_hist.cu",
 }
 KERNEL_NAMES = ("update_and_root_hist", "update_multi_and_hists", "level_stream",
-                "split_stream", "score_add", "hist_dyn", "hist_segments", "update_channels")
+                "split_stream", "score_add", "hist_dyn", "hist_segments", "update_channels",
+                "hist_segment", "hist_segment_q")
 # simple_example.py's sampling (LightGBM v2.0 examples/python-guide)
 BAG_PARAMS = dict(TRAIN_PARAMS, feature_fraction=0.9, bagging_fraction=0.8, bagging_freq=5)
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2, other_rate=0.1)
 SAMPLED_ITERS = 20
 SMALL_SAMPLED_ITERS = 6  # at learning_rate 0.5 GOSS samples from iteration 2 on
+# the mask grower's cells: LightGBM >= 4.0's use_quantized_grad at the JAX
+# default of 5 bits, and GOSS on the multiclass cell
+QUANT_PARAMS = dict(TRAIN_PARAMS, use_quantized_grad=True)
+COV_GOSS_PARAMS = dict(COV_PARAMS, boosting="goss", top_rate=0.2, other_rate=0.1)
+MASK_ITERS = 20
+SMALL_MASK_ITERS, SMALL_MASK_LEAVES = 5, 31  # the mask grower's card-vs-CPU phases
+SMALL_GOSS_ITERS = 4  # at learning_rate 0.5: 2 warm-up and 2 sampled iterations
 # Covertype (UCI, Blackard & Dean 1998): rows per class, and the ranges of
 # the 10 integer columns (Elevation, Aspect, Slope, the hydrology
 # distances, roadways, the three hillshades, fire points)
@@ -107,7 +134,7 @@ COV_NUMERIC = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7117
                (0, 254), (0, 254), (0, 254), (0, 7173))
 COV_TRAIN_ROWS = 464_809  # the first 80 %; the last 116,203 are held out
 COV_ITERS = 20
-COV_SMALL_ROWS, COV_SMALL_ITERS = 100_000, 3  # the multiclass card-vs-CPU phase
+COV_SMALL_ROWS, COV_SMALL_ITERS = 100_000, 2  # the multiclass card-vs-CPU phase
 _TASK_SEED = 20260730  # bench.py: the task's informative weights never vary
 _N_INFORM = 8
 
@@ -597,6 +624,89 @@ def phase_kernels_multi(bds, dev, seed=5):
     return finish_bounds(out)
 
 
+def phase_kernels_mask(rows, dev, seed=17):
+    """The mask grower's kernels on the column-packed layout
+    (ops/histogram.py) against their plain versions: hist_segment (B8)
+    and hist_segment_q (B9) at rows x 28 features, 64 bins (8-bit words),
+    over a sub-range with 40 % of the rows unselected, then at a 16-bit
+    layout (uint16 bins, 512 bins, 1M rows); and the quantized levels of
+    the same gradients on the card against the CPU's.  Returns {name:
+    {...measurements}}."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import qhist
+
+    F, B = 28, 64
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(rows, dtype=np.float32)
+    h = np.abs(rng.standard_normal(rows, dtype=np.float32))
+    sel = (rng.random(rows) < 0.6).astype(np.float32)
+    # quantize_rows on the card and on the CPU: the same levels
+    sc = qhist.scales_from_max(np.abs(g).max(), h.max())
+    gd, hd = torch.from_numpy(g).to(dev), torch.from_numpy(h).to(dev)
+    qg, qh = qhist.quantize_rows(gd, hd, sc, 12345)
+    cg, ch = qhist.quantize_rows(torch.from_numpy(g), torch.from_numpy(h), sc, 12345)
+    same = torch.equal(qg.cpu(), cg) and torch.equal(qh.cpu(), ch)
+    log(f"quantize_rows at {rows} rows: card levels bit-equal to the CPU's: {same}")
+    assert same, "the card's quantized levels differ from the CPU's"
+    bins = torch.from_numpy(rng.integers(0, B, size=(rows, F), dtype=np.uint8)).to(dev)
+    seld = torch.from_numpy(sel).to(dev)
+    lo, hi = 1000, rows - 777
+    nsel = int(sel[lo:hi].sum())
+    W = th.num_words(F, 4)
+    out = {}
+    for name, P, kern, ref in (
+            ("hist_segment", th.pack_columns(bins, gd, hd, seld), th.hist_segment,
+             th.hist_segment_ref),
+            ("hist_segment_q", th.pack_columns_q(bins, qg, qh, seld), th.hist_segment_q,
+             th.hist_segment_q_ref)):
+        hk = kern(P, lo, hi, F, B)
+        hr = ref(P, lo, hi, F, B)
+        sync(dev)
+        if name == "hist_segment_q":
+            assert torch.equal(hk, hr), "hist_segment_q differs from plain"
+            habs = 0.0
+            log("kernel hist_segment_q: bit-identical to the plain version")
+        else:
+            habs = check_hist(name, hk, hr)
+        ms = time_cuda(lambda: kern(P, lo, hi, F, B), 10)
+        plain = time_cuda(lambda: ref(P, lo, hi, F, B), 3)
+        log(f"  {name} at {rows} x {F}, [{lo}, {hi}), {nsel} rows selected: {ms:.4f} ms, "
+            f"plain {plain:.2f} ms")
+        # every row's select word; W words, g and h of each selected row;
+        # 3 adds per feature of each selected row
+        out[name] = dict(max_abs_err=habs, ms=ms, plain_ms=plain,
+                         bytes=(hi - lo) * 4 + nsel * 4 * (W + 2) + F * B * 3 * 4,
+                         ops=nsel * 3 * F, library_ms=None)
+        del P
+    del bins
+    # the 16-bit layout of more than 256 bins
+    n16, B16 = min(rows, 1_000_000), 512
+    bins = torch.from_numpy(rng.integers(0, B16, size=(n16, F)).astype(np.int32)).to(dev)
+    for name, P, kern, ref in (
+            ("hist_segment", th.pack_columns(bins, gd[:n16], hd[:n16], seld[:n16], per=2,
+                                             bits=16), th.hist_segment, th.hist_segment_ref),
+            ("hist_segment_q", th.pack_columns_q(bins, qg[:n16], qh[:n16], seld[:n16], per=2,
+                                                 bits=16), th.hist_segment_q,
+             th.hist_segment_q_ref)):
+        hk = kern(P, 3, n16, F, B16, 2, 16)
+        hr = ref(P, 3, n16, F, B16, 2, 16)
+        sync(dev)
+        if name == "hist_segment_q":
+            assert torch.equal(hk, hr), "hist_segment_q 16-bit differs from plain"
+        else:
+            check_hist(f"{name} 16-bit", hk, hr)
+        ms = time_cuda(lambda: kern(P, 3, n16, F, B16, 2, 16), 10)
+        log(f"kernel {name} 16-bit ({n16} x {F}, {B16} bins): matches the plain version; "
+            f"{ms:.4f} ms")
+        del P
+    del bins, gd, hd, qg, qh, seld
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return finish_bounds(out)
+
+
 def model_splits(text):
     """Per tree: (split_feature, threshold, split_gain) lists."""
     trees, cur = [], {}
@@ -669,6 +779,42 @@ def phase_small_sampled(rows, dev):
             log(f"small bagging: bagging and feature masks of all {iters} iterations equal on "
                 f"the card and the CPU: {same}")
             assert same, "the card's bagging masks differ from the CPU's"
+
+
+def phase_small_mask(rows, Xc, yc, dev):
+    """The mask grower on the card and on the CPU (plain versions):
+    quantized binary and quantized L2 on rows x 28, and multiclass GOSS on
+    100,000 Covertype-shaped rows (K=7, learning_rate 0.5: 2 warm-up and 2
+    sampled iterations); 31 leaves.  The same trees (or a first differing
+    split that is a near-tie) and predictions within 1e-3."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    X, y = make_higgs_shaped(rows, seed=3)
+    y_l2 = (X[:, 0] - 0.5 * X[:, 1] + 0.3 * X[:, 2] * X[:, 3]).astype(np.float32)
+    small = dict(num_leaves=SMALL_MASK_LEAVES)
+    cases = (("quantized binary", dict(QUANT_PARAMS, **small), X, y, SMALL_MASK_ITERS,
+              "hist_segment_q"),
+             ("quantized l2", dict(QUANT_PARAMS, objective="regression", **small), X, y_l2,
+              SMALL_MASK_ITERS, "hist_segment_q"),
+             ("multiclass goss", dict(COV_GOSS_PARAMS, learning_rate=0.5, **small),
+              Xc[:COV_SMALL_ROWS], yc[:COV_SMALL_ROWS], SMALL_GOSS_ITERS, "hist_segment"))
+    for name, params, Xs, ys, iters, kernel in cases:
+        out = {}
+        for where, d in (("cuda", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            pk.reset_launch_counts()
+            bst = lgt.train(params, lgt.Dataset(Xs, label=ys), iters, device=d)
+            assert bst.boosting.ptrainer is None, f"{name} did not take the mask grower"
+            out[where] = (bst.model_to_string(), bst.predict(Xs[:50_000]))
+            log(f"small {name} {where}: {len(ys)} rows, {iters} iterations, "
+                f"{time.perf_counter() - t0:.1f} s; {kernel} launches "
+                f"{pk.launch_counts()[kernel]}")
+        ndiff = compare_models(f"small {name} cuda vs cpu", out["cpu"][0], out["cuda"][0])
+        dpred = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+        log(f"small {name} cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
+            f"(tol 1e-3); model text byte-identical {out['cuda'][0] == out['cpu'][0]}")
+        assert dpred <= 1e-3
 
 
 def near_tie(ga, gb):
@@ -833,11 +979,13 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
     import lightgbm_tpu_torch as lgt
 
     bst = lgt.Booster(params, ds, device=dev)
-    bst.boosting.train_iters_partitioned(1)
+    bst.boosting.train_iters(1)
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: host-side events would triple what the
+    # tables below have to sort, and the wall clock gives the host's time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        bst.boosting.train_iters_partitioned(n_iter)
+        bst.boosting.train_iters(n_iter)
         sync(dev)
         wall_us = (time.perf_counter() - t) * 1e6
 
@@ -856,7 +1004,8 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
         return
     log(f"profile: {n_iter} iterations, wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}% "
-        f"(the profiler's tables took {time.perf_counter() - t:.1f} s)")
+        f"(the profiler's tables took {time.perf_counter() - t:.1f} s); "
+        f"{sum(e.count for e in evs) / n_iter:.0f} device operations per iteration")
     for e in evs[:top]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
     del bst
@@ -1011,13 +1160,136 @@ def phase_sampled(ds, Xv, yv, dev, higgs_its):
     return [c_bag, c_goss], dict(bagging=bag, goss=goss)
 
 
+def phase_quantized(ds, Xv, yv, dev, higgs_auc):
+    """"higgs-10.5M-quantized": the Higgs cell's binned data and parameters
+    with use_quantized_grad (5 bits) on the mask grower.  Returns the
+    path's launch counts and its numbers."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+
+    def run():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        bst = lgt.train(QUANT_PARAMS, ds, MASK_ITERS, device=dev)
+        sync(dev)
+        return bst, time.perf_counter() - t
+
+    (bst, wall), counts = driven("higgs-10.5M-quantized", run, ("hist_segment_q",))
+    assert bst.boosting.ptrainer is None
+    its = bst.boosting.iter_seconds
+    s_iter = float(np.median(its[1:]))
+    pred = bst.predict(Xv)
+    a = auc(yv, pred)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    splits = sum(t.num_leaves - 1 for t in bst.boosting.models)
+    log(f"higgs-10.5M-quantized: {MASK_ITERS} iterations in {wall:.2f} s; s/iter {s_iter:.4f} "
+        f"(median after the first; first {its[0]:.3f} s); {splits} splits; held-out AUC "
+        f"{a:.6f} (higgs-10.5M {higgs_auc:.6f}); peak device memory {peak:.2f} GiB; "
+        f"hist_segment_q launches {counts['hist_segment_q']}")
+    assert np.all(np.isfinite(pred)) and 0.6 < a <= 1.0, "held-out AUC out of range"
+    assert abs(a - higgs_auc) <= 0.005, "quantized AUC strays from the float32 cell's"
+    if dev.type == "cuda":
+        # the host syncs of one more iteration: PyTorch warns at each
+        # implicit one (a read-back, a copy that waits for the stream)
+        import warnings
+
+        n0 = len(bst.boosting.models)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                bst.boosting.train_iters(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        nsync = sum("synchroniz" in str(w.message) for w in caught)
+        log(f"higgs-10.5M-quantized: one more iteration ({bst.boosting.models[-1].num_leaves - 1}"
+            f" splits, {len(bst.boosting.models) - n0} tree) made {nsync} implicit host syncs")
+        split_search_times(bst.boosting)
+    del bst
+    if dev.type == "cuda":
+        profile_iters(ds, dev, QUANT_PARAMS)
+    return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak)
+
+
+def split_search_times(gbdt, reps=50):
+    """Host-clock milliseconds of one split's search of two children,
+    read back as the grower reads it: the captured CUDA graph against the
+    same PyTorch operations run eagerly, on the last tree's inputs."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import grow
+
+    search = next(iter(gbdt.searches.values()))
+    hyper, params, quantized = search.args
+    hist, sums, fmask, qs = (t.clone() for t in (search.hist, search.sums, search.fmask,
+                                                    search.qs))
+
+    def eager():
+        return grow._best_rows(hist, sums, search.meta, hyper, fmask, params, quantized,
+                               qs).cpu()
+
+    def graph():
+        return search(hist[0], hist[1], sums, fmask, qs).cpu()
+
+    assert torch.equal(eager(), graph()), "the captured split search differs from eager"
+    out = {}
+    for name, fn in (("eager", eager), ("graph", graph), ("graph", graph), ("eager", eager)):
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.setdefault(name, []).append((time.perf_counter() - t) / reps * 1e3)
+    log(f"split search of two children (host clock, read back; eager, graph, graph, eager): "
+        f"eager {out['eager']} ms, CUDA graph {out['graph']} ms; results equal")
+
+
+def phase_covertype_goss(ds, Xv, yv, dev):
+    """"covertype-581k-goss": the covertype cell's data and parameters with
+    boosting=goss at LightGBM's default rates, on the mask grower (K=7).
+    Returns the path's launch counts and its numbers."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+
+    def run():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        bst = lgt.train(COV_GOSS_PARAMS, ds, MASK_ITERS, device=dev)
+        sync(dev)
+        return bst, time.perf_counter() - t
+
+    (bst, wall), counts = driven("covertype-581k-goss", run, ("hist_segment",))
+    assert bst.boosting.ptrainer is None and type(bst.boosting).__name__ == "GOSS"
+    its = bst.boosting.iter_seconds
+    warm = int(1.0 / COV_GOSS_PARAMS["learning_rate"])
+    s_warm, s_samp = float(np.median(its[1:warm])), float(np.median(its[warm:]))
+    prob = bst.predict(Xv)
+    ll = multi_logloss(yv, prob)
+    acc = float(np.mean(np.argmax(prob, axis=1) == yv))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    log(f"covertype-581k-goss: {MASK_ITERS} iterations ({bst.num_trees} trees) in {wall:.2f} "
+        f"s; s/iter warm-up {s_warm:.4f} (median of iterations 1-{warm - 1}), sampled "
+        f"{s_samp:.4f} (median of iterations {warm}-{len(its) - 1}); held-out multi_logloss "
+        f"{ll:.6f} (prior entropy {prior_entropy():.6f}), accuracy {acc:.6f}; peak device "
+        f"memory {peak:.2f} GiB; hist_segment launches {counts['hist_segment']}")
+    assert prob.shape == (len(yv), 7) and np.all(np.isfinite(prob))
+    assert ll < prior_entropy(), "held-out multi_logloss is not below the class prior's"
+    del bst
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return counts, dict(s_warm=s_warm, s_sampled=s_samp, logloss=ll, accuracy=acc,
+                        peak_gib=peak)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--small-rows", type=int, default=200_000)
-    ap.add_argument("--small-iters", type=int, default=5)
-    ap.add_argument("--repeat-iters", type=int, default=10)
+    ap.add_argument("--small-iters", type=int, default=3)
+    ap.add_argument("--repeat-iters", type=int, default=5)
     args = ap.parse_args(argv)
 
     import torch
@@ -1053,27 +1325,36 @@ def main(argv=None):
     t0 = time.perf_counter()
     kern = phase_kernels(args.rows, dev)
     kern.update(phase_kernels_multi(cov.construct(COV_PARAMS), dev))
+    kern.update(phase_kernels_mask(args.rows, dev))
     log(f"kernels checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_small(args.small_rows, args.small_iters, dev)
     phase_small_multi(Xc, yc, COV_SMALL_ROWS, COV_SMALL_ITERS, dev)
     phase_small_sampled(args.small_rows, dev)
+    phase_small_mask(args.small_rows, Xc, yc, dev)
     log(f"small end to end in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
     log(f"higgs-10.5M in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sampled_counts, _ = phase_sampled(*higgs, dev, full["iter_seconds"])
-    del higgs
     log(f"higgs-10.5M-bagging and higgs-10.5M-goss in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    q_counts, _ = phase_quantized(*higgs, dev, full["auc"])
+    del higgs
+    log(f"higgs-10.5M-quantized in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cov_counts, cov_full = phase_covertype(cov, Xc[nc:], yc[nc:], COV_ITERS, dev)
     log(f"covertype-581k in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    goss_counts, _ = phase_covertype_goss(cov, Xc[nc:], yc[nc:], dev)
+    log(f"covertype-581k-goss in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name in KERNEL_NAMES:
         k = kern[name]
-        launches = sum(c[name] for c in [counts] + cov_counts + sampled_counts)
+        launches = sum(c[name] for c in [counts, q_counts, goss_counts] + cov_counts
+                       + sampled_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,

@@ -144,7 +144,7 @@ class Booster:
 
     def update(self) -> bool:
         """One boosting iteration; True when training should stop."""
-        return self.boosting.train_iters_partitioned(1)
+        return self.boosting.train_iters(1)
 
     def current_iteration(self) -> int:
         return self.boosting.current_iteration()

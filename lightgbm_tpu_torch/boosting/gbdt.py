@@ -1,13 +1,26 @@
 """GBDT boosting loop — PyTorch counterpart of lightgbm_tpu/boosting/gbdt.py,
-serial core only: init and routing onto the partitioned trainer,
-boost-from-average, ``train_iters_partitioned``, validation sets and their
-scores, metrics and the early-stopping bookkeeping, model text and predict
-(src/boosting/gbdt.cpp TrainOneIter :381-495, AddValidDataset :220-250,
-OutputMetric :516-622, model save/load :854-1008).
+serial core only: init and routing onto one of the two tree learners,
+boost-from-average, the iterations of each learner, validation sets and
+their scores, metrics and the early-stopping bookkeeping, model text and
+predict (src/boosting/gbdt.cpp TrainOneIter :381-495, AddValidDataset
+:220-250, OutputMetric :516-622, model save/load :854-1008).
+
+The learners, as the JAX package routes them (gbdt.py:384-392):
+
+- the partitioned trainer (boosting/ptrainer.py), for every
+  configuration its ``eligible`` takes: ``train_iters_partitioned``;
+- the mask grower (ops/grow.py) for the rest — quantized training, more
+  than 16 classes, multiclass GOSS, more than 256 bins, more than 512
+  columns, or ``LIGHTGBM_TPU_PGROW=0`` — one iteration at a time
+  (``_train_one_iter_mask``, gbdt.py:582-741): the objective's gradients
+  of the (K, N) scores, GOSS's or bagging's row select, per class the
+  feature_fraction mask, the optional quantization and one tree, whose
+  leaf values then go onto the scores through the grower's ``leaf_id``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
@@ -15,18 +28,21 @@ import torch
 
 from ..model.ensemble import stack_trees
 from ..model.tree import Tree
+from ..ops.grow import GrowParams, grow_tree
+from ..ops.histogram import pack_bin_words
 from ..ops.predict import TreeArrays, predict_binned, predict_raw
+from ..ops.qhist import local_absmax, max_rows_for, quantize_rows, scales_from_max
 from ..ops.split import FeatureMeta, SplitHyper
 from ..utils.log import Log
+from ..utils.random import Random
 
 
 def unsupported_feature(config):
-    """The first configured feature this slice of the port does not run
-    yet, or None."""
+    """The first configured feature neither of the port's tree learners
+    runs yet, or None.  (What only the partitioned trainer declines goes
+    to the mask grower: ptrainer.eligible.)"""
     if config.boosting_type.lower() not in ("gbdt", "goss"):
         return f"boosting={config.boosting_type}"
-    if config.quantized_training:
-        return "quantized training"
     if config.linear_tree:
         return "linear trees"
     if config._monotone_active():
@@ -67,13 +83,14 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def init(self, config, train_set, objective, training_metrics=()):
-        """GBDT::Init + ResetTrainingData, routed onto the partitioned
-        trainer (the port's only tree learner)."""
+        """GBDT::Init + ResetTrainingData: the partitioned trainer where
+        its ``eligible`` takes the configuration, else the mask grower."""
         from .ptrainer import PartitionedTrainer, eligible
 
         num_tree = objective.num_tree_per_iteration if objective is not None else max(
             config.num_class, 1)
-        why = unsupported_feature(config) or eligible(config, train_set, objective, num_tree)
+        why = unsupported_feature(config) or (
+            "a custom objective (objective=none)" if objective is None else None)
         if why:
             raise NotImplementedError(f"lightgbm_tpu_torch does not support {why} yet")
         self.config = config
@@ -91,15 +108,57 @@ class GBDT:
         self.has_init_score = train_set.metadata.init_score is not None
         self.meta = FeatureMeta.from_dataset(train_set, device=self.device)
         self.hyper = SplitHyper.from_config(config)
-        self.ptrainer = PartitionedTrainer(train_set, config, objective, self.meta, self.hyper,
-                                           self.device)
-        if self.has_init_score:
-            # (K, N) or the flat class-major K*N layout of the reference
-            init = np.asarray(train_set.metadata.init_score, np.float32).reshape(num_tree, -1)
-            for k in range(num_tree):
+        if config.quantized_training and self.num_data > max_rows_for(config.quantized_grad_bits):
+            # int32 accumulators sum up to n * QMAX (gbdt.py:195-228)
+            Log.warning("quantized_training disabled: %d rows exceed the int32 "
+                        "histogram-accumulator headroom (%d rows at quantized_grad_bits=%d); "
+                        "training on f32 gradients", self.num_data,
+                        max_rows_for(config.quantized_grad_bits), config.quantized_grad_bits)
+            config.quantized_training = False
+        declined = eligible(config, train_set, objective, num_tree)
+        init = (np.asarray(train_set.metadata.init_score, np.float32).reshape(num_tree, -1)
+                if self.has_init_score else None)  # (K, N) or the class-major K*N layout
+        if declined is None:
+            self.ptrainer = PartitionedTrainer(train_set, config, objective, self.meta,
+                                               self.hyper, self.device)
+            for k in range(num_tree if init is not None else 0):
                 self.ptrainer.add_score(init[k], k)
-        self.scores = self.ptrainer._scores()
-        Log.info("Using partitioned tree learner on %s", self.device)
+            self.scores = self.ptrainer._scores()
+            Log.info("Using partitioned tree learner on %s", self.device)
+        else:
+            self._init_mask_grower(init)
+            Log.info("Using the mask-based tree learner on %s (the partitioned one declines "
+                     "%s)", self.device, declined)
+
+    def _init_mask_grower(self, init) -> None:
+        """The mask grower's device state: the packed bin words, labels,
+        weights and (K, N) scores, and the sampling state of gbdt.py
+        init (bagging RandomState, feature_fraction LCG)."""
+        ts, cfg, dev = self.train_set, self.config, self.device
+        binned = np.asarray(ts.binned)
+        bits = 8 if binned.dtype == np.uint8 else 16
+        bins = torch.from_numpy(binned if bits == 8 else binned.astype(np.int32)).to(dev)
+        self.words = pack_bin_words(bins, 32 // bits, bits)
+        del bins
+        self.grow_params = GrowParams(
+            num_leaves=int(cfg.num_leaves), num_bins=int(ts.max_num_bin),
+            max_depth=int(cfg.max_depth), use_missing=bool(cfg.use_missing),
+            has_categorical=bool(self.meta.is_categorical.any()), bits=bits)
+        md = ts.metadata
+        self.label_t = torch.from_numpy(np.asarray(md.label, np.float32)).to(dev)
+        self.weight_t = (None if md.weights is None else
+                         torch.from_numpy(np.asarray(md.weights, np.float32)).to(dev))
+        self.scores = torch.zeros((self.num_tree_per_iteration, self.num_data),
+                                  dtype=torch.float32, device=dev)
+        if init is not None:
+            self.scores += torch.from_numpy(init).to(dev)
+        self.select = torch.ones(self.num_data, dtype=torch.float32, device=dev)
+        self.bag_rng = np.random.RandomState(cfg.bagging_seed)
+        self.is_bagging = cfg.bagging_fraction < 1.0 and cfg.bagging_freq > 0
+        self.feature_rng = Random(cfg.feature_fraction_seed)
+        self.full_feature_mask = torch.ones(ts.num_features, dtype=torch.float32, device=dev)
+        self.iter_seconds = []  # wall time of each iteration (device-synced)
+        self.searches = {}  # the grower's captured split searches (CUDA graphs)
 
     def add_valid(self, valid_set, valid_metrics, name: str):
         """GBDT::AddValidDataset (gbdt.cpp:220-250): the set's (unbundled)
@@ -127,8 +186,9 @@ class GBDT:
         """Re-derive the config-dependent state after a parameter reset
         (callback.reset_parameter; the reference's ResetConfig)."""
         self.hyper = SplitHyper.from_config(self.config)
-        self.ptrainer.hyper = self.hyper
-        self.ptrainer.config = self.config
+        if self.ptrainer is not None:
+            self.ptrainer.hyper = self.hyper
+            self.ptrainer.config = self.config
         self.shrinkage_rate = self.config.learning_rate
 
     # ------------------------------------------------------------------
@@ -137,19 +197,34 @@ class GBDT:
         if (not self.models and self.config.boost_from_average and not self.has_init_score
                 and self.num_class <= 1 and self.objective.boost_from_average):
             init_score = float(np.mean(np.asarray(self.train_set.metadata.label)))
-            self.ptrainer.add_score(np.float32(init_score))
+            if self.ptrainer is not None:
+                self.ptrainer.add_score(np.float32(init_score))
+            else:
+                self.scores += float(np.float32(init_score))
             self.valid_scores = [vs + np.float32(init_score) for vs in self.valid_scores]
             self.models.append(Tree.constant(init_score))
             self.boost_from_average_ = True
             Log.info("Start training from score %f", init_score)
 
-    def train_iters_partitioned(self, num_iters: int, is_eval: bool = False) -> bool:
-        """Run ``num_iters`` boosting iterations.  Returns True when
-        training should stop: a tree found no split, or (with
-        ``is_eval``) the config's ``early_stopping_round`` fired.
+    def train_iters(self, num_iters: int, is_eval: bool = False) -> bool:
+        """Run ``num_iters`` boosting iterations on the configured learner.
+        Returns True when training should stop: no tree found a split, or
+        (with ``is_eval``) the config's ``early_stopping_round`` fired.
         ``engine.train`` evaluates through its callbacks instead;
         ``is_eval`` is the reference CLI's loop (application.cpp), which
         the port does not have yet."""
+        if self.ptrainer is not None:
+            return self.train_iters_partitioned(num_iters, is_eval)
+        for _ in range(max(num_iters, 0)):
+            if self._train_one_iter_mask():
+                return True
+            if is_eval and self.eval_and_check_early_stopping():
+                return True
+        return False
+
+    def train_iters_partitioned(self, num_iters: int, is_eval: bool = False) -> bool:
+        """``train_iters`` on the partitioned trainer: one chunk of
+        iterations."""
         if num_iters <= 0:
             return False
         self._boost_from_average()
@@ -169,10 +244,7 @@ class GBDT:
         # the validation scores advance once per chunk and class, by one
         # traversal of the chunk's stacked trees
         for k in range(K):
-            if chunk_trees[k]:
-                arrays = stack_trees(chunk_trees[k])
-                for vb, vs in zip(self.valid_bins, self.valid_scores):
-                    vs[k] += predict_binned(vb, arrays)
+            self._add_to_valid_scores(chunk_trees[k], k)
         self.iter += n_done
         if n_done < num_iters:
             Log.warning("Stopped training because there are no more leaves that meet "
@@ -181,6 +253,107 @@ class GBDT:
         if is_eval:
             return self.eval_and_check_early_stopping()
         return False
+
+    def _add_to_valid_scores(self, trees: List[Tree], k: int) -> None:
+        """Class k's validation scores += the trees' outputs (one
+        traversal of the stacked trees per set)."""
+        if trees and self.valid_bins:
+            arrays = stack_trees(trees)
+            for vb, vs in zip(self.valid_bins, self.valid_scores):
+                vs[k] += predict_binned(vb, arrays)
+
+    # ------------------------------------------------------------------
+    # the mask grower's iteration (gbdt.py:582-741, the serial branch)
+    def _train_one_iter_mask(self) -> bool:
+        """One boosting iteration on the mask grower; True when no class
+        found a split (its empty trees are then dropped)."""
+        t0 = time.perf_counter()
+        self._boost_from_average()
+        grad, hess = self._get_gradients()
+        grad, hess = self._adjust_gradients(grad, hess)
+        self._bagging(self.iter)
+        K, L = self.num_tree_per_iteration, self.grow_params.num_leaves
+        grown = False
+        for k in range(K):
+            feature_mask = self._feature_mask()
+            gk, hk, qscale = grad[k], hess[k], None
+            if self.config.quantized_training:
+                gk, hk, qscale = self._quantize_class(gk, hk, k)
+            gr = grow_tree(self.words, gk, hk, self.select, feature_mask, self.meta, self.hyper,
+                           self.grow_params, qscale=qscale, searches=self.searches)
+            if gr.num_splits > 0:
+                grown = True
+                tree = Tree.from_grow_result(gr, self.train_set)
+                tree.shrinkage(self.shrinkage_rate)
+                # scores[k] += leaf value of each row's leaf (ops/predict.py
+                # add_leaf_outputs: the grower's leaf_id is the partition)
+                lv = np.zeros(L, np.float32)
+                lv[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
+                self.scores[k] += torch.from_numpy(lv).to(self.device)[gr.leaf_id.long()]
+                self._add_to_valid_scores([tree], k)
+            else:
+                tree = Tree(2)  # an empty tree keeps the classes aligned
+            self.models.append(tree)
+        if not grown:
+            Log.warning("Stopped training because there are no more leaves that meet "
+                        "the split requirements.")
+            del self.models[len(self.models) - K:]
+            return True
+        self.iter += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.iter_seconds.append(time.perf_counter() - t0)
+        return False
+
+    def _get_gradients(self):
+        """(K, N) gradients and hessians of the current scores
+        (objective_->GetGradients, gbdt.cpp:692-700)."""
+        if self.num_tree_per_iteration == 1:
+            g, h = self.objective.gradients_rowwise(self.scores[0], self.label_t, self.weight_t)
+            return g[None], h[None]
+        return self.objective.gradients_rowwise_all(self.scores, self.label_t, self.weight_t)
+
+    def _adjust_gradients(self, grad, hess):
+        """Hook for GOSS's re-weighting (boosting/goss.py); identity here."""
+        return grad, hess
+
+    def _bagging(self, iter_: int) -> None:
+        """Re-sample the 0/1 row select every bagging_freq iterations
+        (GBDT::Bagging, gbdt.cpp:275-334; gbdt.py:517-525): a
+        RandomState(bagging_seed) permutation's first rows."""
+        if not self.is_bagging or iter_ % self.config.bagging_freq != 0:
+            return
+        bag_cnt = int(self.config.bagging_fraction * self.num_data)
+        perm = self.bag_rng.permutation(self.num_data)
+        mask = np.zeros(self.num_data, np.float32)
+        mask[perm[:bag_cnt]] = 1.0
+        self.select = torch.from_numpy(mask).to(self.device)
+
+    def _feature_mask(self) -> torch.Tensor:
+        """The (F,) feature_fraction mask of one tree
+        (SerialTreeLearner::BeforeTrain, serial_tree_learner.cpp:236-262;
+        gbdt.py:527-538), from the LCG of utils/random.py."""
+        frac = self.config.feature_fraction
+        f = self.train_set.num_features
+        if frac >= 1.0:
+            return self.full_feature_mask
+        idx = self.feature_rng.sample(f, max(1, int(f * frac)))
+        mask = np.zeros(f, np.float32)
+        mask[idx] = 1.0
+        return torch.from_numpy(mask).to(self.device)
+
+    def _quantize_class(self, gk, hk, k: int):
+        """Class k's (N,) grad/hess as int16 levels and their (2,) scales
+        (gbdt.py:829-860): the scales from the abs-maxima over the
+        selected rows, the rounding keyed by the seed, the iteration and
+        the class."""
+        bits = self.config.quantized_grad_bits
+        mx = local_absmax(gk, hk, self.select).cpu().numpy()
+        qscale = scales_from_max(mx[0], mx[1], bits)
+        seed = (int(self.config.seed) * 2654435761 + self.iter * 97 + k * 131071
+                + 1) & 0xFFFFFFFF
+        gq, hq = quantize_rows(gk, hk, qscale, seed, bits)
+        return gq, hq, qscale
 
     # ------------------------------------------------------------------
     def eval_and_check_early_stopping(self) -> bool:

@@ -1,17 +1,24 @@
 """GOSS (Gradient-based One-Side Sampling) — PyTorch counterpart of
-lightgbm_tpu/boosting/goss.py (src/boosting/goss.hpp) for the fused
-trainer.
+lightgbm_tpu/boosting/goss.py (src/boosting/goss.hpp).
 
-The sampling itself runs inside ``PartitionedTrainer`` (|g*h| ranking,
-exact top rows, a Bernoulli sample of the rest, up-weighted): this class
-checks the configuration; the model is named "tree", as GBDT's is.  The mask grower's
-``_adjust_gradients`` hook waits for the mask grower.
+On the partitioned trainer the sampling runs inside
+``PartitionedTrainer`` (K = 1, keys folded with the iteration).  On the
+mask grower (multiclass GOSS, and every GOSS configuration the
+partitioned trainer declines) it runs through the hooks below, as in the
+JAX package (goss.py:43-70): no sampling for the first 1/learning_rate
+iterations, then the top_rate rows by sum over classes of |g*h| and an
+other_rate sample of the rest, up-weighted, drawn from one key that is
+split each sampled iteration.  The model is named "tree", as GBDT's is.
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..utils import threefry
 from ..utils.log import Log
 from .gbdt import GBDT
+from .ptrainer import goss_select
 
 
 class GOSS(GBDT):
@@ -22,3 +29,26 @@ class GOSS(GBDT):
         Log.info("Using GOSS")
         if config.top_rate + config.other_rate >= 1.0:
             Log.warning("top_rate + other_rate >= 1.0; GOSS degenerates to GBDT")
+        self._goss_key = threefry.PRNGKey(config.bagging_seed)
+
+    def _adjust_gradients(self, grad, hess):
+        """The mask grower's GOSS sampling (goss.hpp:126-198): sets the
+        row select and returns the rest's up-weighted (K, N) gradients."""
+        cfg, n = self.config, self.num_data
+        if self.iter < int(1.0 / cfg.learning_rate):
+            self.select = torch.ones(n, dtype=torch.float32, device=self.device)
+            return grad, hess
+        top_k = max(1, int(n * cfg.top_rate))
+        other_k = max(1, int(n * cfg.other_rate))
+        # sum over classes in class order, as XLA reduces the (K, N) axis
+        prod = torch.abs(grad * hess)
+        score = prod[0]
+        for k in range(1, prod.shape[0]):
+            score = score + prod[k]
+        self._goss_key, sub = threefry.split(self._goss_key)
+        self.select, mul = goss_select(score, top_k, other_k / max(n - top_k, 1),
+                                       (n - top_k) / other_k, sub)
+        return grad * mul[None, :], hess * mul[None, :]
+
+    def _bagging(self, iter_: int) -> None:
+        """GOSS replaces bagging (its select comes from _adjust_gradients)."""

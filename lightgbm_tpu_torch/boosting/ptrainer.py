@@ -52,6 +52,7 @@ back to the host.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -322,8 +323,13 @@ def goss_select(gscore: torch.Tensor, top_cnt: int, prob: float, mult: float, ke
 
 def eligible(config, train_set, objective, num_tree_per_iteration: int):
     """Why the partitioned trainer cannot drive this configuration, or
-    None when it can (the JAX package's decline rules; there the rest
-    falls back to the mask-based grower, which the port does not have)."""
+    None when it can: the JAX package's decline rules
+    (ptrainer.py:1513-1582).  GBDT sends what it declines to the mask
+    grower (ops/grow.py), as the JAX package does.
+    ``LIGHTGBM_TPU_PGROW=0`` declines everything, so the mask grower can
+    be held against the JAX package on data the fused path would take."""
+    if os.environ.get("LIGHTGBM_TPU_PGROW", "") == "0":
+        return "LIGHTGBM_TPU_PGROW=0"
     if objective is None:
         return "a custom objective (objective=none)"
     if getattr(config, "quantized_training", False):
@@ -349,7 +355,7 @@ def eligible(config, train_set, objective, num_tree_per_iteration: int):
     if np.asarray(train_set.binned).dtype != np.uint8 or train_set.max_num_bin > 256:
         return "more than 256 bins per feature"
     # the JAX kernels' VMEM budget caps the fused path at 512 columns
-    # (ptrainer.py:1566-1581); kept as the same decline rule here
+    # (ptrainer.py:1566-1581); kept as the same routing rule here
     train_set.ensure_bundles(config)
     bundle = train_set.bundle
     cols = bundle.num_cols if bundle is not None else train_set.num_features

@@ -115,7 +115,7 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
     if not name_list and not cbs_before and not early_stopping_rounds:
         # one chunk: nothing to decide between iterations
         iter_before = gbdt.iter
-        gbdt.train_iters_partitioned(num_boost_round)
+        gbdt.train_iters(num_boost_round)
         for t in range(gbdt.iter - iter_before):
             if after(t, []):
                 break
@@ -126,7 +126,7 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
         while i < num_boost_round:
             step = min(period, num_boost_round - i)
             iter_before = gbdt.iter
-            gbdt.train_iters_partitioned(step)
+            gbdt.train_iters(step)
             done = gbdt.iter - iter_before
             i += done
             if after(i - 1, evaluate()):

@@ -46,6 +46,7 @@ SIGNATURES = {
     "lgbt_update_multi_hist": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,
                                _I, _I, _P, _P],
     "lgbt_segment_hist": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "lgbt_segment_hist_q": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

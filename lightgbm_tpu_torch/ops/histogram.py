@@ -1,0 +1,232 @@
+"""Histograms of the mask grower — PyTorch counterpart of
+lightgbm_tpu/ops/histogram.py (``build_histogram``,
+``histogram_from_parent``) and of the column-packed kernels of
+lightgbm_tpu/ops/histogram_pallas.py (``hist_segment``,
+``hist_segment_q``, ``pack_columns``, ``pack_columns_q``).
+
+The packed layout is the JAX package's: one (W + 3, N) int32 matrix
+whose rows are
+
+    0..W-1 : bin words, ``per`` bins of ``bits`` bits each per int32
+             (per 4 at 8 bits for uint8 bins, 2 at 16 bits for uint16)
+    W      : grad      float32 bits, or an int16 level as a plain int32
+    W + 1  : hess      (likewise)
+    W + 2  : select    float32 0/1, or int32 0/1
+
+``hist_segment`` (B8) is the (F, B, 3) float32 histogram of (g*sel,
+h*sel, sel) over columns [lo, hi); ``hist_segment_q`` (B9) the exact
+int32 histogram of the quantized layout.  Both run
+``csrc/segment_hist.cu`` on a CUDA tensor (float64 cells rounded once,
+or int32 cells) and their plain versions (``*_ref``, ``index_add_`` in
+float64 or int64) on a CPU tensor; a failed launch raises.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
+
+``build_histogram`` is the JAX function's contract on (N, F) bins: it
+packs and takes the float32 branch (B8) or, for integer grad/hess, the
+int32 branch (B9).  The out-of-core ``accumulate_histogram`` waits for
+the out-of-core trainer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+# rows per block of a masked pass over every row: about 256 blocks (two
+# per SM of an H100), between these bounds
+HIST_TILE_MIN, HIST_TILE_MAX, HIST_BLOCKS = 2048, 16384, 256
+
+
+def hist_tile(cnt: int) -> int:
+    """Rows per block for a segment of ``cnt`` rows."""
+    tile = -(-cnt // HIST_BLOCKS)
+    return min(HIST_TILE_MAX, max(HIST_TILE_MIN, -(-tile // 1024) * 1024))
+
+
+def word_layout(bins) -> tuple:
+    """(per, bits) of a bin matrix's dtype: 4 x 8 bits for uint8 bins, 2 x
+    16 bits for wider ones (max_bin > 255)."""
+    return (4, 8) if bins.dtype == torch.uint8 else (2, 16)
+
+
+def num_words(num_features: int, per: int) -> int:
+    return -(-num_features // per)
+
+
+def pack_bin_words(bins: torch.Tensor, per: int = 4, bits: int = 8) -> torch.Tensor:
+    """(W, N) int32 bin words of the (N, F) bins, feature f in word f //
+    per at bit (f % per) * bits; packed in row chunks on the bins' device."""
+    n, f = bins.shape
+    w = num_words(f, per)
+    out = torch.empty((w, n), dtype=torch.int32, device=bins.device)
+    shifts = torch.arange(per, device=bins.device, dtype=torch.int64) * bits
+    step = 1 << 20
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        bb = torch.zeros((hi - lo, w * per), dtype=torch.int64, device=bins.device)
+        bb[:, :f] = bins[lo:hi].to(torch.int64)
+        words = torch.sum(bb.reshape(hi - lo, w, per) << shifts, dim=2)
+        out[:, lo:hi] = torch.where(words >= 2 ** 31, words - 2 ** 32, words).T.to(torch.int32)
+    return out
+
+
+def _as_bits(x) -> torch.Tensor:
+    return x.to(torch.float32).contiguous().view(torch.int32)
+
+
+def pack_columns(bins, grad, hess, select, per: int = 4, bits: int = 8):
+    """The (W + 3, N) int32 matrix of B8: bin words, then grad, hess and
+    select as float32 bits."""
+    return torch.cat([pack_bin_words(bins, per, bits), _as_bits(grad)[None],
+                      _as_bits(hess)[None], _as_bits(select)[None]], dim=0)
+
+
+def pack_columns_q(bins, qgrad, qhess, select, per: int = 4, bits: int = 8):
+    """The quantized twin (B9): the value rows hold the int16 levels and
+    the 0/1 select widened to plain int32 words."""
+    return torch.cat([pack_bin_words(bins, per, bits), qgrad.to(torch.int32)[None],
+                      qhess.to(torch.int32)[None], select.to(torch.int32)[None]], dim=0)
+
+
+def _rows(rows, num_features: int, per: int):
+    if rows is not None:
+        return tuple(int(r) for r in rows)
+    w = num_words(num_features, per)
+    return (w, w + 1, w + 2)
+
+
+def _check_range(p, lo: int, hi: int) -> None:
+    if p.dtype != torch.int32 or p.dim() != 2 or not p.is_contiguous():
+        raise ValueError("the packed matrix must be a contiguous 2-D int32 tensor")
+    if not 0 <= lo <= hi <= p.shape[1]:
+        raise ValueError(f"column range [{lo}, {hi}) outside the matrix's {p.shape[1]} columns")
+
+
+def _segment_hist_ref(p, lo, hi, num_features, num_bins, per, bits, rows, quantized):
+    """The plain version of both kernels: per feature, one ``index_add_``
+    of the rows whose select is not 0, in float64 (int64) and rounded
+    (cast) once."""
+    lo, hi = int(lo), int(hi)
+    _check_range(p, lo, hi)
+    g_row, h_row, s_row = _rows(rows, num_features, per)
+    cols = p[:, lo:hi]
+    if quantized:
+        sel = cols[s_row].to(torch.int64)
+        keep = sel != 0
+        vals = torch.stack([cols[g_row].to(torch.int64) * sel, cols[h_row].to(torch.int64) * sel,
+                            sel], dim=1)[keep]
+        acc = torch.int64
+    else:
+        sel = cols[s_row].view(torch.float32)
+        keep = sel != 0
+        vals = torch.stack([cols[g_row].view(torch.float32) * sel,
+                            cols[h_row].view(torch.float32) * sel, sel], dim=1)[keep].double()
+        acc = torch.float64
+    out = torch.zeros((num_features, num_bins, 3), dtype=acc, device=p.device)
+    words = cols[:, keep]
+    mask = (1 << bits) - 1
+    for f in range(num_features):
+        b = (words[f // per].to(torch.int64) >> ((f % per) * bits)) & mask
+        ok = b < num_bins
+        out[f].index_add_(0, b[ok], vals[ok])
+    return out.to(torch.int32) if quantized else out.float()
+
+
+def hist_segment_ref(p, lo, hi, num_features, num_bins, per=4, bits=8, rows=None):
+    """Plain version of hist_segment."""
+    return _segment_hist_ref(p, lo, hi, num_features, num_bins, per, bits, rows, False)
+
+
+def hist_segment_q_ref(p, lo, hi, num_features, num_bins, per=4, bits=8, rows=None):
+    """Plain version of hist_segment_q."""
+    return _segment_hist_ref(p, lo, hi, num_features, num_bins, per, bits, rows, True)
+
+
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A small host tensor on ``device``; to a card through pinned memory,
+    without waiting for the stream (a pageable copy would)."""
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _segment_table(device, lo: int, hi: int):
+    """([start, cnt] + tile_base on ``device``, total tiles, rows per
+    tile) of the one segment [lo, hi)."""
+    tile = hist_tile(hi - lo)
+    tiles = -(-(hi - lo) // tile)
+    return upload(torch.tensor([lo, hi - lo, 0, tiles], dtype=torch.int32), device), tiles, tile
+
+
+def _launch(p, lo, hi, num_features, num_bins, per, bits, rows, quantized):
+    """Run the segment-histogram kernel over [lo, hi); returns the (F, B,
+    3) histogram and whether a kernel was launched."""
+    lo, hi = int(lo), int(hi)
+    _check_range(p, lo, hi)
+    if p.device.type != "cuda":
+        raise ValueError(f"expected a CUDA tensor, got {p.device}")
+    if per * bits != 32:
+        raise ValueError(f"{per} bins of {bits} bits do not fill a 32-bit word")
+    g_row, h_row, s_row = _rows(rows, num_features, per)
+    dtype = torch.int32 if quantized else torch.float64
+    hist = torch.zeros((num_features, num_bins, 3), dtype=dtype, device=p.device)
+    if hi == lo:
+        return hist if quantized else hist.float(), False
+    tab, tiles, tile = _segment_table(p.device, lo, hi)
+    entry = _build.lib().lgbt_segment_hist_q if quantized else _build.lib().lgbt_segment_hist
+    with torch.cuda.device(p.device):
+        rc = entry(p.data_ptr(), p.shape[1], tab.data_ptr(), tab.data_ptr() + 8, 1, tiles,
+                   tile, bits, num_features, num_bins, g_row, h_row, s_row,
+                   hist.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
+    _build.check(rc, "hist_segment_q" if quantized else "hist_segment")
+    return (hist if quantized else hist.float()), True
+
+
+def hist_segment(p, lo, hi, num_features, num_bins, per=4, bits=8, rows=None):
+    """(F, B, 3) float32 histogram of (g*sel, h*sel, sel) over columns [lo,
+    hi) of the ``pack_columns`` matrix ``p``; ``rows`` is the (g, h, sel)
+    channel-row triple, by default W..W+2."""
+    if p.device.type == "cpu":
+        return hist_segment_ref(p, lo, hi, num_features, num_bins, per, bits, rows)
+    hist, launched = _launch(p, lo, hi, num_features, num_bins, per, bits, rows, False)
+    hist_segment.launches += int(launched)
+    return hist
+
+
+hist_segment.launches = 0
+
+
+def hist_segment_q(p, lo, hi, num_features, num_bins, per=4, bits=8, rows=None):
+    """(F, B, 3) exact int32 histogram over columns [lo, hi) of the
+    ``pack_columns_q`` matrix ``p`` (int16 levels as int32 words)."""
+    if p.device.type == "cpu":
+        return hist_segment_q_ref(p, lo, hi, num_features, num_bins, per, bits, rows)
+    hist, launched = _launch(p, lo, hi, num_features, num_bins, per, bits, rows, True)
+    hist_segment_q.launches += int(launched)
+    return hist
+
+
+hist_segment_q.launches = 0
+
+
+def build_histogram(bins, grad, hess, select, num_bins: int) -> torch.Tensor:
+    """The (F, B, 3) histogram of (sum g*sel, sum h*sel, sum sel) by bin
+    (DenseBin::ConstructHistogram, dense_bin.hpp:66, over every feature
+    with the rows masked by ``select``).  Integer (int16 quantized)
+    grad/hess give the exact int32 histogram (B9), float32 ones the
+    float32 histogram (B8)."""
+    per, bits = word_layout(bins)
+    n, f = bins.shape
+    if not torch.is_floating_point(grad):
+        p = pack_columns_q(bins, grad, hess, select, per, bits)
+        return hist_segment_q(p, 0, n, f, num_bins, per, bits)
+    p = pack_columns(bins, grad, hess, select, per=per, bits=bits)
+    return hist_segment(p, 0, n, f, num_bins, per, bits)
+
+
+def histogram_from_parent(parent_hist: torch.Tensor, sibling_hist: torch.Tensor) -> torch.Tensor:
+    """The subtraction trick (FeatureHistogram::Subtract,
+    serial_tree_learner.cpp:484-489): the larger child is parent - smaller
+    sibling, exact for the int32 histograms of quantized training."""
+    return parent_hist - sibling_hist

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .histogram import hist_segment, hist_segment_q
 
 BLK = 1024  # tail columns past the last row (the JAX kernels' DMA block)
 PART_TILE = 8192  # rows per block of the CUDA partition kernels
@@ -665,8 +666,9 @@ def hist_dyn(p, start, cnt, num_features, num_bins, bits=8, rows=None):
 
 hist_dyn.launches = 0
 
+# every kernel wrapper of the port, the mask grower's (ops/histogram.py) too
 KERNELS = (update_and_root_hist, update_multi_and_hists, level_stream, split_stream,
-           score_add, hist_dyn, hist_segments, update_channels)
+           score_add, hist_dyn, hist_segments, update_channels, hist_segment, hist_segment_q)
 
 
 def launch_counts() -> dict:

@@ -13,7 +13,13 @@ order and the same tie preferences as the JAX package —
 
 Sums across bins are taken in float64 and rounded once, so the card and
 the CPU, which reduce in different orders, compute the same float32
-gains and break exact ties the same way.
+gains and break exact ties the same way.  The quantized mask grower asks
+instead for ``xla_prefix``: float32 prefix sums in the order XLA's CPU
+backend takes ``jnp.cumsum`` (its reduce-window rewrite: sequential
+within blocks of 16 bins, the block totals prefixed the same way), so
+dequantized histograms, which both packages hold bit for bit, give the
+JAX package's exact gains and leaf sums; elementwise adds in a fixed
+order, the same on the card.
 
 The JAX package ``vmap``s the per-leaf search; here the leaf batch is a
 written-out leading dimension S.  Per-element arithmetic does not depend
@@ -83,7 +89,9 @@ class SplitResult(NamedTuple):
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    """A float32 scalar on ``like``'s device, written by a fill (no host
+    copy, so a CUDA graph can capture it)."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32, device=like.device)
 
 
 def leaf_split_gain(sum_g, sum_h, l1, l2):
@@ -119,14 +127,40 @@ def _take(x, idx):
     return torch.gather(x, 2, ix).squeeze(2)
 
 
+XLA_SCAN_BLOCK = 16  # base length of XLA's reduce-window cumsum rewrite
+
+
+def cumsum_xla_order(x: torch.Tensor) -> torch.Tensor:
+    """Float32 prefix sums along the last axis, added in the order of
+    ``jnp.cumsum`` on XLA's CPU backend: sequentially from 0 within
+    blocks of 16, the blocks' totals prefixed recursively the same way
+    and added to each block."""
+    n = x.shape[-1]
+    if n <= XLA_SCAN_BLOCK:
+        out = torch.empty_like(x)
+        acc = x[..., 0] + 0.0
+        out[..., 0] = acc
+        for i in range(1, n):
+            acc = acc + x[..., i]
+            out[..., i] = acc
+        return out
+    pad = (-n) % XLA_SCAN_BLOCK
+    xp = torch.nn.functional.pad(x, (0, pad))
+    inner = cumsum_xla_order(xp.reshape(*x.shape[:-1], -1, XLA_SCAN_BLOCK))
+    outer = cumsum_xla_order(inner[..., -1])
+    excl = torch.cat([torch.zeros_like(outer[..., :1]), outer[..., :-1]], dim=-1)
+    return (excl[..., None] + inner).reshape(xp.shape)[..., :n]
+
+
 def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
                            hyper: SplitHyper, feature_mask, use_missing: bool = True,
-                           has_categorical: bool = True):
+                           has_categorical: bool = True, xla_prefix: bool = False):
     """Per-feature best split for S leaves at once.
 
     hist (S, F, B, 3) f32; sum_g/sum_h/num_data (S,) leaf totals;
-    feature_mask (F,) 0/1.  Returns gain_f (S, F), thr_f (S, F),
-    dbz_f (S, F), left_f (S, F, 3)."""
+    feature_mask (F,) 0/1; ``xla_prefix`` takes the bin prefix sums in
+    XLA's float32 order instead of float64.  Returns gain_f (S, F),
+    thr_f (S, F), dbz_f (S, F), left_f (S, F, 3)."""
     S, F, b, _ = hist.shape
     l1, l2 = _f32(hyper.lambda_l1, hist), _f32(hyper.lambda_l2, hist)
     min_cnt = _f32(hyper.min_data_in_leaf, hist)
@@ -139,7 +173,10 @@ def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
 
     # prefix sums in float64, rounded once: the same float32 values on the
     # card (parallel scan) as on the CPU (sequential), so gains tie alike
-    cum = torch.cumsum(hist.double(), dim=2).float()  # (S, F, B, 3)
+    if xla_prefix:
+        cum = cumsum_xla_order(hist.transpose(2, 3)).transpose(2, 3)  # (S, F, B, 3)
+    else:
+        cum = torch.cumsum(hist.double(), dim=2).float()
     db = meta.default_bin  # (F,)
     nb = meta.num_bins
     hist_db = _take(hist, db[None, :].expand(S, F))  # (S, F, 3)
@@ -232,10 +269,10 @@ def finalize_split(gain_f, thr_f, dbz_f, left_f, sum_g, sum_h, num_data,
 
 
 def best_split_all_features(hist, sum_g, sum_h, num_data, meta, hyper, feature_mask,
-                            use_missing: bool = True,
-                            has_categorical: bool = True) -> SplitResult:
+                            use_missing: bool = True, has_categorical: bool = True,
+                            xla_prefix: bool = False) -> SplitResult:
     """Best split across every feature, per leaf of the batch."""
     gain_f, thr_f, dbz_f, left_f = best_split_per_feature(
         hist, sum_g, sum_h, num_data, meta, hyper, feature_mask, use_missing,
-        has_categorical)
+        has_categorical, xla_prefix)
     return finalize_split(gain_f, thr_f, dbz_f, left_f, sum_g, sum_h, num_data, hyper)

@@ -2,15 +2,19 @@
 
 The JAX package's fused trainer draws its bagging mask, its
 feature_fraction sample and GOSS's rest sample from threefry keys
-(lightgbm_tpu/boosting/ptrainer.py:179-181, :349-361, :389-391).  The
-port reproduces those bits exactly, so a sampled run grows the same
-trees as the JAX package's.  This module copies what those draws call:
-``PRNGKey``, ``fold_in``, ``uniform`` and ``bernoulli`` of jax 0.9.0's
-threefry2x32 with ``jax_threefry_partitionable=True`` and 32-bit
-integers (``jax_enable_x64`` off):
+(lightgbm_tpu/boosting/ptrainer.py:179-181, :349-361, :389-391), and
+the mask-grower GOSS chains ``jax.random.split`` of one key
+(lightgbm_tpu/boosting/goss.py:43-65).  The port reproduces those bits
+exactly, so a sampled run grows the same trees as the JAX package's.
+This module copies what those draws call: ``PRNGKey``, ``fold_in``,
+``split``, ``uniform`` and ``bernoulli`` of jax 0.9.0's threefry2x32
+with ``jax_threefry_partitionable=True`` and 32-bit integers
+(``jax_enable_x64`` off):
 
 - a key is two uint32 words; ``PRNGKey(seed)`` is ``(0, seed)``;
 - ``fold_in(key, d)`` hashes the count pair ``(0, d)`` under ``key``;
+- ``split(key)`` is the two keys hashed from the count pairs ``(0, 0)``
+  and ``(0, 1)`` (the partitionable "fold-like" split);
 - the (n,) random bits are ``y0 ^ y1`` of the hash of ``(0, i)`` for
   each index i (the partitionable counter layout);
 - ``uniform`` puts the top 23 bits in the mantissa of a float32 in
@@ -68,6 +72,11 @@ def PRNGKey(seed: int) -> Key:
 def fold_in(key: Key, data: int) -> Key:
     """``jax.random.fold_in(key, data)``."""
     return threefry2x32(key, 0, int(data) & MASK)
+
+
+def split(key: Key) -> Tuple[Key, Key]:
+    """``jax.random.split(key)``: the two new keys, in order."""
+    return threefry2x32(key, 0, 0), threefry2x32(key, 0, 1)
 
 
 def random_bits(key: Key, n: int, device="cpu") -> torch.Tensor:

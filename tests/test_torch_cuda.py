@@ -8,7 +8,8 @@ a machine that has only PyTorch for CUDA:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: left counts, partitioned matrices (the partition is stable in
-both versions), histogram counts and score_add bit-exact; histogram g/h
+both versions), histogram counts, hist_segment_q's integer histograms,
+the mask grower's models (card against CPU) and score_add bit-exact; histogram g/h
 sums within 1e-5 of the largest bin per channel (both versions sum in
 float64 and round once, in different orders); recomputed gradients
 within 1e-6 relative, and bit-exact for update_channels (both sides take
@@ -22,6 +23,7 @@ import torch
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.io.dataset import Metadata
 from lightgbm_tpu_torch.objective import create_objective
+from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import pkernels as pk
 
 pytestmark = pytest.mark.cuda
@@ -323,3 +325,63 @@ def test_train_sampled_cuda_matches_cpu(dev, params):
     sel = [b.boosting.ptrainer._draws(3)[0] for b in (bc, bp)]
     if sel[0] is not None:
         assert torch.equal(sel[0].cpu(), sel[1])
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["hist_segment", "hist_segment_q"])
+@pytest.mark.parametrize("nf,nb", [(11, 32), (7, 300), (600, 64)],
+                         ids=["8bit", "16bit", "feature-tiled"])
+def test_hist_segment_kernels(dev, quantized, nf, nb):
+    """B8 and B9 on the column-packed layout: a sub-range, select zeros,
+    16-bit bins, and 600 features x 64 bins, whose float64 cells need
+    feature tiles.  B9 is exact; B8 counts exact, sums as the others."""
+    rng = np.random.default_rng(nf)
+    per, bits = (4, 8) if nb <= 256 else (2, 16)
+    bins = torch.from_numpy(rng.integers(0, nb, (N, nf)).astype(np.int32))
+    sel = torch.from_numpy((rng.random(N) < 0.6).astype(np.float32))
+    if quantized:
+        g = torch.from_numpy(rng.integers(-15, 16, N).astype(np.int16))
+        h = torch.from_numpy(rng.integers(0, 16, N).astype(np.int16))
+        P = th.pack_columns_q(bins, g, h, sel, per, bits)
+        kern, ref, count = th.hist_segment_q, th.hist_segment_q_ref, th.hist_segment_q
+    else:
+        g = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+        h = torch.from_numpy(np.abs(rng.standard_normal(N)).astype(np.float32))
+        P = th.pack_columns(bins, g, h, sel, per=per, bits=bits)
+        kern, ref, count = th.hist_segment, th.hist_segment_ref, th.hist_segment
+    Pk = P.to(dev)
+    for lo, hi in ((0, N), (123, N - 77)):
+        before = count.launches
+        hk = kern(Pk, lo, hi, nf, nb, per, bits)
+        assert count.launches == before + 1
+        hr = ref(Pk, lo, hi, nf, nb, per, bits)
+        torch.cuda.synchronize()
+        if quantized:
+            assert hk.dtype == torch.int32 and torch.equal(hk, hr)
+        else:
+            _assert_hist(hk, hr)
+    assert float(kern(Pk, 5, 5, nf, nb, per, bits).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("params", [
+    dict(objective="binary", use_quantized_grad=True),
+    dict(objective="regression", use_quantized_grad=True, max_bin=300),
+    dict(objective="multiclass", num_class=3, boosting="goss", learning_rate=0.5),
+], ids=["quantized-binary", "quantized-l2-16bit", "multiclass-goss"])
+def test_train_mask_grower_cuda_matches_cpu(dev, params):
+    import lightgbm_tpu_torch as lgt
+
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((20000, 8)).astype(np.float32)
+    z = X @ rng.standard_normal(8)
+    y = {"binary": (rng.random(20000) < 1 / (1 + np.exp(-z))).astype(np.float32),
+         "regression": z.astype(np.float32),
+         "multiclass": np.digitize(z, [-0.5, 0.5]).astype(np.float32)}[params["objective"]]
+    params = dict(dict(num_leaves=31, learning_rate=0.2, max_bin=31, min_data_in_leaf=20,
+                       verbose=-1), **params)
+    pk.reset_launch_counts()
+    bc = lgt.train(params, lgt.Dataset(X, label=y), 4)
+    assert bc.boosting.ptrainer is None
+    name = "hist_segment_q" if params.get("use_quantized_grad") else "hist_segment"
+    assert pk.launch_counts()[name] > 0
+    bp = lgt.train(params, lgt.Dataset(X, label=y), 4, device="cpu")
+    assert bc.model_to_string() == bp.model_to_string()

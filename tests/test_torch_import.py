@@ -19,7 +19,9 @@ PKG = REPO / "lightgbm_tpu_torch"
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.engine, "
-            "lightgbm_tpu_torch.convert, lightgbm_tpu_torch.ops.pkernels; "
+            "lightgbm_tpu_torch.convert, lightgbm_tpu_torch.ops.pkernels, "
+            "lightgbm_tpu_torch.ops.grow, lightgbm_tpu_torch.ops.histogram, "
+            "lightgbm_tpu_torch.ops.qhist, lightgbm_tpu_torch.boosting.goss; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.')]; "
             "assert not bad, bad; print('ok')")
@@ -81,9 +83,12 @@ def test_wrappers_count_no_launch_on_cpu():
     pk.hist_dyn(p, 0, 100, 5, 4)
     pk.hist_segments(p, np.asarray([[0, 60], [60, 40]]), 2, num_features=5, num_bins=4, smax=2)
     pk.update_channels(p, lay, _L2(), delta=np.ones(100, np.float32), num_rows=100)
+    pk.hist_segment(p, 0, 100, 5, 4)
+    pk.hist_segment_q(p, 10, 90, 5, 4)
     assert pk.launch_counts() == {"update_and_root_hist": 0, "update_multi_and_hists": 0,
                                   "level_stream": 0, "split_stream": 0, "score_add": 0,
-                                  "hist_dyn": 0, "hist_segments": 0, "update_channels": 0}
+                                  "hist_dyn": 0, "hist_segments": 0, "update_channels": 0,
+                                  "hist_segment": 0, "hist_segment_q": 0}
     assert float(pk.f32_row(p, lay.SCORE, 100).sum()) == 200.0
     assert float(pk.f32_row(p, lay.G, 100).sum()) == 200.0  # L2: g = score - label
 

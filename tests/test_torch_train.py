@@ -153,12 +153,8 @@ def test_jax_model_loads_into_port(trained, case):
 
 DECLINED = [
     ("boosting=dart", dict(boosting="dart"), {}),
-    ("GOSS with more than one tree per iteration",
-     dict(boosting="goss", objective="multiclass", num_class=3), {}),
     ("Cannot use bagging in GOSS", dict(boosting="goss", bagging_fraction=0.5, bagging_freq=1),
      {}),
-    ("more than 16 classes", dict(objective="multiclass", num_class=17), {}),
-    ("quantized training", dict(use_quantized_grad=True), {}),
     ("linear trees", dict(linear_tree=True), {}),
     ("monotone constraints", dict(monotone_constraints=[1, 0, 0, 0]), {}),
     ("tree_learner=data", dict(tree_learner="data"), {}),
@@ -171,12 +167,7 @@ DECLINED = [
 RAISES = {"Cannot use bagging in GOSS": LightGBMError}
 
 
-# the id "multiclass" is kept from the first slice, which declined every
-# multiclass run; the port now trains up to 16 classes
-DECLINED_IDS = [{"more than 16 classes": "multiclass"}.get(d[0], d[0]) for d in DECLINED]
-
-
-@pytest.mark.parametrize("what,params,kwargs", DECLINED, ids=DECLINED_IDS)
+@pytest.mark.parametrize("what,params,kwargs", DECLINED, ids=[d[0] for d in DECLINED])
 def test_declined_feature_raises(what, params, kwargs):
     rng = np.random.default_rng(3)
     X = rng.standard_normal((500, 4))
