@@ -14,9 +14,13 @@ measurement:
 - s/iter (median after the first iteration) of ``lgt.train`` on 3M
   Higgs-shaped rows, the higgs cell's parameters, at max_bin=63 (12
   iterations) and max_bin=255 (6 iterations);
-- CUDA-event milliseconds (median) of update_and_root_hist,
-  level_stream (one segment of all rows) and split_stream (the root
-  segment) at 10.5M x 28 features, 64 and 256 bins.
+- milliseconds a launch (median of 5 bursts of 10 launches, each burst
+  between two CUDA events) of update_and_root_hist, level_stream (one
+  segment of all rows), split_stream (all rows, a 41,000-row segment and
+  a 139,291-row one, see TAIL_ROWS) at 10.5M x 28 features, 64 and 256
+  bins, and of score_add and Tensor.add_ on the same score row; the
+  single-call time (one launch between the events, so with the host's
+  time to make the call) beside split_stream and score_add.
 
 ``--cells`` times instead one cell against another inside one process:
 it trains one binned dataset (10.5M Higgs-shaped rows, the higgs cell's
@@ -42,6 +46,11 @@ import time
 import numpy as np
 
 TRAIN_ROWS, KERNEL_ROWS = 3_000_000, 10_500_000
+# split_stream's segment sizes: 41,000 rows is 10.5M rows over the level
+# grower's 256 leaves, an estimate; 139,291 is the mean segment that the
+# higgs-10.5M cell's split_stream launches took on the card
+# (chip_smoke.py, split_stream's rows over its launches)
+TAIL_ROWS = (41_000, 139_291)
 ITERS = {63: 12, 255: 6}  # max_bin: iterations
 CELL_ROWS, CELL_ITERS = 10_500_000, 16
 CELL_ORDER = ("plain", "goss", "bagging", "profile", "plain", "bagging", "goss", "plain")
@@ -57,6 +66,25 @@ def gpu_state() -> str:
     except (OSError, subprocess.SubprocessError):
         return "card state not read"
     return f"card {smi.stdout.strip()}"
+
+
+def burst_ms(fn, bursts=5, burst=10):
+    """Median milliseconds a launch over ``bursts`` bursts of ``burst``
+    launches, each burst between one pair of CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(bursts):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(burst):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / burst)
+    return float(np.median(times))
 
 
 def run_cells(cs, lgt, dev):
@@ -136,16 +164,26 @@ def main(argv=None):
         P = pk.pack_matrix(rng.integers(0, B, size=(n, F), dtype=np.uint8), lay, label=label,
                            device=dev)
         kw = dict(num_rows=n, num_features=F, num_bins=B, bits=8)
-        upd = cs.time_cuda(lambda: pk.update_and_root_hist(P, lay, obj, delta=delta, **kw), 10)
+        upd = burst_ms(lambda: pk.update_and_root_hist(P, lay, obj, delta=delta, **kw))
         thr = B // 2 - 1
         tab = np.zeros((8, 12), np.int64)
         tab[0] = [0, n, 1, 16, 0, 0, thr, 0, 0, 256, 0, 0]
-        lvl = cs.time_cuda(lambda: pk.level_stream(P, torch.from_numpy(tab), 1, num_features=F,
-                                                   num_bins=B, bits=8, smax=8), 10)
-        spl = cs.time_cuda(lambda: pk.split_stream(P, 0, n, 1, 16, 0, 0, thr, 0, num_features=F,
-                                                   num_bins=B, bits=8), 10)
-        print(f"AB {tree} kernels rows {n} bins {B}: update_and_root_hist {upd:.4f} ms, "
-              f"level_stream {lvl:.4f} ms, split_stream {spl:.4f} ms", flush=True)
+        lvl = burst_ms(lambda: pk.level_stream(P, torch.from_numpy(tab), 1, num_features=F,
+                                               num_bins=B, bits=8, smax=8))
+        line = (f"AB {tree} kernels rows {n} bins {B}: update_and_root_hist {upd:.4f} ms, "
+                f"level_stream {lvl:.4f} ms")
+        for cnt in (n, *TAIL_ROWS):
+            def split():
+                pk.split_stream(P, n - cnt, cnt, 1, 16, 0, 0, thr, 0, num_features=F,
+                                num_bins=B, bits=8)
+            line += (f", split_stream {cnt} rows {burst_ms(split):.4f} ms (single "
+                     f"{cs.time_cuda(split, 10):.4f})")
+        if B == 64:
+            srow = pk.f32_row(P, lay.SCORE, n)
+            for what, fn in (("score_add", lambda: pk.score_add(P, lay, delta, num_rows=n)),
+                             ("Tensor.add_", lambda: srow.add_(delta))):
+                line += f", {what} {burst_ms(fn):.4f} ms (single {cs.time_cuda(fn, 20):.4f})"
+        print(line + " (bursts of 10 launches; single: one launch between events)", flush=True)
         del P
         torch.cuda.empty_cache()
 

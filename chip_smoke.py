@@ -10,15 +10,20 @@ result line):
   1. device: needs torch.cuda; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from lightgbm_tpu_torch/csrc;
   3. kernels: calls each kernel's wrapper at its path's shapes and holds
-     it against its plain PyTorch version on the same inputs; times both
-     with CUDA events.  Binary path: --rows x 28 features, 64 bins
+     it against its plain PyTorch version on the same inputs; times the
+     kernel (and the library call, where there is one) as the median of
+     5 bursts of 10 launches between two CUDA events, and the plain
+     version one call at a time; split_stream and score_add also print
+     their single-call time.  Binary path: --rows x 28 features, 64 bins
      (update_channels, and update_and_root_hist with a select and a GOSS
      multiplier, among them).  Multiclass path: the covertype cell's
      bundled training matrix (12 EFB columns, 63 bins, K=7 score
      channels, 40 channels).  Mask grower: hist_segment and
      hist_segment_q at --rows x 28, 64 bins, over a sub-range with
      unselected rows, and at 1M rows of 512 bins (16-bit words); the
-     quantized levels of the card against the CPU's;
+     quantized levels of the card against the CPU's; split_stream and
+     level_stream at 1M rows x 28 features of 256 bins (features tiled
+     over the grid, as at max_bin=255), unselected rows among them;
   4. small end to end: --small-rows x 28 (binary) and 100,000
      Covertype-shaped rows (K=7, 2 iterations) trained on the card and on
      the CPU (plain versions) — splits, predictions and AUC / multi
@@ -32,10 +37,12 @@ result line):
      500k held-out set), max_bin=63, num_leaves=255, learning_rate=0.1,
      min_data_in_leaf=1, min_sum_hessian_in_leaf=100, --iters
      iterations; prints s/iter, held-out AUC, peak memory and the
-     launch counts of every kernel, then a run with the level grower off
-     (so split_stream carries every split) and a repeat of the main run's
-     first --repeat-iters iterations, to show whether two runs give
-     byte-identical trees;
+     launch counts of every kernel (and split_stream's rows), then a run
+     with the level grower off (so split_stream carries every split) and
+     a repeat of the main run's first --repeat-iters iterations, to show
+     whether two runs give byte-identical trees; then split_stream alone
+     at the cell's mean tail segment (its rows over its launches),
+     against the plain version;
   5b. "higgs-10.5M-bagging": the same binned data and tree parameters
      with feature_fraction=0.9, bagging_fraction=0.8, bagging_freq=5
      (LightGBM's examples/python-guide/simple_example.py), the 500k
@@ -65,7 +72,8 @@ result line):
   6b. "covertype-581k-goss": the covertype cell's data and parameters with
      boosting=goss (top_rate 0.2, other_rate 0.1) on the mask grower, 20
      iterations (10 warm-up, 10 sampled); prints s/iter of each kind,
-     held-out multi_logloss and accuracy, hist_segment's launches.
+     held-out multi_logloss and accuracy, hist_segment's launches, and
+     a one-iteration profiler window.
 Every driven path starts with the launch counts at 0 and reads them at
 its end.  The line before last is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.
@@ -226,8 +234,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_cuda(fn, reps, warmup=1):
-    """Median milliseconds of ``fn`` over ``reps`` calls, CUDA events."""
+def time_cuda(fn, reps, warmup=1, burst=1):
+    """Median milliseconds of one call of ``fn`` over ``reps`` bursts of
+    ``burst`` calls, each burst between one pair of CUDA events.  With
+    ``burst=1`` a reading also holds the host's time to enqueue the call;
+    a burst of launches shows the device's rate when the host keeps
+    ahead of it."""
     import torch
 
     for _ in range(warmup):
@@ -238,11 +250,33 @@ def time_cuda(fn, reps, warmup=1):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(burst):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / burst)
     return float(np.median(times))
+
+
+def device_split(fn, calls=5):
+    """{kernel: device ms a call} of ``fn`` from torch.profiler (the
+    device's activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][-40:]: round(e.self_device_time_total / 1e3 / calls, 4)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def burst_ms(fn):
+    """A kernel row's time: the median of 5 bursts of 10 launches."""
+    return time_cuda(fn, 5, burst=10)
 
 
 def sync(dev):
@@ -287,6 +321,90 @@ def finish_bounds(out):
         v["bound_ms"] = max(t_bytes, t_ops)
         v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return out
+
+
+def split_work(cnt, C, F, B):
+    """split_stream's bytes and operations for a segment of ``cnt`` rows:
+    each row's C channels read and written once, both (F, B, 3) float32
+    histograms written; the predicate (~6 ops) and 3 adds per feature."""
+    return dict(bytes=cnt * C * 4 * 2 + 2 * F * B * 3 * 4, ops=cnt * (6 + 3 * F))
+
+
+def phase_split_tail(cnt, dev, seed=23):
+    """split_stream at the tail's mean segment size (``cnt`` rows, the
+    higgs-10.5M cell's split_stream rows over its launches), 28 features
+    and 64 bins, against the plain version; its burst and single-call
+    times and its bound at that size."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    F, B, n = 28, 64, 4 * cnt + 4096
+    rng = np.random.default_rng(seed)
+    lay = pk.PLayout(F)
+    P = pk.pack_matrix(rng.integers(0, B, size=(n, F), dtype=np.uint8), lay, device=dev)
+    pk.f32_row(P, lay.G, n).copy_(torch.randn(n, device=dev))
+    pk.f32_row(P, lay.H, n).copy_(torch.rand(n, device=dev))
+    args, kw = (1001, cnt, 3, 8, 0, 0, 30, 0), dict(num_features=F, num_bins=B, bits=8)
+    Pk, Pr = P.clone(), P.clone()
+    _, nk, lk, rk = pk.split_stream(Pk, *args, **kw)
+    _, nr, lr, rr = pk.split_stream_ref(Pr, *args, **kw)
+    sync(dev)
+    assert int(nk) == int(nr) and torch.equal(Pk, Pr), "split_stream differs at the tail size"
+    err = max(check_hist("split_stream tail left", lk, lr),
+              check_hist("split_stream tail right", rk, rr))
+    ms = burst_ms(lambda: pk.split_stream(Pk, *args, **kw))
+    single = time_cuda(lambda: pk.split_stream(Pk, *args, **kw), 20)
+    plain = time_cuda(lambda: pk.split_stream_ref(Pr, *args, **kw), 3)
+    res = finish_bounds({"x": split_work(cnt, lay.C, F, B)})["x"]
+    log(f"kernel split_stream at the tail's mean segment of {cnt} rows: matrix bit-identical; "
+        f"{ms:.4f} ms a launch in bursts, {single:.4f} ms single, plain {plain:.2f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}), max abs err {err:.3e}")
+    del P, Pk, Pr
+    return dict(tail_rows=cnt, tail_ms=ms, tail_single_ms=single, tail_plain_ms=plain,
+                tail_bound_ms=res["bound_ms"])
+
+
+def phase_feature_tiles(rows, dev, seed=29):
+    """split_stream and level_stream at 28 features of 256 bins, where
+    both children's cells outgrow one block's shared memory and the
+    features are tiled over the grid (max_bin=255 on the main path):
+    ``rows`` rows over many row tiles, 30 % of them unselected, against
+    the plain versions."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    F, B = 28, 256
+    rng = np.random.default_rng(seed)
+    lay = pk.PLayout(F)
+    P = pk.pack_matrix(rng.integers(0, B, size=(rows, F), dtype=np.uint8), lay, device=dev)
+    pk.f32_row(P, lay.G, rows).copy_(torch.randn(rows, device=dev))
+    pk.f32_row(P, lay.H, rows).copy_(torch.rand(rows, device=dev))
+    pk.f32_row(P, lay.SEL, rows).copy_((torch.rand(rows, device=dev) < 0.7).float())
+    kw = dict(num_features=F, num_bins=B, bits=8)
+    args = (37, rows - 100, 5, 16, 0, 0, 140, 0)
+    Pk, Pr = P.clone(), P.clone()
+    _, nk, lk, rk = pk.split_stream(Pk, *args, **kw)
+    _, nr, lr, rr = pk.split_stream_ref(Pr, *args, **kw)
+    sync(dev)
+    assert int(nk) == int(nr) and torch.equal(Pk, Pr), "split_stream differs at 256 bins"
+    err = max(check_hist("split_stream 256 bins left", lk, lr),
+              check_hist("split_stream 256 bins right", rk, rr))
+    tab = np.asarray([[0, rows // 3, 0, 8, 0, 0, 100, 0, 0, 256, 0, 0],
+                      [rows // 3, 5, 2, 0, 0, 0, 7, 1, 0, 256, 0, 0],
+                      [rows // 3 + 5, rows - rows // 3 - 5, 6, 24, 3, 3, 200, 0, 0, 256, 0, 0]])
+    Pk, Pr = P.clone(), P.clone()
+    _, nlk, hk = pk.level_stream(Pk, tab, 3, smax=4, **kw)
+    _, nlr, hr = pk.level_stream_ref(Pr, tab, 3, smax=4, **kw)
+    sync(dev)
+    assert torch.equal(nlk.cpu(), nlr.cpu()) and torch.equal(Pk, Pr), \
+        "level_stream differs at 256 bins"
+    err = max(err, check_hist("level_stream 256 bins", hk, hr))
+    log(f"kernels split_stream and level_stream at {rows} x {F} features, {B} bins (feature "
+        f"tiles), {pk.partition_blocks([rows], pk.partition_tile(rows, 132))[0]} row tiles: "
+        f"matrices bit-identical, counts bit-equal, max abs err {err:.3e}")
+    del P, Pk, Pr
 
 
 def check_channels(name, Pk, Pr, rows, gh_rows):
@@ -350,7 +468,7 @@ def phase_kernels(rows, dev, seed=11):
     log(f"kernel update_and_root_hist: grad/hess rel err {chan_err:.3e} (tol 1e-6)")
     assert chan_err <= 1e-6
     habs = check_hist("update_and_root_hist", hk, hr)
-    ms = time_cuda(lambda: pk.update_and_root_hist(Pk, lay, obj, delta=delta, **kw), 10)
+    ms = burst_ms(lambda: pk.update_and_root_hist(Pk, lay, obj, delta=delta, **kw))
     plain = time_cuda(lambda: pk.update_and_root_hist_ref(Pr, lay, obj, delta=delta, **kw), 3)
     # reads W words + score, label, weight, delta; writes g, h, score
     nbytes = rows * 4 * (W + 4 + 3) + F * B * 3 * 4
@@ -368,7 +486,7 @@ def phase_kernels(rows, dev, seed=11):
     sync(dev)
     assert torch.equal(Pk, Pr), "update_channels differs from plain"
     log("kernel update_channels: matrix bit-identical (score, g, h; tail untouched)")
-    ms = time_cuda(lambda: pk.update_channels(Pk, lay, obj, delta=delta, num_rows=rows), 20)
+    ms = burst_ms(lambda: pk.update_channels(Pk, lay, obj, delta=delta, num_rows=rows))
     plain = time_cuda(lambda: pk.update_channels_ref(Pr, lay, obj, delta=delta, num_rows=rows),
                       3)
     # reads score, label, delta; writes score, g, h: 4 B per row each
@@ -384,7 +502,7 @@ def phase_kernels(rows, dev, seed=11):
     sync(dev)
     assert torch.equal(Pk, Pr), "update_and_root_hist (sel, mul): channels differ from plain"
     check_hist("update_and_root_hist (sel, mul)", hk, hr)
-    ms = time_cuda(lambda: pk.update_and_root_hist(Pk, lay, obj, sel=sel, mul=mul, **kw), 10)
+    ms = burst_ms(lambda: pk.update_and_root_hist(Pk, lay, obj, sel=sel, mul=mul, **kw))
     log(f"kernel update_and_root_hist (sel, mul): channels bit-identical; {ms:.4f} ms")
     # the rest of a sampled GOSS iteration's prep pass: the |g*h| ranking
     # and the rest's draw at GOSS_PARAMS' rates (one call of goss_select)
@@ -399,16 +517,16 @@ def phase_kernels(rows, dev, seed=11):
     log(f"  GOSS selection (stable sort of |g*h|, threefry draw) at {rows} rows: {ms:.4f} ms")
     del Pk, Pr, sel, mul, gscore
 
-    # ---- level_stream: empty, tiny unaligned, block-aligned and large
+    # ---- level_stream: empty, tiny unaligned, chunk-aligned and large
     # segments, numerical / categorical / zero-bin remap / EFB remap
-    q, T = rows // 16, pk.PART_TILE
-    a = -(-4 * q // T) * T  # block-aligned start
+    q, T = rows // 16, 16 * pk.PART_CHUNK
+    a = -(-4 * q // T) * T  # chunk-aligned start
     specs = [  # (start, cnt, feat, thr, zero_bin, dbz, cat, off_lo, off_hi, bias)
         (0, q, 3, 31, 0, 0, 0, 0, 256, 0),
         (q, 0, 5, 10, 0, 0, 0, 0, 256, 0),  # empty
         (q + 3, 7, 7, 15, 0, 0, 0, 0, 256, 0),  # tiny, unaligned
         (q + 10, a - q - 10, 0, 7, 5, 11, 0, 0, 256, 0),  # zero-bin remap
-        (a, 3 * T, 2, 9, 0, 0, 0, 0, 256, 0),  # block-aligned
+        (a, 3 * T, 2, 9, 0, 0, 0, 0, 256, 0),  # chunk-aligned
         (a + 3 * T, 2 * q, 10, 4, 0, 0, 1, 0, 256, 0),  # categorical
         (a + 3 * T + 2 * q, 4 * q - 1, 12, 20, 0, 3, 0, 3, 40, 1),  # EFB range remap
         (a + 3 * T + 6 * q, rows - (a + 3 * T + 6 * q), 27, 50, 0, 0, 0, 0, 256, 0),
@@ -427,7 +545,7 @@ def phase_kernels(rows, dev, seed=11):
     assert torch.equal(Pk, Pr), "level_stream: partitioned matrix differs from plain"
     log(f"kernel level_stream: nl {nlk[:nseg].tolist()}; matrix bit-identical")
     habs = check_hist("level_stream", hk, hr)
-    ms = time_cuda(lambda: pk.level_stream(Pk, torch.from_numpy(tab), nseg, **lkw), 10)
+    ms = burst_ms(lambda: pk.level_stream(Pk, torch.from_numpy(tab), nseg, **lkw))
     plain = time_cuda(lambda: pk.level_stream_ref(Pr, torch.from_numpy(tab), nseg, **lkw), 3)
     active = int(tab[:, 1].sum())
     # every active row's C channels read and written once; the predicate
@@ -448,11 +566,14 @@ def phase_kernels(rows, dev, seed=11):
     log(f"kernel split_stream: nl {int(nk)}; matrix bit-identical")
     al = check_hist("split_stream left", lk, lr)
     ar = check_hist("split_stream right", rk, rr)
-    ms = time_cuda(lambda: pk.split_stream(Pk, *args, **skw), 10)
+    ms = burst_ms(lambda: pk.split_stream(Pk, *args, **skw))
+    single = time_cuda(lambda: pk.split_stream(Pk, *args, **skw), 10)
     plain = time_cuda(lambda: pk.split_stream_ref(Pr, *args, **skw), 3)
-    out["split_stream"] = dict(max_abs_err=max(al, ar), ms=ms, plain_ms=plain,
-                               bytes=rows * C * 4 * 2 + 2 * F * B * 3 * 4,
-                               ops=rows * (6 + 3 * F), library_ms=None)
+    split = device_split(lambda: pk.split_stream(Pk, *args, **skw))
+    log(f"  split_stream at {rows} rows: {ms:.4f} ms a launch in bursts, {single:.4f} ms "
+        f"single; device ms a call by kernel {split}")
+    out["split_stream"] = dict(max_abs_err=max(al, ar), ms=ms, single_ms=single, plain_ms=plain,
+                               **split_work(rows, C, F, B), library_ms=None)
 
     # ---- score_add
     Pk, Pr = P0.clone(), P0.clone()
@@ -461,12 +582,23 @@ def phase_kernels(rows, dev, seed=11):
     sync(dev)
     assert torch.equal(Pk, Pr), "score_add differs from plain"
     log("kernel score_add: bit-identical")
-    ms = time_cuda(lambda: pk.score_add(Pk, lay, delta, num_rows=rows), 20)
-    plain = time_cuda(lambda: pk.score_add_ref(Pr, lay, delta, num_rows=rows), 5)
     srow = pk.f32_row(Pr, lay.SCORE, rows)
-    lib = time_cuda(lambda: srow.add_(delta), 20)
-    out["score_add"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bytes=rows * 12,
-                            ops=rows, library_ms=lib)
+    # the kernel and Tensor.add_ on the same row, one burst of each in
+    # turns, so both medians span the same stretch of the card's state
+    kern_fn, lib_fn = (lambda: pk.score_add(Pk, lay, delta, num_rows=rows),
+                       lambda: srow.add_(delta))
+    turns = [(time_cuda(kern_fn, 1, burst=10), time_cuda(lib_fn, 1, burst=10))
+             for _ in range(10)]
+    ms, lib = (float(np.median([t[i] for t in turns])) for i in (0, 1))
+    single = time_cuda(kern_fn, 20)
+    lib_single = time_cuda(lib_fn, 20)
+    plain = time_cuda(lambda: pk.score_add_ref(Pr, lay, delta, num_rows=rows), 5)
+    log(f"  score_add at {rows} rows: {ms:.4f} ms a launch in bursts (10 bursts of 10, in "
+        f"turns with Tensor.add_), {single:.4f} ms single; Tensor.add_ {lib:.4f} ms in "
+        f"bursts, {lib_single:.4f} ms single")
+    out["score_add"] = dict(max_abs_err=0.0, ms=ms, single_ms=single, plain_ms=plain,
+                            bytes=rows * 12, ops=rows, library_ms=lib,
+                            library_single_ms=lib_single)
     del P0, Pk, Pr
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -523,7 +655,7 @@ def phase_kernels_multi(bds, dev, seed=5):
         check_channels(f"update_multi_and_hists {name}", Pk, Pr, rows, gh)
         habs = max(check_hist(f"update_multi_and_hists {name} class {k}", hk[k], hr[k])
                    for k in range(K))
-        ms = time_cuda(lambda: pk.update_multi_and_hists(Pk, lay, obj, **kw), 10)
+        ms = burst_ms(lambda: pk.update_multi_and_hists(Pk, lay, obj, **kw))
         plain = time_cuda(lambda: pk.update_multi_and_hists_ref(Pr, lay, obj, **kw), 3)
         log(f"  update_multi_and_hists {name}: {ms:.4f} ms, plain {plain:.2f} ms")
         if name == "multiclass":
@@ -564,7 +696,7 @@ def phase_kernels_multi(bds, dev, seed=5):
     hr = pk.hist_segments_ref(P1, tab, len(segs), **hkw)
     sync(dev)
     habs = max(check_hist(f"hist_segments segment {i}", hk[i], hr[i]) for i in range(len(segs)))
-    ms = time_cuda(lambda: pk.hist_segments(P1, tab, len(segs), **hkw), 10)
+    ms = burst_ms(lambda: pk.hist_segments(P1, tab, len(segs), **hkw))
     plain = time_cuda(lambda: pk.hist_segments_ref(P1, tab, len(segs), **hkw), 3)
     log(f"  hist_segments: {ms:.4f} ms, plain {plain:.2f} ms")
     active = int(tab[:, 1].sum())
@@ -579,7 +711,7 @@ def phase_kernels_multi(bds, dev, seed=5):
     hr = pk.hist_dyn_ref(P1, 0, rows, G, BH, **dkw)
     sync(dev)
     habs = check_hist("hist_dyn", hk, hr)
-    ms = time_cuda(lambda: pk.hist_dyn(P1, 0, rows, G, BH, **dkw), 10)
+    ms = burst_ms(lambda: pk.hist_dyn(P1, 0, rows, G, BH, **dkw))
     plain = time_cuda(lambda: pk.hist_dyn_ref(P1, 0, rows, G, BH, **dkw), 3)
     log(f"  hist_dyn: {ms:.4f} ms, plain {plain:.2f} ms")
     out["hist_dyn"] = dict(max_abs_err=habs, ms=ms, plain_ms=plain,
@@ -610,7 +742,7 @@ def phase_kernels_multi(bds, dev, seed=5):
     assert torch.equal(nlk.cpu(), nlr.cpu()), "level_stream C=40: left counts differ"
     assert torch.equal(Pk, Pr), "level_stream C=40: partitioned matrix differs from plain"
     habs = check_hist("level_stream C=40", hk, hr)
-    ms = time_cuda(lambda: pk.level_stream(Pk, ltab, len(specs), **lkw), 10)
+    ms = burst_ms(lambda: pk.level_stream(Pk, ltab, len(specs), **lkw))
     plain = time_cuda(lambda: pk.level_stream_ref(Pr, ltab, len(specs), **lkw), 3)
     active = int(ltab[:, 1].sum())
     lvl = finish_bounds({"x": dict(bytes=active * lay.C * 4 * 2 + len(specs) * 2 * G * BH * 12,
@@ -670,7 +802,7 @@ def phase_kernels_mask(rows, dev, seed=17):
             log("kernel hist_segment_q: bit-identical to the plain version")
         else:
             habs = check_hist(name, hk, hr)
-        ms = time_cuda(lambda: kern(P, lo, hi, F, B), 10)
+        ms = burst_ms(lambda: kern(P, lo, hi, F, B))
         plain = time_cuda(lambda: ref(P, lo, hi, F, B), 3)
         log(f"  {name} at {rows} x {F}, [{lo}, {hi}), {nsel} rows selected: {ms:.4f} ms, "
             f"plain {plain:.2f} ms")
@@ -697,7 +829,7 @@ def phase_kernels_mask(rows, dev, seed=17):
             assert torch.equal(hk, hr), "hist_segment_q 16-bit differs from plain"
         else:
             check_hist(f"{name} 16-bit", hk, hr)
-        ms = time_cuda(lambda: kern(P, 3, n16, F, B16, 2, 16), 10)
+        ms = burst_ms(lambda: kern(P, 3, n16, F, B16, 2, 16))
         log(f"kernel {name} 16-bit ({n16} x {F}, {B16} bins): matches the plain version; "
             f"{ms:.4f} ms")
         del P
@@ -1008,6 +1140,19 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
         f"{sum(e.count for e in evs) / n_iter:.0f} device operations per iteration")
     for e in evs[:top]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
+    # the partition kernels: <true> is level_stream's table form, <false>
+    # split_stream's segment by value
+    part = {form: sum(dev_us(e) for e in evs if "part_" in e.key and f"<{form}>" in e.key)
+            for form in ("true", "false")}
+    log(f"profile: partition kernels a iteration: level_stream {part['true'] / 1e3 / n_iter:.2f} "
+        f"ms, split_stream {part['false'] / 1e3 / n_iter:.2f} ms of "
+        f"{busy / 1e3 / n_iter:.2f} ms busy")
+    # csrc/segment_hist.cu: <true> is hist_segment_q, <false> the float
+    # histograms (hist_segment, hist_dyn, hist_segments)
+    seg = {form: sum(dev_us(e) for e in evs if "seg_hist_kernel" in e.key and f"<{form}>" in e.key)
+           for form in ("true", "false")}
+    log(f"profile: segment-histogram kernels a iteration: float {seg['false'] / 1e3 / n_iter:.2f} "
+        f"ms, quantized {seg['true'] / 1e3 / n_iter:.2f} ms")
     del bst
     torch.cuda.empty_cache()
 
@@ -1279,6 +1424,7 @@ def phase_covertype_goss(ds, Xv, yv, dev):
     del bst
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+        profile_iters(ds, dev, COV_GOSS_PARAMS, n_iter=1)
     return counts, dict(s_warm=s_warm, s_sampled=s_samp, logloss=ll, accuracy=acc,
                         peak_gib=peak)
 
@@ -1326,6 +1472,7 @@ def main(argv=None):
     kern = phase_kernels(args.rows, dev)
     kern.update(phase_kernels_multi(cov.construct(COV_PARAMS), dev))
     kern.update(phase_kernels_mask(args.rows, dev))
+    phase_feature_tiles(min(args.rows, 1_000_000), dev)
     log(f"kernels checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_small(args.small_rows, args.small_iters, dev)
@@ -1336,6 +1483,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
     log(f"higgs-10.5M in {time.perf_counter() - t0:.1f} s")
+    kern["split_stream"].update(phase_split_tail(
+        counts["split_stream_rows"] // counts["split_stream"], dev))
     t0 = time.perf_counter()
     sampled_counts, _ = phase_sampled(*higgs, dev, full["iter_seconds"])
     log(f"higgs-10.5M-bagging and higgs-10.5M-goss in {time.perf_counter() - t0:.1f} s")
@@ -1360,7 +1509,9 @@ def main(argv=None):
                             replaces=REPLACES[name], launches=launches,
                             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-                            library_ms=k["library_ms"]))
+                            library_ms=k["library_ms"],
+                            **{x: v for x, v in k.items() if x.startswith(("single", "tail",
+                                                                           "library_single"))}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -4,229 +4,593 @@
 // split_stream (_split_kernel), both built on _run_segment: for each
 // active leaf segment [start, start+cnt) of the packed matrix, partition
 // the rows by the segment's split predicate (lefts to [start, start+nl),
-// rights after them) and return both children's (F, B, 3) histograms
-// from the same pass.  split_stream is the one-segment table.
+// rights after them, both in row order) and return both children's
+// (F, B, 3) histograms from the same pass.  level_stream reads its
+// segments from a table; split_stream passes its one segment by value.
 //
-// What bounds it on this card: bytes.  Every active row's C channels are
-// read and written once by the function (128 B/row at C=16); this
-// implementation moves them twice (scatter into a scratch matrix, then
-// copy back), plus one extra read of the bin word for the counts, and
-// issues 3*F shared-memory float64 atomics per row for the histograms.
+// What bounds it on this card: bytes in principle.  The function reads
+// and writes every active row's C channels once (8C B/row).  This design
+// moves 16C B/row (the in-place contract forces a scratch copy and a
+// copy back) and reads the predicate word once more, so it cannot reach
+// half its bound.  In practice the histograms bound it: 3 float64 adds
+// into shared memory per row and feature, with no native float64 shared
+// atomic to make them.
 //
-// Design: the TPU kernel's two-ended in-place protocol exists because
-// Mosaic has no scatter.  Here the partition is a plain stable
-// count / scan / scatter over fixed row tiles:
-//   (a) count_kernel   — per-tile left counts of the predicate;
-//   (b) scan_kernel    — per-segment exclusive scan of the tile counts
-//                        (one block per segment) and the segment's nl;
-//   (c) scatter_kernel — recomputes the predicate, ranks rows inside
-//                        each 256-row chunk with a warp ballot + block
-//                        prefix (stable), writes all C channels of the
-//                        row to the scratch matrix at its left or right
-//                        slot, and accumulates it into the block's
-//                        float64 shared-memory left/right histograms
-//                        (common.cuh hacc; flushed to global memory with
-//                        atomicAdd, zeros skipped);
-//                        features are tiled over gridDim.y (tile y > 0
-//                        only histograms) so any F*B fits 227 KB;
-//   (d) copyback_kernel — the active segments move back from scratch.
-// Columns outside the active segments are never written.  The
-// partition is stable, so it is deterministic, and the float64
-// accumulation makes the rounded histograms independent of the order in
-// which the atomics land.
+// Design, two launches:
+//   (a) part_scatter_kernel: one 512-thread block per (row tile, feature
+//       tile), one block an SM.  The lead block of a row tile (feature
+//       tile 0) takes its tile index from an atomic ticket, so every tile
+//       it waits on already runs.  Pass 1 stores the tile's left bits in
+//       shared memory (one ballot word per 32 rows); the lead block
+//       publishes the tile's left count and looks back over its
+//       predecessors' words (decoupled look-back, one warp reads 32 of
+//       them at a time) for the lefts before it; the tile that ends its
+//       segment writes nl.  Pass 2 takes 256 rows at a time,
+//       double-buffered:
+//       - the stage warps write each row's C channels into the segment's
+//         scratch (lefts from the front in order, rights from the back in
+//         reverse order, which needs no total; sixteen loads in flight a
+//         thread) and stage the rows' bin words, g*sel, h*sel and sel in
+//         shared memory from the same registers, lefts first, then rights;
+//       - meanwhile the histogram warps add the previous chunk into
+//         float64 shared-memory cells.  sm_90a has no shared float64 add
+//         (atomicAdd there is a compare-and-swap loop, ATOMS.CAST.SPIN.64
+//         in the SASS), so no cell is shared: each histogram warp adds one
+//         child's rows into its own copy of that child's cells (as many
+//         copies as shared memory holds, up to 4: 2 at 28 features of 64
+//         bins, so four warps, one on each of the SM's schedulers); a lane
+//         owns one feature (groups of lanes split the bins below 17
+//         features), reads four staged rows with each 16-byte load and
+//         sums rows of one bin in registers before its read-add-writes.
+//         The cells of 16 features interleave, so the lanes of a warp hit
+//         two banks at most.
+//       The block adds its copies and flushes the nonzero cells into the
+//       segment's global float64 cells (a native float64 reduction in L2).
+//   (b) part_copy_kernel: moves each segment back from scratch (the
+//       rights re-reversed, so the partition is stable and equals the
+//       plain version bit for bit) and rounds the float64 cells to the
+//       float32 output once.
+// Rows per tile come from the wrapper (pkernels.py partition_tile);
+// features are tiled over gridDim.y so any F*B fits 227 KB.  Columns
+// outside the active segments are never written.  The float64 sums make
+// the rounded histograms independent of the order of the additions but
+// for sums within ~1e-16 of a float32 rounding boundary.
 #include "common.cuh"
 
 namespace lgbt {
 
+constexpr int kChunk = 256;          // rows a block stages at a time
+constexpr int kStride = kChunk + 4;  // a staged channel: 16-byte rows, 4 banks on per channel
+constexpr int kStripe = 16;          // cells of 16 features interleave: one bank pair each
+constexpr int kPartThreads = 512;    // a scatter block: one a SM, warps on all four schedulers
+constexpr int kMaxCopies = 4;        // histogram warps, each with its own copy of the cells
+
 struct PartArgs {
   int32_t* P;
-  int32_t* S;  // scratch, same shape as P
   long long ld;
   int C;
-  const int32_t* seg;        // (n_seg, 12)
-  const int32_t* tile_base;  // (n_seg + 1,)
-  int n_seg;
-  int tile;
-  int32_t* tile_left;  // (total_tiles,)
-  int32_t* tile_loff;  // (total_tiles,)
-  int32_t* nl;         // (>= n_seg,)
-  int bits, nf, nb, f_tile;
+  int32_t* S;  // scratch: channel c, column j of segment s at S[c * sld + soff(s) + j]
+  long long sld;
+  const int32_t* seg;        // level_stream: (n_seg, 12) table
+  const int32_t* tile_base;  // level_stream: (n_seg + 1,) tiles before each segment
+  SegParams one;             // split_stream: the segment
+  int n_seg, tile;
+  unsigned long long* flags;  // (total tiles,) look-back words, zeroed
+  int* ticket;                // zeroed
+  int* nl;                    // (n_seg,) zeroed
+  int bits, nf, nb, f_tile, copies;
   int row_g, row_h, row_sel;
-  hacc* hist;  // (n_seg, 2, F, B, 3)
+  hacc* acc;  // (n_seg, 2, F, B, 3), zeroed
+  float* out;  // (out_cells,): acc rounded, then zeros
+  long long acc_cells, out_cells;
+  int ysplit;  // copy kernel: row ranges per tile
 };
 
-__device__ __forceinline__ void tile_range(const PartArgs& a, int b, int* s, SegParams* p,
-                                           long long* r0, long long* r1) {
-  *s = seg_of_tile(a.tile_base, a.n_seg, b);
-  *p = load_seg(a.seg, *s);
-  int t = b - a.tile_base[*s];
-  *r0 = p->start + (long long)t * a.tile;
-  *r1 = min(*r0 + (long long)a.tile, p->start + (long long)p->cnt);
-}
-
-__global__ void __launch_bounds__(kThreads) count_kernel(PartArgs a) {
-  __shared__ int warp_sums[32];
-  int s;
-  SegParams p;
-  long long r0, r1;
-  tile_range(a, blockIdx.x, &s, &p, &r0, &r1);
-  const unsigned vmask = (1u << a.bits) - 1u;
-  int c = 0;
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x)
-    c += goes_left(a.P[(long long)p.word * a.ld + r], p, vmask);
-  int total;
-  block_incl_scan(c, warp_sums, &total);
-  if (threadIdx.x == 0) a.tile_left[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kThreads) scan_kernel(PartArgs a) {
-  __shared__ int warp_sums[32];
-  const int s = blockIdx.x;
-  const int b0 = a.tile_base[s], b1 = a.tile_base[s + 1];
-  int running = 0;
-  for (int base = b0; base < b1; base += blockDim.x) {
-    int i = base + threadIdx.x;
-    int v = (i < b1) ? a.tile_left[i] : 0;
-    int total;
-    int incl = block_incl_scan(v, warp_sums, &total);
-    if (i < b1) a.tile_loff[i] = running + incl - v;
-    running += total;
+template <bool kTable>
+__device__ __forceinline__ void tile_of(const PartArgs& a, int b, int* s, SegParams* p, int* t) {
+  if (kTable) {
+    *s = seg_of_tile(a.tile_base, a.n_seg, b);
+    *p = load_seg(a.seg, *s);
+    *t = b - a.tile_base[*s];
+  } else {
+    *s = 0;
+    *p = a.one;
+    *t = b;
   }
-  if (threadIdx.x == 0) a.nl[s] = running;
 }
 
-__global__ void __launch_bounds__(kThreads) scatter_kernel(PartArgs a) {
-  extern __shared__ hacc sh[];
-  __shared__ int warp_l[32];
-  int s;
-  SegParams p;
-  long long r0, r1;
-  tile_range(a, blockIdx.x, &s, &p, &r0, &r1);
-  const unsigned vmask = (1u << a.bits) - 1u;
-  const int f0 = blockIdx.y * a.f_tile;
-  const int f1 = min(f0 + a.f_tile, a.nf);
-  const int span = (f1 - f0) * a.nb * 3;
-  const bool do_scatter = blockIdx.y == 0;
-  for (int i = threadIdx.x; i < 2 * span; i += blockDim.x) sh[i] = 0.0;
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* q) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(q) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* q, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(q), "l"(v) : "memory");
+}
+
+constexpr unsigned long long kAggregate = 1ull << 32, kInclusive = 2ull << 32;
+
+// Warp 0 of tile t of a segment (flat index b): publish the tile's left
+// count, then sum its predecessors' counts back to the nearest one that
+// has published its inclusive prefix.  Returns the lefts before the tile
+// (in every lane) and publishes the tile's own inclusive prefix.
+__device__ long long look_back(unsigned long long* flags, int b, int t, int agg) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) {
+    if (lane == 0) st_release(flags + b, kInclusive | (unsigned)agg);
+    return 0;
+  }
+  if (lane == 0) st_release(flags + b, kAggregate | (unsigned)agg);
+  long long excl = 0;
+  for (int pos = t - 1;;) {
+    const int q = pos - lane;  // lane 0 reads the nearest predecessor
+    const unsigned long long v = q >= 0 ? ld_acquire(flags + b - t + q) : kInclusive;
+    const unsigned state = (unsigned)(v >> 32);
+    if (__any_sync(0xffffffffu, state == 0)) {
+      __nanosleep(20);
+      continue;
+    }
+    const unsigned inc = __ballot_sync(0xffffffffu, state == 2);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    long long val = lane <= stop ? (long long)(uint32_t)v : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) val += __shfl_xor_sync(0xffffffffu, val, o);
+    excl += val;
+    if (inc) break;
+    pos -= 32;
+  }
+  if (lane == 0) st_release(flags + b, kInclusive | (unsigned)(excl + agg));
+  return excl;
+}
+
+// Four staged rows: their bin words of one channel, g*sel, h*sel, sel,
+// and their left bits.
+struct Rows4 {
+  int4 w;
+  float4 g, h, c;
+};
+
+__device__ __forceinline__ Rows4 load_rows4(const int32_t* wrow, const float* sv, int i) {
+  Rows4 q;
+  q.w = *reinterpret_cast<const int4*>(wrow + i);
+  q.g = *reinterpret_cast<const float4*>(sv + i);
+  q.h = *reinterpret_cast<const float4*>(sv + kStride + i);
+  q.c = *reinterpret_cast<const float4*>(sv + 2 * kStride + i);
+  return q;
+}
+
+// Add the first n (up to four) staged rows of one feature into a lane's
+// own cells (base: the feature's cells of one child).  Rows of one bin are
+// summed in registers first, so the read-add-writes that remain touch
+// distinct cells and overlap.
+__device__ __forceinline__ void add_rows4(const Rows4& q, int n, int sh, unsigned vmask,
+                                          int blo, unsigned nbr, hacc* base) {
+  const int wv[4] = {q.w.x, q.w.y, q.w.z, q.w.w};
+  const float gv[4] = {q.g.x, q.g.y, q.g.z, q.g.w}, hv[4] = {q.h.x, q.h.y, q.h.z, q.h.w},
+              cv[4] = {q.c.x, q.c.y, q.c.z, q.c.w};
+  int bin[4];
+  bool live[4];
+  hacc g[4], h[4], c[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    bin[u] = (int)(((uint32_t)wv[u] >> sh) & vmask);
+    live[u] = u < n && (unsigned)(bin[u] - blo) < nbr;
+    g[u] = gv[u];
+    h[u] = hv[u];
+    c[u] = cv[u];
+  }
+#pragma unroll
+  for (int u = 1; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < u; ++v)
+      if (live[u] && live[v] && bin[u] == bin[v]) {
+        g[v] += g[u];
+        h[v] += h[u];
+        c[v] += c[u];
+        live[u] = false;
+      }
+  hacc* cell[4];
+  hacc old[4][3];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    cell[u] = base + bin[u] * 3 * kStripe;
+    if (live[u]) {
+      old[u][0] = cell[u][0];
+      old[u][1] = cell[u][kStripe];
+      old[u][2] = cell[u][2 * kStripe];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (live[u]) {
+      cell[u][0] = old[u][0] + g[u];
+      cell[u][kStripe] = old[u][1] + h[u];
+      cell[u][2 * kStripe] = old[u][2] + c[u];
+    }
+}
+
+// Lefts of a staged chunk, from its left bits.
+__device__ __forceinline__ int chunk_lefts(const uint32_t* cball) {
+  int n = 0;
+#pragma unroll
+  for (int q = 0; q < kChunk / 32; ++q) n += __popc(cball[q]);
+  return n;
+}
+
+// First staging slot of a chunk's rights: the lefts' end rounded up to
+// four rows (one 16-byte load).
+__device__ __forceinline__ int rights_slot(int chunk_l) { return (chunk_l + 3) & ~3; }
+
+// Stage one row's g*sel, h*sel and sel (float32 bit patterns in).
+__device__ __forceinline__ void stage_values(float* sv, int i, int32_t g, int32_t h, int32_t sel) {
+  const float selv = __int_as_float(sel);
+  sv[i] = __int_as_float(g) * selv;
+  sv[kStride + i] = __int_as_float(h) * selv;
+  sv[2 * kStride + i] = selv;
+}
+
+// Shared-memory cells of one child for nf features of nb bins: feature
+// lf's cell (bin, v) at ((lf / 16 * nb + bin) * 3 + v) * 16 + lf % 16, so
+// the lanes of a warp, one feature each, hit two banks at most.
+__host__ __device__ __forceinline__ int stripe_span(int nf, int nb) {
+  return (nf + kStripe - 1) / kStripe * kStripe * nb * 3;
+}
+
+// Shared memory of a scatter block: each histogram warp's copy of both
+// children's cells, two staging buffers (bin words, then g*sel, h*sel,
+// sel) and the tile's left bits.
+struct PartSmem {
+  hacc* hs;     // [copies][2][span]
+  int32_t* w;   // [2][nwords][kStride]
+  float* v;     // [2][3][kStride]
+  uint32_t* ball;  // [tile / 32]
+};
+
+__device__ __forceinline__ PartSmem carve(unsigned char* smem, int span, int nwords,
+                                          int copies) {
+  PartSmem m;
+  m.hs = reinterpret_cast<hacc*>(smem);
+  m.w = reinterpret_cast<int32_t*>(m.hs + 2 * copies * span);
+  m.v = reinterpret_cast<float*>(m.w + 2 * nwords * kStride);
+  m.ball = reinterpret_cast<uint32_t*>(m.v + 2 * 3 * kStride);
+  return m;
+}
+
+template <bool kTable>
+__global__ void __launch_bounds__(kPartThreads, 1) part_scatter_kernel(PartArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_c[32];
+  __shared__ int sh_b;
+  __shared__ long long sh_before;
+
+  const int per = 32 / a.bits;
+  const int f0 = blockIdx.y * a.f_tile, f1 = min(f0 + a.f_tile, a.nf);
+  const int span = stripe_span(f1 - f0, a.nb);  // cells of one child
+  const int w0 = f0 / per, nwords = (f1 - 1) / per - w0 + 1;
+  const int copies = a.copies;
+  const PartSmem m = carve(smem, span, nwords, copies);
+  const bool lead = blockIdx.y == 0;  // partitions; other feature tiles only add
+
+  if (threadIdx.x == 0) sh_b = lead ? atomicAdd(a.ticket, 1) : (int)blockIdx.x;
+  for (int i = threadIdx.x; i < 2 * copies * span; i += kPartThreads) m.hs[i] = 0.0;
   __syncthreads();
+  const int b = sh_b;
+  int s, t;
+  SegParams p;
+  tile_of<kTable>(a, b, &s, &p, &t);
+  const long long r0 = p.start + (long long)t * a.tile;
+  const long long r1 = min(r0 + (long long)a.tile, p.start + (long long)p.cnt);
+  const unsigned vmask = (1u << a.bits) - 1u;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
 
-  const int t = blockIdx.x - a.tile_base[s];
-  const long long lbase = a.tile_loff[blockIdx.x];          // lefts before this tile
-  const long long rbase = (long long)t * a.tile - lbase;     // rights before this tile
-  const long long nls = a.nl[s];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  long long run_l = 0, run_r = 0;
-
-  for (long long cb = r0; cb < r1; cb += blockDim.x) {
+  // pass 1: the tile's left bits, one ballot word per 32 rows
+  const int32_t* pword = a.P + (long long)p.word * a.ld;
+  int c = 0;
+  for (long long cb = r0; cb < r1; cb += kPartThreads) {
     const long long r = cb + threadIdx.x;
-    const bool valid = r < r1;
-    const int gl = valid ? goes_left(a.P[(long long)p.word * a.ld + r], p, vmask) : 0;
-    const unsigned ball = __ballot_sync(0xffffffffu, gl);
-    if (lane == 0) warp_l[wid] = __popc(ball);
-    __syncthreads();
-    int before = 0, chunk_l = 0;
-    for (int k = 0; k < nw; ++k) {
-      int w = warp_l[k];
-      if (k < wid) before += w;
-      chunk_l += w;
+    const unsigned bw = __ballot_sync(0xffffffffu, r < r1 && goes_left(__ldg(pword + r), p, vmask));
+    if (lane == 0) {
+      m.ball[(cb - r0) / 32 + wid] = bw;
+      c += __popc(bw);
     }
-    if (valid) {
-      if (do_scatter) {
-        const int lrank = before + __popc(ball & ((1u << lane) - 1u));
-        const int rrank = (int)threadIdx.x - lrank;
-        const long long dst = gl ? (p.start + lbase + run_l + lrank)
-                                 : (p.start + nls + rbase + run_r + rrank);
-        for (int c = 0; c < a.C; ++c) a.S[(long long)c * a.ld + dst] = a.P[(long long)c * a.ld + r];
-      }
-      const float sv = f32_at(a.P, a.ld, a.row_sel, r);
-      const float gv = f32_at(a.P, a.ld, a.row_g, r) * sv;
-      const float hv = f32_at(a.P, a.ld, a.row_h, r) * sv;
-      hacc* hs = sh + (gl ? 0 : span);
-      for (int f = f0; f < f1; ++f) {
-        int b = bin_of(a.P, a.ld, r, f, a.bits);
-        if (b >= a.nb) continue;
-        hacc* cell = hs + ((f - f0) * a.nb + b) * 3;
-        atomicAdd(cell, gv);
-        atomicAdd(cell + 1, hv);
-        atomicAdd(cell + 2, sv);
+  }
+  long long lbefore = 0;
+  if (lead) {  // the tile's place among the segment's lefts
+    int total;
+    block_incl_scan(c, warp_c, &total);
+    if (wid == 0) {
+      const long long before = look_back(a.flags, b, t, total);
+      if (lane == 0) {
+        sh_before = before;
+        if (r1 == p.start + (long long)p.cnt) a.nl[s] = (int)(before + total);
       }
     }
-    const long long nvalid = min((long long)blockDim.x, r1 - cb);
-    run_l += chunk_l;
-    run_r += nvalid - chunk_l;
-    __syncthreads();
+  }
+  __syncthreads();
+  if (lead) lbefore = sh_before;
+
+  // pass 2, kChunk rows at a time, double-buffered: the stage warps write
+  // chunk k's rows to the scratch and stage them while the histogram
+  // warps add chunk k-1.
+  const int nchunks = (int)((r1 - r0 + kChunk - 1) / kChunk);
+  const int hwarps = 2 * copies;  // a left and a right histogram warp for each copy
+  if (wid >= hwarps) {
+    const int st = threadIdx.x - 32 * hwarps, nst = kPartThreads - 32 * hwarps;
+    const long long rbefore = (long long)t * a.tile - lbefore;
+    const long long soff = kTable ? p.start : 0;
+    long long run_l = 0, run_r = 0;
+    for (int k = 0; k <= nchunks; ++k) {
+      if (k < nchunks) {
+        const long long cb = r0 + (long long)k * kChunk;
+        const int nrows = (int)min((long long)kChunk, r1 - cb);
+        const uint32_t* cball = m.ball + k * (kChunk / 32);
+        int32_t* sw = m.w + (k & 1) * nwords * kStride;
+        float* sv = m.v + (k & 1) * 3 * kStride;
+        const int chunk_l = chunk_lefts(cball);
+        for (int i = st; i < nrows; i += nst) {
+          const long long r = cb + i;
+          const uint32_t bw = cball[i >> 5];
+          int lrank = __popc(bw & ((1u << (i & 31)) - 1u));
+          for (int q = 0; q < (i >> 5); ++q) lrank += __popc(cball[q]);
+          const bool gl = (bw >> (i & 31)) & 1;
+          // staged by side: lefts from slot 0, rights from a 16-byte boundary
+          const int slot = gl ? lrank : rights_slot(chunk_l) + (i - lrank);
+          if (lead) {
+            const long long j = gl ? lbefore + run_l + lrank
+                                   : p.cnt - 1 - (rbefore + run_r + (i - lrank));
+            // every channel of the row into the scratch, sixteen loads in
+            // flight; the loaded words are staged from the same registers
+            int32_t* dst = a.S + soff + j;
+            int32_t graw = 0, hraw = 0, sraw = 0;
+            for (int c0 = 0; c0 < a.C; c0 += 16) {
+              int32_t v[16];
+#pragma unroll
+              for (int u = 0; u < 16; ++u)
+                if (c0 + u < a.C) v[u] = __ldg(a.P + (long long)(c0 + u) * a.ld + r);
+#pragma unroll
+              for (int u = 0; u < 16; ++u) {
+                const int ch = c0 + u;
+                if (ch < a.C) {
+                  dst[(long long)ch * a.sld] = v[u];
+                  if ((unsigned)(ch - w0) < (unsigned)nwords)
+                    sw[(ch - w0) * kStride + slot] = v[u];
+                  graw = ch == a.row_g ? v[u] : graw;
+                  hraw = ch == a.row_h ? v[u] : hraw;
+                  sraw = ch == a.row_sel ? v[u] : sraw;
+                }
+              }
+            }
+            stage_values(sv, slot, graw, hraw, sraw);
+          } else {
+            for (int w = 0; w < nwords; ++w)
+              sw[w * kStride + slot] = __ldg(a.P + (long long)(w0 + w) * a.ld + r);
+            stage_values(sv, slot, __ldg(a.P + (long long)a.row_g * a.ld + r),
+                         __ldg(a.P + (long long)a.row_h * a.ld + r),
+                         __ldg(a.P + (long long)a.row_sel * a.ld + r));
+          }
+        }
+        run_l += chunk_l;
+        run_r += nrows - chunk_l;
+      }
+      __syncthreads();
+    }
+  } else {
+    // Histogram warp wid adds one child's staged rows (left for even wid)
+    // into copy wid / 2 of the cells, every copies-th four of them: lane
+    // fl of lane group sub takes feature f0 + fl (+ k*g) and the bins of
+    // range sub, so no other thread touches its cells.
+    const int side = wid & 1, cp = wid >> 1;
+    const int nfl = f1 - f0;
+    int g = 32;
+    while (g > 1 && g / 2 >= nfl) g >>= 1;
+    const int ranges = 32 / g, sub = lane / g, fl = lane % g;
+    const int bpr = (a.nb + ranges - 1) / ranges;
+    const int blo = sub * bpr;
+    const unsigned nbr = (unsigned)max(0, min(blo + bpr, a.nb) - blo);
+    hacc* const hw = m.hs + (2 * cp + side) * span;
+    for (int k = 0; k <= nchunks; ++k) {
+      if (k > 0) {
+        const int kc = k - 1;
+        const int nrows = (int)min((long long)kChunk, r1 - r0 - (long long)kc * kChunk);
+        const int chunk_l = chunk_lefts(m.ball + kc * (kChunk / 32));
+        const int lo = side ? rights_slot(chunk_l) : 0;
+        const int hi = side ? lo + nrows - chunk_l : chunk_l;
+        const int32_t* sw = m.w + (kc & 1) * nwords * kStride;
+        const float* sv = m.v + (kc & 1) * 3 * kStride;
+        for (int f = f0 + fl; f < f1; f += g) {
+          const int32_t* wrow = sw + (f / per - w0) * kStride;
+          const int sh = (f % per) * a.bits;
+          hacc* base = hw + ((f - f0) / kStripe) * a.nb * 3 * kStripe + (f - f0) % kStripe;
+          // the next four rows load before this four's adds
+          int i = lo + 4 * cp;
+          Rows4 cur;
+          if (i < hi) cur = load_rows4(wrow, sv, i);
+          for (; i < hi; i += 4 * copies) {
+            Rows4 nxt = cur;
+            if (i + 4 * copies < hi) nxt = load_rows4(wrow, sv, i + 4 * copies);
+            add_rows4(cur, hi - i, sh, vmask, blo, nbr, base);
+            cur = nxt;
+          }
+        }
+      }
+      __syncthreads();
+    }
   }
 
   const long long fb3 = (long long)a.nf * a.nb * 3;
-  hacc* outl = a.hist + (long long)s * 2 * fb3 + (long long)f0 * a.nb * 3;
+  hacc* outl = a.acc + (long long)s * 2 * fb3 + (long long)f0 * a.nb * 3;
   hacc* outr = outl + fb3;
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    const hacc vl = sh[i], vr = sh[span + i];
+  const int nb3 = a.nb * 3;
+  for (int i = threadIdx.x; i < (f1 - f0) * nb3; i += kPartThreads) {
+    const int lf = i / nb3;
+    const int j = ((lf / kStripe) * nb3 + i % nb3) * kStripe + lf % kStripe;
+    hacc vl = 0.0, vr = 0.0;
+    for (int h = 0; h < copies; ++h) {
+      vl += m.hs[2 * h * span + j];
+      vr += m.hs[(2 * h + 1) * span + j];
+    }
     if (vl != 0.0) atomicAdd(outl + i, vl);
     if (vr != 0.0) atomicAdd(outr + i, vr);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) copyback_kernel(PartArgs a) {
-  int s;
+template <bool kTable>
+__global__ void __launch_bounds__(kThreads) part_copy_kernel(PartArgs a) {
+  int s, t;
   SegParams p;
-  long long r0, r1;
-  tile_range(a, blockIdx.x, &s, &p, &r0, &r1);
+  tile_of<kTable>(a, blockIdx.x, &s, &p, &t);
+  const long long r0 = p.start + (long long)t * a.tile;
+  const long long r1 = min(r0 + (long long)a.tile, p.start + (long long)p.cnt);
+  const long long q0 = r0 + (r1 - r0) * blockIdx.y / a.ysplit;
+  const long long q1 = r0 + (r1 - r0) * (blockIdx.y + 1) / a.ysplit;
+  const long long nls = a.nl[s];
+  const long long soff = kTable ? p.start : 0;
   for (int c = 0; c < a.C; ++c) {
-    const long long off = (long long)c * a.ld;
-    for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) a.P[off + r] = a.S[off + r];
+    int32_t* dst = a.P + (long long)c * a.ld;
+    const int32_t* src = a.S + (long long)c * a.sld + soff;
+    for (long long r = q0 + threadIdx.x; r < q1; r += 4 * kThreads) {  // four loads in flight
+      int32_t v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long j = r + u * kThreads - p.start;
+        if (r + u * kThreads < q1) v[u] = __ldg(src + (j < nls ? j : p.cnt - 1 + nls - j));
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (r + u * kThreads < q1) dst[r + u * kThreads] = v[u];
+    }
   }
+  const long long nthreads = (long long)gridDim.x * gridDim.y * kThreads;
+  for (long long i = ((long long)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x;
+       i < a.out_cells; i += nthreads)
+    a.out[i] = i < a.acc_cells ? (float)a.acc[i] : 0.0f;
+}
+
+// Shared-memory bytes of a scatter block of f_tile features and `copies`
+// copies of the cells (a feature tile starts at a multiple of f_tile, a
+// whole number of words).
+inline size_t part_smem(const PartArgs& a, int f_tile, int copies) {
+  const int per = 32 / a.bits;
+  const int nwords = (f_tile + per - 1) / per;
+  return (size_t)2 * copies * stripe_span(f_tile, a.nb) * sizeof(hacc) +
+         (size_t)2 * (nwords + 3) * kStride * 4 + (size_t)a.tile / 8;
+}
+
+// Each device's limits and the scatter kernels' shared-memory opt-in
+// there (an attribute of the device's context), read and set at the first
+// launch on that device (file-local, so another copy of this code loaded
+// into the process keeps its own).
+constexpr int kMaxDevices = 64;
+struct DeviceLimits {
+  int sms = 0;
+  size_t limit = 0;  // the scatter kernel's static arrays share the block's limit
+  bool opt_in[2] = {false, false};
+};
+static DeviceLimits g_dev[kMaxDevices];
+
+template <bool kTable>
+int launch_partition(PartArgs a, int total_tiles, cudaStream_t st) {
+  if (total_tiles <= 0) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  DeviceLimits& d = g_dev[dev];
+  if (d.sms == 0) {
+    d.sms = num_sms();
+    d.limit = (size_t)max_smem_optin() - 1024;
+  }
+  if (!d.opt_in[kTable]) {
+    e = cudaFuncSetAttribute(part_scatter_kernel<kTable>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)d.limit);
+    if (e != cudaSuccess) return (int)e;
+    d.opt_in[kTable] = true;
+  }
+  const size_t limit = d.limit;
+  const int sms = d.sms;
+  // the widest feature tile that fits one copy of the cells, then as many
+  // copies (histogram warps) as fit
+  const int per = 32 / a.bits;
+  a.f_tile = a.nf;
+  while (a.f_tile > per && part_smem(a, a.f_tile, 1) > limit)
+    a.f_tile = std::max(per, (a.f_tile - 1) / per * per);
+  if (part_smem(a, a.f_tile, 1) > limit) return (int)cudaErrorInvalidValue;
+  a.copies = 1;
+  while (a.copies < kMaxCopies && part_smem(a, a.f_tile, a.copies + 1) <= limit) ++a.copies;
+  const size_t smem = part_smem(a, a.f_tile, a.copies);
+  const int ftiles = (a.nf + a.f_tile - 1) / a.f_tile;
+  part_scatter_kernel<kTable><<<dim3(total_tiles, ftiles), kPartThreads, smem, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // enough copy blocks for ~4 waves of 256-thread blocks
+  a.ysplit = std::max(1, std::min(a.tile / kThreads, 4 * 8 * sms / total_tiles));
+  part_copy_kernel<kTable><<<dim3(total_tiles, a.ysplit), kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace lgbt
 
-extern "C" int lgbt_partition_hist(void* P, void* S, long long ld, int C, void* seg,
-                                   void* tile_base, int n_seg, int total_tiles, int tile,
-                                   void* tile_left, void* tile_loff, void* nl, int bits, int nf,
-                                   int nb, int row_g, int row_h, int row_sel, void* hist,
-                                   void* stream) {
-  lgbt::PartArgs a;
+// level_stream: the segments of a (n_seg, 12) device table.
+extern "C" int lgbt_level_stream(void* P, long long ld, int C, void* S, void* seg,
+                                 void* tile_base, int n_seg, int total_tiles, int tile, void* flags,
+                                 void* ticket, void* nl, int bits, int nf, int nb, int row_g,
+                                 int row_h, int row_sel, void* acc, void* out,
+                                 long long out_cells, void* stream) {
+  lgbt::PartArgs a{};
   a.P = (int32_t*)P;
-  a.S = (int32_t*)S;
   a.ld = ld;
   a.C = C;
+  a.S = (int32_t*)S;
+  a.sld = ld;
   a.seg = (const int32_t*)seg;
   a.tile_base = (const int32_t*)tile_base;
   a.n_seg = n_seg;
   a.tile = tile;
-  a.tile_left = (int32_t*)tile_left;
-  a.tile_loff = (int32_t*)tile_loff;
-  a.nl = (int32_t*)nl;
+  a.flags = (unsigned long long*)flags;
+  a.ticket = (int*)ticket;
+  a.nl = (int*)nl;
   a.bits = bits;
   a.nf = nf;
   a.nb = nb;
   a.row_g = row_g;
   a.row_h = row_h;
   a.row_sel = row_sel;
-  a.hist = (lgbt::hacc*)hist;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n_seg <= 0) return 0;
+  a.acc = (lgbt::hacc*)acc;
+  a.out = (float*)out;
+  a.acc_cells = (long long)n_seg * 2 * nf * nb * 3;
+  a.out_cells = out_cells;
+  return lgbt::launch_partition<true>(a, total_tiles, (cudaStream_t)stream);
+}
 
-  const int cell2 = 2 * nb * 3 * (int)sizeof(lgbt::hacc);
-  // the scatter kernel's static warp_l[] shares the block's limit
-  a.f_tile = std::max(1, std::min(nf, (lgbt::max_smem_optin() - 1024) / cell2));
-  const int ftiles = (nf + a.f_tile - 1) / a.f_tile;
-  const size_t smem = (size_t)a.f_tile * cell2;
-
-  if (total_tiles > 0) lgbt::count_kernel<<<total_tiles, lgbt::kThreads, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  lgbt::scan_kernel<<<n_seg, lgbt::kThreads, 0, st>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || total_tiles == 0) return (int)e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(lgbt::scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  lgbt::scatter_kernel<<<dim3(total_tiles, ftiles), lgbt::kThreads, smem, st>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  lgbt::copyback_kernel<<<total_tiles, lgbt::kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+// split_stream: one segment given by value; the scratch is (C, cnt).
+extern "C" int lgbt_split_stream(void* P, long long ld, int C, void* S, int start, int cnt,
+                                 int word, int shift, int zero_bin, int dbz, int thr, int is_cat,
+                                 int off_lo, int off_hi, int bias, int tile, void* flags,
+                                 void* ticket, void* nl, int bits, int nf, int nb, int row_g,
+                                 int row_h, int row_sel, void* acc, void* out, void* stream) {
+  lgbt::PartArgs a{};
+  a.P = (int32_t*)P;
+  a.ld = ld;
+  a.C = C;
+  a.S = (int32_t*)S;
+  a.sld = cnt;
+  a.one = lgbt::SegParams{start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo, off_hi,
+                          bias};
+  a.n_seg = 1;
+  a.tile = tile;
+  a.flags = (unsigned long long*)flags;
+  a.ticket = (int*)ticket;
+  a.nl = (int*)nl;
+  a.bits = bits;
+  a.nf = nf;
+  a.nb = nb;
+  a.row_g = row_g;
+  a.row_h = row_h;
+  a.row_sel = row_sel;
+  a.acc = (lgbt::hacc*)acc;
+  a.out = (float*)out;
+  a.acc_cells = a.out_cells = 2LL * nf * nb * 3;
+  const int tiles = cnt > 0 ? (cnt + tile - 1) / tile : 0;
+  return lgbt::launch_partition<false>(a, tiles, (cudaStream_t)stream);
 }

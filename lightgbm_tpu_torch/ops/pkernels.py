@@ -43,6 +43,9 @@ rounded sums, whatever the order of the additions.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
@@ -50,7 +53,8 @@ from . import _build
 from .histogram import hist_segment, hist_segment_q
 
 BLK = 1024  # tail columns past the last row (the JAX kernels' DMA block)
-PART_TILE = 8192  # rows per block of the CUDA partition kernels
+PART_CHUNK = 512  # a partition tile is a whole number of these (one step of a 512-thread block)
+PART_MAX_TILE = 1 << 17  # most rows a partition tile takes: its left bits fill 16 KB of shared memory
 HIST_TILE = 4096  # rows per block of the CUDA segment-histogram kernel
 MAX_CLASSES = 16  # score channels update_multi_and_hists takes (csrc kMaxK)
 
@@ -197,7 +201,12 @@ def _vec(v, n: int, device) -> torch.Tensor:
 
 
 def _stream(p: torch.Tensor) -> int:
-    return torch.cuda.current_stream(p.device).cuda_stream
+    """The current CUDA stream of ``p``'s card as a raw handle, read
+    without building a ``torch.cuda.Stream`` object (host time on every
+    launch).  ``torch._C._cuda_getCurrentRawStream`` is private: checked
+    against torch 2.11 (CUDA 12.8); ``torch.cuda.current_stream(d).cuda_stream``
+    is the public equivalent."""
+    return torch._C._cuda_getCurrentRawStream(p.device.index)
 
 
 # ======================================================================
@@ -446,40 +455,108 @@ def _host_table(seg_tab) -> np.ndarray:
     return np.asarray(seg_tab, np.int64)
 
 
-def _launch_partition(p, tab: np.ndarray, num_features, num_bins, bits, rows, smax, what):
-    """Run the CUDA partition family over the host segment table ``tab``
-    (n_seg, 12); returns (nl (smax,), hists (smax, 2, F, B, 3)) or None
-    when there is nothing to launch."""
+def partition_tile(cnt: int, num_sms: int) -> int:
+    """Rows a block of the partition kernels takes, for ``cnt`` active rows
+    on a card of ``num_sms`` SMs: one block an SM (a block fills an SM's
+    shared memory with histogram cells), rounded up to a multiple of
+    PART_CHUNK, the rows a block stages at a time, and at most
+    PART_MAX_TILE (the tile's left bits live in shared memory)."""
+    want = -(-max(int(cnt), 1) // int(num_sms))
+    return min(PART_MAX_TILE, -(-want // PART_CHUNK) * PART_CHUNK)
+
+
+def partition_blocks(cnts, tile: int) -> np.ndarray:
+    """Row tiles of each segment (an empty segment owns none)."""
+    return -(-np.maximum(np.asarray(cnts, np.int64), 0) // int(tile))
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_of(p: torch.Tensor):
+    """``torch.cuda.device(p.device)``, or nothing when ``p`` already lies
+    on the current device (the usual case; the context costs host time on
+    every call)."""
+    if p.device.index is None or p.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(p.device)
+
+
+def _partition_work(device, n_seg: int, tiles: int, num_features: int, num_bins: int,
+                    n_out: int):
+    """One zeroed buffer, so one allocation and one memset, for what the
+    partition kernels accumulate and return: float64 cells (n_seg, 2, F,
+    B, 3), one look-back word per row tile, then as 32-bit words the tile
+    ticket, ``n_out`` left counts and the float32 histograms (n_out, 2, F,
+    B, 3).  Returns (the addresses of those five parts, nl, histograms),
+    the last two views of the buffer."""
+    fb = 2 * num_features * num_bins * 3
+    head = n_seg * fb + tiles
+    n32 = 1 + n_out + n_out * fb
+    work = torch.zeros(head + -(-n32 // 2), dtype=torch.int64, device=device)
+    base = work.data_ptr()
+    tail = work[head:].view(torch.int32)
+    ptrs = (base, base + 8 * n_seg * fb, base + 8 * head, base + 8 * head + 4,
+            base + 8 * head + 4 * (1 + n_out))
+    hists = tail[1 + n_out:n32].view(torch.float32).view(n_out, 2, num_features, num_bins, 3)
+    return ptrs, tail[1:1 + n_out], hists
+
+
+def check_split_args(p, start, cnt, word, shift, bits, num_features, rows) -> None:
+    """Raise ValueError on a segment the partition kernels cannot take:
+    rows outside the matrix's, a predicate field outside a word or the
+    matrix, or features or (g, h, sel) rows outside the matrix."""
+    C, n = p.shape[0], p.shape[1] - BLK
+    if bits not in (4, 8):
+        raise ValueError(f"bin words of {bits} bits (4 or 8)")
+    if start < 0 or cnt < 0 or start + cnt > n:
+        raise ValueError(f"segment [{start}, {start + cnt}) outside the matrix's {n} rows")
+    if not 0 <= word < C or shift < 0 or shift % bits or shift + bits > 32:
+        raise ValueError(f"predicate field (word {word}, shift {shift}) outside the matrix")
+    if num_words(num_features, bits) > C or any(not 0 <= r < C for r in rows):
+        raise ValueError(f"{num_features} features or channel rows {tuple(rows)} outside "
+                         f"the matrix's {C} channels")
+
+
+def check_table_args(p, tab: np.ndarray, bits, num_features, rows) -> None:
+    """check_split_args for every row of an (n_seg, >= 4) segment table,
+    the rows' bounds at once (a negative count is an empty segment)."""
+    starts, cnt = tab[:, 0], np.maximum(tab[:, 1], 0)
+    if ((starts < 0) | (starts + cnt > p.shape[1] - BLK)).any():
+        raise ValueError(f"segment outside the matrix's {p.shape[1] - BLK} rows")
+    for word, shift in set(zip(tab[:, 2].tolist(), tab[:, 3].tolist())):
+        check_split_args(p, 0, 0, word, shift, bits, num_features, rows)
+
+
+def _launch_level(p, tab: np.ndarray, num_features, num_bins, bits, rows, smax):
+    """Run the CUDA partition kernels over the host segment table ``tab``
+    (n_seg, 12); returns (nl (smax,), hists (smax, 2, F, B, 3), launched)."""
     _check_matrix(p)
     n_seg = tab.shape[0]
     if n_seg > smax:
         raise ValueError(f"{n_seg} segments exceed smax={smax}")
-    nl = torch.zeros((smax,), dtype=torch.int32, device=p.device)
-    hists = torch.zeros((smax, 2, num_features, num_bins, 3), dtype=torch.float64,
-                        device=p.device)
-    if n_seg == 0:
-        return nl, hists.float(), False
+    check_table_args(p, tab, bits, num_features, rows)
     cnt = np.maximum(tab[:, 1], 0)
-    if (tab[:, 0] < 0).any() or (tab[:, 0] + cnt > p.shape[1] - BLK).any():
-        raise ValueError("segment outside the matrix's rows")
-    tiles = (cnt + PART_TILE - 1) // PART_TILE
-    tile_base = np.concatenate([[0], np.cumsum(tiles)])
+    tile = partition_tile(int(cnt.sum()), _num_sms(p.device.index))
+    tile_base = np.concatenate([[0], np.cumsum(partition_blocks(cnt, tile))])
     total = int(tile_base[-1])
-    g_row, h_row, sel_row = rows
-    host = np.concatenate([tab[:, :12].astype(np.int32).ravel(),
-                           tile_base.astype(np.int32)])
+    if total == 0:
+        return (torch.zeros((smax,), dtype=torch.int32, device=p.device),
+                torch.zeros((smax, 2, num_features, num_bins, 3), device=p.device), False)
+    (acc, flags, ticket, nl_ptr, out), nl, hists = _partition_work(
+        p.device, n_seg, total, num_features, num_bins, smax)
+    host = np.concatenate([tab[:, :12].astype(np.int32).ravel(), tile_base.astype(np.int32)])
     dev = torch.from_numpy(host).to(p.device)
     scratch = torch.empty_like(p)
-    work = torch.empty((2 * max(total, 1),), dtype=torch.int32, device=p.device)
-    with torch.cuda.device(p.device):
-        rc = _build.lib().lgbt_partition_hist(
-            p.data_ptr(), scratch.data_ptr(), p.shape[1], p.shape[0],
-            dev.data_ptr(), dev.data_ptr() + 4 * 12 * n_seg, n_seg, total, PART_TILE,
-            work.data_ptr(), work.data_ptr() + 4 * max(total, 1), nl.data_ptr(),
-            bits, num_features, num_bins, g_row, h_row, sel_row, hists.data_ptr(),
-            _stream(p))
-    _build.check(rc, what)
-    return nl, hists.float(), True
+    with _device_of(p):
+        rc = _build.lib().lgbt_level_stream(
+            p.data_ptr(), p.shape[1], p.shape[0], scratch.data_ptr(), dev.data_ptr(),
+            dev.data_ptr() + 4 * 12 * n_seg, n_seg, total, tile, flags, ticket, nl_ptr, bits,
+            num_features, num_bins, *rows, acc, out, hists.numel(), _stream(p))
+    _build.check(rc, "level_stream")
+    return nl, hists, True
 
 
 def level_stream(p, seg_tab, n_active, *, num_features, num_bins, bits=8, rows=None,
@@ -496,8 +573,7 @@ def level_stream(p, seg_tab, n_active, *, num_features, num_bins, bits=8, rows=N
                                 num_bins=num_bins, bits=bits, rows=rows, smax=smax)
     rows = rows or PLayout(num_features, bits=bits).rows
     tab = _host_table(seg_tab)[: int(n_active)]
-    nl, hists, launched = _launch_partition(p, tab, num_features, num_bins, bits, rows,
-                                            smax, "level_stream")
+    nl, hists, launched = _launch_level(p, tab, num_features, num_bins, bits, rows, smax)
     if launched:
         level_stream.launches += 1
     return p, nl, hists
@@ -527,23 +603,40 @@ def split_stream(p, start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo=
     """Partition the leaf segment [start, start+cnt) in place by the
     split predicate and return both children's histograms from the same
     pass: (p, nl, left (F, B, 3), right (F, B, 3)).  Lefts land at
-    [start, start+nl), rights after them."""
+    [start, start+nl), rights after them.  On the card the segment goes
+    to the kernel by value (no table upload, so no wait for the device)
+    and the scratch is the segment's size."""
     if p.device.type == "cpu":
         return split_stream_ref(p, start, cnt, word, shift, zero_bin, dbz, thr, is_cat,
                                 off_lo, off_hi, bias, num_features=num_features,
                                 num_bins=num_bins, bits=bits, rows=rows)
     rows = rows or PLayout(num_features, bits=bits).rows
     off_hi = (1 << bits) if off_hi is None else off_hi
-    tab = _split_row(start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo, off_hi,
-                     bias)
-    nl, hists, launched = _launch_partition(p, tab, num_features, num_bins, bits, rows, 1,
-                                            "split_stream")
-    if launched:
-        split_stream.launches += 1
+    seg = [int(v) for v in (start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo, off_hi,
+                            bias)]
+    start, cnt = seg[0], seg[1]
+    _check_matrix(p)
+    check_split_args(p, start, cnt, seg[2], seg[3], bits, num_features, rows)
+    F, B = num_features, num_bins
+    if cnt == 0:
+        hists = torch.zeros((2, F, B, 3), device=p.device)
+        return p, torch.zeros((), dtype=torch.int32, device=p.device), hists[0], hists[1]
+    tile = partition_tile(cnt, _num_sms(p.device.index))
+    (acc, flags, ticket, nl_ptr, out), nl, hists = _partition_work(
+        p.device, 1, -(-cnt // tile), F, B, 1)
+    scratch = torch.empty((p.shape[0], cnt), dtype=torch.int32, device=p.device)
+    with _device_of(p):
+        rc = _build.lib().lgbt_split_stream(
+            p.data_ptr(), p.shape[1], p.shape[0], scratch.data_ptr(), *seg, tile, flags, ticket,
+            nl_ptr, bits, F, B, *rows, acc, out, _stream(p))
+    _build.check(rc, "split_stream")
+    split_stream.launches += 1
+    split_stream.rows += cnt
     return p, nl[0], hists[0, 0], hists[0, 1]
 
 
 split_stream.launches = 0
+split_stream.rows = 0  # rows partitioned, summed over launches
 
 
 # ======================================================================
@@ -559,15 +652,22 @@ def score_add_ref(p, layout: PLayout, delta, k: int = 0, *, num_rows):
 
 def score_add(p, layout: PLayout, delta, k: int = 0, *, num_rows):
     """Score channel k += delta over the first ``num_rows`` columns, in
-    place (the chunk-end settle of the last tree's pending delta)."""
+    place (the chunk-end settle of the last tree's pending delta).  A
+    ``delta`` that is already a contiguous float32 tensor on ``p``'s card
+    goes to the kernel as it is."""
     if p.device.type == "cpu":
         return score_add_ref(p, layout, delta, k, num_rows=num_rows)
     _check_matrix(p)
     n = int(num_rows)
+    if not 0 <= k < layout.num_score or n > p.shape[1] - BLK:
+        raise ValueError(f"score channel {k} of {layout.num_score} over {n} rows")
     if n <= 0:
         return p
-    d = _vec(delta, n, p.device)
-    with torch.cuda.device(p.device):
+    ready = (isinstance(delta, torch.Tensor) and delta.device == p.device
+             and delta.dtype == torch.float32 and delta.dim() == 1 and delta.is_contiguous()
+             and delta.shape[0] >= n)
+    d = delta if ready else _vec(delta, n, p.device)
+    with _device_of(p):
         rc = _build.lib().lgbt_score_add(p.data_ptr(), p.shape[1], layout.SCORE + k,
                                          d.data_ptr(), n, _stream(p))
     _build.check(rc, "score_add")
@@ -672,9 +772,12 @@ KERNELS = (update_and_root_hist, update_multi_and_hists, level_stream, split_str
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Launches of every kernel wrapper, and ``split_stream_rows``: the
+    rows split_stream partitioned over its launches."""
+    return {**{k.__name__: k.launches for k in KERNELS}, "split_stream_rows": split_stream.rows}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    split_stream.rows = 0

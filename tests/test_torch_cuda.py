@@ -154,6 +154,123 @@ def test_score_add(dev):
     assert torch.equal(Pk, Pr)
 
 
+# (start, cnt, feat, thr, zero_bin, dbz, cat, off_lo, off_hi, bias) of
+# split_stream's own cases: all-left, all-right (a categorical bin no
+# row holds), one row, an unaligned start over many row tiles with a
+# ragged last tile, and the whole matrix
+SPLIT_EXTRA = [
+    (77, 3001, 2, 31, 0, 0, 0, 0, 256, 0),
+    (5, 4000, 4, 99, 0, 0, 1, 0, 256, 0),
+    (19999, 1, 6, 3, 0, 0, 0, 0, 256, 0),
+    (333, 15001, 9, 12, 2, 2, 0, 0, 256, 0),
+    (0, N, 8, 16, 0, 0, 0, 0, 256, 0),
+]
+
+
+@pytest.mark.parametrize("seg", SPLIT_EXTRA, ids=["all-left", "all-right", "one-row",
+                                                  "tiles-unaligned", "all-rows"])
+def test_split_stream_segments(dev, seg):
+    P, lay, *_ = _packed(seed=3)
+    s, c, f, t, zb, dbz, cat, lo, hi, bias = seg
+    args = (s, c, f // 4, (f % 4) * 8, zb, dbz, t, cat, lo, hi, bias)
+    Pk, Pr = P.to(dev), P.to(dev)
+    before = (pk.split_stream.launches, pk.split_stream.rows)
+    _, nk, lk, rk = pk.split_stream(Pk, *args, num_features=F, num_bins=32)
+    assert (pk.split_stream.launches, pk.split_stream.rows) == (before[0] + 1, before[1] + c)
+    _, nr, lr, rr = pk.split_stream_ref(Pr, *args, num_features=F, num_bins=32)
+    torch.cuda.synchronize()
+    assert int(nk) == int(nr)
+    assert torch.equal(Pk, Pr)
+    _assert_hist(lk, lr)
+    _assert_hist(rk, rr)
+
+
+@pytest.mark.parametrize("kernel", ["split_stream", "level_stream"])
+def test_partition_many_tiles(dev, kernel):
+    """More row tiles than one warp's look-back window (32) reads at a
+    time, in one segment and in a table of segments."""
+    rng = np.random.default_rng(21)
+    n, f, b = 300_000, 28, 64
+    lay = pk.PLayout(f)
+    P = pk.pack_matrix(rng.integers(0, b, size=(n, f), dtype=np.uint8), lay,
+                       label=(rng.random(n) < 0.5).astype(np.float32))
+    P[lay.G, :n] = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).view(torch.int32)
+    P[lay.H, :n] = torch.from_numpy(rng.random(n).astype(np.float32)).view(torch.int32)
+    Pk, Pr = P.to(dev), P.to(dev)
+    kw = dict(num_features=f, num_bins=b, bits=8)
+    if kernel == "split_stream":
+        args = (11, n - 20, 2, 8, 0, 0, 30, 0, 0, 256, 0)
+        assert pk.partition_blocks([n - 20], pk.partition_tile(n - 20, 132))[0] > 32
+        _, nk, lk, rk = pk.split_stream(Pk, *args, **kw)
+        _, nr, lr, rr = pk.split_stream_ref(Pr, *args, **kw)
+        hk, hr = torch.stack([lk, rk]), torch.stack([lr, rr])
+    else:
+        tab = np.asarray([[0, 100_000, 0, 0, 0, 0, 20, 0, 0, 256, 0, 0],
+                          [100_000, 7, 1, 8, 0, 0, 40, 0, 0, 256, 0, 0],
+                          [100_007, n - 100_007, 6, 24, 3, 3, 33, 0, 0, 256, 0, 0]])
+        _, nk, hk = pk.level_stream(Pk, tab, 3, smax=8, **kw)
+        _, nr, hr = pk.level_stream_ref(Pr, tab, 3, smax=8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nk.cpu(), nr.cpu())
+    assert torch.equal(Pk, Pr)
+    _assert_hist(hk, hr)
+
+
+@pytest.mark.parametrize("kernel", ["split_stream", "level_stream"])
+def test_partition_feature_tiles(dev, kernel):
+    """28 features of 256 bins: both children's float64 cells outgrow one
+    block's shared memory, so the features are tiled over the grid and the
+    blocks of feature tiles past the first stage their rows straight from
+    the matrix; many row tiles, 30 % of the rows unselected."""
+    rng = np.random.default_rng(31)
+    n, f, b = 100_000, 28, 256
+    lay = pk.PLayout(f)
+    P = pk.pack_matrix(rng.integers(0, b, size=(n, f), dtype=np.uint8), lay)
+    P[lay.G, :n] = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).view(torch.int32)
+    P[lay.H, :n] = torch.from_numpy(rng.random(n).astype(np.float32)).view(torch.int32)
+    P[lay.SEL, :n] = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)).view(
+        torch.int32)
+    Pk, Pr = P.to(dev), P.to(dev)
+    kw = dict(num_features=f, num_bins=b, bits=8)
+    if kernel == "split_stream":
+        args = (13, n - 50, 5, 16, 0, 0, 140, 0, 0, 256, 0)
+        assert pk.partition_blocks([n - 50], pk.partition_tile(n - 50, 132))[0] > 32
+        _, nk, lk, rk = pk.split_stream(Pk, *args, **kw)
+        _, nr, lr, rr = pk.split_stream_ref(Pr, *args, **kw)
+        hk, hr = torch.stack([lk, rk]), torch.stack([lr, rr])
+    else:
+        tab = np.asarray([[0, 40_000, 0, 8, 0, 0, 100, 0, 0, 256, 0, 0],
+                          [40_000, 5, 2, 0, 0, 0, 7, 1, 0, 256, 0, 0],
+                          [40_005, n - 40_005, 6, 24, 3, 3, 200, 0, 0, 256, 0, 0]])
+        _, nk, hk = pk.level_stream(Pk, tab, 3, smax=4, **kw)
+        _, nr, hr = pk.level_stream_ref(Pr, tab, 3, smax=4, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nk.cpu(), nr.cpu())
+    assert torch.equal(Pk, Pr)
+    _assert_hist(hk, hr)
+
+
+@pytest.mark.parametrize("n", [20000, 20001, 20002, 20003])
+@pytest.mark.parametrize("delta_offset", [0, 1])
+def test_score_add_alignments(dev, n, delta_offset):
+    """Every N % 4, so the score row starts 0, 4, 8 or 12 bytes past a
+    16-byte boundary, against a delta at the same or another offset; the
+    first and last columns past num_rows stay untouched."""
+    rng = np.random.default_rng(n)
+    lay = pk.PLayout(F)
+    P = pk.pack_matrix(rng.integers(0, 32, size=(n, F), dtype=np.uint8), lay)
+    P[lay.SCORE, :n] = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).view(
+        torch.int32)
+    dfull = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)).to(dev)
+    delta = dfull[delta_offset:delta_offset + n]
+    Pk, Pr = P.to(dev), P.to(dev)
+    pk.score_add(Pk, lay, delta, num_rows=n - 3)
+    pk.score_add_ref(Pr, lay, delta, num_rows=n - 3)
+    torch.cuda.synchronize()
+    assert (Pk[lay.SCORE].data_ptr() % 16 == 0) == (lay.SCORE * (n + pk.BLK) % 4 == 0)
+    assert torch.equal(Pk, Pr)
+
+
 def _packed_multi(K, b=32, seed=9):
     rng = np.random.default_rng(seed)
     lay = pk.PLayout(F, num_score=K)
