@@ -20,8 +20,16 @@ measurement:
   a 139,291-row one, see TAIL_ROWS) at 10.5M x 28 features, 64 and 256
   bins, and of score_add and Tensor.add_ on the same score row; the
   single-call time (one launch between the events, so with the host's
-  time to make the call) beside split_stream and score_add.
+  time to make the call) beside split_stream and score_add;
+- the mask grower's histograms at their paths' shapes (see HIST_CELLS):
+  hist_segment (B8) on the covertype-581k-goss cell's 464,809 training
+  rows x 54 features, hist_segment_q (B9) on 10.5M x 28 quantized rows
+  of 64 bins, each with that cell's mean selected rows per launch
+  scattered at random, in bursts, single and by kernel on the device
+  (torch.profiler); and their fixed cost: the
+  same launch with no row selected, over all features and over one.
 
+``--hist`` times only the mask grower's histograms (the last item above).
 ``--cells`` times instead one cell against another inside one process:
 it trains one binned dataset (10.5M Higgs-shaped rows, the higgs cell's
 parameters, 16 iterations per run) in the order
@@ -52,6 +60,10 @@ TRAIN_ROWS, KERNEL_ROWS = 3_000_000, 10_500_000
 # (chip_smoke.py, split_stream's rows over its launches)
 TAIL_ROWS = (41_000, 139_291)
 ITERS = {63: 12, 255: 6}  # max_bin: iterations
+# the mask grower's histogram cells: (kernel, rows, features, selected
+# rows per launch: the cell's mean, from chip_smoke.py's tally on the
+# card); B8's bins are the covertype cell's, B9's 64 random bins
+HIST_CELLS = (("hist_segment", 464_809, 54, 3_544), ("hist_segment_q", 10_500_000, 28, 158_830))
 CELL_ROWS, CELL_ITERS = 10_500_000, 16
 CELL_ORDER = ("plain", "goss", "bagging", "profile", "plain", "bagging", "goss", "plain")
 
@@ -85,6 +97,61 @@ def burst_ms(fn, bursts=5, burst=10):
         b.synchronize()
         times.append(a.elapsed_time(b) / burst)
     return float(np.median(times))
+
+
+def hist_cells(tree, cs, lgt, dev):
+    """Print the "AB" lines of each HIST_CELLS entry: the kernel at the
+    cell's mean selected rows (bursts, single, device time by kernel);
+    with no row selected, over all features and over one; the device
+    time by kernel over other selected counts."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import histogram as th
+
+    rng = np.random.default_rng(3)
+    for name, n, F, sel in HIST_CELLS:
+        if name == "hist_segment":
+            X, y = cs.make_covertype_shaped()
+            ds = lgt.Dataset(X[:n], label=y[:n])
+            bins = torch.from_numpy(ds.construct(cs.COV_PARAMS).binned).to(dev)
+            B = int(ds.construct(cs.COV_PARAMS).max_num_bin)
+            del X, y, ds
+            g = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+            h = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
+            pack, kern = th.pack_columns, th.hist_segment
+        else:
+            B = 64
+            bins = torch.from_numpy(rng.integers(0, B, (n, F), dtype=np.uint8)).to(dev)
+            g = torch.from_numpy(rng.integers(-15, 16, n).astype(np.int16)).to(dev)
+            h = torch.from_numpy(rng.integers(1, 16, n).astype(np.int16)).to(dev)
+            pack, kern = th.pack_columns_q, th.hist_segment_q
+        P = pack(bins, g, h, torch.ones(n, device=dev))
+        del bins, g, h
+        W = P.shape[0] - 3
+        one = P[W + 2, 0].item()  # float32 1.0 or int32 1
+        order = torch.from_numpy(rng.permutation(n)).to(dev)
+
+        def select(k):
+            P[W + 2] = 0
+            P[W + 2, order[:k]] = one
+
+        def run(feats=F):
+            kern(P, 0, n, feats, B, 4, 8, (W, W + 1, W + 2))
+
+        select(0)
+        none, none1 = burst_ms(run), burst_ms(lambda: run(1))
+        sweep = {}
+        for k in (0, 1, sel // 8, 8 * sel, n):
+            select(k)
+            sweep[k] = cs.device_split(run)
+        select(sel)
+        print(f"AB {tree} {name} rows {n} x {F} features, {B} bins, {sel} selected: "
+              f"{burst_ms(run):.4f} ms (single {cs.time_cuda(run, 10):.4f}; device "
+              f"{json.dumps(cs.device_split(run))}); no row selected {none:.4f} ms, over one "
+              f"feature {none1:.4f} ms", flush=True)
+        print(f"AB {tree} {name} device ms by selected rows: {json.dumps(sweep)}", flush=True)
+        del P
+        torch.cuda.empty_cache()
 
 
 def run_cells(cs, lgt, dev):
@@ -127,6 +194,8 @@ def main(argv=None):
     ap.add_argument("tree")
     ap.add_argument("--cells", action="store_true",
                     help="time the plain, bagging and GOSS cells in turns instead")
+    ap.add_argument("--hist", action="store_true",
+                    help="time only the mask grower's histograms (hist_segment, hist_segment_q)")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -148,6 +217,9 @@ def main(argv=None):
     dev = torch.device("cuda")
     if args.cells:
         run_cells(cs, lgt, dev)
+        return 0
+    if args.hist:
+        hist_cells(tree, cs, lgt, dev)
         return 0
 
     # ---- kernels at 64 and 256 bins
@@ -186,6 +258,8 @@ def main(argv=None):
         print(line + " (bursts of 10 launches; single: one launch between events)", flush=True)
         del P
         torch.cuda.empty_cache()
+
+    hist_cells(tree, cs, lgt, dev)
 
     # ---- end to end
     X, y = cs.make_higgs_shaped(TRAIN_ROWS, seed=7)

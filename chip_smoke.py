@@ -20,7 +20,10 @@ result line):
      bundled training matrix (12 EFB columns, 63 bins, K=7 score
      channels, 40 channels).  Mask grower: hist_segment and
      hist_segment_q at --rows x 28, 64 bins, over a sub-range with
-     unselected rows, and at 1M rows of 512 bins (16-bit words); the
+     unselected rows, at 1M rows of 512 bins (16-bit words), and on edge
+     cases (no row, one row, every row selected, every row in one bin,
+     range ends not multiples of 4, 600 features) with their
+     selected-row tallies; the
      quantized levels of the card against the CPU's; split_stream and
      level_stream at 1M rows x 28 features of 256 bins (features tiled
      over the grid, as at max_bin=255), unselected rows among them;
@@ -74,6 +77,12 @@ result line):
      iterations (10 warm-up, 10 sampled); prints s/iter of each kind,
      held-out multi_logloss and accuracy, hist_segment's launches, and
      a one-iteration profiler window.
+  7. hist_segment on the covertype cell's training bins and
+     hist_segment_q at --rows x 28, each with its cell's mean selected
+     rows per launch in this run (the kernels' device-side tally over
+     their launches) scattered at random, against the plain versions:
+     ms a launch in bursts and single, bound, and each cell's
+     device ms an iteration in them from its profiler window.
 Every driven path starts with the launch counts at 0 and reads them at
 its end.  The line before last is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.
@@ -756,14 +765,97 @@ def phase_kernels_multi(bds, dev, seed=5):
     return finish_bounds(out)
 
 
+def hist_rows(bins, g, h, sel, quantized, per=4, bits=8):
+    """(packed matrix, kernel, plain version) of B9 (quantized) or B8."""
+    from lightgbm_tpu_torch.ops import histogram as th
+
+    if quantized:
+        return (th.pack_columns_q(bins, g, h, sel, per, bits), th.hist_segment_q,
+                th.hist_segment_q_ref)
+    return th.pack_columns(bins, g, h, sel, per, bits), th.hist_segment, th.hist_segment_ref
+
+
+def check_mask_hist(name, hk, hr):
+    """B9 bit-identical to its plain version, B8 as check_hist; returns
+    the max abs error."""
+    import torch
+
+    if hk.dtype == torch.int32:
+        assert torch.equal(hk, hr), f"{name} differs from plain"
+        return 0.0
+    return check_hist(name, hk, hr)
+
+
+def hist_work(n_range, n_sel, W, F, B):
+    """B8/B9's bytes and operations: the select word of every column of
+    the range; W words, g and h of each selected row; the (F, B, 3)
+    output; 3 adds per feature of each selected row."""
+    return dict(bytes=n_range * 4 + n_sel * 4 * (W + 2) + F * B * 3 * 4, ops=n_sel * 3 * F)
+
+
+def phase_hist_edges(dev, n=100_000, seed=31):
+    """B8 and B9 against their plain versions on edge cases: no row, one
+    row and every row selected, every row in one bin, a range whose ends
+    are not multiples of 4, and 600 features of 64 bins (the float64
+    cells need feature tiles); 54 features, 10 of 63 bins and 44 one-hot
+    columns of two, like the covertype cell's.  Then 16-bit words of many
+    bins: 28 features of 1024 bins (tiles of a few features) and 3 of
+    9600 (tiles of one feature, a short staged chunk)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import histogram as th
+
+    rng = np.random.default_rng(seed)
+    F, B = 54, 63
+    bins = np.zeros((n, F), np.uint8)
+    bins[:, :10] = rng.integers(0, B, (n, 10))
+    bins[np.arange(n), 10 + rng.integers(0, 44, n)] = 1
+    g = rng.standard_normal(n, dtype=np.float32)
+    h = rng.random(n, dtype=np.float32)
+    qg, qh = rng.integers(-15, 16, n).astype(np.int16), rng.integers(1, 16, n).astype(np.int16)
+    some = rng.random(n) < 0.4
+    one = np.zeros(n, bool)
+    one[n // 3] = True
+    wide = rng.integers(0, 64, (n, 600)).astype(np.uint8)
+    # (what, bins, bins' count, selected, lo, hi)
+    cases = [("no row selected", bins, B, np.zeros(n, bool), 0, n),
+             ("one row", bins, B, one, 0, n),
+             ("every row", bins, B, np.ones(n, bool), 0, n),
+             ("every row in one bin", np.full((n, F), 5, np.uint8), B, np.ones(n, bool), 0, n),
+             ("ends not multiples of 4", bins, B, some, 3, n - 5),
+             ("600 features x 64 bins, feature tiles", wide, 64, some, 1, n - 2)]
+    for nf, nb in ((28, 1024), (3, 9600)):
+        cases.append((f"{nf} features x {nb} bins, 16-bit words",
+                      rng.integers(0, nb, (n, nf)).astype(np.int32), nb, some, 1, n - 2))
+    for quantized in (False, True):
+        for what, b, nb, sel, lo, hi in cases:
+            per, bits = (4, 8) if b.dtype == np.uint8 else (2, 16)
+            P, kern, ref = hist_rows(
+                torch.from_numpy(b).to(dev),
+                *(torch.from_numpy(x).to(dev) for x in ((qg, qh) if quantized else (g, h))),
+                torch.from_numpy(sel.astype(np.float32)).to(dev), quantized, per, bits)
+            nf = b.shape[1]
+            before = th.selected_rows()[kern.__name__]
+            hk = kern(P, lo, hi, nf, nb, per, bits)
+            hr = ref(P, lo, hi, nf, nb, per, bits)
+            sync(dev)
+            check_mask_hist(f"{kern.__name__} {what}", hk, hr)
+            tally = th.selected_rows()[kern.__name__] - before
+            assert tally == int(sel[lo:hi].sum()), f"{kern.__name__} {what}: tally {tally}"
+            del P
+    log(f"kernel hist_segment and hist_segment_q: {len(cases)} edge cases each match the plain "
+        f"versions (B9 bit-identical), selected-row tallies exact")
+
+
 def phase_kernels_mask(rows, dev, seed=17):
     """The mask grower's kernels on the column-packed layout
     (ops/histogram.py) against their plain versions: hist_segment (B8)
     and hist_segment_q (B9) at rows x 28 features, 64 bins (8-bit words),
     over a sub-range with 40 % of the rows unselected, then at a 16-bit
-    layout (uint16 bins, 512 bins, 1M rows); and the quantized levels of
-    the same gradients on the card against the CPU's.  Returns {name:
-    {...measurements}}."""
+    layout (uint16 bins, 512 bins, 1M rows), then on edge cases; and the
+    quantized levels of the same gradients on the card against the
+    CPU's.  Returns {name: {...measurements}}, the wide row's under
+    ``wide_*`` (phase_mask_paths times the paths' shapes)."""
     import torch
 
     from lightgbm_tpu_torch.ops import histogram as th
@@ -788,55 +880,92 @@ def phase_kernels_mask(rows, dev, seed=17):
     nsel = int(sel[lo:hi].sum())
     W = th.num_words(F, 4)
     out = {}
-    for name, P, kern, ref in (
-            ("hist_segment", th.pack_columns(bins, gd, hd, seld), th.hist_segment,
-             th.hist_segment_ref),
-            ("hist_segment_q", th.pack_columns_q(bins, qg, qh, seld), th.hist_segment_q,
-             th.hist_segment_q_ref)):
+    for quantized in (False, True):
+        P, kern, ref = hist_rows(bins, *((qg, qh) if quantized else (gd, hd)), seld, quantized)
+        name = kern.__name__
         hk = kern(P, lo, hi, F, B)
         hr = ref(P, lo, hi, F, B)
         sync(dev)
-        if name == "hist_segment_q":
-            assert torch.equal(hk, hr), "hist_segment_q differs from plain"
-            habs = 0.0
-            log("kernel hist_segment_q: bit-identical to the plain version")
-        else:
-            habs = check_hist(name, hk, hr)
+        habs = check_mask_hist(name, hk, hr)
         ms = burst_ms(lambda: kern(P, lo, hi, F, B))
         plain = time_cuda(lambda: ref(P, lo, hi, F, B), 3)
+        wide = finish_bounds({"x": hist_work(hi - lo, nsel, W, F, B)})["x"]
         log(f"  {name} at {rows} x {F}, [{lo}, {hi}), {nsel} rows selected: {ms:.4f} ms, "
-            f"plain {plain:.2f} ms")
-        # every row's select word; W words, g and h of each selected row;
-        # 3 adds per feature of each selected row
-        out[name] = dict(max_abs_err=habs, ms=ms, plain_ms=plain,
-                         bytes=(hi - lo) * 4 + nsel * 4 * (W + 2) + F * B * 3 * 4,
-                         ops=nsel * 3 * F, library_ms=None)
+            f"plain {plain:.2f} ms, bound {wide['bound_ms']:.4f} ms ({wide['bound_by']})")
+        out[name] = dict(max_abs_err=habs, wide_ms=ms, wide_plain_ms=plain,
+                         wide_bound_ms=wide["bound_ms"], library_ms=None)
         del P
     del bins
-    # the 16-bit layout of more than 256 bins
+    # the 16-bit layout of more than 256 bins (float64 cells in feature tiles)
     n16, B16 = min(rows, 1_000_000), 512
     bins = torch.from_numpy(rng.integers(0, B16, size=(n16, F)).astype(np.int32)).to(dev)
-    for name, P, kern, ref in (
-            ("hist_segment", th.pack_columns(bins, gd[:n16], hd[:n16], seld[:n16], per=2,
-                                             bits=16), th.hist_segment, th.hist_segment_ref),
-            ("hist_segment_q", th.pack_columns_q(bins, qg[:n16], qh[:n16], seld[:n16], per=2,
-                                                 bits=16), th.hist_segment_q,
-             th.hist_segment_q_ref)):
+    for quantized in (False, True):
+        gh = (qg, qh) if quantized else (gd, hd)
+        P, kern, ref = hist_rows(bins, gh[0][:n16], gh[1][:n16], seld[:n16], quantized, per=2,
+                                 bits=16)
         hk = kern(P, 3, n16, F, B16, 2, 16)
         hr = ref(P, 3, n16, F, B16, 2, 16)
         sync(dev)
-        if name == "hist_segment_q":
-            assert torch.equal(hk, hr), "hist_segment_q 16-bit differs from plain"
-        else:
-            check_hist(f"{name} 16-bit", hk, hr)
+        check_mask_hist(f"{kern.__name__} 16-bit", hk, hr)
         ms = burst_ms(lambda: kern(P, 3, n16, F, B16, 2, 16))
-        log(f"kernel {name} 16-bit ({n16} x {F}, {B16} bins): matches the plain version; "
-            f"{ms:.4f} ms")
+        log(f"kernel {kern.__name__} 16-bit ({n16} x {F}, {B16} bins): matches the plain "
+            f"version; {ms:.4f} ms")
         del P
     del bins, gd, hd, qg, qh, seld
+    phase_hist_edges(dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return finish_bounds(out)
+    return out
+
+
+def phase_mask_paths(cov_ds, rows, dev, sel8, sel9, seed=37):
+    """B8 and B9 at their paths' shapes, against their plain versions:
+    B8 on the covertype cell's 464,809 training rows x 54 features (its
+    own bins), B9 on rows x 28 quantized levels of 64 bins, each with
+    ``sel8`` / ``sel9`` rows selected at random (the cells' mean selected
+    rows per launch in this run).  Returns {name: {ms, single_ms,
+    plain_ms, bound, ...}}."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import histogram as th
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for quantized, n, sel in ((False, cov_ds.num_data, sel8), (True, rows, sel9)):
+        if quantized:
+            F, B = 28, 64
+            bins = torch.from_numpy(rng.integers(0, B, (n, F), dtype=np.uint8)).to(dev)
+            g = torch.from_numpy(rng.integers(-15, 16, n).astype(np.int16)).to(dev)
+            h = torch.from_numpy(rng.integers(1, 16, n).astype(np.int16)).to(dev)
+        else:
+            F, B = cov_ds.num_features, int(cov_ds.max_num_bin)
+            bins = torch.from_numpy(cov_ds.binned).to(dev)
+            g = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+            h = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
+        mask = np.zeros(n, np.float32)
+        mask[rng.permutation(n)[:sel]] = 1.0
+        P, kern, ref = hist_rows(bins, g, h, torch.from_numpy(mask).to(dev), quantized)
+        del bins, g, h
+        name = kern.__name__
+        hk = kern(P, 0, n, F, B)
+        hr = ref(P, 0, n, F, B)
+        sync(dev)
+        habs = check_mask_hist(f"{name} at its path's shape", hk, hr)
+        ms = burst_ms(lambda: kern(P, 0, n, F, B))
+        single = time_cuda(lambda: kern(P, 0, n, F, B), 10)
+        plain = time_cuda(lambda: ref(P, 0, n, F, B), 3)
+        res = finish_bounds({"x": dict(hist_work(n, sel, th.num_words(F, 4), F, B),
+                                       max_abs_err=habs, ms=ms, single_ms=single,
+                                       plain_ms=plain, library_ms=None)})["x"]
+        log(f"kernel {name} at its path's shape ({n} x {F}, {B} bins, {sel} rows selected): "
+            f"{ms:.4f} ms (single {single:.4f}), plain "
+            f"{plain:.2f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), max abs err "
+            f"{habs:.3e}")
+        res.update(path_rows=n, path_selected=sel)
+        out[name] = res
+        del P
+        torch.cuda.empty_cache()
+    return out
 
 
 def model_splits(text):
@@ -1133,7 +1262,7 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
     busy = sum(dev_us(e) for e in evs)
     if busy == 0:
         log("profile: the profiler recorded no device time; busy share not measured")
-        return
+        return None
     log(f"profile: {n_iter} iterations, wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}% "
         f"(the profiler's tables took {time.perf_counter() - t:.1f} s); "
@@ -1147,14 +1276,22 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
     log(f"profile: partition kernels a iteration: level_stream {part['true'] / 1e3 / n_iter:.2f} "
         f"ms, split_stream {part['false'] / 1e3 / n_iter:.2f} ms of "
         f"{busy / 1e3 / n_iter:.2f} ms busy")
-    # csrc/segment_hist.cu: <true> is hist_segment_q, <false> the float
-    # histograms (hist_segment, hist_dyn, hist_segments)
-    seg = {form: sum(dev_us(e) for e in evs if "seg_hist_kernel" in e.key and f"<{form}>" in e.key)
-           for form in ("true", "false")}
-    log(f"profile: segment-histogram kernels a iteration: float {seg['false'] / 1e3 / n_iter:.2f} "
-        f"ms, quantized {seg['true'] / 1e3 / n_iter:.2f} ms")
+    # csrc/segment_hist.cu, both launches of a call: a first template
+    # argument true is hist_segment_q, false the float histograms
+    # (hist_segment, hist_dyn, hist_segments)
+    seg = {}
+    for form, name in (("false", "float"), ("true", "quantized")):
+        mine = [e for e in evs if ("seg_hist_kernel" in e.key or "seg_compact_kernel" in e.key)
+                and (f"<{form}>" in e.key or f"<{form}," in e.key)]
+        calls = sum(e.count for e in mine if "seg_hist_kernel" in e.key)
+        seg[name] = dict(ms_iter=sum(dev_us(e) for e in mine) / 1e3 / n_iter, calls=calls,
+                         ms_call=sum(dev_us(e) for e in mine) / 1e3 / max(calls, 1))
+    log(f"profile: segment-histogram kernels a iteration (list and histogram launches): "
+        + ", ".join(f"{k} {v['ms_iter']:.2f} ms over {v['calls'] / n_iter:.0f} calls, "
+                    f"{v['ms_call']:.4f} ms a call" for k, v in seg.items()))
     del bst
     torch.cuda.empty_cache()
+    return seg
 
 
 def phase_full(rows, iters, dev, repeat_iters):
@@ -1353,9 +1490,8 @@ def phase_quantized(ds, Xv, yv, dev, higgs_auc):
             f" splits, {len(bst.boosting.models) - n0} tree) made {nsync} implicit host syncs")
         split_search_times(bst.boosting)
     del bst
-    if dev.type == "cuda":
-        profile_iters(ds, dev, QUANT_PARAMS)
-    return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak)
+    prof = profile_iters(ds, dev, QUANT_PARAMS) if dev.type == "cuda" else None
+    return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak, profile=prof)
 
 
 def split_search_times(gbdt, reps=50):
@@ -1422,11 +1558,12 @@ def phase_covertype_goss(ds, Xv, yv, dev):
     assert prob.shape == (len(yv), 7) and np.all(np.isfinite(prob))
     assert ll < prior_entropy(), "held-out multi_logloss is not below the class prior's"
     del bst
+    prof = None
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-        profile_iters(ds, dev, COV_GOSS_PARAMS, n_iter=1)
+        prof = profile_iters(ds, dev, COV_GOSS_PARAMS, n_iter=1)
     return counts, dict(s_warm=s_warm, s_sampled=s_samp, logloss=ll, accuracy=acc,
-                        peak_gib=peak)
+                        peak_gib=peak, profile=prof)
 
 
 def main(argv=None):
@@ -1489,15 +1626,32 @@ def main(argv=None):
     sampled_counts, _ = phase_sampled(*higgs, dev, full["iter_seconds"])
     log(f"higgs-10.5M-bagging and higgs-10.5M-goss in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    q_counts, _ = phase_quantized(*higgs, dev, full["auc"])
+    q_counts, quant = phase_quantized(*higgs, dev, full["auc"])
     del higgs
     log(f"higgs-10.5M-quantized in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cov_counts, cov_full = phase_covertype(cov, Xc[nc:], yc[nc:], COV_ITERS, dev)
     log(f"covertype-581k in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    goss_counts, _ = phase_covertype_goss(cov, Xc[nc:], yc[nc:], dev)
+    goss_counts, cov_goss = phase_covertype_goss(cov, Xc[nc:], yc[nc:], dev)
     log(f"covertype-581k-goss in {time.perf_counter() - t0:.1f} s")
+    # B8 and B9 at their cells' mean selected rows per launch, and each
+    # cell's device time an iteration in them (its profile window)
+    t0 = time.perf_counter()
+    sel8 = goss_counts["hist_segment_rows"] // goss_counts["hist_segment"]
+    sel9 = q_counts["hist_segment_q_rows"] // q_counts["hist_segment_q"]
+    log(f"mean selected rows per launch: hist_segment {sel8} on covertype-581k-goss, "
+        f"hist_segment_q {sel9} on higgs-10.5M-quantized")
+    paths = phase_mask_paths(cov.construct(COV_PARAMS), args.rows, dev, sel8, sel9)
+    for name, prof, kind in (("hist_segment", cov_goss["profile"], "float"),
+                             ("hist_segment_q", quant["profile"], "quantized")):
+        wide_err = kern[name]["max_abs_err"]
+        kern[name].update(paths[name])
+        kern[name]["max_abs_err"] = max(wide_err, paths[name]["max_abs_err"])
+        if prof:
+            kern[name].update(device_ms_per_iter=prof[kind]["ms_iter"],
+                              device_ms_per_launch=prof[kind]["ms_call"])
+    log(f"mask-grower kernels at their paths' shapes in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name in KERNEL_NAMES:
@@ -1510,8 +1664,9 @@ def main(argv=None):
                             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
                             library_ms=k["library_ms"],
-                            **{x: v for x, v in k.items() if x.startswith(("single", "tail",
-                                                                           "library_single"))}))
+                            **{x: v for x, v in k.items()
+                               if x.startswith(("single", "tail", "library_single", "wide",
+                                                "path", "device"))}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -177,14 +177,12 @@ class Booster:
                 for name, val, bigger in self.boosting.get_eval_at(data_idx)]
 
     # ------------------------------------------------------------------
-    def predict(self, data, num_iteration: Optional[int] = None,
+    def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
-        """Predictions of the first ``num_iteration`` iterations; ``None``
-        takes the best iteration when training recorded one (early
-        stopping), else all (python-package basic.py Booster.predict);
-        -1 takes all."""
-        if num_iteration is None:
-            num_iteration = self.best_iteration if self.best_iteration > 0 else -1
+        """Predictions of the first ``num_iteration`` iterations; -1 (the
+        default) takes every tree the booster holds, also after early
+        stopping, as the JAX package's ``Booster.predict`` does; pass
+        ``num_iteration=bst.best_iteration`` for the best iteration's."""
         return self.boosting.predict(_to_2d_float(data), num_iteration=num_iteration,
                                      raw_score=raw_score)
 

@@ -154,4 +154,154 @@ inline int num_sms() {
   return v;
 }
 
+namespace {
+
+constexpr int kMaxDevices = 64;
+constexpr int kMaxKernelSlots = 8;
+
+// Each device's SM count and opt-in shared-memory limit, and the dynamic
+// shared memory each kernel slot opted in to there (an attribute of the
+// device's context).  File-local (internal linkage, so no GNU unique
+// symbol): one table a source, and another copy of the library loaded
+// into the process keeps its own.
+struct DeviceLimits {
+  int sms = 0, optin = 0;
+  size_t smem[kMaxKernelSlots] = {};
+};
+
+inline DeviceLimits* device_limits() {
+  static DeviceLimits table[kMaxDevices];
+  return table;
+}
+
+// The current device's SM count, and the dynamic shared memory a block of
+// `kernel` may take there: the opt-in limit less the kernel's static
+// arrays, opted in at the kernel's first launch on the device.  `slot`
+// (< kMaxKernelSlots) names the kernel within its source.
+template <class K>
+inline cudaError_t kernel_limits(K* kernel, int slot, int* sms, size_t* smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices || slot < 0 || slot >= kMaxKernelSlots)
+    return cudaErrorInvalidValue;
+  DeviceLimits& d = device_limits()[dev];
+  if (d.sms == 0) {
+    d.sms = num_sms();
+    d.optin = max_smem_optin();
+  }
+  if (d.smem[slot] == 0) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kernel);
+    if (e != cudaSuccess) return e;
+    const size_t limit = (size_t)d.optin - fa.sharedSizeBytes;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)limit);
+    if (e != cudaSuccess) return e;
+    d.smem[slot] = limit;
+  }
+  *sms = d.sms;
+  *smem = d.smem[slot];
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// ---- histogram warps over rows staged in shared memory
+// (partition_hist.cu, segment_hist.cu).  A staged channel holds a chunk's
+// rows at a stride that is a multiple of 4, so four rows are one 16-byte
+// load.
+
+__host__ __device__ __forceinline__ size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+// Features of one stripe of cells: 128 bytes of cells, one per lane, a
+// bank each (16 float64 or 32 int32 cells).  Feature lf's cell (bin, v)
+// lies at ((lf / S * nb + bin) * 3 + v) * S + lf % S, so the lanes of a
+// warp, a feature each, read and write without bank conflicts whatever
+// their bins.
+__host__ __device__ constexpr int stripe_of(size_t cell) { return (int)(128 / cell); }
+
+// Cells of one copy for nfl features of nb bins in stripes of S features.
+__host__ __device__ __forceinline__ int stripe_span(int nfl, int nb, int S) {
+  return (nfl + S - 1) / S * S * nb * 3;
+}
+
+// A staged value from its int32 word: float32 bits, or a plain int32.
+__device__ __forceinline__ void from_bits(int b, float& v) { v = __int_as_float(b); }
+__device__ __forceinline__ void from_bits(int b, int& v) { v = b; }
+
+// Four staged values of one channel, one 16-byte load.
+template <class V>
+__device__ __forceinline__ void load4(const V* p, V (&o)[4]) {
+  const int4 x = *reinterpret_cast<const int4*>(p);
+  from_bits(x.x, o[0]);
+  from_bits(x.y, o[1]);
+  from_bits(x.z, o[2]);
+  from_bits(x.w, o[3]);
+}
+
+// Four staged rows (from row i): one channel of bin words, and g*sel,
+// h*sel, sel (three channels `stride` apart): four 16-byte loads.
+template <class V>
+struct Staged4 {
+  int4 w;
+  V g[4], h[4], c[4];
+  __device__ __forceinline__ void load(const int32_t* wrow, const V* sv, int i, int stride) {
+    w = *reinterpret_cast<const int4*>(wrow + i);
+    load4(sv + i, g);
+    load4(sv + stride + i, h);
+    load4(sv + 2 * stride + i, c);
+  }
+};
+
+// Add four staged rows (the first n of them) of one feature into a lane's
+// own cells: cell (bin, v) at base[bin * bstride + v * vstride], for the
+// bins of [blo, blo + nbr).  Rows of one bin are summed in registers
+// first, so the read-add-writes that remain touch distinct cells and
+// overlap.
+template <class V, class C>
+__device__ __forceinline__ void add_rows4(const Staged4<V>& q, int n, int sh, unsigned vmask,
+                                          int blo, unsigned nbr, C* base, int bstride,
+                                          int vstride) {
+  const int wv[4] = {q.w.x, q.w.y, q.w.z, q.w.w};
+  int bin[4];
+  bool live[4];
+  C sg[4], shh[4], sc[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    bin[u] = (int)(((uint32_t)wv[u] >> sh) & vmask);
+    live[u] = u < n && (unsigned)(bin[u] - blo) < nbr;
+    sg[u] = q.g[u];
+    shh[u] = q.h[u];
+    sc[u] = q.c[u];
+  }
+#pragma unroll
+  for (int u = 1; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < u; ++v)
+      if (live[u] && live[v] && bin[u] == bin[v]) {
+        sg[v] += sg[u];
+        shh[v] += shh[u];
+        sc[v] += sc[u];
+        live[u] = false;
+      }
+  C* cell[4];
+  C old[4][3];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    cell[u] = base + bin[u] * bstride;
+    if (live[u]) {
+      old[u][0] = cell[u][0];
+      old[u][1] = cell[u][vstride];
+      old[u][2] = cell[u][2 * vstride];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (live[u]) {
+      cell[u][0] = old[u][0] + sg[u];
+      cell[u][vstride] = old[u][1] + shh[u];
+      cell[u][2 * vstride] = old[u][2] + sc[u];
+    }
+}
+
 }  // namespace lgbt

@@ -61,7 +61,7 @@ namespace lgbt {
 
 constexpr int kChunk = 256;          // rows a block stages at a time
 constexpr int kStride = kChunk + 4;  // a staged channel: 16-byte rows, 4 banks on per channel
-constexpr int kStripe = 16;          // cells of 16 features interleave: one bank pair each
+constexpr int kStripe = stripe_of(sizeof(hacc));  // cells of 16 features interleave (common.cuh)
 constexpr int kPartThreads = 512;    // a scatter block: one a SM, warps on all four schedulers
 constexpr int kMaxCopies = 4;        // histogram warps, each with its own copy of the cells
 
@@ -144,72 +144,6 @@ __device__ long long look_back(unsigned long long* flags, int b, int t, int agg)
   return excl;
 }
 
-// Four staged rows: their bin words of one channel, g*sel, h*sel, sel,
-// and their left bits.
-struct Rows4 {
-  int4 w;
-  float4 g, h, c;
-};
-
-__device__ __forceinline__ Rows4 load_rows4(const int32_t* wrow, const float* sv, int i) {
-  Rows4 q;
-  q.w = *reinterpret_cast<const int4*>(wrow + i);
-  q.g = *reinterpret_cast<const float4*>(sv + i);
-  q.h = *reinterpret_cast<const float4*>(sv + kStride + i);
-  q.c = *reinterpret_cast<const float4*>(sv + 2 * kStride + i);
-  return q;
-}
-
-// Add the first n (up to four) staged rows of one feature into a lane's
-// own cells (base: the feature's cells of one child).  Rows of one bin are
-// summed in registers first, so the read-add-writes that remain touch
-// distinct cells and overlap.
-__device__ __forceinline__ void add_rows4(const Rows4& q, int n, int sh, unsigned vmask,
-                                          int blo, unsigned nbr, hacc* base) {
-  const int wv[4] = {q.w.x, q.w.y, q.w.z, q.w.w};
-  const float gv[4] = {q.g.x, q.g.y, q.g.z, q.g.w}, hv[4] = {q.h.x, q.h.y, q.h.z, q.h.w},
-              cv[4] = {q.c.x, q.c.y, q.c.z, q.c.w};
-  int bin[4];
-  bool live[4];
-  hacc g[4], h[4], c[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    bin[u] = (int)(((uint32_t)wv[u] >> sh) & vmask);
-    live[u] = u < n && (unsigned)(bin[u] - blo) < nbr;
-    g[u] = gv[u];
-    h[u] = hv[u];
-    c[u] = cv[u];
-  }
-#pragma unroll
-  for (int u = 1; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < u; ++v)
-      if (live[u] && live[v] && bin[u] == bin[v]) {
-        g[v] += g[u];
-        h[v] += h[u];
-        c[v] += c[u];
-        live[u] = false;
-      }
-  hacc* cell[4];
-  hacc old[4][3];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    cell[u] = base + bin[u] * 3 * kStripe;
-    if (live[u]) {
-      old[u][0] = cell[u][0];
-      old[u][1] = cell[u][kStripe];
-      old[u][2] = cell[u][2 * kStripe];
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-    if (live[u]) {
-      cell[u][0] = old[u][0] + g[u];
-      cell[u][kStripe] = old[u][1] + h[u];
-      cell[u][2 * kStripe] = old[u][2] + c[u];
-    }
-}
-
 // Lefts of a staged chunk, from its left bits.
 __device__ __forceinline__ int chunk_lefts(const uint32_t* cball) {
   int n = 0;
@@ -228,13 +162,6 @@ __device__ __forceinline__ void stage_values(float* sv, int i, int32_t g, int32_
   sv[i] = __int_as_float(g) * selv;
   sv[kStride + i] = __int_as_float(h) * selv;
   sv[2 * kStride + i] = selv;
-}
-
-// Shared-memory cells of one child for nf features of nb bins: feature
-// lf's cell (bin, v) at ((lf / 16 * nb + bin) * 3 + v) * 16 + lf % 16, so
-// the lanes of a warp, one feature each, hit two banks at most.
-__host__ __device__ __forceinline__ int stripe_span(int nf, int nb) {
-  return (nf + kStripe - 1) / kStripe * kStripe * nb * 3;
 }
 
 // Shared memory of a scatter block: each histogram warp's copy of both
@@ -266,7 +193,7 @@ __global__ void __launch_bounds__(kPartThreads, 1) part_scatter_kernel(PartArgs 
 
   const int per = 32 / a.bits;
   const int f0 = blockIdx.y * a.f_tile, f1 = min(f0 + a.f_tile, a.nf);
-  const int span = stripe_span(f1 - f0, a.nb);  // cells of one child
+  const int span = stripe_span(f1 - f0, a.nb, kStripe);  // cells of one child
   const int w0 = f0 / per, nwords = (f1 - 1) / per - w0 + 1;
   const int copies = a.copies;
   const PartSmem m = carve(smem, span, nwords, copies);
@@ -404,12 +331,13 @@ __global__ void __launch_bounds__(kPartThreads, 1) part_scatter_kernel(PartArgs 
           hacc* base = hw + ((f - f0) / kStripe) * a.nb * 3 * kStripe + (f - f0) % kStripe;
           // the next four rows load before this four's adds
           int i = lo + 4 * cp;
-          Rows4 cur;
-          if (i < hi) cur = load_rows4(wrow, sv, i);
+          Staged4<float> cur;
+          if (i < hi) cur.load(wrow, sv, i, kStride);
           for (; i < hi; i += 4 * copies) {
-            Rows4 nxt = cur;
-            if (i + 4 * copies < hi) nxt = load_rows4(wrow, sv, i + 4 * copies);
-            add_rows4(cur, hi - i, sh, vmask, blo, nbr, base);
+            Staged4<float> nxt = cur;
+            if (i + 4 * copies < hi) nxt.load(wrow, sv, i + 4 * copies, kStride);
+            add_rows4<float, hacc>(cur, hi - i, sh, vmask, blo, nbr, base, 3 * kStripe,
+                                   kStripe);
             cur = nxt;
           }
         }
@@ -473,42 +401,17 @@ __global__ void __launch_bounds__(kThreads) part_copy_kernel(PartArgs a) {
 inline size_t part_smem(const PartArgs& a, int f_tile, int copies) {
   const int per = 32 / a.bits;
   const int nwords = (f_tile + per - 1) / per;
-  return (size_t)2 * copies * stripe_span(f_tile, a.nb) * sizeof(hacc) +
+  return (size_t)2 * copies * stripe_span(f_tile, a.nb, kStripe) * sizeof(hacc) +
          (size_t)2 * (nwords + 3) * kStride * 4 + (size_t)a.tile / 8;
 }
-
-// Each device's limits and the scatter kernels' shared-memory opt-in
-// there (an attribute of the device's context), read and set at the first
-// launch on that device (file-local, so another copy of this code loaded
-// into the process keeps its own).
-constexpr int kMaxDevices = 64;
-struct DeviceLimits {
-  int sms = 0;
-  size_t limit = 0;  // the scatter kernel's static arrays share the block's limit
-  bool opt_in[2] = {false, false};
-};
-static DeviceLimits g_dev[kMaxDevices];
 
 template <bool kTable>
 int launch_partition(PartArgs a, int total_tiles, cudaStream_t st) {
   if (total_tiles <= 0) return 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int sms = 0;
+  size_t limit = 0;
+  cudaError_t e = kernel_limits(part_scatter_kernel<kTable>, kTable, &sms, &limit);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  DeviceLimits& d = g_dev[dev];
-  if (d.sms == 0) {
-    d.sms = num_sms();
-    d.limit = (size_t)max_smem_optin() - 1024;
-  }
-  if (!d.opt_in[kTable]) {
-    e = cudaFuncSetAttribute(part_scatter_kernel<kTable>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)d.limit);
-    if (e != cudaSuccess) return (int)e;
-    d.opt_in[kTable] = true;
-  }
-  const size_t limit = d.limit;
-  const int sms = d.sms;
   // the widest feature tile that fits one copy of the cells, then as many
   // copies (histogram warps) as fit
   const int per = 32 / a.bits;

@@ -46,8 +46,7 @@ SIGNATURES = {
     "lgbt_score_add": [_P, _L, _I, _P, _I, _P],
     "lgbt_update_multi_hist": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,
                                _I, _I, _P, _P],
-    "lgbt_segment_hist": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "lgbt_segment_hist_q": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "lgbt_segment_hist": [_P, _L, *[_I] * 9, _P, _P, _P, _P, _P],
 }
 
 

@@ -19,7 +19,16 @@ int32 histogram of the quantized layout.  Both run
 ``csrc/segment_hist.cu`` on a CUDA tensor (float64 cells rounded once,
 or int32 cells) and their plain versions (``*_ref``, ``index_add_`` in
 float64 or int64) on a CPU tensor; a failed launch raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches``; on the card the kernels
+also tally the rows they found selected (``selected_rows``), on the
+device, so reading the tally is the only sync.
+
+The kernels first list the selected columns, then histogram only those,
+so a launch costs what the leaf holds rather than hi - lo.  Their index
+list, two counters and float64 accumulator are a workspace cached for
+each stream of a card (``_Workspace``), which the kernels leave zeroed
+for the next call on that stream; one lock orders the calls of threads,
+so each call's two launches follow each other on its stream.
 
 ``build_histogram`` is the JAX function's contract on (N, F) bins: it
 packs and takes the float32 branch (B8) or, for integer grad/hess, the
@@ -29,19 +38,18 @@ the out-of-core trainer.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from ..utils.device import device_of, raw_stream
 from . import _build
 
-# rows per block of a masked pass over every row: about 256 blocks (two
-# per SM of an H100), between these bounds
-HIST_TILE_MIN, HIST_TILE_MAX, HIST_BLOCKS = 2048, 16384, 256
-
-
-def hist_tile(cnt: int) -> int:
-    """Rows per block for a segment of ``cnt`` rows."""
-    tile = -(-cnt // HIST_BLOCKS)
-    return min(HIST_TILE_MAX, max(HIST_TILE_MIN, -(-tile // 1024) * 1024))
+# the workspace grows in steps of this many words (int32 list entries, or
+# 8-byte accumulator cells), so nearby sizes share one allocation
+WORK_STEP = 1 << 16
+# tally slots: hist_segment, hist_segment_q
+TALLY_SLOTS = {"hist_segment": 0, "hist_segment_q": 1}
 
 
 def word_layout(bins) -> tuple:
@@ -151,16 +159,87 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _segment_table(device, lo: int, hi: int):
-    """([start, cnt] + tile_base on ``device``, total tiles, rows per
-    tile) of the one segment [lo, hi)."""
-    tile = hist_tile(hi - lo)
-    tiles = -(-(hi - lo) // tile)
-    return upload(torch.tensor([lo, hi - lo, 0, tiles], dtype=torch.int32), device), tiles, tile
+def workspace_size(rows: int, cells: int, have: tuple = (0, 0)) -> tuple:
+    """(int32 words, 8-byte cells) of a workspace for a column range of
+    ``rows`` and an (F, B, 3) histogram of ``cells``, given one of
+    ``have``: the two counters and the index list, and the accumulator,
+    each rounded up to WORK_STEP and never smaller than before."""
+    def step(n):
+        return -(-int(n) // WORK_STEP) * WORK_STEP
+    return max(have[0], step(2 + rows)), max(have[1], step(cells))
+
+
+class _Workspace:
+    """One stream's index list and counters (``words``: [count, ticket,
+    list...]), float64 (or int32) accumulator (``cells``), all zero
+    between calls, and the selected-row tallies (``tally``)."""
+
+    def __init__(self, device):
+        self.words = torch.zeros(0, dtype=torch.int32, device=device)
+        self.cells = torch.zeros(0, dtype=torch.int64, device=device)
+        self.tally = torch.zeros(len(TALLY_SLOTS), dtype=torch.int64, device=device)
+
+    def fit(self, rows: int, cells: int) -> None:
+        """Grow (zeroed) to take ``rows`` columns and ``cells`` cells."""
+        words, ncells = workspace_size(rows, cells, (self.words.numel(), self.cells.numel()))
+        if words > self.words.numel():
+            self.words = torch.zeros(words, dtype=torch.int32, device=self.tally.device)
+        if ncells > self.cells.numel():
+            self.cells = torch.zeros(ncells, dtype=torch.int64, device=self.tally.device)
+
+
+_WORK = {}  # (device index, raw stream) -> _Workspace
+_WORK_LOCK = threading.Lock()  # held from a workspace's lookup to the end of its launches
+
+
+def _settled_workspaces():
+    """The workspaces, once every card that holds one has finished its
+    streams' work (the tallies are written on the streams that launched)."""
+    for index in {index for index, _ in _WORK}:
+        torch.cuda.synchronize(index)
+    return list(_WORK.values())
+
+
+def selected_rows() -> dict:
+    """Rows each kernel found selected, summed over its launches on every
+    card and stream since the last ``reset_selected_rows`` (one sync a
+    card)."""
+    out = dict.fromkeys(TALLY_SLOTS, 0)
+    for w in _settled_workspaces():
+        tally = w.tally.tolist()
+        for name, slot in TALLY_SLOTS.items():
+            out[name] += tally[slot]
+    return out
+
+
+def reset_selected_rows() -> None:
+    for w in _settled_workspaces():
+        w.tally.zero_()
+
+
+def segment_hist_launch(p, lo: int, hi: int, num_features: int, num_bins: int, bits: int,
+                        rows, quantized: bool, out: torch.Tensor, tally=None) -> None:
+    """Launch the segment-histogram kernels over columns [lo, hi) (hi >
+    lo) of the CUDA matrix ``p`` into ``out``, a contiguous (F, B, 3)
+    float32 (int32 when ``quantized``) tensor on its card; ``tally``
+    names the slot that counts the selected rows, or None."""
+    lib = _build.lib()
+    with device_of(p), _WORK_LOCK:
+        stream = raw_stream(p)
+        w = _WORK.get((p.device.index, stream))
+        if w is None:
+            w = _WORK[(p.device.index, stream)] = _Workspace(p.device)
+        w.fit(hi - lo, num_features * num_bins * 3)
+        tally_ptr = None if tally is None else w.tally.data_ptr() + 8 * TALLY_SLOTS[tally]
+        rc = lib.lgbt_segment_hist(
+            p.data_ptr(), p.shape[1], lo, hi, bits, num_features, num_bins, *rows,
+            int(quantized), w.words.data_ptr(), w.cells.data_ptr(), tally_ptr, out.data_ptr(),
+            stream)
+    _build.check(rc, tally or "segment histogram")
 
 
 def _launch(p, lo, hi, num_features, num_bins, per, bits, rows, quantized):
-    """Run the segment-histogram kernel over [lo, hi); returns the (F, B,
+    """Run the segment-histogram kernels over [lo, hi); returns the (F, B,
     3) histogram and whether a kernel was launched."""
     lo, hi = int(lo), int(hi)
     _check_range(p, lo, hi)
@@ -168,19 +247,14 @@ def _launch(p, lo, hi, num_features, num_bins, per, bits, rows, quantized):
         raise ValueError(f"expected a CUDA tensor, got {p.device}")
     if per * bits != 32:
         raise ValueError(f"{per} bins of {bits} bits do not fill a 32-bit word")
-    g_row, h_row, s_row = _rows(rows, num_features, per)
-    dtype = torch.int32 if quantized else torch.float64
-    hist = torch.zeros((num_features, num_bins, 3), dtype=dtype, device=p.device)
+    dtype = torch.int32 if quantized else torch.float32
     if hi == lo:
-        return hist if quantized else hist.float(), False
-    tab, tiles, tile = _segment_table(p.device, lo, hi)
-    entry = _build.lib().lgbt_segment_hist_q if quantized else _build.lib().lgbt_segment_hist
-    with torch.cuda.device(p.device):
-        rc = entry(p.data_ptr(), p.shape[1], tab.data_ptr(), tab.data_ptr() + 8, 1, tiles,
-                   tile, bits, num_features, num_bins, g_row, h_row, s_row,
-                   hist.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(rc, "hist_segment_q" if quantized else "hist_segment")
-    return (hist if quantized else hist.float()), True
+        return torch.zeros((num_features, num_bins, 3), dtype=dtype, device=p.device), False
+    hist = torch.empty((num_features, num_bins, 3), dtype=dtype, device=p.device)
+    segment_hist_launch(p, lo, hi, num_features, num_bins, bits,
+                        _rows(rows, num_features, per), quantized, hist,
+                        "hist_segment_q" if quantized else "hist_segment")
+    return hist, True
 
 
 def hist_segment(p, lo, hi, num_features, num_bins, per=4, bits=8, rows=None):

@@ -43,19 +43,19 @@ rounded sums, whatever the order of the additions.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
 
+from ..utils.device import device_of, raw_stream
 from . import _build
-from .histogram import hist_segment, hist_segment_q
+from .histogram import (hist_segment, hist_segment_q, reset_selected_rows, segment_hist_launch,
+                        selected_rows)
 
 BLK = 1024  # tail columns past the last row (the JAX kernels' DMA block)
 PART_CHUNK = 512  # a partition tile is a whole number of these (one step of a 512-thread block)
 PART_MAX_TILE = 1 << 17  # most rows a partition tile takes: its left bits fill 16 KB of shared memory
-HIST_TILE = 4096  # rows per block of the CUDA segment-histogram kernel
 MAX_CLASSES = 16  # score channels update_multi_and_hists takes (csrc kMaxK)
 
 
@@ -200,15 +200,6 @@ def _vec(v, n: int, device) -> torch.Tensor:
     return t[:n].contiguous()
 
 
-def _stream(p: torch.Tensor) -> int:
-    """The current CUDA stream of ``p``'s card as a raw handle, read
-    without building a ``torch.cuda.Stream`` object (host time on every
-    launch).  ``torch._C._cuda_getCurrentRawStream`` is private: checked
-    against torch 2.11 (CUDA 12.8); ``torch.cuda.current_stream(d).cuda_stream``
-    is the public equivalent."""
-    return torch._C._cuda_getCurrentRawStream(p.device.index)
-
-
 # ======================================================================
 # update_and_root_hist
 # ======================================================================
@@ -282,7 +273,7 @@ def update_and_root_hist(p, layout: PLayout, objective, delta=None, sel=None, mu
             p.data_ptr(), p.shape[1], n, *(None if v is None else v.data_ptr() for v in (d, s, m)),
             int(bool(with_hist)), layout.G, layout.H, layout.SEL, layout.SCORE, layout.LABEL,
             layout.WEIGHT, int(_use_weight(layout, objective)), kind, sigmoid, w_pos, w_neg,
-            num_features, num_bins, bits, hist.data_ptr(), _stream(p))
+            num_features, num_bins, bits, hist.data_ptr(), raw_stream(p))
     _build.check(rc, "update_and_root_hist")
     update_and_root_hist.launches += 1
     return p, (hist.float() if with_hist else None)
@@ -331,7 +322,7 @@ def update_channels(p, layout: PLayout, objective, delta=None, sel=None, k_class
             p.data_ptr(), p.shape[1], n, None if d is None else d.data_ptr(),
             None if s is None else s.data_ptr(), layout.G, layout.H, layout.SEL,
             layout.SCORE + k_class, layout.LABEL, layout.WEIGHT,
-            int(_use_weight(layout, objective)), kind, sigmoid, w_pos, w_neg, _stream(p))
+            int(_use_weight(layout, objective)), kind, sigmoid, w_pos, w_neg, raw_stream(p))
     _build.check(rc, "update_channels")
     update_channels.launches += 1
     return p
@@ -401,7 +392,7 @@ def update_multi_and_hists(p, layout: PLayout, objective, sel=None, *, num_rows,
             p.data_ptr(), p.shape[1], n, None if s is None else s.data_ptr(),
             layout.G, layout.SEL, layout.SCORE, layout.LABEL, layout.WEIGHT,
             int(_use_weight(layout, objective)), kind, K, sigmoid, wts.data_ptr(),
-            num_features, num_bins, bits, out.data_ptr(), _stream(p))
+            num_features, num_bins, bits, out.data_ptr(), raw_stream(p))
     _build.check(rc, "update_multi_and_hists")
     update_multi_and_hists.launches += 1
     return p, _multi_hists(out.float(), K)
@@ -475,15 +466,6 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _device_of(p: torch.Tensor):
-    """``torch.cuda.device(p.device)``, or nothing when ``p`` already lies
-    on the current device (the usual case; the context costs host time on
-    every call)."""
-    if p.device.index is None or p.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(p.device)
-
-
 def _partition_work(device, n_seg: int, tiles: int, num_features: int, num_bins: int,
                     n_out: int):
     """One zeroed buffer, so one allocation and one memset, for what the
@@ -550,11 +532,11 @@ def _launch_level(p, tab: np.ndarray, num_features, num_bins, bits, rows, smax):
     host = np.concatenate([tab[:, :12].astype(np.int32).ravel(), tile_base.astype(np.int32)])
     dev = torch.from_numpy(host).to(p.device)
     scratch = torch.empty_like(p)
-    with _device_of(p):
+    with device_of(p):
         rc = _build.lib().lgbt_level_stream(
             p.data_ptr(), p.shape[1], p.shape[0], scratch.data_ptr(), dev.data_ptr(),
             dev.data_ptr() + 4 * 12 * n_seg, n_seg, total, tile, flags, ticket, nl_ptr, bits,
-            num_features, num_bins, *rows, acc, out, hists.numel(), _stream(p))
+            num_features, num_bins, *rows, acc, out, hists.numel(), raw_stream(p))
     _build.check(rc, "level_stream")
     return nl, hists, True
 
@@ -625,10 +607,10 @@ def split_stream(p, start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo=
     (acc, flags, ticket, nl_ptr, out), nl, hists = _partition_work(
         p.device, 1, -(-cnt // tile), F, B, 1)
     scratch = torch.empty((p.shape[0], cnt), dtype=torch.int32, device=p.device)
-    with _device_of(p):
+    with device_of(p):
         rc = _build.lib().lgbt_split_stream(
             p.data_ptr(), p.shape[1], p.shape[0], scratch.data_ptr(), *seg, tile, flags, ticket,
-            nl_ptr, bits, F, B, *rows, acc, out, _stream(p))
+            nl_ptr, bits, F, B, *rows, acc, out, raw_stream(p))
     _build.check(rc, "split_stream")
     split_stream.launches += 1
     split_stream.rows += cnt
@@ -667,9 +649,9 @@ def score_add(p, layout: PLayout, delta, k: int = 0, *, num_rows):
              and delta.dtype == torch.float32 and delta.dim() == 1 and delta.is_contiguous()
              and delta.shape[0] >= n)
     d = delta if ready else _vec(delta, n, p.device)
-    with _device_of(p):
+    with device_of(p):
         rc = _build.lib().lgbt_score_add(p.data_ptr(), p.shape[1], layout.SCORE + k,
-                                         d.data_ptr(), n, _stream(p))
+                                         d.data_ptr(), n, raw_stream(p))
     _build.check(rc, "score_add")
     score_add.launches += 1
     return p
@@ -693,47 +675,38 @@ def hist_segments_ref(p, seg_tab, n_active, *, num_features, num_bins, bits=8, r
     return out
 
 
-def _launch_segment_hist(p, tab: np.ndarray, num_features, num_bins, bits, rows, smax, what):
-    """Run the CUDA segment-histogram kernel over the host table ``tab``
-    (n_seg, >= 2) of [start, cnt] rows; returns ((smax, F, B, 3), launched)."""
+def _launch_segment_hist(p, tab: np.ndarray, num_features, num_bins, bits, rows, smax):
+    """Run the CUDA segment-histogram kernels once for each non-empty
+    segment of the host table ``tab`` (n_seg, >= 2) of [start, cnt] rows;
+    returns ((smax, F, B, 3), launched)."""
     _check_matrix(p)
     n_seg = tab.shape[0]
     if n_seg > smax:
         raise ValueError(f"{n_seg} segments exceed smax={smax}")
-    hist = torch.zeros((smax, num_features, num_bins, 3), dtype=torch.float64, device=p.device)
+    hist = torch.zeros((smax, num_features, num_bins, 3), dtype=torch.float32, device=p.device)
     cnt = np.maximum(tab[:, 1], 0)
-    if n_seg == 0 or int(cnt.sum()) == 0:
-        return hist.float(), False
     if (tab[:, 0] < 0).any() or (tab[:, 0] + cnt > p.shape[1] - BLK).any():
         raise ValueError("segment outside the matrix's rows")
-    tiles = (cnt + HIST_TILE - 1) // HIST_TILE
-    tile_base = np.concatenate([[0], np.cumsum(tiles)])
-    g_row, h_row, sel_row = rows
-    segs = np.stack([tab[:, 0], cnt], axis=1)
-    host = np.concatenate([segs.astype(np.int32).ravel(), tile_base.astype(np.int32)])
-    dev = torch.from_numpy(host).to(p.device)
-    with torch.cuda.device(p.device):
-        rc = _build.lib().lgbt_segment_hist(
-            p.data_ptr(), p.shape[1], dev.data_ptr(), dev.data_ptr() + 4 * 2 * n_seg, n_seg,
-            int(tile_base[-1]), HIST_TILE, bits, num_features, num_bins, g_row, h_row,
-            sel_row, hist.data_ptr(), _stream(p))
-    _build.check(rc, what)
-    return hist.float(), True
+    for s in np.flatnonzero(cnt):
+        start = int(tab[s, 0])
+        segment_hist_launch(p, start, start + int(cnt[s]), num_features, num_bins, bits, rows,
+                            False, hist[s])
+    return hist, bool(cnt.any())
 
 
 def hist_segments(p, seg_tab, n_active, *, num_features, num_bins, bits=8, rows=None, smax):
     """(smax, F, B, 3) histograms of (g*sel, h*sel, sel) over the first
     ``n_active`` leaf segments of ``seg_tab`` ((>= n_active, 2) rows of
-    [start, cnt]) in one launch; rows s >= n_active are zero (the JAX
-    contract leaves them undefined).  ``rows`` is the (g, h, sel)
+    [start, cnt]), the segment-histogram kernels run once for each
+    non-empty segment; rows s >= n_active are zero (the JAX contract
+    leaves them undefined).  ``rows`` is the (g, h, sel)
     channel-row triple, by default PLayout's class-0 rows."""
     if p.device.type == "cpu":
         return hist_segments_ref(p, seg_tab, n_active, num_features=num_features,
                                  num_bins=num_bins, bits=bits, rows=rows, smax=smax)
     rows = rows or PLayout(num_features, bits=bits).rows
     tab = _host_table(seg_tab)[: int(n_active)]
-    hist, launched = _launch_segment_hist(p, tab, num_features, num_bins, bits, rows, smax,
-                                          "hist_segments")
+    hist, launched = _launch_segment_hist(p, tab, num_features, num_bins, bits, rows, smax)
     if launched:
         hist_segments.launches += 1
     return hist
@@ -758,7 +731,7 @@ def hist_dyn(p, start, cnt, num_features, num_bins, bits=8, rows=None):
         return hist_dyn_ref(p, start, cnt, num_features, num_bins, bits=bits, rows=rows)
     rows = rows or PLayout(num_features, bits=bits).rows
     hist, launched = _launch_segment_hist(p, np.asarray([[int(start), int(cnt)]], np.int64),
-                                          num_features, num_bins, bits, rows, 1, "hist_dyn")
+                                          num_features, num_bins, bits, rows, 1)
     if launched:
         hist_dyn.launches += 1
     return hist[0]
@@ -772,12 +745,16 @@ KERNELS = (update_and_root_hist, update_multi_and_hists, level_stream, split_str
 
 
 def launch_counts() -> dict:
-    """Launches of every kernel wrapper, and ``split_stream_rows``: the
-    rows split_stream partitioned over its launches."""
-    return {**{k.__name__: k.launches for k in KERNELS}, "split_stream_rows": split_stream.rows}
+    """Launches of every kernel wrapper, ``split_stream_rows`` (the rows
+    split_stream partitioned over its launches), and ``hist_segment_rows``
+    and ``hist_segment_q_rows`` (the rows those kernels found selected,
+    tallied on the card: reading them syncs, so read at a path's end)."""
+    return {**{k.__name__: k.launches for k in KERNELS}, "split_stream_rows": split_stream.rows,
+            **{f"{k}_rows": v for k, v in selected_rows().items()}}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     split_stream.rows = 0
+    reset_selected_rows()

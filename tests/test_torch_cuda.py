@@ -479,6 +479,115 @@ def test_hist_segment_kernels(dev, quantized, nf, nb):
     assert float(kern(Pk, 5, 5, nf, nb, per, bits).abs().sum()) == 0
 
 
+# name: (features, bins of 8-bit words, selected rows, lo, hi, every row in one bin)
+HIST_EDGES = {
+    "no-row": (11, 63, "none", 0, N, False),
+    "one-row": (11, 63, "one", 0, N, False),
+    "every-row": (11, 63, "all", 0, N, False),
+    "one-bin": (54, 2, "all", 0, N, True),
+    "unaligned-ends": (54, 63, "some", 3, N - 5, False),
+    "feature-tiled": (600, 64, "some", 1, N - 2, False),
+}
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("quantized", [False, True], ids=["hist_segment", "hist_segment_q"])
+@pytest.mark.parametrize("case", list(HIST_EDGES))
+def test_hist_segment_edges(dev, case, quantized, bits):
+    """B8 and B9 on edge cases, at 8- and 16-bit words: the histogram
+    (B9 bit-identical), one launch, the selected-row tally, and the
+    cached workspace left zeroed for the next call."""
+    nf, nb, kind, lo, hi, one_bin = HIST_EDGES[case]
+    per = 32 // bits
+    nb = nb if bits == 8 else 300 + nb
+    rng = np.random.default_rng(sum(map(ord, case)) + bits)
+    bins = rng.integers(0, nb, (N, nf))
+    if one_bin:
+        bins[:] = nb - 1
+    bins = torch.from_numpy(bins.astype(np.int32))
+    sel = {"none": np.zeros(N), "all": np.ones(N), "some": rng.random(N) < 0.4,
+           "one": np.arange(N) == N // 3}[kind]
+    s = torch.from_numpy(sel.astype(np.float32))
+    if quantized:
+        g = torch.from_numpy(rng.integers(-15, 16, N).astype(np.int16))
+        h = torch.from_numpy(rng.integers(0, 16, N).astype(np.int16))
+        P = th.pack_columns_q(bins, g, h, s, per, bits).to(dev)
+        kern, ref = th.hist_segment_q, th.hist_segment_q_ref
+    else:
+        g = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+        h = torch.from_numpy(np.abs(rng.standard_normal(N)).astype(np.float32))
+        P = th.pack_columns(bins, g, h, s, per=per, bits=bits).to(dev)
+        kern, ref = th.hist_segment, th.hist_segment_ref
+    before, rows = kern.launches, th.selected_rows()[kern.__name__]
+    for _ in range(2):  # the second call runs on the workspace the first left
+        hk = kern(P, lo, hi, nf, nb, per, bits)
+        hr = ref(P, lo, hi, nf, nb, per, bits)
+        torch.cuda.synchronize()
+        if quantized:
+            assert hk.dtype == torch.int32 and torch.equal(hk, hr)
+        else:
+            _assert_hist(hk, hr)
+    assert kern.launches == before + 2
+    assert th.selected_rows()[kern.__name__] - rows == 2 * int(sel[lo:hi].sum())
+    w = th._WORK[(P.device.index, torch.cuda.current_stream(P.device).cuda_stream)]
+    assert int(w.words[:2].abs().sum()) == 0 and int(w.cells.abs().sum()) == 0
+
+
+def _mask_inputs(rng, n, nf, nb, quantized, per, bits, dev):
+    """(packed matrix, kernel, plain version) of random bins below nb and
+    40 % of the rows selected."""
+    bins = torch.from_numpy(rng.integers(0, nb, (n, nf)).astype(np.int32))
+    s = torch.from_numpy((rng.random(n) < 0.4).astype(np.float32))
+    if quantized:
+        g = torch.from_numpy(rng.integers(-15, 16, n).astype(np.int16))
+        h = torch.from_numpy(rng.integers(0, 16, n).astype(np.int16))
+        return (th.pack_columns_q(bins, g, h, s, per, bits).to(dev), th.hist_segment_q,
+                th.hist_segment_q_ref)
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    h = torch.from_numpy(np.abs(rng.standard_normal(n)).astype(np.float32))
+    return (th.pack_columns(bins, g, h, s, per=per, bits=bits).to(dev), th.hist_segment,
+            th.hist_segment_ref)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["hist_segment", "hist_segment_q"])
+@pytest.mark.parametrize("nf,nb", [(28, 1024), (5, 4000), (3, 9600)])
+def test_hist_segment_many_bins(dev, quantized, nf, nb):
+    """B8 and B9 at 16-bit words and many bins: feature tiles of a few
+    features (1024 bins), of one feature (4000), and of one feature with
+    a short staged chunk (9600 bins of float64 cells)."""
+    P, kern, ref = _mask_inputs(np.random.default_rng(nb), N, nf, nb, quantized, 2, 16, dev)
+    hk = kern(P, 1, N - 3, nf, nb, 2, 16)
+    hr = ref(P, 1, N - 3, nf, nb, 2, 16)
+    torch.cuda.synchronize()
+    if quantized:
+        assert hk.dtype == torch.int32 and torch.equal(hk, hr)
+    else:
+        _assert_hist(hk, hr)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["hist_segment", "hist_segment_q"])
+def test_hist_segment_two_streams(dev, quantized):
+    """Calls on two streams of one card, issued without waiting, each use
+    their own stream's workspace and match the plain version."""
+    rng = np.random.default_rng(41)
+    mats = [_mask_inputs(rng, N, 11, 63, quantized, 4, 8, dev) for _ in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in mats]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(3):
+        for k, ((P, kern, _), st) in enumerate(zip(mats, streams)):
+            with torch.cuda.stream(st):
+                outs[k].append(kern(P, 0, N, 11, 63))
+    torch.cuda.synchronize()
+    for (P, _, ref), got in zip(mats, outs):
+        hr = ref(P, 0, N, 11, 63)
+        for hk in got:
+            if quantized:
+                assert torch.equal(hk, hr)
+            else:
+                _assert_hist(hk, hr)
+
+
 @pytest.mark.parametrize("params", [
     dict(objective="binary", use_quantized_grad=True),
     dict(objective="regression", use_quantized_grad=True, max_bin=300),

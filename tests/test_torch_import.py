@@ -89,7 +89,8 @@ def test_wrappers_count_no_launch_on_cpu():
                                   "level_stream": 0, "split_stream": 0, "score_add": 0,
                                   "hist_dyn": 0, "hist_segments": 0, "update_channels": 0,
                                   "hist_segment": 0, "hist_segment_q": 0,
-                                  "split_stream_rows": 0}
+                                  "split_stream_rows": 0, "hist_segment_rows": 0,
+                                  "hist_segment_q_rows": 0}
     assert float(pk.f32_row(p, lay.SCORE, 100).sum()) == 200.0
     assert float(pk.f32_row(p, lay.G, 100).sum()) == 200.0  # L2: g = score - label
 

@@ -21,7 +21,8 @@ against the JAX package.
   such swaps.
 - The validation scores: an EFB-bundled training set's validation set is
   scored on its unbundled bins; ``add_valid`` after training replays the
-  trees; ``predict(num_iteration=None)`` takes the best iteration; a
+  trees; ``predict(X)`` uses every tree after an early stop, as the JAX
+  ``Booster.predict`` does; a
   metric that fails fails the run.
 """
 
@@ -311,11 +312,19 @@ def test_reset_parameter_reaches_the_trees(runs):
 
 
 def test_predict_defaults_to_best_iteration(runs):
-    _, _, tb, _ = runs("per-iteration-early-stop")
+    """After an early stop, ``predict(X)`` uses every tree, as the JAX
+    ``Booster.predict(X)`` does (its default num_iteration=-1), and
+    agrees with it; ``num_iteration=best_iteration`` still cuts the trees
+    to the best iteration's."""
+    jb, _, tb, _ = runs("per-iteration-early-stop")
     X, _ = _binary()
     assert tb.best_iteration < tb.current_iteration()
-    np.testing.assert_array_equal(tb.predict(X), tb.predict(X, num_iteration=tb.best_iteration))
-    assert not np.array_equal(tb.predict(X), tb.predict(X, num_iteration=-1))
+    np.testing.assert_allclose(tb.predict(X), jb.predict(X), rtol=0, atol=3e-3)
+    np.testing.assert_array_equal(tb.predict(X), tb.predict(X, num_iteration=-1))
+    best = tb.predict(X, num_iteration=tb.best_iteration)
+    assert not np.array_equal(tb.predict(X), best)
+    np.testing.assert_allclose(best, jb.predict(X, num_iteration=jb.best_iteration), rtol=0,
+                               atol=3e-3)
 
 
 def test_record_evaluation_history_per_iteration(runs):
