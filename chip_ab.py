@@ -30,6 +30,12 @@ measurement:
   same launch with no row selected, over all features and over one.
 
 ``--hist`` times only the mask grower's histograms (the last item above).
+``--upd`` times only the update kernels: update_and_root_hist (B1) at
+10.5M x 28 with a delta (64 and 256 bins) and with a select and GOSS
+multiplier, update_multi_and_hists (B2) on the covertype cell's bundled
+matrix (softmax and one-vs-all) and at K=16 (feature tiles), in bursts,
+single and by kernel on the device, and B1's device time by part (no
+histogram, one feature, every row in one bin).
 ``--cells`` times instead one cell against another inside one process:
 it trains one binned dataset (10.5M Higgs-shaped rows, the higgs cell's
 parameters, 16 iterations per run) in the order
@@ -154,6 +160,88 @@ def hist_cells(tree, cs, lgt, dev):
         torch.cuda.empty_cache()
 
 
+def upd_cells(tree, cs, lgt, dev):
+    """Print the "AB" lines of the update kernels: update_and_root_hist
+    (B1) at KERNEL_ROWS x 28 with a delta (64 and 256 bins) and with a
+    select and GOSS multiplier (64 bins); update_multi_and_hists (B2) on
+    the covertype cell's bundled training matrix (K=7, softmax and
+    one-vs-all) and at K=16 x 28 x 64 (feature tiles); each in bursts,
+    single and by kernel on the device.  Then B1's device time over a
+    sweep that takes its parts apart: no histogram (with_hist=False),
+    one feature against all, and every row in one bin against uniform
+    bins."""
+    import torch
+
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    def report(what, fn):
+        dev_ms = cs.device_split(fn)
+        print(f"AB {tree} {what}: {burst_ms(fn):.4f} ms (single {cs.time_cuda(fn, 10):.4f}; "
+              f"device {sum(dev_ms.values()):.4f} {json.dumps(dev_ms)})", flush=True)
+
+    F, n = 28, KERNEL_ROWS
+    rng = np.random.default_rng(11)
+    label = (rng.random(n) < 0.5).astype(np.float32)
+    obj = cs._multi_objective("binary", 1, label)
+    delta = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 0.1).to(dev)
+    sel = (torch.rand(n, device=dev) < 0.3).float()
+    mul = torch.where(torch.rand(n, device=dev) < 0.5, 8.5, 1.0).float()
+    lay = pk.PLayout(F)
+    for B in (64, 256):
+        P = pk.pack_matrix(rng.integers(0, B, size=(n, F), dtype=np.uint8), lay, label=label,
+                           device=dev)
+        kw = dict(num_rows=n, num_features=F, num_bins=B, bits=8)
+        report(f"update_and_root_hist rows {n} x {F}, {B} bins, delta",
+               lambda: pk.update_and_root_hist(P, lay, obj, delta=delta, **kw))
+        if B == 64:
+            report(f"update_and_root_hist rows {n} x {F}, {B} bins, sel 30 % + mul",
+                   lambda: pk.update_and_root_hist(P, lay, obj, sel=sel, mul=mul, **kw))
+            pk.f32_row(P, lay.SEL, n).fill_(1.0)  # every row selected again
+            sweep = {}
+            for what, f, w in (("all features", F, True), ("one feature", 1, True),
+                               ("no histogram", F, False)):
+                sweep[what] = cs.device_split(lambda: pk.update_and_root_hist(
+                    P, lay, obj, delta=delta, **dict(kw, num_features=f), with_hist=w))
+            P[: lay.W] = 0x05050505  # every row of every feature in bin 5
+            sweep["every row in one bin"] = cs.device_split(
+                lambda: pk.update_and_root_hist(P, lay, obj, delta=delta, **kw))
+            print(f"AB {tree} update_and_root_hist device ms by part: {json.dumps(sweep)}",
+                  flush=True)
+        del P
+        torch.cuda.empty_cache()
+
+    X, y = cs.make_covertype_shaped()
+    nc = cs.COV_TRAIN_ROWS
+    ds = lgt.Dataset(X[:nc], label=y[:nc])
+    ds.construct(cs.COV_PARAMS).ensure_bundles(Config.from_params(cs.COV_PARAMS))
+    bds = ds.construct(cs.COV_PARAMS)
+    K, mat = 7, bds.bundled
+    rows, G = mat.shape
+    BH = int(bds.bundle.max_col_bin)
+    lay = pk.PLayout(G, num_score=K)
+    P = pk.pack_matrix(mat, lay, label=bds.metadata.label, device=dev)
+    for k in range(K):
+        pk.f32_row(P, lay.SCORE + k, rows).copy_(torch.randn(rows, device=dev))
+    for name in ("multiclass", "multiclassova"):
+        mobj = cs._multi_objective(name, K, bds.metadata.label)
+        report(f"update_multi_and_hists {name} rows {rows} x {G} columns, {BH} bins, K={K}",
+               lambda: pk.update_multi_and_hists(P, lay, mobj, num_rows=rows, num_features=G,
+                                                 num_bins=BH))
+    del P, X, y, ds, bds
+    Kw, nw = 16, 200_000
+    lay = pk.PLayout(28, num_score=Kw)
+    labw = rng.integers(0, Kw, nw).astype(np.float32)
+    P = pk.pack_matrix(rng.integers(0, 64, size=(nw, 28), dtype=np.uint8), lay, label=labw,
+                       device=dev)
+    mobj = cs._multi_objective("multiclass", Kw, labw)
+    report(f"update_multi_and_hists K={Kw} rows {nw} x 28, 64 bins (feature tiles)",
+           lambda: pk.update_multi_and_hists(P, lay, mobj, num_rows=nw, num_features=28,
+                                             num_bins=64))
+    del P
+    torch.cuda.empty_cache()
+
+
 def run_cells(cs, lgt, dev):
     """Train each cell of CELL_ORDER on one dataset and print its CELL
     line; returns [(cell, iteration seconds), ...], the profiler window
@@ -196,6 +284,9 @@ def main(argv=None):
                     help="time the plain, bagging and GOSS cells in turns instead")
     ap.add_argument("--hist", action="store_true",
                     help="time only the mask grower's histograms (hist_segment, hist_segment_q)")
+    ap.add_argument("--upd", action="store_true",
+                    help="time only the update kernels (update_and_root_hist, "
+                         "update_multi_and_hists)")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -220,6 +311,9 @@ def main(argv=None):
         return 0
     if args.hist:
         hist_cells(tree, cs, lgt, dev)
+        return 0
+    if args.upd:
+        upd_cells(tree, cs, lgt, dev)
         return 0
 
     # ---- kernels at 64 and 256 bins

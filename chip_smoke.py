@@ -18,7 +18,13 @@ result line):
      (update_channels, and update_and_root_hist with a select and a GOSS
      multiplier, among them).  Multiclass path: the covertype cell's
      bundled training matrix (12 EFB columns, 63 bins, K=7 score
-     channels, 40 channels).  Mask grower: hist_segment and
+     channels, 40 channels); then update_and_root_hist and
+     update_multi_and_hists on edge cases (UPDATE_EDGES: rows below and
+     past one staged chunk, an all-zero select, every row in one bin,
+     4-bit bins, weights, feature tiles, K=2, K=16, one-vs-all with
+     is_unbalance, 16-bit words of up to 9600 bins); their single-call
+     times are in the result line, their shared-memory floors in the
+     log.  Mask grower: hist_segment and
      hist_segment_q at --rows x 28, 64 bins, over a sub-range with
      unselected rows, at 1M rows of 512 bins (16-bit words), and on edge
      cases (no row, one row, every row selected, every row in one bin,
@@ -68,7 +74,9 @@ result line):
      last 116,203 are held out; objective=multiclass, the Higgs cell's
      training parameters, 20 iterations; prints s/iter,
      held-out multi_logloss and accuracy, peak memory, launches and the
-     idle share; then a 2-iteration one-vs-all run, and one tree grown
+     idle share (with update_multi_and_hists' device ms a launch and an
+     iteration, as higgs-10.5M's window gives update_and_root_hist's);
+     then a 2-iteration one-vs-all run, and one tree grown
      with root_hist=None (hist_segments with the level grower on,
      hist_dyn off) against the tree of update_multi_and_hists's class-0
      histogram.
@@ -101,6 +109,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+# shared memory: 132 SMs x 128 bytes a clock at the 1.98 GHz boost clock
+# (H100 SXM data sheet and the Hopper tuning guide)
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 TRAIN_PARAMS = dict(objective="binary", max_bin=63, num_leaves=255, learning_rate=0.1,
                     min_data_in_leaf=1, min_sum_hessian_in_leaf=100, verbose=-1)
 COV_PARAMS = dict(TRAIN_PARAMS, objective="multiclass", num_class=7)
@@ -269,7 +280,10 @@ def time_cuda(fn, reps, warmup=1, burst=1):
 
 def device_split(fn, calls=5):
     """{kernel: device ms a call} of ``fn`` from torch.profiler (the
-    device's activity only)."""
+    device's activity only): a kernel's mean over the launches the
+    profiler recorded, times its launches a call (the recorded ones over
+    ``calls``, rounded up: a window can lose a launch, see
+    profile_iters)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -279,7 +293,8 @@ def device_split(fn, calls=5):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0][-40:]: round(e.self_device_time_total / 1e3 / calls, 4)
+    return {e.key.split("(")[0][-40:]:
+            round(e.self_device_time_total / 1e3 / e.count * -(-e.count // calls), 4)
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
@@ -330,6 +345,12 @@ def finish_bounds(out):
         v["bound_ms"] = max(t_bytes, t_ops)
         v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return out
+
+
+def smem_floor_ms(adds):
+    """The least time of ``adds`` float64 read-add-writes in shared memory:
+    16 bytes each over SMEM_BYTES_PER_S."""
+    return adds * 16 / SMEM_BYTES_PER_S * 1e3
 
 
 def split_work(cnt, C, F, B):
@@ -478,13 +499,17 @@ def phase_kernels(rows, dev, seed=11):
     assert chan_err <= 1e-6
     habs = check_hist("update_and_root_hist", hk, hr)
     ms = burst_ms(lambda: pk.update_and_root_hist(Pk, lay, obj, delta=delta, **kw))
+    single = time_cuda(lambda: pk.update_and_root_hist(Pk, lay, obj, delta=delta, **kw), 10)
     plain = time_cuda(lambda: pk.update_and_root_hist_ref(Pr, lay, obj, delta=delta, **kw), 3)
     # reads W words + score, label, weight, delta; writes g, h, score
     nbytes = rows * 4 * (W + 4 + 3) + F * B * 3 * 4
     # the logloss gradient (~12 ops with its exp) and 3 adds per feature
     nops = rows * (12 + 3 * F)
-    out["update_and_root_hist"] = dict(max_abs_err=habs, ms=ms, plain_ms=plain,
+    out["update_and_root_hist"] = dict(max_abs_err=habs, ms=ms, single_ms=single, plain_ms=plain,
                                        bytes=nbytes, ops=nops, library_ms=None)
+    log(f"  update_and_root_hist at {rows} x {F}, {B} bins: {ms:.4f} ms a launch in bursts, "
+        f"{single:.4f} ms single, plain {plain:.2f} ms; shared-memory floor "
+        f"{smem_floor_ms(rows * F * 3):.4f} ms")
     P0 = Pk.clone()  # fresh g/h channels for the partition kernels
     del Pk, Pr
 
@@ -513,6 +538,7 @@ def phase_kernels(rows, dev, seed=11):
     check_hist("update_and_root_hist (sel, mul)", hk, hr)
     ms = burst_ms(lambda: pk.update_and_root_hist(Pk, lay, obj, sel=sel, mul=mul, **kw))
     log(f"kernel update_and_root_hist (sel, mul): channels bit-identical; {ms:.4f} ms")
+    out["update_and_root_hist"]["sel_mul_ms"] = ms
     # the rest of a sampled GOSS iteration's prep pass: the |g*h| ranking
     # and the rest's draw at GOSS_PARAMS' rates (one call of goss_select)
     from lightgbm_tpu_torch.boosting.ptrainer import goss_select
@@ -614,16 +640,126 @@ def phase_kernels(rows, dev, seed=11):
     return finish_bounds(out)
 
 
-def _multi_objective(name, K, label):
+def _multi_objective(name, K, label, weight=None, **extra):
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.io.dataset import Metadata
     from lightgbm_tpu_torch.objective import create_objective
 
-    obj = create_objective(Config.from_params({"objective": name, "num_class": K}))
+    params = dict(extra, objective=name, **({"num_class": K} if K > 1 else {}))
+    obj = create_objective(Config.from_params(params))
     md = Metadata(len(label))
     md.set_label(label)
+    if weight is not None:
+        md.set_weights(weight)
     obj.init(md, len(label))
     return obj
+
+
+# B1 / B2 edge cases: (what, rows, features, bins, bits, K, objective,
+# extra parameters, weights, select (None: the matrix's own, 0.0: all
+# zero, "rand": 30 % of rows, with a GOSS multiplier for K = 1), every row
+# in one bin).  A block stages 256 rows at a time, so 1, 31 and 257 rows
+# lie below one chunk or just past it, and 100,003 is no multiple of it.
+UPDATE_EDGES = [
+    ("1 row", 1, 28, 64, 8, 1, "binary", {}, False, None, False),
+    ("31 rows", 31, 28, 64, 8, 1, "binary", {}, False, None, False),
+    ("257 rows", 257, 28, 64, 8, 1, "regression", {}, False, None, False),
+    ("100,003 rows", 100_003, 28, 64, 8, 1, "binary", {}, False, None, False),
+    ("all-zero select", 100_003, 28, 64, 8, 1, "binary", {}, False, 0.0, False),
+    ("every row in one bin", 100_003, 28, 64, 8, 1, "binary", {}, False, None, True),
+    ("4-bit bins", 100_003, 28, 16, 4, 1, "binary", {}, False, "rand", False),
+    ("weights", 100_003, 28, 64, 8, 1, "binary", {}, True, "rand", False),
+    ("300 features x 256 bins, feature tiles", 20_000, 300, 256, 8, 1, "binary", {}, True,
+     "rand", False),
+    ("K=2 softmax, 257 rows", 257, 12, 63, 8, 2, "multiclass", {}, False, None, False),
+    ("K=7 softmax, 31 rows", 31, 12, 63, 8, 7, "multiclass", {}, False, None, False),
+    ("K=7 all-zero select", 10_007, 12, 63, 8, 7, "multiclass", {}, False, 0.0, False),
+    ("K=7 every row in one bin", 10_007, 12, 63, 8, 7, "multiclass", {}, False, None, True),
+    ("K=16 feature tiles", 100_003, 28, 64, 8, 16, "multiclass", {}, True, "rand", False),
+    ("K=5 one-vs-all is_unbalance, weights", 20_011, 11, 16, 4, 5, "multiclassova",
+     {"is_unbalance": True}, True, None, False),
+    # 16-bit words: B1's one-feature tiles in narrowed stripes (4000 bins)
+    # and in tight ones with a short chunk (9600); B2's at K=16 in tight
+    # stripes (800 bins)
+    ("16-bit words, 4000 bins", 20_000, 2, 4000, 16, 1, "binary", {}, True, "rand", False),
+    ("16-bit words, 9600 bins", 20_000, 2, 9600, 16, 1, "binary", {}, True, "rand", False),
+    ("K=16 16-bit words, 800 bins", 20_000, 3, 800, 16, 16, "multiclass", {}, True, "rand",
+     False),
+]
+
+
+def phase_update_edges(dev, seed=41):
+    """update_and_root_hist (B1, K = 1) and update_multi_and_hists (B2)
+    against their plain versions on UPDATE_EDGES; B1 also with
+    with_hist=False (the same channel writes).  Channels bit-identical
+    but the gradient rows (1e-6 relative), the columns past the rows
+    untouched, histograms as check_hist."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    rng = np.random.default_rng(seed)
+    sums_equal, err = True, 0.0
+    for what, n, F, B, bits, K, name, extra, weighted, sel, one_bin in UPDATE_EDGES:
+        lay = pk.PLayout(F, num_score=K, bits=bits)
+        bins = (np.full((n, F), 5, np.uint16) if one_bin
+                else rng.integers(0, B, (n, F)).astype(np.uint16))
+        label = ((rng.random(n) < 0.4) if K == 1 else rng.integers(0, K, n)).astype(np.float32)
+        weight = (rng.random(n) + 0.5).astype(np.float32) if weighted else None
+        # pack_matrix takes uint8 bins (the trainer's); 16-bit words by hand
+        P = pk.pack_matrix(bins.astype(np.uint8) if bits < 16 else np.zeros((n, F), np.uint8),
+                           lay, label=label, weight=weight, device=dev)
+        if bits == 16:
+            words = np.pad(bins, ((0, 0), (0, 2 * lay.W - F))).astype(np.uint32)
+            P[:lay.W, :n] = torch.from_numpy(
+                (words[:, 0::2] | words[:, 1::2] << 16).view(np.int32).T.copy()).to(dev)
+        for k in range(K):
+            pk.f32_row(P, lay.SCORE + k, n).copy_(torch.randn(n, device=dev))
+        pk.f32_row(P, lay.SEL, n).copy_((torch.rand(n, device=dev) < 0.85).float())
+        obj = _multi_objective(name, K, label, weight, **extra)
+        kw = dict(num_rows=n, num_features=F, num_bins=B, bits=bits)
+        if sel is None:
+            args = {}
+        elif sel == 0.0:
+            args = dict(sel=torch.zeros(n, device=dev))
+        else:
+            args = dict(sel=(torch.rand(n, device=dev) < 0.3).float())
+            if K == 1:
+                args["mul"] = torch.where(torch.rand(n, device=dev) < 0.5, 8.5, 1.0).float()
+        if K == 1:
+            args["delta"] = 0.1 * torch.randn(n, device=dev)
+            kern, ref, gh = pk.update_and_root_hist, pk.update_and_root_hist_ref, {lay.G, lay.H}
+        else:
+            kern, ref = pk.update_multi_and_hists, pk.update_multi_and_hists_ref
+            gh = {r for k in range(K) for r in (lay.g_row(k), lay.h_row(k))}
+        Pk, Pr = P.clone(), P.clone()
+        _, hk = kern(Pk, lay, obj, **args, **kw)
+        _, hr = ref(Pr, lay, obj, **args, **kw)
+        sync(dev)
+        for r in range(lay.C):
+            if r in gh:
+                e, _ = rel_err(Pk[r, :n].view(torch.float32), Pr[r, :n].view(torch.float32))
+                assert e <= 1e-6, f"{kern.__name__} {what}: gradient row {r} differs"
+            else:
+                assert torch.equal(Pk[r], Pr[r]), f"{kern.__name__} {what}: channel {r} differs"
+        assert torch.equal(Pk[:, n:], P[:, n:]), f"{kern.__name__} {what} wrote the tail"
+        hk, hr = hk.reshape(-1, F, B, 3), hr.reshape(-1, F, B, 3)
+        for k in range(hk.shape[0]):
+            assert torch.equal(hk[k, ..., 2], hr[k, ..., 2]), f"{what}: counts differ"
+            (eg, ag), (eh, ah) = (rel_err(hk[k, ..., c], hr[k, ..., c]) for c in (0, 1))
+            assert eg <= HIST_TOL and eh <= HIST_TOL, f"{kern.__name__} {what}: sums differ"
+            err = max(err, ag, ah)
+        sums_equal = sums_equal and torch.equal(hk, hr)
+        if K == 1:
+            Pn = P.clone()
+            _, none = kern(Pn, lay, obj, with_hist=False, **args, **kw)
+            sync(dev)
+            assert none is None and torch.equal(Pn, Pk), f"{what}: with_hist=False differs"
+        del P, Pk, Pr
+    log(f"kernels update_and_root_hist and update_multi_and_hists: {len(UPDATE_EDGES)} edge "
+        f"cases match the plain versions (channels, tail untouched; counts bit-equal; sums "
+        f"bit-equal {sums_equal}, max abs err {err:.3e}); with_hist=False writes the same "
+        f"channels")
 
 
 def phase_kernels_multi(bds, dev, seed=5):
@@ -665,16 +801,21 @@ def phase_kernels_multi(bds, dev, seed=5):
         habs = max(check_hist(f"update_multi_and_hists {name} class {k}", hk[k], hr[k])
                    for k in range(K))
         ms = burst_ms(lambda: pk.update_multi_and_hists(Pk, lay, obj, **kw))
+        single = time_cuda(lambda: pk.update_multi_and_hists(Pk, lay, obj, **kw), 10)
         plain = time_cuda(lambda: pk.update_multi_and_hists_ref(Pr, lay, obj, **kw), 3)
-        log(f"  update_multi_and_hists {name}: {ms:.4f} ms, plain {plain:.2f} ms")
+        floor = smem_floor_ms(rows * G * (2 * K + 1))
+        log(f"  update_multi_and_hists {name}: {ms:.4f} ms, single {single:.4f} ms, plain "
+            f"{plain:.2f} ms; shared-memory floor {floor:.4f} ms")
         if name == "multiclass":
             P1 = Pk.clone()  # fresh g/h channels for the histogram kernels
             # reads W words + K scores + label + select, writes 2K channels
             out["update_multi_and_hists"] = dict(
-                max_abs_err=habs, ms=ms, plain_ms=plain,
+                max_abs_err=habs, ms=ms, single_ms=single, plain_ms=plain,
                 bytes=rows * 4 * (lay.W + K + 2 + 2 * K) + G * BH * (2 * K + 1) * 4,
                 # softmax (~16 ops a class with its exp) and 2K+1 adds per column
                 ops=rows * (16 * K + (2 * K + 1) * G), library_ms=None)
+        else:
+            out["update_multi_and_hists"]["ova_ms"] = ms
         del Pk, Pr
 
     # ---- the feature-tiled form: K=16 at 28 x 64 needs 236 KB of bins
@@ -1181,9 +1322,10 @@ def phase_covertype(ds, Xv, yv, iters, dev):
         f"peak device memory {peak:.2f} GiB")
     assert prob.shape == (len(yv), 7) and np.all(np.isfinite(prob))
     assert ll < prior_entropy(), "held-out multi_logloss is not below the class prior's"
-    if dev.type == "cuda":
-        # one iteration is 7 trees, as many launches as ~7 binary iterations
-        profile_iters(ds, dev, COV_PARAMS, n_iter=1)
+    # one iteration is 7 trees, as many launches as ~7 binary iterations;
+    # two, so that a window that loses a launch (as earlier ones did,
+    # profile_iters logs it) still records update_multi_and_hists
+    prof = profile_iters(ds, dev, COV_PARAMS, n_iter=2) if dev.type == "cuda" else None
 
     (ova, wall), _ = driven("covertype-581k one-vs-all",
                             lambda: run(dict(COV_PARAMS, objective="multiclassova"), 2),
@@ -1227,7 +1369,23 @@ def phase_covertype(ds, Xv, yv, iters, dev):
     del bst, pt, p, hists
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return [counts, c_root], dict(s_iter=s_iter, logloss=ll, accuracy=acc, peak_gib=peak)
+    return [counts, c_root], dict(s_iter=s_iter, logloss=ll, accuracy=acc, peak_gib=peak,
+                                  profile=prof)
+
+
+# the device kernel that each counted wrapper launches once a call, as
+# the profiler names it; hist_segment's also counts hist_dyn's launches
+# (hist_segments launches it once a segment)
+RECORDED_AS = {
+    "update_and_root_hist": "upd_hist_kernel<lgbt::SingleUpd",
+    "update_multi_and_hists": "upd_hist_kernel<lgbt::MultiUpd",
+    "level_stream": "part_scatter_kernel<true>",
+    "split_stream": "part_scatter_kernel<false>",
+    "score_add": "score_add_kernel",
+    "update_channels": "update_channels_kernel<",
+    "hist_segment": "seg_hist_kernel<false,",
+    "hist_segment_q": "seg_hist_kernel<true,",
+}
 
 
 def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
@@ -1238,17 +1396,20 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import pkernels as pk
 
     bst = lgt.Booster(params, ds, device=dev)
     bst.boosting.train_iters(1)
     sync(dev)
     # the device's activity only: host-side events would triple what the
     # tables below have to sort, and the wall clock gives the host's time
+    before = {k.__name__: k.launches for k in pk.KERNELS}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         bst.boosting.train_iters(n_iter)
         sync(dev)
         wall_us = (time.perf_counter() - t) * 1e6
+    ran = {k.__name__: k.launches - before[k.__name__] for k in pk.KERNELS}
 
     def dev_us(e):
         return e.self_device_time_total
@@ -1276,22 +1437,48 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
     log(f"profile: partition kernels a iteration: level_stream {part['true'] / 1e3 / n_iter:.2f} "
         f"ms, split_stream {part['false'] / 1e3 / n_iter:.2f} ms of "
         f"{busy / 1e3 / n_iter:.2f} ms busy")
-    # csrc/segment_hist.cu, both launches of a call: a first template
-    # argument true is hist_segment_q, false the float histograms
-    # (hist_segment, hist_dyn, hist_segments)
+    # each wrapper's launches that the window recorded (the launches of
+    # the one kernel RECORDED_AS names) against those its counter saw
+    recorded = {name: sum(e.count for e in evs if key in e.key)
+                for name, key in RECORDED_AS.items()}
+    ran["hist_segment"] += ran["hist_dyn"]
+    if ran["hist_segments"]:  # a launch a segment: not comparable
+        del recorded["hist_segment"]
+    gaps = {k: f"{recorded[k]} of {ran[k]}" for k in recorded if recorded[k] != ran[k]}
+    log(f"profile: launches recorded against launches counted: "
+        + (f"MISMATCH {json.dumps(gaps)}" if gaps else "all equal") + " "
+        + json.dumps({k: [recorded[k], ran[k]] for k in recorded}))
+    # a wrapper's device time in the window: its kernels' recorded sum
+    # over the recorded calls and over the iterations.  csrc/segment_hist.cu
+    # (both launches of a call): a first template argument true is
+    # hist_segment_q, false the float histograms (hist_segment, hist_dyn,
+    # hist_segments).  csrc/update_hist.cuh by update policy: a call is
+    # one upd_hist_kernel (and, feature-tiled, one upd_only_kernel first)
     seg = {}
-    for form, name in (("false", "float"), ("true", "quantized")):
-        mine = [e for e in evs if ("seg_hist_kernel" in e.key or "seg_compact_kernel" in e.key)
-                and (f"<{form}>" in e.key or f"<{form}," in e.key)]
-        calls = sum(e.count for e in mine if "seg_hist_kernel" in e.key)
-        seg[name] = dict(ms_iter=sum(dev_us(e) for e in mine) / 1e3 / n_iter, calls=calls,
-                         ms_call=sum(dev_us(e) for e in mine) / 1e3 / max(calls, 1))
-    log(f"profile: segment-histogram kernels a iteration (list and histogram launches): "
-        + ", ".join(f"{k} {v['ms_iter']:.2f} ms over {v['calls'] / n_iter:.0f} calls, "
-                    f"{v['ms_call']:.4f} ms a call" for k, v in seg.items()))
+    for name, key, parts in (
+            ("float", "hist_segment", ("seg_hist_kernel<false", "seg_compact_kernel<false")),
+            ("quantized", "hist_segment_q", ("seg_hist_kernel<true", "seg_compact_kernel<true")),
+            ("update_and_root_hist", "update_and_root_hist", ("SingleUpd",)),
+            ("update_multi_and_hists", "update_multi_and_hists", ("MultiUpd",))):
+        ms = sum(dev_us(e) for e in evs if any(x in e.key for x in parts)) / 1e3
+        calls = sum(e.count for e in evs if RECORDED_AS[key] in e.key)
+        seg[name] = dict(ms_iter=ms / n_iter, calls=calls, ran=ran[key],
+                         ms_call=ms / max(calls, 1))
+        if calls:
+            log(f"profile: {name}: {ms / n_iter:.4f} ms an iteration over {calls} recorded "
+                f"calls ({ran[key]} counted), {ms / calls:.4f} ms a call")
     del bst
     torch.cuda.empty_cache()
     return seg
+
+
+def device_window(w):
+    """A kernel's numbers from its cell's profile window, as the window
+    recorded them: device ms an iteration (the recorded sum over the
+    window's iterations) and a launch (over the recorded launches), and
+    the launches recorded beside those counted."""
+    return dict(device_ms_per_iter=w["ms_iter"], device_ms_per_launch=w["ms_call"],
+                device_launches_recorded=w["calls"], device_launches_counted=w["ran"])
 
 
 def phase_full(rows, iters, dev, repeat_iters):
@@ -1344,15 +1531,14 @@ def phase_full(rows, iters, dev, repeat_iters):
         f"{trees_text(bst0.model_to_string()) == trees_text(bst.model_to_string(2))}")
     assert c0["split_stream"] > 0 and c0["level_stream"] == 0
     del bst0
-    if dev.type == "cuda":
-        profile_iters(ds, dev)
+    prof = profile_iters(ds, dev) if dev.type == "cuda" else None
 
     bst2, _ = run(repeat_iters)
     same = trees_text(bst2.model_to_string()) == trees_text(bst.model_to_string(repeat_iters))
     log(f"full: a repeat run of {repeat_iters} iterations gives byte-identical model text: "
         f"{same}")
     return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak, deterministic=same,
-                        iter_seconds=its), (ds, Xv, yv)
+                        iter_seconds=its, profile=prof), (ds, Xv, yv)
 
 
 def phase_sampled(ds, Xv, yv, dev, higgs_its):
@@ -1608,6 +1794,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     kern = phase_kernels(args.rows, dev)
     kern.update(phase_kernels_multi(cov.construct(COV_PARAMS), dev))
+    phase_update_edges(dev)
     kern.update(phase_kernels_mask(args.rows, dev))
     phase_feature_tiles(min(args.rows, 1_000_000), dev)
     log(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -1649,9 +1836,13 @@ def main(argv=None):
         kern[name].update(paths[name])
         kern[name]["max_abs_err"] = max(wide_err, paths[name]["max_abs_err"])
         if prof:
-            kern[name].update(device_ms_per_iter=prof[kind]["ms_iter"],
-                              device_ms_per_launch=prof[kind]["ms_call"])
+            kern[name].update(device_window(prof[kind]))
     log(f"mask-grower kernels at their paths' shapes in {time.perf_counter() - t0:.1f} s")
+    # B1 and B2: the same from the higgs-10.5M and covertype-581k windows
+    for name, prof in (("update_and_root_hist", full["profile"]),
+                       ("update_multi_and_hists", cov_full["profile"])):
+        if prof:
+            kern[name].update(device_window(prof[name]))
 
     entries = []
     for name in KERNEL_NAMES:
@@ -1666,7 +1857,7 @@ def main(argv=None):
                             library_ms=k["library_ms"],
                             **{x: v for x, v in k.items()
                                if x.startswith(("single", "tail", "library_single", "wide",
-                                                "path", "device"))}))
+                                                "path", "device", "sel_mul", "ova"))}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

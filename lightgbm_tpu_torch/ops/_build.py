@@ -37,7 +37,7 @@ _LIB = None
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "lgbt_update_root_hist": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _F, _F, _I, _I, _I, _P, _P],
+                              _I, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P],
     "lgbt_update_channels": [_P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                              _F, _P],
     "lgbt_level_stream": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -45,7 +45,7 @@ SIGNATURES = {
     "lgbt_split_stream": [_P, _L, _I, _P, *[_I] * 12, _P, _P, _P, *[_I] * 6, _P, _P, _P],
     "lgbt_score_add": [_P, _L, _I, _P, _I, _P],
     "lgbt_update_multi_hist": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,
-                               _I, _I, _P, _P],
+                               _I, _I, _P, _P, _P, _P],
     "lgbt_segment_hist": [_P, _L, *[_I] * 9, _P, _P, _P, _P, _P],
 }
 

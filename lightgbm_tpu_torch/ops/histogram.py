@@ -38,6 +38,7 @@ the out-of-core trainer.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -172,7 +173,8 @@ def workspace_size(rows: int, cells: int, have: tuple = (0, 0)) -> tuple:
 class _Workspace:
     """One stream's index list and counters (``words``: [count, ticket,
     list...]), float64 (or int32) accumulator (``cells``), all zero
-    between calls, and the selected-row tallies (``tally``)."""
+    between calls, and the selected-row tallies (``tally``).  The
+    update kernels (B1, B2) use the ticket and the accumulator too."""
 
     def __init__(self, device):
         self.words = torch.zeros(0, dtype=torch.int32, device=device)
@@ -186,6 +188,11 @@ class _Workspace:
             self.words = torch.zeros(words, dtype=torch.int32, device=self.tally.device)
         if ncells > self.cells.numel():
             self.cells = torch.zeros(ncells, dtype=torch.int64, device=self.tally.device)
+
+    @property
+    def ticket_ptr(self) -> int:
+        """Address of the ticket, ``words[1]``."""
+        return self.words.data_ptr() + 4
 
 
 _WORK = {}  # (device index, raw stream) -> _Workspace
@@ -217,6 +224,21 @@ def reset_selected_rows() -> None:
         w.tally.zero_()
 
 
+@contextlib.contextmanager
+def stream_workspace(p, rows: int, cells: int):
+    """The workspace of ``p``'s card and current stream, grown to take
+    ``rows`` listed columns and ``cells`` accumulator cells, as (workspace,
+    raw stream); the lock is held until the block ends, so the launches
+    that use it are enqueued inside."""
+    with device_of(p), _WORK_LOCK:
+        stream = raw_stream(p)
+        w = _WORK.get((p.device.index, stream))
+        if w is None:
+            w = _WORK[(p.device.index, stream)] = _Workspace(p.device)
+        w.fit(rows, cells)
+        yield w, stream
+
+
 def segment_hist_launch(p, lo: int, hi: int, num_features: int, num_bins: int, bits: int,
                         rows, quantized: bool, out: torch.Tensor, tally=None) -> None:
     """Launch the segment-histogram kernels over columns [lo, hi) (hi >
@@ -224,12 +246,7 @@ def segment_hist_launch(p, lo: int, hi: int, num_features: int, num_bins: int, b
     float32 (int32 when ``quantized``) tensor on its card; ``tally``
     names the slot that counts the selected rows, or None."""
     lib = _build.lib()
-    with device_of(p), _WORK_LOCK:
-        stream = raw_stream(p)
-        w = _WORK.get((p.device.index, stream))
-        if w is None:
-            w = _WORK[(p.device.index, stream)] = _Workspace(p.device)
-        w.fit(hi - lo, num_features * num_bins * 3)
+    with stream_workspace(p, hi - lo, num_features * num_bins * 3) as (w, stream):
         tally_ptr = None if tally is None else w.tally.data_ptr() + 8 * TALLY_SLOTS[tally]
         rc = lib.lgbt_segment_hist(
             p.data_ptr(), p.shape[1], lo, hi, bits, num_features, num_bins, *rows,

@@ -51,7 +51,7 @@ import torch
 from ..utils.device import device_of, raw_stream
 from . import _build
 from .histogram import (hist_segment, hist_segment_q, reset_selected_rows, segment_hist_launch,
-                        selected_rows)
+                        selected_rows, stream_workspace)
 
 BLK = 1024  # tail columns past the last row (the JAX kernels' DMA block)
 PART_CHUNK = 512  # a partition tile is a whole number of these (one step of a 512-thread block)
@@ -265,18 +265,21 @@ def update_and_root_hist(p, layout: PLayout, objective, delta=None, sel=None, mu
         raise ValueError("update_and_root_hist writes the layout's own g/h/sel rows")
     n = int(num_rows)
     d, s, m = (_vec(v, n, p.device) if v is not None else None for v in (delta, sel, mul))
-    hist = torch.zeros((num_features, num_bins, 3) if with_hist else (1,), dtype=torch.float64,
-                       device=p.device)
+    cells = num_features * num_bins * 3
+    hist = torch.empty((num_features, num_bins, 3), dtype=torch.float32,
+                       device=p.device) if with_hist else None
     kind, sigmoid, w_pos, w_neg = objective.kernel_params()
-    with torch.cuda.device(p.device):
-        rc = _build.lib().lgbt_update_root_hist(
+    lib = _build.lib()
+    with stream_workspace(p, 0, cells if with_hist else 0) as (w, stream):
+        rc = lib.lgbt_update_root_hist(
             p.data_ptr(), p.shape[1], n, *(None if v is None else v.data_ptr() for v in (d, s, m)),
             int(bool(with_hist)), layout.G, layout.H, layout.SEL, layout.SCORE, layout.LABEL,
             layout.WEIGHT, int(_use_weight(layout, objective)), kind, sigmoid, w_pos, w_neg,
-            num_features, num_bins, bits, hist.data_ptr(), raw_stream(p))
+            num_features, num_bins, bits, w.ticket_ptr, w.cells.data_ptr(),
+            None if hist is None else hist.data_ptr(), stream)
     _build.check(rc, "update_and_root_hist")
     update_and_root_hist.launches += 1
-    return p, (hist.float() if with_hist else None)
+    return p, hist
 
 
 update_and_root_hist.launches = 0
@@ -385,17 +388,20 @@ def update_multi_and_hists(p, layout: PLayout, objective, sel=None, *, num_rows,
         raise ValueError(f"objective of {kk} classes for a layout of {K} score channels "
                          f"(at most {MAX_CLASSES})")
     s = _vec(sel, n, p.device) if sel is not None else None
-    wts = torch.from_numpy(np.concatenate([w_pos, w_neg]).astype(np.float32)).to(p.device)
-    out = torch.zeros((num_features, num_bins, 2 * K + 1), dtype=torch.float64, device=p.device)
-    with torch.cuda.device(p.device):
-        rc = _build.lib().lgbt_update_multi_hist(
+    # the label weights go by value in the launch's parameters: no upload
+    wts = np.concatenate([w_pos, w_neg]).astype(np.float32)
+    hists = torch.empty((K, num_features, num_bins, 3), dtype=torch.float32, device=p.device)
+    lib = _build.lib()
+    with stream_workspace(p, 0, num_features * num_bins * (2 * K + 1)) as (w, stream):
+        rc = lib.lgbt_update_multi_hist(
             p.data_ptr(), p.shape[1], n, None if s is None else s.data_ptr(),
             layout.G, layout.SEL, layout.SCORE, layout.LABEL, layout.WEIGHT,
-            int(_use_weight(layout, objective)), kind, K, sigmoid, wts.data_ptr(),
-            num_features, num_bins, bits, out.data_ptr(), raw_stream(p))
+            int(_use_weight(layout, objective)), kind, K, sigmoid, wts.ctypes.data,
+            num_features, num_bins, bits, w.ticket_ptr, w.cells.data_ptr(), hists.data_ptr(),
+            stream)
     _build.check(rc, "update_multi_and_hists")
     update_multi_and_hists.launches += 1
-    return p, _multi_hists(out.float(), K)
+    return p, hists
 
 
 update_multi_and_hists.launches = 0

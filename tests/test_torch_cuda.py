@@ -421,6 +421,104 @@ def test_update_and_root_hist_sel_mul(dev, objective):
     assert none is None and torch.equal(Pn, Pk)
 
 
+# update kernels' edge cases, (rows, features, bins, bits, select, every
+# row in one bin): a block stages 256 rows at a time, so 1, 31 and 257
+# rows lie below one chunk or just past it; select None keeps the
+# matrix's own, "zero" selects no row, "rand" 30 % (with a GOSS
+# multiplier for B1)
+UPDATE_EDGES = {
+    "1-row": (1, 11, 32, 8, None, False),
+    "31-rows": (31, 11, 32, 8, None, False),
+    "257-rows": (257, 11, 32, 8, None, False),
+    "20003-rows": (20_003, 11, 32, 8, "rand", False),
+    "zero-select": (20_003, 11, 32, 8, "zero", False),
+    "one-bin": (20_003, 11, 32, 8, None, True),
+    "4-bit": (20_003, 11, 16, 4, "rand", False),
+    "feature-tiles": (5_000, 300, 256, 8, "rand", False),
+    # 16-bit words: at K = 16 one feature's cells fit only in tight stripes
+    "16-bit-800-bins": (5_000, 3, 800, 16, "rand", False),
+}
+
+
+def _update_case(dev, n, nf, b, bits, sel, one_bin, K, seed=13):
+    """(P on the card, layout, objective, kwargs) of one update edge case:
+    binary for K = 1, else softmax; weighted rows."""
+    rng = np.random.default_rng(seed)
+    lay = pk.PLayout(nf, num_score=K, bits=bits)
+    dt = np.uint16 if bits == 16 else np.uint8
+    bins = np.full((n, nf), 5, dt) if one_bin else rng.integers(0, b, (n, nf), dt)
+    label = ((rng.random(n) < 0.4) if K == 1 else rng.integers(0, K, n)).astype(np.float32)
+    weight = (rng.random(n) + 0.5).astype(np.float32)
+    # pack_matrix takes uint8 bins (the trainer's); 16-bit words by hand
+    P = pk.pack_matrix(bins.astype(np.uint8) if bits < 16 else np.zeros((n, nf), np.uint8),
+                       lay, label=label, weight=weight).numpy()
+    if bits == 16:
+        words = np.pad(bins, ((0, 0), (0, 2 * lay.W - nf))).astype(np.uint32)
+        P[:lay.W, :n] = (words[:, 0::2] | words[:, 1::2] << 16).view(np.int32).T
+    for k in range(K):
+        P[lay.SCORE + k, :n] = rng.standard_normal(n).astype(np.float32).view(np.int32)
+    P[lay.SEL, :n] = (rng.random(n) < 0.85).astype(np.float32).view(np.int32)
+    obj = (_objective("binary", label, weight) if K == 1
+           else _objective("multiclass", label, weight, num_class=K))
+    kw = dict(num_rows=n, num_features=nf, num_bins=b, bits=bits)
+    if sel == "zero":
+        kw["sel"] = torch.zeros(n)
+    elif sel == "rand":
+        kw["sel"] = torch.from_numpy((rng.random(n) < 0.3).astype(np.float32))
+        if K == 1:
+            kw["mul"] = torch.from_numpy(np.where(rng.random(n) < 0.5, 8.5, 1.0).astype(np.float32))
+    if K == 1:
+        kw["delta"] = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(np.float32))
+    return torch.from_numpy(P).to(dev), lay, obj, kw
+
+
+@pytest.mark.parametrize("K", [1, 2, 16], ids=["update_and_root_hist", "multi-K2", "multi-K16"])
+@pytest.mark.parametrize("case", list(UPDATE_EDGES))
+def test_update_edges(dev, case, K):
+    """B1 (K = 1) and B2 against their plain versions on the edge cases;
+    K = 16 at 11 features and the 300-feature case need feature tiles."""
+    P, lay, obj, kw = _update_case(dev, *UPDATE_EDGES[case], K)
+    kern, ref = ((pk.update_and_root_hist, pk.update_and_root_hist_ref) if K == 1
+                 else (pk.update_multi_and_hists, pk.update_multi_and_hists_ref))
+    Pk, Pr = P.clone(), P.clone()
+    _, hk = kern(Pk, lay, obj, **kw)
+    _, hr = ref(Pr, lay, obj, **kw)
+    torch.cuda.synchronize()
+    n = kw["num_rows"]
+    gh = [r for k in range(K) for r in (lay.g_row(k), lay.h_row(k))]
+    for r in gh:
+        a, b = Pk[r, :n].view(torch.float32), Pr[r, :n].view(torch.float32)
+        assert float((a - b).abs().max() / max(float(b.abs().max()), 1.0)) <= 1e-6
+    other = [r for r in range(lay.C) if r not in gh]
+    assert torch.equal(Pk[other], Pr[other])
+    assert torch.equal(Pk[:, n:], P[:, n:])
+    for k in range(K):
+        _assert_hist(hk.reshape(K, *hk.shape[-3:])[k], hr.reshape(K, *hr.shape[-3:])[k])
+    if K == 1:
+        Pn = P.clone()
+        _, none = kern(Pn, lay, obj, with_hist=False, **kw)
+        assert none is None and torch.equal(Pn, Pk)
+
+
+@pytest.mark.parametrize("nb", [1024, 4000, 9600])
+def test_update_and_root_hist_many_bins(dev, nb):
+    """B1 at 16-bit words and many bins: a tile of two features (1024
+    bins), of one feature in a narrowed stripe (4000), and of one feature
+    in a tight stripe with a short staged chunk (9600)."""
+    P, lay, obj, kw = _update_case(dev, 5_000, 2, nb, 16, "rand", False, 1, seed=nb)
+    Pk, Pr = P.clone(), P.clone()
+    _, hk = pk.update_and_root_hist(Pk, lay, obj, **kw)
+    _, hr = pk.update_and_root_hist_ref(Pr, lay, obj, **kw)
+    torch.cuda.synchronize()
+    n = kw["num_rows"]
+    for r in (lay.G, lay.H):
+        a, b = Pk[r, :n].view(torch.float32), Pr[r, :n].view(torch.float32)
+        assert float((a - b).abs().max() / max(float(b.abs().max()), 1.0)) <= 1e-6
+    assert torch.equal(Pk[[r for r in range(lay.C) if r not in (lay.G, lay.H)]],
+                       Pr[[r for r in range(lay.C) if r not in (lay.G, lay.H)]])
+    _assert_hist(hk, hr)
+
+
 @pytest.mark.parametrize("params", [
     dict(bagging_fraction=0.8, bagging_freq=2, feature_fraction=0.7),
     dict(boosting="goss"),
