@@ -36,6 +36,19 @@ multiplier, update_multi_and_hists (B2) on the covertype cell's bundled
 matrix (softmax and one-vs-all) and at K=16 (feature tiles), in bursts,
 single and by kernel on the device, and B1's device time by part (no
 histogram, one feature, every row in one bin).
+``--part`` times only the partition kernels (level_stream, split_stream) at
+64 bins, as the kernels item above, with split_stream's device time a
+call by kernel (torch.profiler), and, where the tree's wrappers take
+their segments as device tensors, those launches beside (the form the
+fused grower runs, whose device time is what a graph replay costs), and
+an empty one (a count of 0).
+``--e2e`` times the higgs-10.5M cell (10.5M Higgs-shaped rows, the higgs
+cell's parameters) and the covertype-581k cell (chip_smoke.py's data and
+parameters) end to end: after one iteration (a tree's CUDA graph capture,
+where the tree has one), s/iter as the host clock's seconds over one
+chunk of E2E_ITERS iterations ending in a synchronize; the host syncs of
+a 2-iteration chunk (torch.cuda.set_sync_debug_mode("warn")); and a
+2-iteration torch.profiler window: wall, device busy ms and idle share.
 ``--cells`` times instead one cell against another inside one process:
 it trains one binned dataset (10.5M Higgs-shaped rows, the higgs cell's
 parameters, 16 iterations per run) in the order
@@ -71,6 +84,7 @@ ITERS = {63: 12, 255: 6}  # max_bin: iterations
 # card); B8's bins are the covertype cell's, B9's 64 random bins
 HIST_CELLS = (("hist_segment", 464_809, 54, 3_544), ("hist_segment_q", 10_500_000, 28, 158_830))
 CELL_ROWS, CELL_ITERS = 10_500_000, 16
+E2E_ITERS = {"higgs-10.5M": 8, "covertype-581k": 4}
 CELL_ORDER = ("plain", "goss", "bagging", "profile", "plain", "bagging", "goss", "plain")
 
 
@@ -242,6 +256,69 @@ def upd_cells(tree, cs, lgt, dev):
     torch.cuda.empty_cache()
 
 
+def _is_sync(w) -> bool:
+    """A warning of sync debug mode "warn" for one synchronizing call (its
+    first use in a process also warns that the mode is a prototype)."""
+    text = str(w.message)
+    return "synchroniz" in text and "debug mode" not in text
+
+
+def count_syncs(fn) -> int:
+    """Host syncs PyTorch reports while ``fn`` runs (sync debug mode
+    "warn": one warning a synchronizing call)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(_is_sync(w) for w in caught)
+
+
+def e2e_cells(tree, cs, lgt, dev):
+    """Print one "AB" line per cell of E2E_ITERS (see the module doc)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    X, y = cs.make_higgs_shaped(CELL_ROWS, seed=7)
+    higgs = lgt.Dataset(X, label=y)
+    higgs.construct(cs.TRAIN_PARAMS)
+    del X
+    X, y = cs.make_covertype_shaped()
+    cov = lgt.Dataset(X[:cs.COV_TRAIN_ROWS], label=y[:cs.COV_TRAIN_ROWS])
+    cov.construct(cs.COV_PARAMS)
+    for name, params, ds, K in (("higgs-10.5M", cs.TRAIN_PARAMS, higgs, 1),
+                                ("covertype-581k", cs.COV_PARAMS, cov, 7)):
+        n = E2E_ITERS[name]
+        bst = lgt.Booster(params, ds, device=dev)
+        bst.boosting.train_iters(1)
+        cs.sync(dev)
+        t = time.perf_counter()
+        bst.boosting.train_iters(n)
+        cs.sync(dev)
+        s_iter = (time.perf_counter() - t) / n
+        syncs = count_syncs(lambda: (bst.boosting.train_iters(2), cs.sync(dev)))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            bst.boosting.train_iters(2)
+            cs.sync(dev)
+            wall = (time.perf_counter() - t) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        print(f"AB {tree} cell {name}: s/iter {s_iter:.4f} over {n} iterations (one chunk, host "
+              f"clock); host syncs in a 2-iteration chunk {syncs} ({syncs / (2 * K):.1f} a tree); "
+              f"profile of 2 iterations: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+              f"({busy / 2:.2f} ms an iteration), idle {100 - 100 * busy / wall:.1f}%; "
+              f"{gpu_state()}", flush=True)
+        del bst
+        torch.cuda.empty_cache()
+
+
 def run_cells(cs, lgt, dev):
     """Train each cell of CELL_ORDER on one dataset and print its CELL
     line; returns [(cell, iteration seconds), ...], the profiler window
@@ -287,6 +364,10 @@ def main(argv=None):
     ap.add_argument("--upd", action="store_true",
                     help="time only the update kernels (update_and_root_hist, "
                          "update_multi_and_hists)")
+    ap.add_argument("--part", action="store_true",
+                    help="time only the partition kernels (level_stream, split_stream)")
+    ap.add_argument("--e2e", action="store_true",
+                    help="time the higgs-10.5M and covertype-581k cells end to end")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -315,6 +396,9 @@ def main(argv=None):
     if args.upd:
         upd_cells(tree, cs, lgt, dev)
         return 0
+    if args.e2e:
+        e2e_cells(tree, cs, lgt, dev)
+        return 0
 
     # ---- kernels at 64 and 256 bins
     F, n = 28, KERNEL_ROWS
@@ -325,7 +409,10 @@ def main(argv=None):
     md.set_label(label)
     obj.init(md, n)
     delta = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 0.1).to(dev)
-    for B in (64, 256):
+    # the partition kernels given device tensors (the fused grower's form),
+    # in a tree whose wrappers take them
+    device_form = hasattr(pk, "partition_grid")
+    for B in ((64,) if args.part else (64, 256)):
         lay = pk.PLayout(F)
         P = pk.pack_matrix(rng.integers(0, B, size=(n, F), dtype=np.uint8), lay, label=label,
                            device=dev)
@@ -338,12 +425,28 @@ def main(argv=None):
                                                num_bins=B, bits=8, smax=8))
         line = (f"AB {tree} kernels rows {n} bins {B}: update_and_root_hist {upd:.4f} ms, "
                 f"level_stream {lvl:.4f} ms")
+        if device_form:
+            dtab, one = torch.from_numpy(tab).to(dev), torch.tensor(1, device=dev)
+            line += (", level_stream given a device table " + str(round(burst_ms(
+                lambda: pk.level_stream(P, dtab, one, num_features=F, num_bins=B, bits=8,
+                                        smax=8)), 4)) + " ms")
+            zero = [torch.tensor(v, device=dev) for v in (0, 0, 1, 16, 0, 0, thr, 0)]
+            line += (", split_stream given device scalars with a count of 0: device " + str(round(
+                sum(cs.device_split(lambda: pk.split_stream(
+                    P, *zero, num_features=F, num_bins=B, bits=8)).values()), 4)) + " ms")
         for cnt in (n, *TAIL_ROWS):
-            def split():
-                pk.split_stream(P, n - cnt, cnt, 1, 16, 0, 0, thr, 0, num_features=F,
-                                num_bins=B, bits=8)
+            seg = (n - cnt, cnt, 1, 16, 0, 0, thr, 0)
+
+            def split(seg=seg):
+                pk.split_stream(P, *seg, num_features=F, num_bins=B, bits=8)
             line += (f", split_stream {cnt} rows {burst_ms(split):.4f} ms (single "
                      f"{cs.time_cuda(split, 10):.4f})")
+            line += f" device {sum(cs.device_split(split).values()):.4f} ms"
+            if device_form:
+                dseg = [torch.tensor(v, device=dev) for v in seg]
+                line += (f"; given device scalars {burst_ms(lambda: split(dseg)):.4f} ms (single "
+                         f"{cs.time_cuda(lambda: split(dseg), 10):.4f}, device "
+                         f"{sum(cs.device_split(lambda: split(dseg)).values()):.4f})")
         if B == 64:
             srow = pk.f32_row(P, lay.SCORE, n)
             for what, fn in (("score_add", lambda: pk.score_add(P, lay, delta, num_rows=n)),
@@ -352,6 +455,8 @@ def main(argv=None):
         print(line + " (bursts of 10 launches; single: one launch between events)", flush=True)
         del P
         torch.cuda.empty_cache()
+    if args.part:
+        return 0
 
     hist_cells(tree, cs, lgt, dev)
 

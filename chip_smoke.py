@@ -45,13 +45,23 @@ result line):
   5. "higgs-10.5M" at full width: Higgs-shaped binary data (--rows plus a
      500k held-out set), max_bin=63, num_leaves=255, learning_rate=0.1,
      min_data_in_leaf=1, min_sum_hessian_in_leaf=100, --iters
-     iterations; prints s/iter, held-out AUC, peak memory and the
-     launch counts of every kernel (and split_stream's rows), then a run
+     iterations; prints s/iter (the stream's time between an
+     iteration's boundary events) beside the chunk's wall over its
+     iterations, held-out AUC, peak memory and the launch counts of
+     every kernel (and split_stream's rows and launches with rows: the
+     fused grower's fallback splits), then, per iteration, the ms
+     between its events, its host syncs (sync debug mode "warn") and
+     its launches by kernel; one fused tree replayed under sync debug
+     mode "error" (0 host syncs a tree) and a 2-iteration chunk's host
+     syncs (1); the tree's device ms as one graph replay and with
+     every level and phase-2 step empty (its fixed cost); then a run
      with the level grower off (so split_stream carries every split) and
      a repeat of the main run's first --repeat-iters iterations, to show
      whether two runs give byte-identical trees; then split_stream alone
-     at the cell's mean tail segment (its rows over its launches),
-     against the plain version;
+     (given device scalars, as the fused grower launches it) at the
+     cell's mean tail segment (its rows over its launches that had
+     rows), against the plain version, with its device time a call
+     given device scalars, host ints and a count of 0;
   5b. "higgs-10.5M-bagging": the same binned data and tree parameters
      with feature_fraction=0.9, bagging_fraction=0.8, bagging_freq=5
      (LightGBM's examples/python-guide/simple_example.py), the 500k
@@ -75,7 +85,9 @@ result line):
      training parameters, 20 iterations; prints s/iter,
      held-out multi_logloss and accuracy, peak memory, launches and the
      idle share (with update_multi_and_hists' device ms a launch and an
-     iteration, as higgs-10.5M's window gives update_and_root_hist's);
+     iteration, as higgs-10.5M's window gives update_and_root_hist's),
+     the seven tree graphs' pool, the host syncs of a tree of every
+     class (under "error") and of a chunk, and a tree's device ms;
      then a 2-iteration one-vs-all run, and one tree grown
      with root_hist=None (hist_segments with the level grower on,
      hist_dyn off) against the tree of update_multi_and_hists's class-0
@@ -361,10 +373,12 @@ def split_work(cnt, C, F, B):
 
 
 def phase_split_tail(cnt, dev, seed=23):
-    """split_stream at the tail's mean segment size (``cnt`` rows, the
-    higgs-10.5M cell's split_stream rows over its launches), 28 features
-    and 64 bins, against the plain version; its burst and single-call
-    times and its bound at that size."""
+    """split_stream given device scalars (the fused grower's launch) at the
+    tail's mean segment size (``cnt`` rows, the higgs-10.5M cell's
+    split_stream rows over its launches that had rows), 28 features and
+    64 bins, against the plain version; its burst and single-call times
+    and, given device scalars, host ints and a count of 0, its device
+    time a call; its bound at that size."""
     import torch
 
     from lightgbm_tpu_torch.ops import pkernels as pk
@@ -376,27 +390,42 @@ def phase_split_tail(cnt, dev, seed=23):
     pk.f32_row(P, lay.G, n).copy_(torch.randn(n, device=dev))
     pk.f32_row(P, lay.H, n).copy_(torch.rand(n, device=dev))
     args, kw = (1001, cnt, 3, 8, 0, 0, 30, 0), dict(num_features=F, num_bins=B, bits=8)
+    dargs = [torch.tensor(v, device=dev) for v in args]  # the fused grower's launch
     Pk, Pr = P.clone(), P.clone()
-    _, nk, lk, rk = pk.split_stream(Pk, *args, **kw)
+    _, nk, lk, rk = pk.split_stream(Pk, *dargs, **kw)
     _, nr, lr, rr = pk.split_stream_ref(Pr, *args, **kw)
     sync(dev)
     assert int(nk) == int(nr) and torch.equal(Pk, Pr), "split_stream differs at the tail size"
     err = max(check_hist("split_stream tail left", lk, lr),
               check_hist("split_stream tail right", rk, rr))
-    ms = burst_ms(lambda: pk.split_stream(Pk, *args, **kw))
-    single = time_cuda(lambda: pk.split_stream(Pk, *args, **kw), 20)
+    ms = burst_ms(lambda: pk.split_stream(Pk, *dargs, **kw))
+    single = time_cuda(lambda: pk.split_stream(Pk, *dargs, **kw), 20)
+    host = burst_ms(lambda: pk.split_stream(Pk, *args, **kw))
+    none = [dargs[0], torch.zeros_like(dargs[1]), *dargs[2:]]
     plain = time_cuda(lambda: pk.split_stream_ref(Pr, *args, **kw), 3)
+    # device ms a call, summed over its kernels (in a graph replay the
+    # wrapper's host time is gone; a burst of this small launch measures it)
+    dev_ms = {what: sum(device_split(fn).values()) for what, fn in (
+        ("device scalars", lambda: pk.split_stream(Pk, *dargs, **kw)),
+        ("host ints", lambda: pk.split_stream(Pk, *args, **kw)),
+        ("count 0", lambda: pk.split_stream(Pk, *none, **kw)))}
     res = finish_bounds({"x": split_work(cnt, lay.C, F, B)})["x"]
-    log(f"kernel split_stream at the tail's mean segment of {cnt} rows: matrix bit-identical; "
-        f"{ms:.4f} ms a launch in bursts, {single:.4f} ms single, plain {plain:.2f} ms, bound "
-        f"{res['bound_ms']:.4f} ms ({res['bound_by']}), max abs err {err:.3e}")
+    log(f"kernel split_stream (device scalars) at the tail's mean segment of {cnt} rows: matrix "
+        f"bit-identical; {ms:.4f} ms a launch in bursts (the wrapper's host time: the device "
+        f"waits for it), {single:.4f} ms single, given host ints {host:.4f} ms; device ms a "
+        f"call {json.dumps({k: round(v, 4) for k, v in dev_ms.items()})} (count 0: a phase-2 "
+        f"step that takes no fallback); plain {plain:.2f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}), max abs err {err:.3e}")
     del P, Pk, Pr
     return dict(tail_rows=cnt, tail_ms=ms, tail_single_ms=single, tail_plain_ms=plain,
-                tail_bound_ms=res["bound_ms"])
+                tail_bound_ms=res["bound_ms"], tail_host_int_ms=host,
+                tail_device_ms=dev_ms["device scalars"], tail_host_int_device_ms=dev_ms["host ints"],
+                empty_device_ms=dev_ms["count 0"])
 
 
 def phase_feature_tiles(rows, dev, seed=29):
-    """split_stream and level_stream at 28 features of 256 bins, where
+    """split_stream and level_stream (given device scalars and a device
+    table, as the fused grower launches them) at 28 features of 256 bins, where
     both children's cells outgrow one block's shared memory and the
     features are tiled over the grid (max_bin=255 on the main path):
     ``rows`` rows over many row tiles, 30 % of them unselected, against
@@ -415,7 +444,7 @@ def phase_feature_tiles(rows, dev, seed=29):
     kw = dict(num_features=F, num_bins=B, bits=8)
     args = (37, rows - 100, 5, 16, 0, 0, 140, 0)
     Pk, Pr = P.clone(), P.clone()
-    _, nk, lk, rk = pk.split_stream(Pk, *args, **kw)
+    _, nk, lk, rk = pk.split_stream(Pk, *[torch.tensor(v, device=dev) for v in args], **kw)
     _, nr, lr, rr = pk.split_stream_ref(Pr, *args, **kw)
     sync(dev)
     assert int(nk) == int(nr) and torch.equal(Pk, Pr), "split_stream differs at 256 bins"
@@ -425,7 +454,8 @@ def phase_feature_tiles(rows, dev, seed=29):
                       [rows // 3, 5, 2, 0, 0, 0, 7, 1, 0, 256, 0, 0],
                       [rows // 3 + 5, rows - rows // 3 - 5, 6, 24, 3, 3, 200, 0, 0, 256, 0, 0]])
     Pk, Pr = P.clone(), P.clone()
-    _, nlk, hk = pk.level_stream(Pk, tab, 3, smax=4, **kw)
+    tab_d = torch.from_numpy(np.concatenate([tab, tab[:1]])).to(dev)
+    _, nlk, hk = pk.level_stream(Pk, tab_d, torch.tensor(3, device=dev), smax=4, **kw)
     _, nlr, hr = pk.level_stream_ref(Pr, tab, 3, smax=4, **kw)
     sync(dev)
     assert torch.equal(nlk.cpu(), nlr.cpu()) and torch.equal(Pk, Pr), \
@@ -569,18 +599,25 @@ def phase_kernels(rows, dev, seed=11):
     tab = np.asarray([[s, c, f // 4, (f % 4) * 8, zb, dbz, thr, cat, lo, hi, bias, 0]
                       for s, c, f, thr, zb, dbz, cat, lo, hi, bias in specs], np.int64)
     nseg, smax = len(specs), 16
-    Pk, Pr = P0.clone(), P0.clone()
+    Pk, Pr, Ph = P0.clone(), P0.clone(), P0.clone()
     lkw = dict(num_features=F, num_bins=B, bits=8, smax=smax)
-    _, nlk, hk = pk.level_stream(Pk, torch.from_numpy(tab), nseg, **lkw)
+    # the fused grower's launch: the table and n_active on the card (the
+    # rows past n_active hold a copy of the first, which must be ignored)
+    tab_d = torch.from_numpy(np.concatenate([tab, np.repeat(tab[:1], smax - nseg, 0)])).to(dev)
+    nseg_d = torch.tensor(nseg, device=dev)
+    _, nlk, hk = pk.level_stream(Pk, tab_d, nseg_d, **lkw)
     _, nlr, hr = pk.level_stream_ref(Pr, torch.from_numpy(tab), nseg, **lkw)
+    _, nlh, hh = pk.level_stream(Ph, tab, nseg, **lkw)  # a host table, uploaded
     sync(dev)
     assert torch.equal(nlk.cpu(), nlr.cpu()), "level_stream: left counts differ"
     # the partition is stable in both versions: rows, order and every
     # channel are bit-identical, and untouched columns stay so
     assert torch.equal(Pk, Pr), "level_stream: partitioned matrix differs from plain"
-    log(f"kernel level_stream: nl {nlk[:nseg].tolist()}; matrix bit-identical")
-    habs = check_hist("level_stream", hk, hr)
-    ms = burst_ms(lambda: pk.level_stream(Pk, torch.from_numpy(tab), nseg, **lkw))
+    assert torch.equal(Ph, Pk) and torch.equal(nlh, nlk), "level_stream: host table differs"
+    log(f"kernel level_stream (device table): nl {nlk[:nseg].tolist()}; matrix bit-identical "
+        f"(and with a host table)")
+    habs = max(check_hist("level_stream", hk, hr), check_hist("level_stream host table", hh, hr))
+    ms = burst_ms(lambda: pk.level_stream(Pk, tab_d, nseg_d, **lkw))
     plain = time_cuda(lambda: pk.level_stream_ref(Pr, torch.from_numpy(tab), nseg, **lkw), 3)
     active = int(tab[:, 1].sum())
     # every active row's C channels read and written once; the predicate
@@ -590,23 +627,29 @@ def phase_kernels(rows, dev, seed=11):
                                ops=active * (6 + 3 * F), library_ms=None)
 
     # ---- split_stream: the root segment of the main path (all rows)
-    Pk, Pr = P0.clone(), P0.clone()
+    Pk, Pr, Ph = P0.clone(), P0.clone(), P0.clone()
     skw = dict(num_features=F, num_bins=B, bits=8)
     args = (0, rows, 1, 16, 0, 0, 31, 0)
-    _, nk, lk, rk = pk.split_stream(Pk, *args, **skw)
+    dargs = [torch.tensor(v, device=dev) for v in args]  # the fused grower's launch
+    _, nk, lk, rk = pk.split_stream(Pk, *dargs, **skw)
     _, nr, lr, rr = pk.split_stream_ref(Pr, *args, **skw)
+    _, nh, lh, rh = pk.split_stream(Ph, *args, **skw)  # host ints, by value
     sync(dev)
-    assert int(nk) == int(nr), "split_stream: left counts differ"
+    assert int(nk) == int(nr) == int(nh), "split_stream: left counts differ"
     assert torch.equal(Pk, Pr), "split_stream: partitioned matrix differs from plain"
-    log(f"kernel split_stream: nl {int(nk)}; matrix bit-identical")
-    al = check_hist("split_stream left", lk, lr)
-    ar = check_hist("split_stream right", rk, rr)
-    ms = burst_ms(lambda: pk.split_stream(Pk, *args, **skw))
-    single = time_cuda(lambda: pk.split_stream(Pk, *args, **skw), 10)
+    assert torch.equal(Ph, Pk), "split_stream: host ints partition otherwise"
+    log(f"kernel split_stream (device scalars): nl {int(nk)}; matrix bit-identical (and given "
+        f"host ints)")
+    al = max(check_hist("split_stream left", lk, lr), check_hist("split_stream host left", lh, lr))
+    ar = max(check_hist("split_stream right", rk, rr),
+             check_hist("split_stream host right", rh, rr))
+    ms = burst_ms(lambda: pk.split_stream(Pk, *dargs, **skw))
+    single = time_cuda(lambda: pk.split_stream(Pk, *dargs, **skw), 10)
+    host = burst_ms(lambda: pk.split_stream(Pk, *args, **skw))
     plain = time_cuda(lambda: pk.split_stream_ref(Pr, *args, **skw), 3)
-    split = device_split(lambda: pk.split_stream(Pk, *args, **skw))
+    split = device_split(lambda: pk.split_stream(Pk, *dargs, **skw))
     log(f"  split_stream at {rows} rows: {ms:.4f} ms a launch in bursts, {single:.4f} ms "
-        f"single; device ms a call by kernel {split}")
+        f"single; given host ints {host:.4f} ms; device ms a call by kernel {split}")
     out["split_stream"] = dict(max_abs_err=max(al, ar), ms=ms, single_ms=single, plain_ms=plain,
                                **split_work(rows, C, F, B), library_ms=None)
 
@@ -1279,6 +1322,7 @@ def phase_small_multi(X, y, rows, iters, dev):
 
 def _tree_splits(res):
     """(feature, threshold bin, gain) per split of a PTreeResult."""
+    res = res.to_host()
     n = res.num_splits
     return list(zip(res.rec_feat[:n].tolist(), res.rec_thr[:n].tolist(),
                     res.rec_gain[:n].tolist()))
@@ -1310,22 +1354,29 @@ def phase_covertype(ds, Xv, yv, iters, dev):
     (bst, wall), counts = driven("covertype-581k", lambda: run(COV_PARAMS, iters),
                                  ("update_multi_and_hists", "level_stream", "split_stream",
                                   "score_add"))
-    its = bst.boosting.ptrainer.iter_seconds
+    pt = bst.boosting.ptrainer
+    its = pt.iter_seconds
     s_iter = float(np.median(its[1:])) if len(its) > 1 else float(its[0])
+    chunk_wall, n_done = pt.chunk_seconds[-1]
     prob = bst.predict(Xv)
     ll = multi_logloss(yv, prob)
     acc = float(np.mean(np.argmax(prob, axis=1) == yv))
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    pool = graph_pool_gib(pt)
     log(f"covertype: {iters} iterations ({bst.num_trees} trees) in {wall:.2f} s; s/iter "
-        f"{s_iter:.4f} (median after the first; first {its[0]:.3f} s); held-out "
+        f"{s_iter:.4f} (iter_seconds, median after the first; first {its[0]:.3f} s); the "
+        f"chunk's wall over its iterations {chunk_wall / n_done:.4f} s; held-out "
         f"multi_logloss {ll:.6f} (prior entropy {prior_entropy():.6f}), accuracy {acc:.6f}; "
-        f"peak device memory {peak:.2f} GiB")
+        f"peak device memory {peak:.2f} GiB; {len(pt.trees.graphs)} tree graphs, their "
+        f"shared pool {'not found' if pool is None else f'{pool:.3f} GiB'}")
+    syncs = fused_grower_syncs(pt, dev)
+    costs = tree_costs(pt, dev)
     assert prob.shape == (len(yv), 7) and np.all(np.isfinite(prob))
     assert ll < prior_entropy(), "held-out multi_logloss is not below the class prior's"
     # one iteration is 7 trees, as many launches as ~7 binary iterations;
     # two, so that a window that loses a launch (as earlier ones did,
     # profile_iters logs it) still records update_multi_and_hists
-    prof = profile_iters(ds, dev, COV_PARAMS, n_iter=2) if dev.type == "cuda" else None
+    prof = profile_iters(ds, dev, COV_PARAMS, n_iter=2, bst=bst) if dev.type == "cuda" else None
 
     (ova, wall), _ = driven("covertype-581k one-vs-all",
                             lambda: run(dict(COV_PARAMS, objective="multiclassova"), 2),
@@ -1338,7 +1389,6 @@ def phase_covertype(ds, Xv, yv, iters, dev):
 
     # one tree from the trained state: its root histogram from
     # update_multi_and_hists (class 0), then built by the grower itself
-    pt = bst.boosting.ptrainer
     pt._canonical_order()
     lay, params = pt.layout, pt.params
     p, hists = pk.update_multi_and_hists(pt.p.clone(), lay, pt.objective, num_rows=pt.num_rows,
@@ -1358,19 +1408,19 @@ def phase_covertype(ds, Xv, yv, iters, dev):
                          got):
         a, b = _tree_splits(want), _tree_splits(res)
         first = next((i for i, (x, y) in enumerate(zip(a, b)) if x[:2] != y[:2]), None)
-        log(f"root_hist=None via {what}: {res.num_splits} splits vs {want.num_splits}; "
+        log(f"root_hist=None via {what}: {int(res.num_splits)} splits vs {int(want.num_splits)}; "
             f"first differing split: {first}")
         if first is not None:
             ok, rel = near_tie(a[first][2], b[first][2])
             log(f"  gains {a[first][2]!r} vs {b[first][2]!r} (rel {rel:.3e}); near-tie: {ok}")
             assert ok, f"root_hist=None via {what}: a split differs beyond a near-tie"
         else:
-            assert res.num_splits == want.num_splits
+            assert int(res.num_splits) == int(want.num_splits)
     del bst, pt, p, hists
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return [counts, c_root], dict(s_iter=s_iter, logloss=ll, accuracy=acc, peak_gib=peak,
-                                  profile=prof)
+                                  profile=prof, syncs=syncs, tree_ms=costs, pool_gib=pool)
 
 
 # the device kernel that each counted wrapper launches once a call, as
@@ -1379,8 +1429,8 @@ def phase_covertype(ds, Xv, yv, iters, dev):
 RECORDED_AS = {
     "update_and_root_hist": "upd_hist_kernel<lgbt::SingleUpd",
     "update_multi_and_hists": "upd_hist_kernel<lgbt::MultiUpd",
-    "level_stream": "part_scatter_kernel<true>",
-    "split_stream": "part_scatter_kernel<false>",
+    "level_stream": "part_scatter_kernel<1>",
+    "split_stream": "part_scatter_kernel<2>",
     "score_add": "score_add_kernel",
     "update_channels": "update_channels_kernel<",
     "hist_segment": "seg_hist_kernel<false,",
@@ -1388,18 +1438,21 @@ RECORDED_AS = {
 }
 
 
-def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
+def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12, bst=None):
     """Device busy share of steady training iterations, and the device
     time by kernel, from torch.profiler.  The first iteration runs before
-    the window; the window ends in a synchronize."""
+    the window (or ``bst``, a booster already trained on the card, goes
+    on: its tree graphs are captured); the window ends in a synchronize."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import pkernels as pk
 
-    bst = lgt.Booster(params, ds, device=dev)
-    bst.boosting.train_iters(1)
+    own = bst is None
+    if own:
+        bst = lgt.Booster(params, ds, device=dev)
+        bst.boosting.train_iters(1)
     sync(dev)
     # the device's activity only: host-side events would triple what the
     # tables below have to sort, and the wall clock gives the host's time
@@ -1430,13 +1483,15 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
         f"{sum(e.count for e in evs) / n_iter:.0f} device operations per iteration")
     for e in evs[:top]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
-    # the partition kernels: <true> is level_stream's table form, <false>
-    # split_stream's segment by value
+    # the partition kernels by form (csrc/partition_hist.cu PartForm):
+    # <1> level_stream's table, <2> split_stream given device scalars, <0>
+    # split_stream given host ints; and their plan kernel
     part = {form: sum(dev_us(e) for e in evs if "part_" in e.key and f"<{form}>" in e.key)
-            for form in ("true", "false")}
-    log(f"profile: partition kernels a iteration: level_stream {part['true'] / 1e3 / n_iter:.2f} "
-        f"ms, split_stream {part['false'] / 1e3 / n_iter:.2f} ms of "
-        f"{busy / 1e3 / n_iter:.2f} ms busy")
+            for form in "012"}
+    plan = sum(dev_us(e) for e in evs if "part_plan_kernel" in e.key)
+    log(f"profile: partition kernels an iteration: level_stream {part['1'] / 1e3 / n_iter:.2f} "
+        f"ms, split_stream {(part['2'] + part['0']) / 1e3 / n_iter:.2f} ms, their plans "
+        f"{plan / 1e3 / n_iter:.2f} ms of {busy / 1e3 / n_iter:.2f} ms busy")
     # each wrapper's launches that the window recorded (the launches of
     # the one kernel RECORDED_AS names) against those its counter saw
     recorded = {name: sum(e.count for e in evs if key in e.key)
@@ -1467,8 +1522,9 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12):
         if calls:
             log(f"profile: {name}: {ms / n_iter:.4f} ms an iteration over {calls} recorded "
                 f"calls ({ran[key]} counted), {ms / calls:.4f} ms a call")
-    del bst
-    torch.cuda.empty_cache()
+    if own:
+        del bst
+        torch.cuda.empty_cache()
     return seg
 
 
@@ -1481,12 +1537,152 @@ def device_window(w):
                 device_launches_recorded=w["calls"], device_launches_counted=w["ran"])
 
 
+def _is_sync(w) -> bool:
+    """A warning of sync debug mode "warn" for one synchronizing call (its
+    first use in a process also warns that the mode is a prototype)."""
+    text = str(w.message)
+    return "synchroniz" in text and "debug mode" not in text
+
+
+def count_syncs(fn):
+    """(fn's result, the host syncs PyTorch reported while it ran): sync
+    debug mode "warn", one warning a synchronizing call."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return res, sum(_is_sync(w) for w in caught)
+
+
+def traced_iterations(fn):
+    """Run ``fn`` (training on the card) in sync debug mode "warn", noting
+    each chunk iteration's boundary (PartitionedTrainer's _ChunkRun.mark):
+    returns (fn's result, one row per iteration: {kernel: launches} and
+    host syncs, the host syncs after the last boundary (the chunk's read),
+    all the run's host syncs)."""
+    import warnings
+
+    import torch
+
+    from lightgbm_tpu_torch.boosting import ptrainer
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    marks, mark = [], ptrainer._ChunkRun.mark
+
+    def noted(run, t):
+        marks.append((t, {k.__name__: k.launches for k in pk.KERNELS}, len(caught)))
+        mark(run, t)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ptrainer._ChunkRun.mark = noted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            ptrainer._ChunkRun.mark = mark
+    syncs = [i for i, w in enumerate(caught) if _is_sync(w)]
+    rows = []
+    for (t, la, wa), (u, lb, wb) in zip(marks, marks[1:]):
+        if u == t + 1:
+            rows.append(dict(launches={k: lb[k] - la[k] for k in la if lb[k] != la[k]},
+                             syncs=sum(wa <= i < wb for i in syncs)))
+    end = marks[-1][2] if marks else 0
+    return res, rows, sum(i >= end for i in syncs), len(syncs)
+
+
+def fused_grower_syncs(pt, dev, lr=0.1):
+    """One fused tree of every class, replayed from its graph under sync
+    debug mode "error" (any host sync raises), and the host syncs of a
+    2-iteration chunk.  Returns (syncs a tree, syncs a chunk)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    pt._canonical_order()
+    lay, prm = pt.layout, pt.params
+    kw = dict(num_rows=pt.num_rows, num_features=prm.cols, num_bins=prm.bins_hist,
+              bits=prm.bits)
+    if pt.K > 1:
+        _, roots = pk.update_multi_and_hists(pt.p, lay, pt.objective, **kw)
+    else:
+        _, roots = pk.update_and_root_hist(pt.p, lay, pt.objective, **kw)
+        roots = roots[None]
+    sync(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(pt.K):
+            pt.trees.grow(pt.p, pt.feature_mask, pt.hyper, roots[k],
+                          lay.class_rows(k) if pt.K > 1 else None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync(dev)
+    _, chunk = count_syncs(lambda: pt.train_chunk(2, lr, 100))
+    log(f"fused grower, K={pt.K}: {pt.K} trees replayed under sync debug mode \"error\": 0 host "
+        f"syncs a tree; a 2-iteration chunk: {chunk} host sync(s) (one read at its end)")
+    return 0, chunk
+
+
+def tree_costs(pt, dev):
+    """Device ms of one tree's graph replay (class 0) on a fresh root, and
+    of the same graph with an all-zero feature mask: no split anywhere,
+    so every level and phase-2 step is empty (the fixed cost of the
+    tree's static structure)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    pt._canonical_order()
+    lay, prm = pt.layout, pt.params
+    kw = dict(num_rows=pt.num_rows, num_features=prm.cols, num_bins=prm.bins_hist,
+              bits=prm.bits)
+    if pt.K > 1:
+        _, root = pk.update_multi_and_hists(pt.p, lay, pt.objective, **kw)
+        rows = lay.class_rows(0)
+    else:
+        _, root = pk.update_and_root_hist(pt.p, lay, pt.objective, **kw)
+        root, rows = root[None], None
+    p0 = pt.p.clone()
+    out = {}
+    for what, fmask in (("full", pt.feature_mask), ("empty", torch.zeros_like(pt.feature_mask))):
+        def grow():
+            pt.p.copy_(p0)
+            return pt.trees.grow(pt.p, fmask, pt.hyper, root[0], rows)
+        copy = time_cuda(lambda: pt.p.copy_(p0), 3)
+        out[what] = time_cuda(grow, 3) - copy
+    del p0
+    log(f"fused tree (K={pt.K}, class 0) as one graph replay: {out['full']:.3f} ms of device "
+        f"time; with every level and phase-2 step empty (all-zero feature mask) "
+        f"{out['empty']:.3f} ms: the fixed cost of the tree's static structure")
+    return out
+
+
+def graph_pool_gib(pt):
+    """GiB of device memory in the segments of the trainer's graph pool
+    (torch.cuda.memory_snapshot), or None where no segment names it."""
+    import torch
+
+    want = tuple(pt.trees.pool)
+    sizes = [s["total_size"] for s in torch.cuda.memory_snapshot()
+             if tuple(s.get("segment_pool_id", ())) == want]
+    return sum(sizes) / 2**30 if sizes else None
+
+
 def phase_full(rows, iters, dev, repeat_iters):
     """The binary main path at full width ("higgs-10.5M").  Returns the
     launch counts of the main run."""
     import torch
 
     import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import pkernels as pk
 
     t0 = time.perf_counter()
@@ -1505,17 +1701,32 @@ def phase_full(rows, iters, dev, repeat_iters):
         sync(dev)
         return bst, time.perf_counter() - t
 
-    (bst, wall), counts = driven("higgs-10.5M", lambda: run(iters),
-                                 ("update_and_root_hist", "level_stream", "split_stream",
-                                  "score_add"))
-    its = bst.boosting.ptrainer.iter_seconds
+    ((bst, wall), per_iter, end_syncs, run_syncs), counts = driven(
+        "higgs-10.5M", lambda: traced_iterations(lambda: run(iters)),
+        ("update_and_root_hist", "level_stream", "split_stream", "score_add"))
+    tally = th.selected_rows()
+    pt = bst.boosting.ptrainer
+    its = pt.iter_seconds
     s_iter = float(np.median(its[1:])) if len(its) > 1 else float(its[0])
+    chunk_wall, n_done = pt.chunk_seconds[-1]
     pred = bst.predict(Xv)
     a = auc(yv, pred)
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
-    log(f"full: {iters} iterations in {wall:.2f} s; s/iter {s_iter:.4f} (median after the "
-        f"first; first {its[0]:.3f} s); held-out AUC {a:.6f}; peak device memory "
-        f"{peak:.2f} GiB; launches {json.dumps(counts)}")
+    log(f"full: {iters} iterations in {wall:.2f} s; s/iter {s_iter:.4f} (iter_seconds: the "
+        f"stream's time between an iteration's boundary events, median after the first; "
+        f"first {its[0]:.3f} s); the chunk's wall over its iterations {chunk_wall / n_done:.4f} "
+        f"s; held-out AUC {a:.6f}; peak device memory {peak:.2f} GiB; launches "
+        f"{json.dumps(counts)}")
+    trees = counts["update_and_root_hist"]
+    log(f"full: phase 2's fallback split_stream took rows at {tally['split_stream_taken']} of "
+        f"its {counts['split_stream']} launches ({tally['split_stream_taken'] / trees:.1f} a "
+        f"tree), {tally['split_stream']} rows; host syncs of the whole run {run_syncs}, "
+        f"{end_syncs} after the chunk's last boundary (its one read)")
+    for t, (row, sec) in enumerate(zip(per_iter, its)):
+        log(f"  iteration {t}: {1e3 * sec:.2f} ms between its events, host syncs "
+            f"{row['syncs']}, launches {json.dumps(row['launches'])}")
+    syncs = fused_grower_syncs(pt, dev)
+    costs = tree_costs(pt, dev)
     assert np.all(np.isfinite(pred)) and pred.shape == (yv.shape[0],)
     assert 0.6 < a <= 1.0, "held-out AUC out of range"
 
@@ -1531,14 +1742,16 @@ def phase_full(rows, iters, dev, repeat_iters):
         f"{trees_text(bst0.model_to_string()) == trees_text(bst.model_to_string(2))}")
     assert c0["split_stream"] > 0 and c0["level_stream"] == 0
     del bst0
-    prof = profile_iters(ds, dev) if dev.type == "cuda" else None
+    prof = profile_iters(ds, dev, bst=bst) if dev.type == "cuda" else None
 
     bst2, _ = run(repeat_iters)
     same = trees_text(bst2.model_to_string()) == trees_text(bst.model_to_string(repeat_iters))
     log(f"full: a repeat run of {repeat_iters} iterations gives byte-identical model text: "
         f"{same}")
     return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak, deterministic=same,
-                        iter_seconds=its, profile=prof), (ds, Xv, yv)
+                        iter_seconds=its, profile=prof, syncs=syncs, tree_ms=costs,
+                        tail_rows=tally["split_stream"] // max(tally["split_stream_taken"], 1)), \
+        (ds, Xv, yv)
 
 
 def phase_sampled(ds, Xv, yv, dev, higgs_its):
@@ -1671,7 +1884,7 @@ def phase_quantized(ds, Xv, yv, dev, higgs_auc):
                 bst.boosting.train_iters(1)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        nsync = sum("synchroniz" in str(w.message) for w in caught)
+        nsync = sum(_is_sync(w) for w in caught)
         log(f"higgs-10.5M-quantized: one more iteration ({bst.boosting.models[-1].num_leaves - 1}"
             f" splits, {len(bst.boosting.models) - n0} tree) made {nsync} implicit host syncs")
         split_search_times(bst.boosting)
@@ -1807,8 +2020,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
     log(f"higgs-10.5M in {time.perf_counter() - t0:.1f} s")
-    kern["split_stream"].update(phase_split_tail(
-        counts["split_stream_rows"] // counts["split_stream"], dev))
+    kern["split_stream"].update(phase_split_tail(full["tail_rows"], dev))
     t0 = time.perf_counter()
     sampled_counts, _ = phase_sampled(*higgs, dev, full["iter_seconds"])
     log(f"higgs-10.5M-bagging and higgs-10.5M-goss in {time.perf_counter() - t0:.1f} s")
@@ -1857,7 +2069,7 @@ def main(argv=None):
                             library_ms=k["library_ms"],
                             **{x: v for x, v in k.items()
                                if x.startswith(("single", "tail", "library_single", "wide",
-                                                "path", "device", "sel_mul", "ova"))}))
+                                                "path", "device", "sel_mul", "ova", "empty"))}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

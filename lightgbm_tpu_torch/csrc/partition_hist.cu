@@ -50,11 +50,23 @@
 //       rights re-reversed, so the partition is stable and equals the
 //       plain version bit for bit) and rounds the float64 cells to the
 //       float32 output once.
-// Rows per tile come from the wrapper (pkernels.py partition_tile);
-// features are tiled over gridDim.y so any F*B fits 227 KB.  Columns
-// outside the active segments are never written.  The float64 sums make
-// the rounded histograms independent of the order of the additions but
-// for sums within ~1e-16 of a float32 rounding boundary.
+// Rows per tile: pkernels.py partition_tile of the active rows.  The
+// segment table form (level_stream, and split_stream given device
+// scalars) reads its segments and n_active from device memory, so a
+// CUDA graph can replay it for any counts: a one-block plan kernel
+// (part_plan_kernel) clamps each segment to the matrix, empties the rows
+// at or past n_active, and writes the tile and each segment's first tile
+// on the card; the grid is a static bound (pkernels.py partition_grid:
+// max(SMs, N / max tile) + segments row tiles, as the active segments are
+// disjoint), and blocks past the last tile return at once.  split_stream
+// given host ints passes its segment, tile and tile count by value.
+// Features are tiled over gridDim.y so any F*B fits 227 KB.  Columns
+// outside the active segments are never written.  The look-back words,
+// the ticket and the float64 cells live in a workspace cached for each
+// stream (ops/histogram.py stream_workspace), which the copy kernel
+// leaves zeroed for the next call.  The float64 sums make the rounded
+// histograms independent of the order of the additions but for sums
+// within ~1e-16 of a float32 rounding boundary.
 #include "common.cuh"
 
 namespace lgbt {
@@ -64,6 +76,14 @@ constexpr int kStride = kChunk + 4;  // a staged channel: 16-byte rows, 4 banks 
 constexpr int kStripe = stripe_of(sizeof(hacc));  // cells of 16 features interleave (common.cuh)
 constexpr int kPartThreads = 512;    // a scatter block: one a SM, warps on all four schedulers
 constexpr int kMaxCopies = 4;        // histogram warps, each with its own copy of the cells
+constexpr int kTileStep = 512;       // a tile is a whole number of these rows (pkernels.py PART_CHUNK)
+constexpr int kPlanThreads = 512;    // the plan kernel: one thread a segment
+constexpr int kSegFields = 12;       // a row of the clamped segment table
+
+// The launch's form, a template argument so that a profile names it:
+// one segment by value (split_stream given host ints), or the segment
+// table of level_stream, or of split_stream given device scalars.
+enum PartForm { kByValue = 0, kLevelTable = 1, kSplitTable = 2 };
 
 struct PartArgs {
   int32_t* P;
@@ -71,27 +91,43 @@ struct PartArgs {
   int C;
   int32_t* S;  // scratch: channel c, column j of segment s at S[c * sld + soff(s) + j]
   long long sld;
-  const int32_t* seg;        // level_stream: (n_seg, 12) table
-  const int32_t* tile_base;  // level_stream: (n_seg + 1,) tiles before each segment
-  SegParams one;             // split_stream: the segment
-  int n_seg, tile;
-  unsigned long long* flags;  // (total tiles,) look-back words, zeroed
-  int* ticket;                // zeroed
-  int* nl;                    // (n_seg,) zeroed
+  const int32_t* seg;   // table form: the plan's clamped (n_seg, 12) table
+  const int32_t* plan;  // table form: [tile, total tiles, first tile of each segment, total]
+  SegParams one;        // by value: the segment
+  int n_seg;
+  int tile, total;  // by value: rows a tile and tiles; table form: the largest tile (shared memory)
+  unsigned long long* flags;  // (tiles,) look-back words, zero
+  int* ticket;                // zero
+  int* nl;                    // (n_seg,): zeroed by the plan kernel (table form)
   int bits, nf, nb, f_tile, copies;
   int row_g, row_h, row_sel;
-  hacc* acc;  // (n_seg, 2, F, B, 3), zeroed
-  float* out;  // (out_cells,): acc rounded, then zeros
-  long long acc_cells, out_cells;
-  int ysplit;  // copy kernel: row ranges per tile
+  hacc* acc;  // (n_seg, 2, F, B, 3), zero
+  float* out;  // (out_cells,): acc rounded
+  long long out_cells;
+  int sms;
 };
 
-template <bool kTable>
-__device__ __forceinline__ void tile_of(const PartArgs& a, int b, int* s, SegParams* p, int* t) {
+// Rows a tile and tiles of this launch.
+template <int kForm>
+__device__ __forceinline__ void plan_of(const PartArgs& a, int* tile, int* total) {
+  constexpr bool kTable = kForm != kByValue;
   if (kTable) {
-    *s = seg_of_tile(a.tile_base, a.n_seg, b);
+    *tile = a.plan[0];
+    *total = a.plan[1];
+  } else {
+    *tile = a.tile;
+    *total = a.total;
+  }
+}
+
+template <int kForm>
+__device__ __forceinline__ void tile_of(const PartArgs& a, int b, int* s, SegParams* p, int* t) {
+  constexpr bool kTable = kForm != kByValue;
+  if (kTable) {
+    const int32_t* base = a.plan + 2;
+    *s = seg_of_tile(base, a.n_seg, b);
     *p = load_seg(a.seg, *s);
-    *t = b - a.tile_base[*s];
+    *t = b - base[*s];
   } else {
     *s = 0;
     *p = a.one;
@@ -184,8 +220,9 @@ __device__ __forceinline__ PartSmem carve(unsigned char* smem, int span, int nwo
   return m;
 }
 
-template <bool kTable>
+template <int kForm>
 __global__ void __launch_bounds__(kPartThreads, 1) part_scatter_kernel(PartArgs a) {
+  constexpr bool kTable = kForm != kByValue;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int warp_c[32];
   __shared__ int sh_b;
@@ -199,15 +236,19 @@ __global__ void __launch_bounds__(kPartThreads, 1) part_scatter_kernel(PartArgs 
   const PartSmem m = carve(smem, span, nwords, copies);
   const bool lead = blockIdx.y == 0;  // partitions; other feature tiles only add
 
+  int tile, total;
+  plan_of<kForm>(a, &tile, &total);
   if (threadIdx.x == 0) sh_b = lead ? atomicAdd(a.ticket, 1) : (int)blockIdx.x;
-  for (int i = threadIdx.x; i < 2 * copies * span; i += kPartThreads) m.hs[i] = 0.0;
   __syncthreads();
   const int b = sh_b;
+  if (b >= total) return;  // a block of the static grid past the last tile
+  for (int i = threadIdx.x; i < 2 * copies * span; i += kPartThreads) m.hs[i] = 0.0;
+  __syncthreads();
   int s, t;
   SegParams p;
-  tile_of<kTable>(a, b, &s, &p, &t);
-  const long long r0 = p.start + (long long)t * a.tile;
-  const long long r1 = min(r0 + (long long)a.tile, p.start + (long long)p.cnt);
+  tile_of<kForm>(a, b, &s, &p, &t);
+  const long long r0 = p.start + (long long)t * tile;
+  const long long r1 = min(r0 + (long long)tile, p.start + (long long)p.cnt);
   const unsigned vmask = (1u << a.bits) - 1u;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
 
@@ -224,13 +265,13 @@ __global__ void __launch_bounds__(kPartThreads, 1) part_scatter_kernel(PartArgs 
   }
   long long lbefore = 0;
   if (lead) {  // the tile's place among the segment's lefts
-    int total;
-    block_incl_scan(c, warp_c, &total);
+    int lefts;
+    block_incl_scan(c, warp_c, &lefts);
     if (wid == 0) {
-      const long long before = look_back(a.flags, b, t, total);
+      const long long before = look_back(a.flags, b, t, lefts);
       if (lane == 0) {
         sh_before = before;
-        if (r1 == p.start + (long long)p.cnt) a.nl[s] = (int)(before + total);
+        if (r1 == p.start + (long long)p.cnt) a.nl[s] = (int)(before + lefts);
       }
     }
   }
@@ -244,7 +285,7 @@ __global__ void __launch_bounds__(kPartThreads, 1) part_scatter_kernel(PartArgs 
   const int hwarps = 2 * copies;  // a left and a right histogram warp for each copy
   if (wid >= hwarps) {
     const int st = threadIdx.x - 32 * hwarps, nst = kPartThreads - 32 * hwarps;
-    const long long rbefore = (long long)t * a.tile - lbefore;
+    const long long rbefore = (long long)t * tile - lbefore;
     const long long soff = kTable ? p.start : 0;
     long long run_l = 0, run_r = 0;
     for (int k = 0; k <= nchunks; ++k) {
@@ -363,36 +404,141 @@ __global__ void __launch_bounds__(kPartThreads, 1) part_scatter_kernel(PartArgs 
   }
 }
 
-template <bool kTable>
+template <int kForm>
+__device__ __forceinline__ int seg_cnt(const PartArgs& a, int s) {
+  constexpr bool kTable = kForm != kByValue;
+  return kTable ? a.seg[kSegFields * s + 1] : a.one.cnt;
+}
+
+// Row ranges a tile is cut into for the copy: enough for ~4 waves of
+// 256-thread blocks over the tiles.
+__host__ __device__ __forceinline__ int copy_split(int tile, int total, int sms) {
+  const int by_tile = tile / kThreads, by_grid = 4 * 8 * sms / (total > 1 ? total : 1);
+  const int ys = by_tile < by_grid ? by_tile : by_grid;
+  return ys > 1 ? ys : 1;
+}
+
+// The copy kernel's blocks stride over (tile, row range) items, so the
+// table form's static grid serves any tiling the plan picks.
+template <int kForm>
 __global__ void __launch_bounds__(kThreads) part_copy_kernel(PartArgs a) {
-  int s, t;
-  SegParams p;
-  tile_of<kTable>(a, blockIdx.x, &s, &p, &t);
-  const long long r0 = p.start + (long long)t * a.tile;
-  const long long r1 = min(r0 + (long long)a.tile, p.start + (long long)p.cnt);
-  const long long q0 = r0 + (r1 - r0) * blockIdx.y / a.ysplit;
-  const long long q1 = r0 + (r1 - r0) * (blockIdx.y + 1) / a.ysplit;
-  const long long nls = a.nl[s];
-  const long long soff = kTable ? p.start : 0;
-  for (int c = 0; c < a.C; ++c) {
-    int32_t* dst = a.P + (long long)c * a.ld;
-    const int32_t* src = a.S + (long long)c * a.sld + soff;
-    for (long long r = q0 + threadIdx.x; r < q1; r += 4 * kThreads) {  // four loads in flight
-      int32_t v[4];
+  constexpr bool kTable = kForm != kByValue;
+  int tile, total;
+  plan_of<kForm>(a, &tile, &total);
+  const int ys = copy_split(tile, total, a.sms);
+  for (long long v = blockIdx.x; v < (long long)total * ys; v += gridDim.x) {
+    const int b = (int)(v / ys), y = (int)(v % ys);
+    int s, t;
+    SegParams p;
+    tile_of<kForm>(a, b, &s, &p, &t);
+    const long long r0 = p.start + (long long)t * tile;
+    const long long r1 = min(r0 + (long long)tile, p.start + (long long)p.cnt);
+    const long long q0 = r0 + (r1 - r0) * y / ys;
+    const long long q1 = r0 + (r1 - r0) * (y + 1) / ys;
+    const long long nls = a.nl[s];
+    const long long soff = kTable ? p.start : 0;
+    for (int c = 0; c < a.C; ++c) {
+      int32_t* dst = a.P + (long long)c * a.ld;
+      const int32_t* src = a.S + (long long)c * a.sld + soff;
+      for (long long r = q0 + threadIdx.x; r < q1; r += 4 * kThreads) {  // four loads in flight
+        int32_t w[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const long long j = r + u * kThreads - p.start;
-        if (r + u * kThreads < q1) v[u] = __ldg(src + (j < nls ? j : p.cnt - 1 + nls - j));
+        for (int u = 0; u < 4; ++u) {
+          const long long j = r + u * kThreads - p.start;
+          if (r + u * kThreads < q1) w[u] = __ldg(src + (j < nls ? j : p.cnt - 1 + nls - j));
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (r + u * kThreads < q1) dst[r + u * kThreads] = w[u];
       }
+    }
+    // the scatter kernel is done with the tile's look-back word: zero it
+    // for the next launch on this stream
+    if (y == 0 && threadIdx.x == 0) a.flags[b] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.ticket = 0;
+  // round the float64 cells to the output once, leaving them zeroed (an
+  // empty segment's were never written)
+  const long long seg_cells = 2LL * a.nf * a.nb * 3;
+  const long long nthreads = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < a.out_cells;
+       i += nthreads) {
+    const int s = (int)(i / seg_cells);
+    float v = 0.0f;
+    if (s < a.n_seg && seg_cnt<kForm>(a, s) > 0) {
+      const hacc x = a.acc[i];
+      v = (float)x;
+      if (x != 0.0) a.acc[i] = 0.0;
+    }
+    a.out[i] = v;
+  }
+}
+
+// The table form's plan, one block: thread s clamps segment s of the raw
+// table (`stride` int32 a row: start, cnt, word, shift, zero_bin, dbz,
+// thr, is_cat, off_lo, off_hi, bias) to the matrix's rows and channels,
+// empties it when s >= n_active, and zeroes its left count; then the
+// rows a tile (pkernels.py partition_tile of the active rows) and each
+// segment's first tile, as the tiles of the segments before it.
+struct PlanArgs {
+  const int32_t* tab;
+  int stride, n_seg;
+  const int32_t* n_active;  // null: every row is active
+  long long rows;
+  int C, sms, tile_max;
+  int32_t* seg;   // (n_seg, 12) out
+  int32_t* plan;  // (n_seg + 3,) out: tile, total, first tiles, total
+  int* nl;        // (n_seg,) out, zeroed
+  unsigned long long* tally;  // null, or [0] += the active rows, [1] += 1 if any
+};
+
+__global__ void __launch_bounds__(kPlanThreads) part_plan_kernel(PlanArgs a) {
+  __shared__ int warp_c[32];
+  __shared__ unsigned long long warp_r[32];
+  __shared__ int sh_tile;
+  const int s = threadIdx.x, lane = s & 31, wid = s >> 5;
+  const int nact = a.n_active ? *a.n_active : a.n_seg;
+  int cnt = 0;
+  if (s < a.n_seg) {
+    const int32_t* q = a.tab + (long long)s * a.stride;
+    int32_t* o = a.seg + kSegFields * s;
+    const long long start = min(max((long long)q[0], 0LL), a.rows);
+    cnt = s < nact ? (int)min(max((long long)q[1], 0LL), a.rows - start) : 0;
+    o[0] = (int)start;
+    o[1] = cnt;
+    o[2] = min(max(q[2], 0), a.C - 1);
+    for (int k = 3; k < 11; ++k) o[k] = q[k];
+    o[11] = 0;
+    a.nl[s] = 0;
+  }
+  unsigned long long r = (unsigned long long)cnt;
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (r + u * kThreads < q1) dst[r + u * kThreads] = v[u];
+  for (int d = 16; d > 0; d >>= 1) r += __shfl_xor_sync(0xffffffffu, r, d);
+  if (lane == 0) warp_r[wid] = r;
+  __syncthreads();
+  if (s == 0) {
+    unsigned long long rows = 0;
+    for (int w = 0; w < kPlanThreads / 32; ++w) rows += warp_r[w];
+    const long long want = ((long long)(rows > 0 ? rows : 1) + a.sms - 1) / a.sms;
+    // at most tile_max, whose left bits shared memory holds (segments
+    // that overlap, which the contract rules out, can exceed it)
+    sh_tile = (int)min((long long)a.tile_max, (want + kTileStep - 1) / kTileStep * kTileStep);
+    if (a.tally) {
+      atomicAdd(a.tally, rows);
+      atomicAdd(a.tally + 1, rows > 0 ? 1ull : 0ull);
     }
   }
-  const long long nthreads = (long long)gridDim.x * gridDim.y * kThreads;
-  for (long long i = ((long long)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x;
-       i < a.out_cells; i += nthreads)
-    a.out[i] = i < a.acc_cells ? (float)a.acc[i] : 0.0f;
+  __syncthreads();
+  const int tile = sh_tile;
+  const int tiles = (cnt + tile - 1) / tile;
+  int total;
+  const int incl = block_incl_scan(tiles, warp_c, &total);
+  if (s < a.n_seg) a.plan[2 + s] = incl - tiles;
+  if (s == 0) {
+    a.plan[0] = tile;
+    a.plan[1] = total;
+    a.plan[2 + a.n_seg] = total;
+  }
 }
 
 // Shared-memory bytes of a scatter block of f_tile features and `copies`
@@ -405,12 +551,13 @@ inline size_t part_smem(const PartArgs& a, int f_tile, int copies) {
          (size_t)2 * (nwords + 3) * kStride * 4 + (size_t)a.tile / 8;
 }
 
-template <bool kTable>
-int launch_partition(PartArgs a, int total_tiles, cudaStream_t st) {
-  if (total_tiles <= 0) return 0;
+// grid: the row tiles (by value) or their static bound (table form).
+template <int kForm>
+int launch_partition(PartArgs a, int grid, cudaStream_t st) {
+  if (grid <= 0) return 0;
   int sms = 0;
   size_t limit = 0;
-  cudaError_t e = kernel_limits(part_scatter_kernel<kTable>, kTable, &sms, &limit);
+  cudaError_t e = kernel_limits(part_scatter_kernel<kForm>, kForm, &sms, &limit);
   if (e != cudaSuccess) return (int)e;
   // the widest feature tile that fits one copy of the cells, then as many
   // copies (histogram warps) as fit
@@ -423,23 +570,54 @@ int launch_partition(PartArgs a, int total_tiles, cudaStream_t st) {
   while (a.copies < kMaxCopies && part_smem(a, a.f_tile, a.copies + 1) <= limit) ++a.copies;
   const size_t smem = part_smem(a, a.f_tile, a.copies);
   const int ftiles = (a.nf + a.f_tile - 1) / a.f_tile;
-  part_scatter_kernel<kTable><<<dim3(total_tiles, ftiles), kPartThreads, smem, st>>>(a);
+  part_scatter_kernel<kForm><<<dim3(grid, ftiles), kPartThreads, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  // enough copy blocks for ~4 waves of 256-thread blocks
-  a.ysplit = std::max(1, std::min(a.tile / kThreads, 4 * 8 * sms / total_tiles));
-  part_copy_kernel<kTable><<<dim3(total_tiles, a.ysplit), kThreads, 0, st>>>(a);
+  // a copy block for each (tile, row range) by value; the table form's
+  // tiling is the plan's, so one wave of blocks (8 an SM) strides over its
+  // items
+  a.sms = sms;
+  const int copy_grid = kForm == kByValue ? grid * copy_split(a.tile, grid, sms) : 8 * sms;
+  part_copy_kernel<kForm><<<copy_grid, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace lgbt
 
-// level_stream: the segments of a (n_seg, 12) device table.
-extern "C" int lgbt_level_stream(void* P, long long ld, int C, void* S, void* seg,
-                                 void* tile_base, int n_seg, int total_tiles, int tile, void* flags,
-                                 void* ticket, void* nl, int bits, int nf, int nb, int row_g,
-                                 int row_h, int row_sel, void* acc, void* out,
-                                 long long out_cells, void* stream) {
+// The table form (level_stream; split_stream given device scalars): the
+// n_seg rows of a raw device table (`stride` int32 a row) and n_active
+// (a device int32, or null for all rows); tile_max, the largest tile the
+// plan can choose (it sizes shared memory), and grid, the static bound of
+// row tiles, come from the wrapper (pkernels.py partition_grid).  seg and
+// plan are the plan kernel's scratch, flags (grid words) and ticket are
+// zero and left zeroed, as are the float64 cells acc (n_seg, 2, F, B, 3);
+// out (n_seg, 2, F, B, 3) and nl (n_seg,) are written whole.  split
+// names the form (split_stream's, whose tally, if any, counts its rows
+// and whether it had any).
+extern "C" int lgbt_level_stream(void* P, long long ld, int C, void* S, void* tab, int stride,
+                                 int n_seg, void* n_active, long long rows, int sms, int tile_max,
+                                 int grid, void* seg, void* plan, void* flags, void* ticket,
+                                 void* nl, void* tally, int split, int bits, int nf, int nb,
+                                 int row_g, int row_h, int row_sel, void* acc, void* out,
+                                 void* stream) {
+  if (n_seg <= 0 || n_seg > lgbt::kPlanThreads) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  lgbt::PlanArgs q{};
+  q.tab = (const int32_t*)tab;
+  q.stride = stride;
+  q.n_seg = n_seg;
+  q.n_active = (const int32_t*)n_active;
+  q.rows = rows;
+  q.C = C;
+  q.sms = sms;
+  q.tile_max = tile_max;
+  q.seg = (int32_t*)seg;
+  q.plan = (int32_t*)plan;
+  q.nl = (int*)nl;
+  q.tally = (unsigned long long*)tally;
+  lgbt::part_plan_kernel<<<1, lgbt::kPlanThreads, 0, st>>>(q);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   lgbt::PartArgs a{};
   a.P = (int32_t*)P;
   a.ld = ld;
@@ -447,9 +625,9 @@ extern "C" int lgbt_level_stream(void* P, long long ld, int C, void* S, void* se
   a.S = (int32_t*)S;
   a.sld = ld;
   a.seg = (const int32_t*)seg;
-  a.tile_base = (const int32_t*)tile_base;
+  a.plan = (const int32_t*)plan;
   a.n_seg = n_seg;
-  a.tile = tile;
+  a.tile = tile_max;
   a.flags = (unsigned long long*)flags;
   a.ticket = (int*)ticket;
   a.nl = (int*)nl;
@@ -461,12 +639,13 @@ extern "C" int lgbt_level_stream(void* P, long long ld, int C, void* S, void* se
   a.row_sel = row_sel;
   a.acc = (lgbt::hacc*)acc;
   a.out = (float*)out;
-  a.acc_cells = (long long)n_seg * 2 * nf * nb * 3;
-  a.out_cells = out_cells;
-  return lgbt::launch_partition<true>(a, total_tiles, (cudaStream_t)stream);
+  a.out_cells = (long long)n_seg * 2 * nf * nb * 3;
+  return split ? lgbt::launch_partition<lgbt::kSplitTable>(a, grid, st)
+               : lgbt::launch_partition<lgbt::kLevelTable>(a, grid, st);
 }
 
-// split_stream: one segment given by value; the scratch is (C, cnt).
+// split_stream given host ints: one segment by value; the scratch is
+// (C, cnt); flags, ticket and acc as above.
 extern "C" int lgbt_split_stream(void* P, long long ld, int C, void* S, int start, int cnt,
                                  int word, int shift, int zero_bin, int dbz, int thr, int is_cat,
                                  int off_lo, int off_hi, int bias, int tile, void* flags,
@@ -482,6 +661,7 @@ extern "C" int lgbt_split_stream(void* P, long long ld, int C, void* S, int star
                           bias};
   a.n_seg = 1;
   a.tile = tile;
+  a.total = cnt > 0 ? (cnt + tile - 1) / tile : 0;
   a.flags = (unsigned long long*)flags;
   a.ticket = (int*)ticket;
   a.nl = (int*)nl;
@@ -493,7 +673,6 @@ extern "C" int lgbt_split_stream(void* P, long long ld, int C, void* S, int star
   a.row_sel = row_sel;
   a.acc = (lgbt::hacc*)acc;
   a.out = (float*)out;
-  a.acc_cells = a.out_cells = 2LL * nf * nb * 3;
-  const int tiles = cnt > 0 ? (cnt + tile - 1) / tile : 0;
-  return lgbt::launch_partition<false>(a, tiles, (cudaStream_t)stream);
+  a.out_cells = 2LL * nf * nb * 3;
+  return lgbt::launch_partition<lgbt::kByValue>(a, a.total, (cudaStream_t)stream);
 }

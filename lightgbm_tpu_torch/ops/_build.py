@@ -40,8 +40,8 @@ SIGNATURES = {
                               _I, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P],
     "lgbt_update_channels": [_P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                              _F, _P],
-    "lgbt_level_stream": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P, _P, _L, _P],
+    "lgbt_level_stream": [_P, _L, _I, _P, _P, _I, _I, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, *[_I] * 7, _P, _P, _P],
     "lgbt_split_stream": [_P, _L, _I, _P, *[_I] * 12, _P, _P, _P, *[_I] * 6, _P, _P, _P],
     "lgbt_score_add": [_P, _L, _I, _P, _I, _P],
     "lgbt_update_multi_hist": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,

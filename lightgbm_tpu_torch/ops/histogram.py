@@ -49,8 +49,11 @@ from . import _build
 # the workspace grows in steps of this many words (int32 list entries, or
 # 8-byte accumulator cells), so nearby sizes share one allocation
 WORK_STEP = 1 << 16
-# tally slots: hist_segment, hist_segment_q
-TALLY_SLOTS = {"hist_segment": 0, "hist_segment_q": 1}
+# tally slots: the rows hist_segment and hist_segment_q found selected, and
+# the rows split_stream partitioned given device scalars (ops/pkernels.py)
+# and its launches that had any
+TALLY_SLOTS = {"hist_segment": 0, "hist_segment_q": 1, "split_stream": 2,
+               "split_stream_taken": 3}
 
 
 def word_layout(bins) -> tuple:
@@ -173,21 +176,37 @@ def workspace_size(rows: int, cells: int, have: tuple = (0, 0)) -> tuple:
 class _Workspace:
     """One stream's index list and counters (``words``: [count, ticket,
     list...]), float64 (or int32) accumulator (``cells``), all zero
-    between calls, and the selected-row tallies (``tally``).  The
-    update kernels (B1, B2) use the ticket and the accumulator too."""
+    between calls, and the tallies (``tally``).  The update kernels (B1,
+    B2) use the ticket and the accumulator too; the partition kernels
+    (B3, B4) the accumulator, a scratch of the matrix's size
+    (``scratch``), look-back words and their ticket (``flags``, zero
+    between calls) and the plan of their segment table (``plan``)."""
 
     def __init__(self, device):
         self.words = torch.zeros(0, dtype=torch.int32, device=device)
         self.cells = torch.zeros(0, dtype=torch.int64, device=device)
         self.tally = torch.zeros(len(TALLY_SLOTS), dtype=torch.int64, device=device)
+        self.scratch = torch.zeros(0, dtype=torch.int32, device=device)
+        self.flags = torch.zeros(0, dtype=torch.int64, device=device)
+        self.plan = torch.zeros(0, dtype=torch.int32, device=device)
 
-    def fit(self, rows: int, cells: int) -> None:
-        """Grow (zeroed) to take ``rows`` columns and ``cells`` cells."""
+    def fit(self, rows: int, cells: int, scratch: int = 0, flags: int = 0, plan: int = 0) -> None:
+        """Grow (zeroed) to take ``rows`` columns, ``cells`` cells, and
+        ``scratch``, ``flags`` and ``plan`` words of the partition kernels."""
         words, ncells = workspace_size(rows, cells, (self.words.numel(), self.cells.numel()))
+        dev = self.tally.device
         if words > self.words.numel():
-            self.words = torch.zeros(words, dtype=torch.int32, device=self.tally.device)
+            self.words = torch.zeros(words, dtype=torch.int32, device=dev)
         if ncells > self.cells.numel():
-            self.cells = torch.zeros(ncells, dtype=torch.int64, device=self.tally.device)
+            self.cells = torch.zeros(ncells, dtype=torch.int64, device=dev)
+        # the scratch is one allocation of the matrix's size, never a step
+        # more: its contents need no zeroing
+        if scratch > self.scratch.numel():
+            self.scratch = torch.empty(scratch, dtype=torch.int32, device=dev)
+        if flags > self.flags.numel():
+            self.flags = torch.zeros(workspace_size(0, flags)[1], dtype=torch.int64, device=dev)
+        if plan > self.plan.numel():
+            self.plan = torch.zeros(workspace_size(0, plan)[1], dtype=torch.int32, device=dev)
 
     @property
     def ticket_ptr(self) -> int:
@@ -196,24 +215,25 @@ class _Workspace:
 
 
 _WORK = {}  # (device index, raw stream) -> _Workspace
+_RETIRED = []  # the tallies of released workspaces, until the next reset
 _WORK_LOCK = threading.Lock()  # held from a workspace's lookup to the end of its launches
 
 
 def _settled_workspaces():
     """The workspaces, once every card that holds one has finished its
     streams' work (the tallies are written on the streams that launched)."""
-    for index in {index for index, _ in _WORK}:
+    for index in {index for index, _ in _WORK} | {t.device.index for t in _RETIRED}:
         torch.cuda.synchronize(index)
     return list(_WORK.values())
 
 
 def selected_rows() -> dict:
-    """Rows each kernel found selected, summed over its launches on every
-    card and stream since the last ``reset_selected_rows`` (one sync a
-    card)."""
+    """Rows each tallying kernel found selected (B8, B9) or partitioned
+    (B4 given device scalars), summed over its launches on every card and
+    stream since the last ``reset_selected_rows`` (one sync a card)."""
     out = dict.fromkeys(TALLY_SLOTS, 0)
-    for w in _settled_workspaces():
-        tally = w.tally.tolist()
+    for tally in [w.tally for w in _settled_workspaces()] + _RETIRED:
+        tally = tally.tolist()
         for name, slot in TALLY_SLOTS.items():
             out[name] += tally[slot]
     return out
@@ -222,21 +242,35 @@ def selected_rows() -> dict:
 def reset_selected_rows() -> None:
     for w in _settled_workspaces():
         w.tally.zero_()
+    _RETIRED.clear()
 
 
 @contextlib.contextmanager
-def stream_workspace(p, rows: int, cells: int):
+def stream_workspace(p, rows: int, cells: int, **partition):
     """The workspace of ``p``'s card and current stream, grown to take
-    ``rows`` listed columns and ``cells`` accumulator cells, as (workspace,
-    raw stream); the lock is held until the block ends, so the launches
-    that use it are enqueued inside."""
+    ``rows`` listed columns and ``cells`` accumulator cells (and the
+    partition kernels' ``scratch``, ``flags`` and ``plan`` words), as
+    (workspace, raw stream); the lock is held until the block ends, so the
+    launches that use it are enqueued inside.  A CUDA graph captures the
+    workspace's addresses: its replays need the workspace of the capture
+    stream to stay as it was (``release_stream_workspace`` when the graph
+    goes)."""
     with device_of(p), _WORK_LOCK:
         stream = raw_stream(p)
         w = _WORK.get((p.device.index, stream))
         if w is None:
             w = _WORK[(p.device.index, stream)] = _Workspace(p.device)
-        w.fit(rows, cells)
+        w.fit(rows, cells, **partition)
         yield w, stream
+
+
+def release_stream_workspace(index: int, stream: int) -> None:
+    """Drop the workspace of card ``index``'s raw ``stream`` (a stream
+    that goes with the graphs captured on it)."""
+    with _WORK_LOCK:
+        w = _WORK.pop((index, stream), None)
+        if w is not None:
+            _RETIRED.append(w.tally)
 
 
 def segment_hist_launch(p, lo: int, hi: int, num_features: int, num_bins: int, bits: int,

@@ -50,12 +50,13 @@ import torch
 
 from ..utils.device import device_of, raw_stream
 from . import _build
-from .histogram import (hist_segment, hist_segment_q, reset_selected_rows, segment_hist_launch,
-                        selected_rows, stream_workspace)
+from .histogram import (TALLY_SLOTS, hist_segment, hist_segment_q, reset_selected_rows,
+                        segment_hist_launch, selected_rows, stream_workspace, upload)
 
 BLK = 1024  # tail columns past the last row (the JAX kernels' DMA block)
 PART_CHUNK = 512  # a partition tile is a whole number of these (one step of a 512-thread block)
 PART_MAX_TILE = 1 << 17  # most rows a partition tile takes: its left bits fill 16 KB of shared memory
+PART_MAX_SEGMENTS = 512  # rows of a segment table (csrc kPlanThreads: one plan thread each)
 MAX_CLASSES = 16  # score channels update_multi_and_hists takes (csrc kMaxK)
 
 
@@ -457,7 +458,8 @@ def partition_tile(cnt: int, num_sms: int) -> int:
     on a card of ``num_sms`` SMs: one block an SM (a block fills an SM's
     shared memory with histogram cells), rounded up to a multiple of
     PART_CHUNK, the rows a block stages at a time, and at most
-    PART_MAX_TILE (the tile's left bits live in shared memory)."""
+    PART_MAX_TILE (the tile's left bits live in shared memory).  The
+    segment-table form computes it on the card (csrc part_plan_kernel)."""
     want = -(-max(int(cnt), 1) // int(num_sms))
     return min(PART_MAX_TILE, -(-want // PART_CHUNK) * PART_CHUNK)
 
@@ -467,29 +469,30 @@ def partition_blocks(cnts, tile: int) -> np.ndarray:
     return -(-np.maximum(np.asarray(cnts, np.int64), 0) // int(tile))
 
 
+def partition_grid(num_rows: int, num_sms: int, n_seg: int) -> tuple:
+    """(largest tile, row tiles launched) of the segment-table form over a
+    matrix of ``num_rows`` rows, whatever the counts: disjoint active
+    segments hold at most ``num_rows`` rows, so the plan's tile is at most
+    partition_tile(num_rows), and a tile of partition_tile(c) rows cuts c
+    rows into at most max(SMs, c / PART_MAX_TILE) tiles, plus one ragged
+    tile a segment."""
+    return (partition_tile(num_rows, num_sms),
+            max(int(num_sms), -(-int(num_rows) // PART_MAX_TILE)) + int(n_seg))
+
+
 @functools.lru_cache(maxsize=None)
 def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _partition_work(device, n_seg: int, tiles: int, num_features: int, num_bins: int,
-                    n_out: int):
-    """One zeroed buffer, so one allocation and one memset, for what the
-    partition kernels accumulate and return: float64 cells (n_seg, 2, F,
-    B, 3), one look-back word per row tile, then as 32-bit words the tile
-    ticket, ``n_out`` left counts and the float32 histograms (n_out, 2, F,
-    B, 3).  Returns (the addresses of those five parts, nl, histograms),
-    the last two views of the buffer."""
-    fb = 2 * num_features * num_bins * 3
-    head = n_seg * fb + tiles
-    n32 = 1 + n_out + n_out * fb
-    work = torch.zeros(head + -(-n32 // 2), dtype=torch.int64, device=device)
-    base = work.data_ptr()
-    tail = work[head:].view(torch.int32)
-    ptrs = (base, base + 8 * n_seg * fb, base + 8 * head, base + 8 * head + 4,
-            base + 8 * head + 4 * (1 + n_out))
-    hists = tail[1 + n_out:n32].view(torch.float32).view(n_out, 2, num_features, num_bins, 3)
-    return ptrs, tail[1:1 + n_out], hists
+def partition_work(w, grid: int, n_seg: int) -> tuple:
+    """Addresses of the partition kernels' parts of a stream workspace
+    ``w`` (ops/histogram.py ``_Workspace``, fitted to them): the look-back
+    words (``grid``, after the ticket) and the ticket, zero between calls,
+    and the plan's clamped (n_seg, 12) table and [tile, total, first tiles,
+    total] (n_seg + 3 words)."""
+    flags, plan = w.flags.data_ptr(), w.plan.data_ptr()
+    return flags + 8, flags, plan, plan + 4 * 12 * n_seg
 
 
 def check_split_args(p, start, cnt, word, shift, bits, num_features, rows) -> None:
@@ -518,33 +521,46 @@ def check_table_args(p, tab: np.ndarray, bits, num_features, rows) -> None:
         check_split_args(p, 0, 0, word, shift, bits, num_features, rows)
 
 
-def _launch_level(p, tab: np.ndarray, num_features, num_bins, bits, rows, smax):
-    """Run the CUDA partition kernels over the host segment table ``tab``
-    (n_seg, 12); returns (nl (smax,), hists (smax, 2, F, B, 3), launched)."""
+def _launch_table(p, tab: torch.Tensor, n_active, num_features, num_bins, bits, rows,
+                  split=False):
+    """Run the CUDA partition kernels over the device segment table ``tab``
+    (n_seg, >= 11) int32, of which the first ``n_active`` rows (a device
+    int32 scalar, or None for all) are active: the plan on the card, then
+    a static grid.  ``split``: split_stream's launch, which tallies its
+    rows and whether it had any.  Returns (nl (n_seg,), hists (n_seg, 2,
+    F, B, 3))."""
     _check_matrix(p)
-    n_seg = tab.shape[0]
-    if n_seg > smax:
-        raise ValueError(f"{n_seg} segments exceed smax={smax}")
-    check_table_args(p, tab, bits, num_features, rows)
-    cnt = np.maximum(tab[:, 1], 0)
-    tile = partition_tile(int(cnt.sum()), _num_sms(p.device.index))
-    tile_base = np.concatenate([[0], np.cumsum(partition_blocks(cnt, tile))])
-    total = int(tile_base[-1])
-    if total == 0:
-        return (torch.zeros((smax,), dtype=torch.int32, device=p.device),
-                torch.zeros((smax, 2, num_features, num_bins, 3), device=p.device), False)
-    (acc, flags, ticket, nl_ptr, out), nl, hists = _partition_work(
-        p.device, n_seg, total, num_features, num_bins, smax)
-    host = np.concatenate([tab[:, :12].astype(np.int32).ravel(), tile_base.astype(np.int32)])
-    dev = torch.from_numpy(host).to(p.device)
-    scratch = torch.empty_like(p)
-    with device_of(p):
-        rc = _build.lib().lgbt_level_stream(
-            p.data_ptr(), p.shape[1], p.shape[0], scratch.data_ptr(), dev.data_ptr(),
-            dev.data_ptr() + 4 * 12 * n_seg, n_seg, total, tile, flags, ticket, nl_ptr, bits,
-            num_features, num_bins, *rows, acc, out, hists.numel(), raw_stream(p))
-    _build.check(rc, "level_stream")
-    return nl, hists, True
+    n_seg, C, ld = tab.shape[0], p.shape[0], p.shape[1]
+    if not 0 < n_seg <= PART_MAX_SEGMENTS:
+        raise ValueError(f"{n_seg} segments (1 to {PART_MAX_SEGMENTS})")
+    check_split_args(p, 0, 0, 0, 0, bits, num_features, rows)
+    F, B = num_features, num_bins
+    sms = _num_sms(p.device.index)
+    tile_max, grid = partition_grid(ld - BLK, sms, n_seg)
+    nl = torch.empty((n_seg,), dtype=torch.int32, device=p.device)
+    hists = torch.empty((n_seg, 2, F, B, 3), dtype=torch.float32, device=p.device)
+    lib = _build.lib()
+    with stream_workspace(p, 0, n_seg * 2 * F * B * 3, scratch=C * ld, flags=grid + 1,
+                          plan=13 * n_seg + 3) as (w, stream):
+        flags, ticket, seg, plan = partition_work(w, grid, n_seg)
+        tally = w.tally.data_ptr() + 8 * TALLY_SLOTS["split_stream"] if split else None
+        rc = lib.lgbt_level_stream(
+            p.data_ptr(), ld, C, w.scratch.data_ptr(), tab.data_ptr(), tab.shape[1], n_seg,
+            None if n_active is None else n_active.data_ptr(), ld - BLK, sms, tile_max, grid, seg,
+            plan, flags, ticket, nl.data_ptr(), tally, int(split), bits, F, B, *rows,
+            w.cells.data_ptr(), hists.data_ptr(), stream)
+    _build.check(rc, "split_stream" if split else "level_stream")
+    return nl, hists
+
+
+def _device_i32(v, device) -> torch.Tensor:
+    """A 0-d int32 tensor on ``device``: a tensor already there, cast, or
+    an int written by a fill (no upload, so a CUDA graph can capture it)."""
+    if isinstance(v, torch.Tensor):
+        if v.device != device:
+            raise ValueError(f"a scalar on {v.device} for a matrix on {device}")
+        return v.reshape(()).to(torch.int32)
+    return torch.full((), int(v), dtype=torch.int32, device=device)
 
 
 def level_stream(p, seg_tab, n_active, *, num_features, num_bins, bits=8, rows=None,
@@ -554,16 +570,34 @@ def level_stream(p, seg_tab, n_active, *, num_features, num_bins, bits=8, rows=N
 
     seg_tab: (>= n_active, 12) int rows [start, cnt, word, shift,
     zero_bin, dbz, thr, is_cat, off_lo, off_hi, bias, 0] (the JAX
-    contract).  Returns (p, nl (smax,) int32, hists (smax, 2, F, B, 3));
-    rows s >= n_active are zero."""
+    contract).  On the card a table and ``n_active`` given as device
+    tensors stay there (the JAX contract: rows at or past n_active are
+    empty; the kernel clamps each segment to the matrix; active segments
+    must be disjoint), so the launch waits for nothing and a CUDA graph
+    can replay it; a host table is checked on the host and uploaded.
+    Returns (p, nl (smax,) int32, hists (smax, 2, F, B, 3)); rows s >=
+    n_active are zero."""
     if p.device.type == "cpu":
         return level_stream_ref(p, seg_tab, n_active, num_features=num_features,
                                 num_bins=num_bins, bits=bits, rows=rows, smax=smax)
     rows = rows or PLayout(num_features, bits=bits).rows
-    tab = _host_table(seg_tab)[: int(n_active)]
-    nl, hists, launched = _launch_level(p, tab, num_features, num_bins, bits, rows, smax)
-    if launched:
-        level_stream.launches += 1
+    if isinstance(seg_tab, torch.Tensor) and seg_tab.device == p.device:
+        tab = seg_tab[:smax].to(torch.int32).contiguous()
+        if tab.shape[0] < smax:
+            raise ValueError(f"a table of {tab.shape[0]} rows for smax={smax}")
+        nact = _device_i32(n_active, p.device)
+    else:
+        host = _host_table(seg_tab)[: int(n_active)]
+        if host.shape[0] > smax:
+            raise ValueError(f"{host.shape[0]} segments exceed smax={smax}")
+        _check_matrix(p)
+        check_table_args(p, host, bits, num_features, rows)
+        full = np.zeros((smax, 12), np.int32)
+        full[:host.shape[0]] = host[:, :12]
+        full[:, 1] = np.maximum(full[:, 1], 0)
+        tab, nact = upload(torch.from_numpy(full), p.device), None
+    nl, hists = _launch_table(p, tab, nact, num_features, num_bins, bits, rows)
+    level_stream.launches += 1
     return p, nl, hists
 
 
@@ -577,11 +611,11 @@ def _split_row(start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo, off_
 
 def split_stream_ref(p, start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo=0,
                      off_hi=None, bias=0, *, num_features, num_bins, bits=8, rows=None):
-    """Plain version of split_stream."""
+    """Plain version of split_stream (ints or 0-d tensors)."""
     rows = rows or PLayout(num_features, bits=bits).rows
     off_hi = (1 << bits) if off_hi is None else off_hi
-    row = _split_row(start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo, off_hi,
-                     bias)[0]
+    row = _split_row(*(int(v) for v in (start, cnt, word, shift, zero_bin, dbz, thr, is_cat,
+                                         off_lo, off_hi, bias)))[0]
     nl, lh, rh = _partition_ref(p, row, rows, num_features, num_bins, bits)
     return p, torch.tensor(nl, dtype=torch.int32), lh, rh
 
@@ -591,40 +625,57 @@ def split_stream(p, start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo=
     """Partition the leaf segment [start, start+cnt) in place by the
     split predicate and return both children's histograms from the same
     pass: (p, nl, left (F, B, 3), right (F, B, 3)).  Lefts land at
-    [start, start+nl), rights after them.  On the card the segment goes
-    to the kernel by value (no table upload, so no wait for the device)
-    and the scratch is the segment's size."""
+    [start, start+nl), rights after them.
+
+    On the card, given host ints, the segment is checked on the host and
+    goes to the kernel by value, with its tiles; given any field as a 0-d
+    tensor on the card, the fields stay there (the segment-table kernels
+    with one row, its plan and tiles computed on the card, the segment
+    clamped to the matrix), so the launch waits for nothing and a CUDA
+    graph can replay it for any segment; a count of 0 leaves ``p`` as it
+    is.  The rows partitioned are counted: host ints in
+    ``split_stream.rows``, device scalars in a tally on the card, beside
+    the launches that had any rows (``launch_counts``)."""
     if p.device.type == "cpu":
         return split_stream_ref(p, start, cnt, word, shift, zero_bin, dbz, thr, is_cat,
                                 off_lo, off_hi, bias, num_features=num_features,
                                 num_bins=num_bins, bits=bits, rows=rows)
     rows = rows or PLayout(num_features, bits=bits).rows
     off_hi = (1 << bits) if off_hi is None else off_hi
-    seg = [int(v) for v in (start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo, off_hi,
-                            bias)]
+    fields = (start, cnt, word, shift, zero_bin, dbz, thr, is_cat, off_lo, off_hi, bias)
+    F, B = num_features, num_bins
+    if any(isinstance(v, torch.Tensor) for v in fields):
+        _check_matrix(p)
+        tab = torch.stack([_device_i32(v, p.device) for v in fields])[None]
+        nl, hists = _launch_table(p, tab, None, F, B, bits, rows, split=True)
+        split_stream.launches += 1
+        return p, nl[0], hists[0, 0], hists[0, 1]
+    seg = [int(v) for v in fields]
     start, cnt = seg[0], seg[1]
     _check_matrix(p)
     check_split_args(p, start, cnt, seg[2], seg[3], bits, num_features, rows)
-    F, B = num_features, num_bins
     if cnt == 0:
         hists = torch.zeros((2, F, B, 3), device=p.device)
         return p, torch.zeros((), dtype=torch.int32, device=p.device), hists[0], hists[1]
     tile = partition_tile(cnt, _num_sms(p.device.index))
-    (acc, flags, ticket, nl_ptr, out), nl, hists = _partition_work(
-        p.device, 1, -(-cnt // tile), F, B, 1)
-    scratch = torch.empty((p.shape[0], cnt), dtype=torch.int32, device=p.device)
-    with device_of(p):
-        rc = _build.lib().lgbt_split_stream(
-            p.data_ptr(), p.shape[1], p.shape[0], scratch.data_ptr(), *seg, tile, flags, ticket,
-            nl_ptr, bits, F, B, *rows, acc, out, raw_stream(p))
+    nl = torch.empty((1,), dtype=torch.int32, device=p.device)
+    hists = torch.empty((2, F, B, 3), dtype=torch.float32, device=p.device)
+    lib = _build.lib()
+    with stream_workspace(p, 0, 2 * F * B * 3, scratch=p.shape[0] * cnt,
+                          flags=-(-cnt // tile) + 1) as (w, stream):
+        flags, ticket, _, _ = partition_work(w, 0, 0)
+        rc = lib.lgbt_split_stream(
+            p.data_ptr(), p.shape[1], p.shape[0], w.scratch.data_ptr(), *seg, tile, flags,
+            ticket, nl.data_ptr(), bits, F, B, *rows, w.cells.data_ptr(), hists.data_ptr(),
+            stream)
     _build.check(rc, "split_stream")
     split_stream.launches += 1
     split_stream.rows += cnt
-    return p, nl[0], hists[0, 0], hists[0, 1]
+    return p, nl[0], hists[0], hists[1]
 
 
 split_stream.launches = 0
-split_stream.rows = 0  # rows partitioned, summed over launches
+split_stream.rows = 0  # rows partitioned given host ints, summed over launches
 
 
 # ======================================================================
@@ -753,10 +804,16 @@ KERNELS = (update_and_root_hist, update_multi_and_hists, level_stream, split_str
 def launch_counts() -> dict:
     """Launches of every kernel wrapper, ``split_stream_rows`` (the rows
     split_stream partitioned over its launches), and ``hist_segment_rows``
-    and ``hist_segment_q_rows`` (the rows those kernels found selected,
-    tallied on the card: reading them syncs, so read at a path's end)."""
-    return {**{k.__name__: k.launches for k in KERNELS}, "split_stream_rows": split_stream.rows,
-            **{f"{k}_rows": v for k, v in selected_rows().items()}}
+    and ``hist_segment_q_rows`` (the rows those kernels found selected).
+    What was tallied on the card (all but split_stream's rows given host
+    ints) syncs when read, so read at a path's end; ``selected_rows()``
+    also has ``split_stream_taken``, the launches given device scalars
+    that had rows (the fused grower's fallback splits)."""
+    tallied = selected_rows()
+    return {**{k.__name__: k.launches for k in KERNELS},
+            "split_stream_rows": split_stream.rows + tallied["split_stream"],
+            "hist_segment_rows": tallied["hist_segment"],
+            "hist_segment_q_rows": tallied["hist_segment_q"]}
 
 
 def reset_launch_counts() -> None:

@@ -97,4 +97,6 @@ def uniform(key: Key, n: int, device="cpu") -> torch.Tensor:
 def bernoulli(key: Key, p: float, n: int, device="cpu") -> torch.Tensor:
     """(n,) bool ``jax.random.bernoulli(key, p, (n,))``: uniform < p, with p
     rounded to float32 as JAX rounds a Python float."""
-    return uniform(key, n, device) < torch.tensor(np.float32(p), device=device)
+    # a fill, not an upload: no wait for the device
+    return uniform(key, n, device) < torch.full((), float(np.float32(p)), dtype=torch.float32,
+                                                device=device)

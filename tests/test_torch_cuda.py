@@ -709,3 +709,135 @@ def test_train_mask_grower_cuda_matches_cpu(dev, params):
     assert pk.launch_counts()[name] > 0
     bp = lgt.train(params, lgt.Dataset(X, label=y), 4, device="cpu")
     assert bc.model_to_string() == bp.model_to_string()
+
+
+# ---- the fused grower as one device program (device-resident segments,
+# one CUDA graph a tree)
+@pytest.mark.parametrize("kernel", ["split_stream", "level_stream"])
+def test_partition_device_table_equals_host(dev, kernel):
+    """B3/B4 given their segments as device tensors (the plan, the tiles
+    and the grid's bound on the card) partition as their host-int launches
+    do: equal left counts, matrices and histograms.  Rows at or past
+    n_active are ignored whatever they hold, a count past the matrix is
+    clamped to it, and a count of 0 leaves the matrix as it is."""
+    P, lay, *_ = _packed(seed=5)
+    Ph, Pd = P.to(dev), P.to(dev)
+    kw = dict(num_features=F, num_bins=32)
+    if kernel == "split_stream":
+        for seg in [(333, 15001, 1, 8, 2, 2, 12, 0, 0, 256, 0), (0, N, 2, 0, 0, 0, 16, 0, 0, 256, 0),
+                    (19990, 10, 0, 24, 0, 0, 5, 1, 0, 256, 0), (77, 0, 1, 8, 0, 0, 3, 0, 0, 256, 0)]:
+            _, nh, lh, rh = pk.split_stream(Ph, *seg, **kw)
+            dseg = [torch.tensor(v, device=dev) for v in seg]
+            before = pk.split_stream.launches
+            _, nd, ld, rd = pk.split_stream(Pd, *dseg, **kw)
+            assert pk.split_stream.launches == before + 1
+            torch.cuda.synchronize()
+            assert int(nh) == int(nd) and torch.equal(Ph, Pd)
+            _assert_hist(torch.stack([ld, rd]), torch.stack([lh, rh]))
+        # a count past the matrix's rows: clamped to [start, N)
+        _, nh, lh, rh = pk.split_stream(Ph, 19000, N - 19000, 1, 0, 0, 0, 9, 0, **kw)
+        _, nd, ld, rd = pk.split_stream(Pd, torch.tensor(19000, device=dev),
+                                        torch.tensor(5 * N, device=dev), 1, 0, 0, 0, 9, 0, **kw)
+    else:
+        tab = np.asarray([[0, 7000, 0, 0, 0, 0, 10, 0, 0, 256, 0, 0],
+                          [7000, 3, 1, 8, 0, 0, 20, 0, 0, 256, 0, 0],
+                          [7003, 0, 2, 16, 0, 0, 20, 0, 0, 256, 0, 0],
+                          [7003, N - 7003, 2, 0, 3, 3, 13, 1, 0, 256, 0, 0]])
+        _, nh, hh = pk.level_stream(Ph, tab, 4, smax=6, **kw)
+        junk = np.concatenate([tab, [[5, 900, 1, 0, 0, 0, 1, 0, 0, 256, 0, 0]] * 2])
+        before = pk.level_stream.launches
+        _, nd, hd = pk.level_stream(Pd, torch.from_numpy(junk).to(dev),
+                                    torch.tensor(4, device=dev), smax=6, **kw)
+        assert pk.level_stream.launches == before + 1
+        ld, lh = hd, hh
+    torch.cuda.synchronize()
+    assert torch.equal(nh.cpu(), nd.cpu()) and torch.equal(Ph, Pd)
+    _assert_hist(ld, lh)
+
+
+def _fused_setup(dev, objective="binary", K=1, leaves=63, n=40000):
+    """A trainer on the card and a fresh (p, root histograms) of its
+    first iteration."""
+    import lightgbm_tpu_torch as lgt
+
+    rng = np.random.default_rng(12)
+    X = rng.standard_normal((n, 10)).astype(np.float32)
+    z = X @ rng.standard_normal(10)
+    y = (np.digitize(z, [-0.5, 0.5]) if K > 1 else z > 0).astype(np.float32)
+    params = dict(objective=objective, num_leaves=leaves, max_bin=63, min_data_in_leaf=5,
+                  verbose=-1, **({"num_class": K} if K > 1 else {}))
+    bst = lgt.train(params, lgt.Dataset(X, label=y), 1)
+    pt = bst.boosting.ptrainer
+    lay, prm = pt.layout, pt.params
+    kw = dict(num_rows=pt.num_rows, num_features=prm.cols, num_bins=prm.bins_hist,
+              bits=prm.bits)
+    if K > 1:
+        p, roots = pk.update_multi_and_hists(pt.p.clone(), lay, pt.objective, **kw)
+    else:
+        p, root = pk.update_and_root_hist(pt.p.clone(), lay, pt.objective, **kw)
+        roots = root[None]
+    return pt, p, roots
+
+
+@pytest.mark.parametrize("K", [1, 3], ids=["binary", "softmax-3"])
+def test_tree_graph_replay_equals_eager(dev, K):
+    """A tree replayed as a CUDA graph gives the eager grower's records,
+    tables and partitioned matrix byte for byte, for every class."""
+    from lightgbm_tpu_torch.ops.pgrow import TreeGraphs, grow_tree_partitioned
+
+    pt, p0, roots = _fused_setup(dev, "multiclass" if K > 1 else "binary", K)
+    graphs = TreeGraphs(pt.meta, pt.bmeta, pt.params, dev)
+    pg = p0.clone()
+    for rounds in range(2):  # the first call captures, the second replays
+        for k in range(K):
+            rows = pt.layout.class_rows(k) if K > 1 else None
+            pg.copy_(p0)
+            got = graphs.grow(pg, pt.feature_mask, pt.hyper, roots[k], rows)
+            got = [x.clone() for x in got]
+            pe = p0.clone()
+            want, pe = grow_tree_partitioned(pe, pt.feature_mask, pt.meta, pt.hyper, pt.params,
+                                             roots[k], rows=rows, bmeta=pt.bmeta)
+            torch.cuda.synchronize()
+            assert int(got[0]) == int(want.num_splits) > 0
+            for a, b in zip(got[1:], want[1:]):
+                assert torch.equal(a, b)
+            assert torch.equal(pg, pe)
+    assert len(graphs.graphs) == K
+
+
+def _is_sync(w) -> bool:
+    """A warning of sync debug mode "warn" for one synchronizing call (its
+    first use in a process also warns that the mode is a prototype)."""
+    text = str(w.message)
+    return "synchroniz" in text and "debug mode" not in text
+
+
+def test_tree_graph_needs_no_host_sync(dev):
+    """After its capture, a fused tree replays under sync debug mode
+    "error": nothing in it waits for the card; a whole chunk reads the
+    card once, at its end."""
+    import warnings
+
+    from lightgbm_tpu_torch.ops.pgrow import TreeGraphs
+
+    pt, p0, roots = _fused_setup(dev)
+    graphs = TreeGraphs(pt.meta, pt.bmeta, pt.params, dev)
+    graphs.grow(p0, pt.feature_mask, pt.hyper, roots[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tree = graphs.grow(p0, pt.feature_mask, pt.hyper, roots[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(tree.num_splits) > 0
+    pt.train_chunk(2, 0.1, 1)  # captures nothing new
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trees, _, n_done = pt.train_chunk(3, 0.1, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if _is_sync(w)]
+    assert n_done == 3 and len(trees) == 3 and len(syncs) == 1

@@ -118,12 +118,39 @@ def test_wrapper_rejects_a_tensor_off_the_card(kernel):
 
 
 def test_work_buffer_addresses_match_its_views():
-    """The addresses handed to the kernels are those of the views the
-    wrappers return: nl after the ticket, the histograms after nl."""
-    (acc, flags, ticket, nl_ptr, out), nl, hists = pk._partition_work("cpu", 3, 5, 28, 64, 8)
-    fb = 2 * 28 * 64 * 3
-    assert flags - acc == 8 * 3 * fb and ticket - flags == 8 * 5
-    assert nl.data_ptr() == nl_ptr == ticket + 4 and hists.data_ptr() == out == nl_ptr + 4 * 8
-    assert nl.shape == (8,) and nl.dtype == torch.int32
-    assert hists.shape == (8, 2, 28, 64, 3) and hists.dtype == torch.float32
-    assert int(nl.abs().sum()) == 0 and float(hists.abs().sum()) == 0.0
+    """The addresses handed to the partition kernels are those of the
+    stream workspace's parts: the look-back words after the ticket (both
+    zero, as the kernels leave them), the plan after the clamped (n_seg,
+    12) table, the float64 cells and a scratch of the matrix's size."""
+    from lightgbm_tpu_torch.ops.histogram import _Workspace
+
+    grid, n_seg, cells = 5, 3, 3 * 2 * 28 * 64 * 3
+    w = _Workspace("cpu")
+    w.fit(0, cells, scratch=16 * 1124, flags=grid + 1, plan=13 * n_seg + 3)
+    flags, ticket, seg, plan = pk.partition_work(w, grid, n_seg)
+    assert ticket == w.flags.data_ptr() and flags == ticket + 8
+    assert seg == w.plan.data_ptr() and plan == seg + 4 * 12 * n_seg
+    assert w.flags.numel() >= grid + 1 and w.plan.numel() >= 13 * n_seg + 3
+    assert w.cells.numel() >= cells and w.scratch.numel() >= 16 * 1124
+    assert int(w.flags.abs().sum()) == 0 and int(w.cells.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_table_grid_bounds_the_tiles(seed):
+    """The segment-table form launches partition_grid's static grid: the
+    tiles of any disjoint active segments (at partition_tile of their
+    rows, as the plan kernel takes it) fit in it, and that tile is at most
+    the largest tile, which sizes shared memory."""
+    rng = np.random.default_rng(seed)
+    rows = int(rng.integers(1, 3_000_000))
+    for n_seg in (1, 7, 128, 512):
+        tile_max, grid = pk.partition_grid(rows, SMS, n_seg)
+        cuts = np.sort(rng.integers(0, rows + 1, size=2 * n_seg))
+        cnts = cuts[1::2] - cuts[0::2]  # disjoint segments, some empty
+        n_act = int(rng.integers(0, n_seg + 1))
+        cnts[n_act:] = 0
+        tile = pk.partition_tile(int(cnts.sum()), SMS)
+        assert tile <= tile_max <= pk.PART_MAX_TILE
+        assert int(pk.partition_blocks(cnts, tile).sum()) <= grid
+    assert pk.partition_grid(10_500_000, SMS, 128) == (79_872, 260)
+    assert pk.partition_grid(10 ** 9, SMS, 1) == (pk.PART_MAX_TILE, 7631)
