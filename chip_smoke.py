@@ -22,9 +22,15 @@ result line):
      update_multi_and_hists on edge cases (UPDATE_EDGES: rows below and
      past one staged chunk, an all-zero select, every row in one bin,
      4-bit bins, weights, feature tiles, K=2, K=16, one-vs-all with
-     is_unbalance, 16-bit words of up to 9600 bins); their single-call
+     is_unbalance, 16-bit words of up to 9600 bins, and a row for each
+     regression objective); their single-call
      times are in the result line, their shared-memory floors in the
-     log.  Mask grower: hist_segment and
+     log.  Then update_and_root_hist (a delta; a select with GOSS's
+     multiplier) and update_channels with each regression objective
+     (L1, Huber at huber_delta 0.3, Fair, Poisson: B1's and B10's
+     compile-time kinds), unweighted and weighted, at --rows x 28, 64
+     bins against the plain versions, timed beside binary (the kernels
+     line's B1 and B10 entries carry them under "kinds").  Mask grower: hist_segment and
      hist_segment_q at --rows x 28, 64 bins, over a sub-range with
      unselected rows, at 1M rows of 512 bins (16-bit words), and on edge
      cases (no row, one row, every row selected, every row in one bin,
@@ -36,12 +42,17 @@ result line):
   4. small end to end: --small-rows x 28 (binary) and 100,000
      Covertype-shaped rows (K=7, 2 iterations) trained on the card and on
      the CPU (plain versions) — splits, predictions and AUC / multi
-     logloss must agree; then --small-rows x 28 at learning_rate=0.5 for
-     6 iterations with bagging and feature_fraction, and with GOSS, on
+     logloss must agree; then --small-rows x 28 at learning_rate=0.5,
+     6 iterations with bagging and feature_fraction and 4 with GOSS, on
      both, with the bagging masks compared; then on the mask grower (31
      leaves) quantized binary and quantized L2 on --small-rows x 28 (5
      iterations) and multiclass GOSS on the 100,000 Covertype-shaped rows
-     (4 iterations at learning_rate 0.5: 2 warm-up, 2 sampled);
+     (4 iterations at learning_rate 0.5: 2 warm-up, 2 sampled); then
+     each regression objective on --small-rows x 28 (--small-iters
+     iterations) and Huber with GOSS (4 iterations at learning_rate 0.5)
+     on the fused path, 0 differing splits required; then lambdarank on
+     the mask grower on ~20k documents of 170 mslr-web10k-shaped queries
+     (3 iterations);
   5. "higgs-10.5M" at full width: Higgs-shaped binary data (--rows plus a
      500k held-out set), max_bin=63, num_leaves=255, learning_rate=0.1,
      min_data_in_leaf=1, min_sum_hessian_in_leaf=100, --iters
@@ -73,6 +84,12 @@ result line):
      other_rate=0.1, 20 iterations (10 warm-up, 10 sampled at
      learning_rate 0.1); prints s/iter of each kind, the held-out AUC
      and update_channels' launches;
+  5c'. the regression cells: the Higgs cell's binned data and
+     parameters with objective regression_l1, huber (huber_delta 0.3),
+     fair and poisson, the 0/1 labels as targets, 5 iterations each on
+     the fused path; prints s/iter, the objective's metric on the 500k
+     held-out rows, peak memory and the host syncs of a tree (replayed
+     under "error") and of a chunk;
   5d. "higgs-10.5M-quantized": the Higgs cell's binned data and
      parameters with use_quantized_grad (5 bits) on the mask grower, 20
      iterations; prints s/iter, the held-out AUC (within 0.005 of the
@@ -97,6 +114,13 @@ result line):
      iterations (10 warm-up, 10 sampled); prints s/iter of each kind,
      held-out multi_logloss and accuracy, hist_segment's launches, and
      a one-iteration profiler window.
+  6c. "mslr-web10k-shaped": lambdarank on the mask grower at MSLR-WEB10K
+     Fold1's training size (723,412 documents in 6,000 queries of mean
+     ~120 and up to 900 documents, 136 features, labels 0-4) with a
+     2,000-query validation set, the Higgs cell's parameters with
+     ndcg_eval_at=1,3,5,10, 10 iterations; prints s/iter, the gradient
+     pass's device ms, the validation ndcg@k beside a random order's,
+     peak memory and hist_segment's launches and selected rows.
   7. hist_segment on the covertype cell's training bins and
      hist_segment_q at --rows x 28, each with its cell's mean selected
      rows per launch in this run (the kernels' device-side tally over
@@ -109,6 +133,7 @@ kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -158,12 +183,29 @@ KERNEL_NAMES = ("update_and_root_hist", "update_multi_and_hists", "level_stream"
 BAG_PARAMS = dict(TRAIN_PARAMS, feature_fraction=0.9, bagging_fraction=0.8, bagging_freq=5)
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2, other_rate=0.1)
 SAMPLED_ITERS = 20
-SMALL_SAMPLED_ITERS = 6  # at learning_rate 0.5 GOSS samples from iteration 2 on
+SMALL_SAMPLED_ITERS = 6  # the small bagging phase: bagging_freq=5 redraws at iteration 5
 # the mask grower's cells: LightGBM >= 4.0's use_quantized_grad at the JAX
 # default of 5 bits, and GOSS on the multiclass cell
 QUANT_PARAMS = dict(TRAIN_PARAMS, use_quantized_grad=True)
 COV_GOSS_PARAMS = dict(COV_PARAMS, boosting="goss", top_rate=0.2, other_rate=0.1)
 MASK_ITERS = 20
+# the regression objectives of B1 and B10 (csrc/common.cuh ObjKind) with
+# the parameters their phases train with: huber_delta 0.3 puts the Higgs
+# 0/1 targets' rows on both sides of the delta; poisson is the last kind
+# registered, so its kernels take B1's last four shared-memory slots
+OBJ_KINDS = (("regression_l1", {}), ("huber", {"huber_delta": 0.3}), ("fair", {}),
+             ("poisson", {}))
+OBJ_ITERS = 5  # the full-width regression cells
+# mslr-web10k-shaped (MSLR-WEB10K Fold1's training set: 723,412 documents
+# in 6,000 queries, 136 features, labels 0-4) and a 2,000-query
+# validation set; LightGBM's GPU-Performance.rst runs MS-LTR this way
+MSLR_DOCS, MSLR_QUERIES, MSLR_VALID_QUERIES, MSLR_FEATURES = 723_412, 6_000, 2_000, 136
+MSLR_MAX_QUERY = 900
+MSLR_LABEL_SHARE = (0.52, 0.32, 0.13, 0.02, 0.01)  # labels 0-4, mostly 0 and 1
+RANK_PARAMS = dict(TRAIN_PARAMS, objective="lambdarank", metric="ndcg",
+                   ndcg_eval_at=[1, 3, 5, 10])
+RANK_ITERS = 10
+RANK_SMALL_QUERIES, RANK_SMALL_ITERS = 170, 3  # ~20k documents, card against CPU
 SMALL_MASK_ITERS, SMALL_MASK_LEAVES = 5, 31  # the mask grower's card-vs-CPU phases
 SMALL_GOSS_ITERS = 4  # at learning_rate 0.5: 2 warm-up and 2 sampled iterations
 # Covertype (UCI, Blackard & Dean 1998): rows per class, and the ranges of
@@ -175,6 +217,7 @@ COV_NUMERIC = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7117
 COV_TRAIN_ROWS = 464_809  # the first 80 %; the last 116,203 are held out
 COV_ITERS = 20
 COV_SMALL_ROWS, COV_SMALL_ITERS = 100_000, 2  # the multiclass card-vs-CPU phase
+DeviceEvent = collections.namedtuple("DeviceEvent", "key count self_device_time_total")
 _TASK_SEED = 20260730  # bench.py: the task's informative weights never vary
 _N_INFORM = 8
 
@@ -222,6 +265,35 @@ def make_covertype_shaped(seed=13):
         y[order[pos:pos + COV_CLASS_COUNTS[c]]] = c
         pos += COV_CLASS_COUNTS[c]
     return X, y
+
+
+def make_mslr_shaped(n_queries, seed, n_docs=None):
+    """MSLR-WEB10K-shaped ranking data: ``n_queries`` query sizes from a
+    lognormal of mean ~120 capped at MSLR_MAX_QUERY (summing to
+    ``n_docs`` when given), 136 float32 features of which the first 20
+    carry a document's relevance (the rest noise), and 0-4 labels from a
+    seeded latent score per query plus a document signal and noise, cut
+    at MSLR_LABEL_SHARE's quantiles.  Returns (X, labels, sizes)."""
+    rng = np.random.RandomState(seed)
+    sizes = np.clip(np.rint(rng.lognormal(4.55, 0.7, n_queries)), 1, MSLR_MAX_QUERY)
+    sizes = sizes.astype(np.int64)
+    if n_docs is not None:
+        sizes = np.clip(np.rint(sizes * n_docs / sizes.sum()), 1, MSLR_MAX_QUERY).astype(
+            np.int64)
+        while sizes.sum() != n_docs:  # one document at a time onto (off) random queries
+            step = 1 if sizes.sum() < n_docs else -1
+            i = rng.randint(n_queries)
+            if 1 <= sizes[i] + step <= MSLR_MAX_QUERY:
+                sizes[i] += step
+    n = int(sizes.sum())
+    query = np.repeat(np.arange(n_queries), sizes)
+    signal = rng.randn(n).astype(np.float32)
+    latent = (rng.randn(n_queries) * 0.7)[query] + signal + 0.8 * rng.randn(n)
+    cuts = np.quantile(latent, np.cumsum(MSLR_LABEL_SHARE)[:-1])
+    y = np.searchsorted(cuts, latent).astype(np.float32)
+    X = rng.randn(n, MSLR_FEATURES).astype(np.float32)
+    X[:, :20] += signal[:, None] * np.linspace(1.0, 0.2, 20, dtype=np.float32)
+    return X, y, sizes
 
 
 def multi_logloss(y, prob):
@@ -290,6 +362,23 @@ def time_cuda(fn, reps, warmup=1, burst=1):
     return float(np.median(times))
 
 
+def device_events(prof):
+    """The profiler window's device activity (kernels, copies, memsets)
+    summed by name: [(key, count, self_device_time_total in µs)], as
+    ``key_averages()`` gives a device event's, read from the raw events
+    (key_averages builds a Python object an event: 47-92 s for the
+    covertype cells' windows of ~10^6 device operations)."""
+    import torch
+
+    total = collections.defaultdict(lambda: [0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t = total[e.name()]
+            t[0] += 1
+            t[1] += e.duration_ns()
+    return [DeviceEvent(k, c, ns / 1e3) for k, (c, ns) in total.items() if ns > 0]
+
+
 def device_split(fn, calls=5):
     """{kernel: device ms a call} of ``fn`` from torch.profiler (the
     device's activity only): a kernel's mean over the launches the
@@ -307,7 +396,7 @@ def device_split(fn, calls=5):
         torch.cuda.synchronize()
     return {e.key.split("(")[0][-40:]:
             round(e.self_device_time_total / 1e3 / e.count * -(-e.count // calls), 4)
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+            for e in device_events(prof)}
 
 
 def burst_ms(fn):
@@ -728,6 +817,15 @@ UPDATE_EDGES = [
     ("16-bit words, 9600 bins", 20_000, 2, 9600, 16, 1, "binary", {}, True, "rand", False),
     ("K=16 16-bit words, 800 bins", 20_000, 3, 800, 16, 16, "multiclass", {}, True, "rand",
      False),
+    # the regression objectives (B1's compile-time kinds)
+    ("L1, weights", 100_003, 28, 64, 8, 1, "regression_l1", {}, True, "rand", False),
+    ("Huber delta 0.3, 257 rows", 257, 28, 64, 8, 1, "huber", {"huber_delta": 0.3}, False,
+     None, False),
+    ("Huber delta 0.3, weights, feature tiles", 20_000, 300, 256, 8, 1, "huber",
+     {"huber_delta": 0.3}, True, "rand", False),
+    ("Fair, 4-bit bins", 100_003, 28, 16, 4, 1, "fair", {"fair_c": 0.7}, False, "rand", False),
+    ("Poisson, weights, every row in one bin", 100_003, 28, 64, 8, 1, "poisson", {}, True,
+     None, True),
 ]
 
 
@@ -803,6 +901,76 @@ def phase_update_edges(dev, seed=41):
         f"cases match the plain versions (channels, tail untouched; counts bit-equal; sums "
         f"bit-equal {sums_equal}, max abs err {err:.3e}); with_hist=False writes the same "
         f"channels")
+
+
+def phase_kernels_objectives(rows, dev, seed=43):
+    """update_and_root_hist (B1: a delta, and a select with GOSS's
+    multiplier) and update_channels (B10: a delta and a select) with each
+    regression objective, unweighted and weighted, against the plain
+    versions at rows x 28, 64 bins (the 0/1 targets of the Higgs cells,
+    scores spread around them); binary beside them as the yardstick.
+    Channels as check_channels (reported bit-equal or not), histograms as
+    check_hist, update_channels' matrix bit-identical.  Returns {kind:
+    measurements} for B1 and for B10, the times unweighted in bursts."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    F, B = 28, 64
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, B, size=(rows, F), dtype=np.uint8)
+    label = (rng.random(rows) < 0.5).astype(np.float32)
+    weight = (rng.random(rows) + 0.5).astype(np.float32)
+    lay = pk.PLayout(F)
+    P0 = pk.pack_matrix(bins, lay, label=label, weight=weight, device=dev)
+    del bins
+    pk.f32_row(P0, lay.SCORE, rows).copy_(0.5 * torch.randn(rows, device=dev) + 0.5)
+    delta = 0.1 * torch.randn(rows, device=dev)
+    sel = (torch.rand(rows, device=dev) < 0.3).float()
+    mul = torch.where(torch.rand(rows, device=dev) < 0.5, 8.5, 1.0).float()
+    kw = dict(num_rows=rows, num_features=F, num_bins=B, bits=8)
+    b1, b10 = {}, {}
+    for name, extra in (("binary", {}),) + OBJ_KINDS:
+        e1 = e10 = 0.0
+        bit_equal = True
+        for weighted in (False, True):
+            what = f"{name}{', weighted' if weighted else ''}"
+            obj = _multi_objective(name, 1, label, weight if weighted else None, **extra)
+            for args in (dict(delta=delta), dict(sel=sel, mul=mul)):
+                Pk, Pr = P0.clone(), P0.clone()
+                _, hk = pk.update_and_root_hist(Pk, lay, obj, **args, **kw)
+                _, hr = pk.update_and_root_hist_ref(Pr, lay, obj, **args, **kw)
+                sync(dev)
+                label_args = "delta" if "delta" in args else "sel, mul"
+                check_channels(f"update_and_root_hist [{what}; {label_args}]", Pk, Pr, rows,
+                               {lay.G, lay.H})
+                bit_equal = bit_equal and torch.equal(Pk, Pr)
+                e1 = max(e1, check_hist(f"update_and_root_hist [{what}; {label_args}]", hk,
+                                        hr))
+            Pk, Pr = P0.clone(), P0.clone()
+            pk.update_channels(Pk, lay, obj, delta=delta, sel=sel, num_rows=rows)
+            pk.update_channels_ref(Pr, lay, obj, delta=delta, sel=sel, num_rows=rows)
+            sync(dev)
+            d = (pk.f32_row(Pk, lay.H, rows) - pk.f32_row(Pr, lay.H, rows)).abs().max()
+            e10 = max(e10, float(d))
+            assert torch.equal(Pk, Pr), f"update_channels [{what}] differs from plain"
+            del Pk, Pr
+        obj = _multi_objective(name, 1, label, None, **extra)
+        Pk = P0.clone()
+        ms = burst_ms(lambda: pk.update_and_root_hist(Pk, lay, obj, delta=delta, **kw))
+        sm = burst_ms(lambda: pk.update_and_root_hist(Pk, lay, obj, sel=sel, mul=mul, **kw))
+        ms10 = burst_ms(lambda: pk.update_channels(Pk, lay, obj, delta=delta, num_rows=rows))
+        del Pk
+        b1[name] = dict(max_abs_err=e1, ms=ms, sel_mul_ms=sm, channels_bit_equal=bit_equal)
+        b10[name] = dict(max_abs_err=e10, ms=ms10)
+        log(f"kernels of {name} (kind {obj.kernel_params()[0]}) at {rows} x {F}, {B} bins: "
+            f"update_and_root_hist {ms:.4f} ms a launch in bursts, sel + mul {sm:.4f} ms, max "
+            f"abs err {e1:.3e}, channels bit-equal {bit_equal}; update_channels {ms10:.4f} "
+            f"ms, matrix bit-identical")
+    log("B1 and B10 by objective against binary in this call (ms a launch): "
+        + "; ".join(f"{k} {b1[k]['ms']:.4f} / {b10[k]['ms']:.4f}" for k in b1))
+    del P0
+    return b1, b10
 
 
 def phase_kernels_multi(bds, dev, seed=5):
@@ -1197,8 +1365,9 @@ def phase_small_sampled(rows, dev):
     from lightgbm_tpu_torch.ops import pkernels as pk
 
     X, y = make_higgs_shaped(rows, seed=5)
-    iters = SMALL_SAMPLED_ITERS
-    for name, params in (("bagging", BAG_PARAMS), ("goss", GOSS_PARAMS)):
+    # bagging redraws at iteration bagging_freq = 5, so it runs 6; GOSS 4
+    for name, params, iters in (("bagging", BAG_PARAMS, SMALL_SAMPLED_ITERS),
+                                ("goss", GOSS_PARAMS, SMALL_GOSS_ITERS)):
         params = dict(params, learning_rate=0.5)
         out = {}
         for where, d in (("cuda", dev), ("cpu", "cpu")):
@@ -1260,6 +1429,72 @@ def phase_small_mask(rows, Xc, yc, dev):
         log(f"small {name} cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
             f"(tol 1e-3); model text byte-identical {out['cuda'][0] == out['cpu'][0]}")
         assert dpred <= 1e-3
+
+
+def phase_small_objectives(rows, iters, dev):
+    """Each regression objective on the fused path (the Higgs 0/1 targets
+    as regression targets, TRAIN_PARAMS), then Huber with GOSS at
+    learning_rate 0.5 (update_channels from iteration 2 on), on the card
+    and on the CPU (plain versions): 0 differing splits (both sides take
+    the correctly rounded exp, no FMA, histograms rounded once) and
+    predictions within 1e-3."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    X, y = make_higgs_shaped(rows, seed=3)
+    cases = [(name, dict(TRAIN_PARAMS, objective=name, **extra), iters)
+             for name, extra in OBJ_KINDS]
+    cases.append(("huber goss", dict(GOSS_PARAMS, objective="huber", huber_delta=0.3,
+                                     learning_rate=0.5), SMALL_GOSS_ITERS))
+    for name, params, n_iter in cases:
+        out = {}
+        for where, d in (("cuda", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            pk.reset_launch_counts()
+            bst = lgt.train(params, lgt.Dataset(X, label=y), n_iter, device=d)
+            assert bst.boosting.ptrainer is not None, f"{name} left the fused path"
+            counts = pk.launch_counts()
+            out[where] = (bst.model_to_string(), bst.predict(X[:50_000]))
+            log(f"small {name} {where}: {rows}x28, {n_iter} iterations, "
+                f"{time.perf_counter() - t0:.1f} s; update_and_root_hist launches "
+                f"{counts['update_and_root_hist']}, update_channels {counts['update_channels']}")
+            if d is dev and dev.type == "cuda" and "goss" in name:
+                assert counts["update_channels"] > 0, "GOSS ran no update_channels"
+        ndiff = compare_models(f"small {name} cuda vs cpu", out["cpu"][0], out["cuda"][0])
+        dpred = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+        same = trees_text(out["cuda"][0]) == trees_text(out["cpu"][0])
+        log(f"small {name} cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
+            f"(tol 1e-3); model text byte-identical {same}")
+        assert ndiff == 0, f"small {name}: the card's splits differ from the CPU's"
+        assert dpred <= 1e-3
+
+
+def phase_small_rank(dev):
+    """Lambdarank on the mask grower, RANK_SMALL_QUERIES queries of the
+    mslr-web10k-shaped data (~20k documents), on the card and on the CPU
+    (plain versions): the same trees or a first differing split that is a
+    near-tie (the pair sums' float order differs between the two), and
+    predictions within 1e-3."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    X, y, sizes = make_mslr_shaped(RANK_SMALL_QUERIES, seed=51)
+    out = {}
+    for where, d in (("cuda", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        pk.reset_launch_counts()
+        bst = lgt.train(dict(RANK_PARAMS, metric="none"), lgt.Dataset(X, label=y, group=sizes),
+                        RANK_SMALL_ITERS, device=d)
+        assert bst.boosting.ptrainer is None, "lambdarank left the mask grower"
+        out[where] = (bst.model_to_string(), bst.predict(X))
+        log(f"small lambdarank {where}: {len(y)} documents in {len(sizes)} queries, "
+            f"{RANK_SMALL_ITERS} iterations, {time.perf_counter() - t0:.1f} s; hist_segment "
+            f"launches {pk.launch_counts()['hist_segment']}")
+    ndiff = compare_models("small lambdarank cuda vs cpu", out["cpu"][0], out["cuda"][0])
+    dpred = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    log(f"small lambdarank cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
+        f"(tol 1e-3)")
+    assert dpred <= 1e-3
 
 
 def near_tie(ga, gb):
@@ -1470,9 +1705,7 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12, bst=None):
     t = time.perf_counter()
     # device-side events only (kernels, copies, memsets): a host op's own
     # device total would count its kernels a second time
-    evs = sorted((e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
-                 key=dev_us, reverse=True)
+    evs = sorted(device_events(prof), key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in evs)
     if busy == 0:
         log("profile: the profiler recorded no device time; busy share not measured")
@@ -1841,6 +2074,130 @@ def phase_sampled(ds, Xv, yv, dev, higgs_its):
     return [c_bag, c_goss], dict(bagging=bag, goss=goss)
 
 
+def phase_full_objectives(ds, Xv, yv, dev):
+    """The regression cells on the Higgs cell's binned data and
+    parameters (TRAIN_PARAMS with each regression objective; the 0/1
+    labels as targets, as the reference's examples/regression does with
+    its Higgs subset), OBJ_ITERS iterations each on the fused path:
+    s/iter (the stream's time between iteration events), the objective's
+    own metric on the 500k held-out rows, peak memory, and the host syncs
+    of a tree (replayed under sync debug mode "error") and of a chunk.
+    Returns (each cell's launch counts, {objective: numbers})."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.metric import create_metric
+
+    md = Metadata(len(yv))
+    md.set_label(yv)
+    all_counts, res = [], {}
+    for name, extra in OBJ_KINDS:
+        params = dict(TRAIN_PARAMS, objective=name, **extra)
+
+        def run():
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            bst = lgt.train(params, ds, OBJ_ITERS, device=dev)
+            sync(dev)
+            return bst, time.perf_counter() - t
+
+        (bst, wall), counts = driven(f"higgs-10.5M-{name}", run,
+                                     ("update_and_root_hist", "level_stream", "split_stream",
+                                      "score_add"))
+        pt = bst.boosting.ptrainer
+        its = pt.iter_seconds
+        s_iter = float(np.median(its[1:]))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+        raw = bst.predict(Xv, raw_score=True)
+        metric = create_metric(name, Config.from_params(params))
+        metric.init(md, len(yv))
+        value = metric.eval(torch.from_numpy(raw), bst.boosting.objective)[0][1]
+        base = metric.eval(torch.full((len(yv),), float(bst.boosting.models[0].leaf_value[0]),
+                                      dtype=torch.float64), bst.boosting.objective)[0][1]
+        chunk = fused_grower_syncs(pt, dev)[1] if dev.type == "cuda" else None
+        log(f"higgs-10.5M-{name}: {OBJ_ITERS} iterations in {wall:.2f} s; s/iter {s_iter:.4f} "
+            f"(median after the first; first {its[0]:.3f} s); held-out {metric.name} "
+            f"{value:.6f} (the label mean alone: {base:.6f}); peak device memory {peak:.2f} "
+            f"GiB; host syncs 0 a tree, {chunk} a chunk; launches {json.dumps(counts)}")
+        assert np.all(np.isfinite(raw)) and raw.shape == (len(yv),)
+        assert np.isfinite(value), f"{name}: the held-out {metric.name} is not finite"
+        assert chunk in (1, None), f"{name}: a chunk read the card {chunk} times"
+        all_counts.append(counts)
+        res[name] = dict(s_iter=s_iter, metric=value, peak_gib=peak, chunk_syncs=chunk)
+        del bst, pt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return all_counts, res
+
+
+def phase_rank(dev):
+    """"mslr-web10k-shaped": lambdarank on the mask grower at MSLR-WEB10K
+    Fold1's training size (723,412 documents in 6,000 queries, 136
+    features) with a 2,000-query validation set, RANK_PARAMS, RANK_ITERS
+    iterations: s/iter, the gradient pass's device ms, ndcg@1,3,5,10 on
+    the validation set against a random order's, peak memory, and B8's
+    launches and selected rows.  Returns the path's launch counts and its
+    numbers."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+
+    t0 = time.perf_counter()
+    X, y, sizes = make_mslr_shaped(MSLR_QUERIES, seed=61, n_docs=MSLR_DOCS)
+    Xv, yv, vsizes = make_mslr_shaped(MSLR_VALID_QUERIES, seed=62)
+    ds = lgt.Dataset(X, label=y, group=sizes)
+    ds.construct(RANK_PARAMS)
+    dv = lgt.Dataset(Xv, label=yv, group=vsizes, reference=ds)
+    dv.construct()
+    del X, Xv
+    log(f"mslr-web10k-shaped: {len(y)} documents in {len(sizes)} queries (mean "
+        f"{sizes.mean():.1f}, largest {sizes.max()}), {MSLR_FEATURES} features, labels 0-4 "
+        f"{np.bincount(y.astype(np.int64), minlength=5).tolist()}; validation {len(yv)} "
+        f"documents in {len(vsizes)} queries; built and binned in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ev = {}
+
+    def run():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        bst = lgt.train(RANK_PARAMS, ds, RANK_ITERS, valid_sets=[dv], valid_names=["valid"],
+                        evals_result=ev, verbose_eval=False, device=dev)
+        sync(dev)
+        return bst, time.perf_counter() - t
+
+    (bst, wall), counts = driven("mslr-web10k-shaped", run, ("hist_segment",))
+    g = bst.boosting
+    assert g.ptrainer is None, "lambdarank left the mask grower"
+    its = g.iter_seconds
+    s_iter = float(np.median(its[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    obj = g.objective
+    grad_ms = time_cuda(lambda: obj.get_gradients(g.scores[0]), 3)
+    buckets = obj._state(g.scores.device)[0]
+    last = {k: v[-1] for k, v in ev["valid"].items()}
+    rnd = dict(g.valid_metrics[0][0].eval(torch.rand(len(yv), dtype=torch.float64)))
+    log(f"mslr-web10k-shaped: {RANK_ITERS} iterations in {wall:.2f} s; s/iter {s_iter:.4f} "
+        f"(wall of a mask-grower iteration, device-synced; median after the first; first "
+        f"{its[0]:.3f} s, validation not included); the lambdarank gradient pass "
+        f"{grad_ms:.3f} ms on the card ({len(buckets)} buckets of at most "
+        f"{obj.pair_budget} pair elements); validation {json.dumps(last)}, a random order "
+        f"{json.dumps(rnd)}; peak device memory {peak:.2f} GiB; hist_segment launches "
+        f"{counts['hist_segment']}, selected rows {counts['hist_segment_rows']} "
+        f"({counts['hist_segment_rows'] // max(counts['hist_segment'], 1)} a launch)")
+    assert list(last) == ["ndcg@1", "ndcg@3", "ndcg@5", "ndcg@10"]
+    assert all(np.isfinite(v) and last[k] > rnd[k] for k, v in last.items()), \
+        "validation NDCG not above a random order's"
+    del bst, g, obj, ds, dv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return counts, dict(s_iter=s_iter, grad_ms=grad_ms, ndcg=last, random_ndcg=rnd,
+                        peak_gib=peak)
+
+
 def phase_quantized(ds, Xv, yv, dev, higgs_auc):
     """"higgs-10.5M-quantized": the Higgs cell's binned data and parameters
     with use_quantized_grad (5 bits) on the mask grower.  Returns the
@@ -2008,6 +2365,7 @@ def main(argv=None):
     kern = phase_kernels(args.rows, dev)
     kern.update(phase_kernels_multi(cov.construct(COV_PARAMS), dev))
     phase_update_edges(dev)
+    b1_kinds, b10_kinds = phase_kernels_objectives(args.rows, dev)
     kern.update(phase_kernels_mask(args.rows, dev))
     phase_feature_tiles(min(args.rows, 1_000_000), dev)
     log(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -2016,6 +2374,8 @@ def main(argv=None):
     phase_small_multi(Xc, yc, COV_SMALL_ROWS, COV_SMALL_ITERS, dev)
     phase_small_sampled(args.small_rows, dev)
     phase_small_mask(args.small_rows, Xc, yc, dev)
+    phase_small_objectives(args.small_rows, args.small_iters, dev)
+    phase_small_rank(dev)
     log(f"small end to end in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
@@ -2024,6 +2384,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     sampled_counts, _ = phase_sampled(*higgs, dev, full["iter_seconds"])
     log(f"higgs-10.5M-bagging and higgs-10.5M-goss in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    obj_counts, _ = phase_full_objectives(*higgs, dev)
+    log(f"higgs-10.5M regression cells in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     q_counts, quant = phase_quantized(*higgs, dev, full["auc"])
     del higgs
@@ -2034,6 +2397,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     goss_counts, cov_goss = phase_covertype_goss(cov, Xc[nc:], yc[nc:], dev)
     log(f"covertype-581k-goss in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rank_counts, _ = phase_rank(dev)
+    log(f"mslr-web10k-shaped in {time.perf_counter() - t0:.1f} s")
     # B8 and B9 at their cells' mean selected rows per launch, and each
     # cell's device time an iteration in them (its profile window)
     t0 = time.perf_counter()
@@ -2056,11 +2422,17 @@ def main(argv=None):
         if prof:
             kern[name].update(device_window(prof[name]))
 
+    # B1 and B10 by objective kind: each kind's error and times
+    for name, kinds in (("update_and_root_hist", b1_kinds), ("update_channels", b10_kinds)):
+        kern[name]["kinds"] = kinds
+        kern[name]["max_abs_err"] = max([kern[name]["max_abs_err"]]
+                                        + [v["max_abs_err"] for v in kinds.values()])
+
     entries = []
     for name in KERNEL_NAMES:
         k = kern[name]
-        launches = sum(c[name] for c in [counts, q_counts, goss_counts] + cov_counts
-                       + sampled_counts)
+        launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts]
+                       + cov_counts + sampled_counts + obj_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,
@@ -2069,7 +2441,8 @@ def main(argv=None):
                             library_ms=k["library_ms"],
                             **{x: v for x, v in k.items()
                                if x.startswith(("single", "tail", "library_single", "wide",
-                                                "path", "device", "sel_mul", "ova", "empty"))}))
+                                                "path", "device", "sel_mul", "ova", "empty",
+                                                "kinds"))}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

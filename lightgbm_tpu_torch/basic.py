@@ -28,8 +28,8 @@ class Dataset:
     """Lazily-constructed binned dataset over a dense float matrix."""
 
     def __init__(self, data, label=None, max_bin: Optional[int] = None,
-                 reference: Optional["Dataset"] = None, weight=None, init_score=None,
-                 feature_name="auto", categorical_feature="auto",
+                 reference: Optional["Dataset"] = None, weight=None, group=None,
+                 init_score=None, feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None):
         if isinstance(data, str):
             raise NotImplementedError("lightgbm_tpu_torch does not load data files yet")
@@ -37,6 +37,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group  # per-query sizes of a ranking task
         self.init_score = init_score
         self.params = dict(params) if params else {}
         if max_bin is not None:
@@ -69,11 +70,47 @@ class Dataset:
                     cats.append(int(c))
         ref = self.reference.construct() if self.reference is not None else None
         self._constructed = BinnedDataset.from_raw(
-            self.data, cfg, label=self.label, weight=self.weight, init_score=self.init_score,
-            feature_names=names, categorical_features=cats, reference=ref)
+            self.data, cfg, label=self.label, weight=self.weight, group=self.group,
+            init_score=self.init_score, feature_names=names, categorical_features=cats,
+            reference=ref)
         return self._constructed
 
+    def set_group(self, group) -> "Dataset":
+        """Per-query sizes of a ranking task (Metadata::SetQuery)."""
+        self.group = group
+        if self._constructed is not None:
+            self._constructed.metadata.set_query(group)
+        return self
+
+    def get_group(self):
+        return None if self.group is None else np.asarray(self.group)
+
+    def get_label(self):
+        if self._constructed is not None:
+            return np.asarray(self._constructed.metadata.label)
+        return None if self.label is None else np.asarray(self.label)
+
+    def get_weight(self):
+        if self._constructed is not None:
+            w = self._constructed.metadata.weights
+        else:
+            w = self.weight
+        return None if w is None else np.asarray(w)
+
+    @classmethod
+    def _of_binned(cls, binned: BinnedDataset) -> "Dataset":
+        """A constructed Dataset over ``binned`` (no raw data): what a
+        custom metric receives for a validation set."""
+        ds = cls.__new__(cls)
+        ds.data = None
+        ds._constructed = binned
+        qb = binned.metadata.query_boundaries
+        ds.group = None if qb is None else np.diff(qb)
+        return ds
+
     def num_data(self) -> int:
+        if self._constructed is not None:
+            return self._constructed.num_data
         return self.data.shape[0]
 
     def num_feature(self) -> int:
@@ -142,9 +179,20 @@ class Booster:
         self._num_datasets += 1
         return self
 
-    def update(self) -> bool:
-        """One boosting iteration; True when training should stop."""
-        return self.boosting.train_iters(1)
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        """One boosting iteration; True when training should stop.  With
+        a custom objective ``fobj(preds, train_set) -> (grad, hess)``
+        (LGBM_BoosterUpdateOneIterCustom), ``preds`` are the raw training
+        scores, (N,) or class-major (K*N,), and the iteration trains on
+        the gradients it returns."""
+        if fobj is None:
+            return self.boosting.train_iters(1)
+        grad, hess = fobj(self._raw_train_scores(), self.train_dataset)
+        return self.boosting.train_one_iter_custom(grad, hess)
+
+    def _raw_train_scores(self) -> np.ndarray:
+        sc = self.boosting.train_score_host()
+        return sc[0] if sc.shape[0] == 1 else sc.reshape(-1)
 
     def current_iteration(self) -> int:
         return self.boosting.current_iteration()
@@ -154,27 +202,41 @@ class Booster:
         return self.boosting.num_trees
 
     # ------------------------------------------------------------------
-    def eval_train(self):
+    def eval_train(self, feval=None):
         """[(data name, metric name, value, bigger_is_better), ...] of the
-        training set's metrics."""
-        return self._inner_eval("training", 0)
+        training set's metrics, then of ``feval``'s."""
+        return self._inner_eval("training", 0, feval)
 
-    def eval_valid(self):
+    def eval_valid(self, feval=None):
         """The same for every validation set, in the order added."""
         out = []
         for name, idx in self._name_to_index.items():
-            out.extend(self._inner_eval(name, idx))
+            out.extend(self._inner_eval(name, idx, feval))
         return out
 
-    def eval(self, data: Dataset, name: str):
+    def eval(self, data: Dataset, name: str, feval=None):
         """The metrics of the validation set added as ``name``."""
         if name not in self._name_to_index:
             Log.fatal("Dataset %s was not added with add_valid", name)
-        return self._inner_eval(name, self._name_to_index[name])
+        return self._inner_eval(name, self._name_to_index[name], feval)
 
-    def _inner_eval(self, data_name: str, data_idx: int):
-        return [(data_name, name, val, bigger)
-                for name, val, bigger in self.boosting.get_eval_at(data_idx)]
+    def _inner_eval(self, data_name: str, data_idx: int, feval=None):
+        """The configured metrics, then a custom ``feval(preds, data) ->
+        (name, value, bigger_is_better)`` (or a list of them) on the raw
+        scores, (N,) or class-major (K*N,)."""
+        results = [(data_name, name, val, bigger)
+                   for name, val, bigger in self.boosting.get_eval_at(data_idx)]
+        if feval is not None:
+            if data_idx == 0:
+                preds, fdata = self._raw_train_scores(), self.train_dataset
+            else:
+                sc = self.boosting.valid_score_host(data_idx - 1)
+                preds = sc[0] if sc.shape[0] == 1 else sc.reshape(-1)
+                fdata = Dataset._of_binned(self.boosting.valid_sets[data_idx - 1])
+            ret = feval(preds, fdata)
+            for name, val, bigger in [ret] if isinstance(ret, tuple) else ret:
+                results.append((data_name, name, val, bigger))
+        return results
 
     # ------------------------------------------------------------------
     def predict(self, data, num_iteration: int = -1,

@@ -38,30 +38,87 @@ __device__ __forceinline__ float f32_at(const int32_t* P, long long ld, int row,
 }
 
 // The row-local objectives of the single-tree update kernels
-// (update_hist.cu, update_channels.cu), chosen at compile time.
-enum ObjKind { kBinary = 0, kL2 = 1 };
+// (update_hist.cu, update_channels.cu), chosen at compile time.  Each
+// kind reads up to three float constants (objective/*.py
+// kernel_params):
+//   kBinary   p0 = sigmoid, p1 = w_pos, p2 = w_neg
+//   kL2       -
+//   kL1       p0 = gaussian_eta
+//   kHuber    p0 = gaussian_eta, p1 = huber_delta
+//   kFair     p0 = fair_c, p1 = fair_c * fair_c (rounded once)
+//   kPoisson  p0 = poisson_max_delta_step
+// A source dispatches on every kind by name and returns
+// cudaErrorInvalidValue for any other value.
+enum ObjKind { kBinary = 0, kL2 = 1, kL1 = 2, kHuber = 3, kFair = 4, kPoisson = 5 };
+constexpr int kNumObjKinds = 6;
 
+// float32(sqrt(2 pi)) and float32(1e-10), as the JAX expressions round them
+constexpr float kSqrt2Pi = 2.5066282749176025f;
+constexpr float kMinC = 1.0e-10f;
+
+// Common::ApproximateHessianWithGaussian as objective/regression.py
+// _gaussian_hessian evaluates it, operation for operation (the build
+// passes -fmad=false, so no two of them contract); w is the row weight
+// (1 without weights: every product by it is then exact).
+__device__ __forceinline__ float gaussian_hessian(float score, float label, float grad,
+                                                  float eta, float w) {
+  const float x = fabsf(score - label);
+  const float a = (2.0f * fabsf(grad)) * w;
+  const float c = fmaxf((fabsf(score) + fabsf(label)) * eta, kMinC);
+  const float e = exp_f32((-x * x) / ((2.0f * c) * c));
+  return ((w * e) * a) / (c * kSqrt2Pi);
+}
+
+// (g, h) of one row; w is the row weight, 1 when use_weight is 0.  L1
+// and Huber take the weight inside (as the reference writes them), the
+// others multiply by it afterwards.
 template <int KIND>
-__device__ __forceinline__ void gradients(float score, float label, float weight, int use_weight,
-                                          float sigmoid, float w_pos, float w_neg, float* g,
-                                          float* h) {
+__device__ __forceinline__ void gradients(float score, float label, float w, int use_weight,
+                                          float p0, float p1, float p2, float* g, float* h) {
+  static_assert(KIND >= 0 && KIND < kNumObjKinds, "unknown objective kind");
   if (KIND == kBinary) {
     // objective/binary.py gradients_rowwise (binary_objective.hpp:95-99)
-    bool pos = label > 0.0f;
-    float sign = pos ? 1.0f : -1.0f;
-    float lw = pos ? w_pos : w_neg;
-    float response = (-sign * sigmoid) / (1.0f + exp_f32(sign * sigmoid * score));
-    float ar = fabsf(response);
+    const bool pos = label > 0.0f;
+    const float sign = pos ? 1.0f : -1.0f;
+    const float lw = pos ? p1 : p2;
+    const float response = (-sign * p0) / (1.0f + exp_f32(sign * p0 * score));
+    const float ar = fabsf(response);
     *g = response * lw;
-    *h = ar * (sigmoid - ar) * lw;
-  } else {
+    *h = ar * (p0 - ar) * lw;
+  } else if (KIND == kL2) {
     // objective/regression.py RegressionL2Loss
     *g = score - label;
     *h = 1.0f;
+  } else if (KIND == kL1) {
+    // RegressionL1Loss: sign(diff) * w, the Gaussian hessian
+    *g = (score - label >= 0.0f ? 1.0f : -1.0f) * w;
+    *h = gaussian_hessian(score, label, *g, p0, w);
+    return;
+  } else if (KIND == kHuber) {
+    // RegressionHuberLoss: quadratic inside |diff| <= delta
+    const float diff = score - label;
+    if (fabsf(diff) <= p1) {
+      *g = diff * w;
+      *h = 1.0f * w;
+    } else {
+      *g = (diff >= 0.0f ? p1 : -p1) * w;
+      *h = gaussian_hessian(score, label, *g, p0, w);
+    }
+    return;
+  } else if (KIND == kFair) {
+    // RegressionFairLoss: c*x/(|x|+c), c^2/(|x|+c)^2
+    const float x = score - label;
+    const float ax_c = fabsf(x) + p0;
+    *g = (p0 * x) / ax_c;
+    *h = p1 / (ax_c * ax_c);
+  } else {
+    // RegressionPoissonLoss: raw-score space, hess = score + max_delta_step
+    *g = score - label;
+    *h = score + p0;
   }
   if (use_weight) {
-    *g = *g * weight;
-    *h = *h * weight;
+    *g = *g * w;
+    *h = *h * w;
   }
 }
 
@@ -157,7 +214,9 @@ inline int num_sms() {
 namespace {
 
 constexpr int kMaxDevices = 64;
-constexpr int kMaxKernelSlots = 8;
+// four histogram kernels an objective kind (update_hist.cu's slot0 =
+// 4 * kind) in the source that has the most
+constexpr int kMaxKernelSlots = 4 * kNumObjKinds;
 
 // Each device's SM count and opt-in shared-memory limit, and the dynamic
 // shared memory each kernel slot opted in to there (an attribute of the

@@ -32,7 +32,7 @@ struct ChanArgs {
   const float* delta;  // (n,) or null
   const float* sel;    // (n,) or null
   int row_g, row_h, row_sel, row_score, row_label, row_weight, use_weight;
-  float sigmoid, w_pos, w_neg;
+  float p0, p1, p2;  // the objective's constants (common.cuh ObjKind)
 };
 
 template <int KIND>
@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(kThreads) update_channels_kernel(ChanArgs a) {
     const float label = f32_at(a.P, a.ld, a.row_label, r);
     const float w = a.use_weight ? f32_at(a.P, a.ld, a.row_weight, r) : 1.0f;
     float g, h;
-    gradients<KIND>(score, label, w, a.use_weight, a.sigmoid, a.w_pos, a.w_neg, &g, &h);
+    gradients<KIND>(score, label, w, a.use_weight, a.p0, a.p1, a.p2, &g, &h);
     a.P[(long long)a.row_g * a.ld + r] = __float_as_int(g);
     a.P[(long long)a.row_h * a.ld + r] = __float_as_int(h);
     if (a.sel) a.P[(long long)a.row_sel * a.ld + r] = __float_as_int(a.sel[r]);
@@ -56,10 +56,13 @@ __global__ void __launch_bounds__(kThreads) update_channels_kernel(ChanArgs a) {
 
 }  // namespace lgbt
 
+// obj_kind: a common.cuh ObjKind (any other value: cudaErrorInvalidValue,
+// nothing launched); p0..p2 its constants.
 extern "C" int lgbt_update_channels(void* P, long long ld, int n, void* delta, void* sel,
                                     int row_g, int row_h, int row_sel, int row_score,
                                     int row_label, int row_weight, int use_weight, int obj_kind,
-                                    float sigmoid, float w_pos, float w_neg, void* stream) {
+                                    float p0, float p1, float p2, void* stream) {
+  if (obj_kind < 0 || obj_kind >= lgbt::kNumObjKinds) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   lgbt::ChanArgs a;
   a.P = (int32_t*)P;
@@ -74,16 +77,21 @@ extern "C" int lgbt_update_channels(void* P, long long ld, int n, void* delta, v
   a.row_label = row_label;
   a.row_weight = row_weight;
   a.use_weight = use_weight;
-  a.sigmoid = sigmoid;
-  a.w_pos = w_pos;
-  a.w_neg = w_neg;
+  a.p0 = p0;
+  a.p1 = p1;
+  a.p2 = p2;
   long long want = ((long long)n + lgbt::kThreads - 1) / lgbt::kThreads;
   int grid = (int)std::min<long long>(want, 16LL * lgbt::num_sms());
   cudaStream_t s = (cudaStream_t)stream;
-  if (obj_kind == lgbt::kBinary) {
-    lgbt::update_channels_kernel<lgbt::kBinary><<<grid, lgbt::kThreads, 0, s>>>(a);
-  } else {
-    lgbt::update_channels_kernel<lgbt::kL2><<<grid, lgbt::kThreads, 0, s>>>(a);
+  using namespace lgbt;
+  switch (obj_kind) {
+    case kBinary: update_channels_kernel<kBinary><<<grid, kThreads, 0, s>>>(a); break;
+    case kL2: update_channels_kernel<kL2><<<grid, kThreads, 0, s>>>(a); break;
+    case kL1: update_channels_kernel<kL1><<<grid, kThreads, 0, s>>>(a); break;
+    case kHuber: update_channels_kernel<kHuber><<<grid, kThreads, 0, s>>>(a); break;
+    case kFair: update_channels_kernel<kFair><<<grid, kThreads, 0, s>>>(a); break;
+    case kPoisson: update_channels_kernel<kPoisson><<<grid, kThreads, 0, s>>>(a); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,7 @@ struct SingleUpd {
   const float* sel;    // (n,) or null
   const float* mul;    // (n,) or null: g, h *= mul before they are written
   int row_g, row_h, row_sel, row_score, row_label, row_weight, use_weight;
-  float sigmoid, w_pos, w_neg;
+  float p0, p1, p2;  // the objective's constants (common.cuh ObjKind)
 
   // refresh row r in place; v = (g*sel, h*sel); returns sel
   __device__ __forceinline__ float update(long long r, float* v) const {
@@ -38,7 +38,7 @@ struct SingleUpd {
     const float label = f32_at(P, ld, row_label, r);
     const float w = use_weight ? f32_at(P, ld, row_weight, r) : 1.0f;
     float g, h;
-    gradients<KIND>(score, label, w, use_weight, sigmoid, w_pos, w_neg, &g, &h);
+    gradients<KIND>(score, label, w, use_weight, p0, p1, p2, &g, &h);
     if (mul) {
       const float m = mul[r];
       g = g * m;
@@ -67,11 +67,13 @@ struct SingleUpd {
 
 // ticket: one zeroed unsigned; acc: F*B*3 zeroed float64 cells; hist:
 // (F, B, 3) float32 out (all three unused when with_hist is 0).
+// obj_kind: a common.cuh ObjKind (any other value: cudaErrorInvalidValue,
+// nothing launched); p0..p2 its constants.
 extern "C" int lgbt_update_root_hist(void* P, long long ld, int n, void* delta, void* sel,
                                      void* mul, int with_hist,
                                      int row_g, int row_h, int row_sel, int row_score,
                                      int row_label, int row_weight, int use_weight, int obj_kind,
-                                     float sigmoid, float w_pos, float w_neg, int nf, int nb,
+                                     float p0, float p1, float p2, int nf, int nb,
                                      int bits, void* ticket, void* acc, void* hist, void* stream) {
   lgbt::UpdHist h{};
   h.nf = nf;
@@ -83,7 +85,8 @@ extern "C" int lgbt_update_root_hist(void* P, long long ld, int n, void* delta, 
   h.acc = (lgbt::hacc*)acc;
   h.out = (float*)hist;
   cudaStream_t s = (cudaStream_t)stream;
-  auto run = [&](auto u, int slot0) {
+  // each kind's four histogram kernels own slots 4 * kind .. 4 * kind + 3
+  auto run = [&](auto u, int kind) {
     u.P = (int32_t*)P;
     u.ld = ld;
     u.n = n;
@@ -97,11 +100,19 @@ extern "C" int lgbt_update_root_hist(void* P, long long ld, int n, void* delta, 
     u.row_label = row_label;
     u.row_weight = row_weight;
     u.use_weight = use_weight;
-    u.sigmoid = sigmoid;
-    u.w_pos = w_pos;
-    u.w_neg = w_neg;
-    return lgbt::run_update_hist(u, h, with_hist, slot0, s);
+    u.p0 = p0;
+    u.p1 = p1;
+    u.p2 = p2;
+    return lgbt::run_update_hist(u, h, with_hist, 4 * kind, s);
   };
-  if (obj_kind == lgbt::kBinary) return run(lgbt::SingleUpd<lgbt::kBinary>{}, 0);
-  return run(lgbt::SingleUpd<lgbt::kL2>{}, 4);
+  using namespace lgbt;
+  switch (obj_kind) {
+    case kBinary: return run(SingleUpd<kBinary>{}, kBinary);
+    case kL2: return run(SingleUpd<kL2>{}, kL2);
+    case kL1: return run(SingleUpd<kL1>{}, kL1);
+    case kHuber: return run(SingleUpd<kHuber>{}, kHuber);
+    case kFair: return run(SingleUpd<kFair>{}, kFair);
+    case kPoisson: return run(SingleUpd<kPoisson>{}, kPoisson);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

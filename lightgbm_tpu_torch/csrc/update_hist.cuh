@@ -1,6 +1,7 @@
 // The staged update-and-histogram kernel shared by update_hist.cu (B1,
-// one tree: binary or L2) and update_multi_hist.cu (B2, K trees: softmax
-// or one-vs-all), for Hopper (sm_90a).
+// one tree: the row-local objectives of common.cuh ObjKind) and
+// update_multi_hist.cu (B2, K trees: softmax or one-vs-all), for Hopper
+// (sm_90a).
 //
 // Both functions make one pass over the first n rows of the packed
 // matrix: a row's channels are refreshed in place (scores, gradients,

@@ -165,6 +165,9 @@ extern "C" int lgbt_update_multi_hist(void* P, long long ld, int n, void* sel, i
     }
     return lgbt::run_update_hist(u, h, 1, slot0, s);
   };
-  if (kind == lgbt::kSoftmax) return run(lgbt::MultiUpd<lgbt::kSoftmax>{}, 0);
-  return run(lgbt::MultiUpd<lgbt::kOva>{}, 4);
+  switch (kind) {
+    case lgbt::kSoftmax: return run(lgbt::MultiUpd<lgbt::kSoftmax>{}, 0);
+    case lgbt::kOva: return run(lgbt::MultiUpd<lgbt::kOva>{}, 4);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

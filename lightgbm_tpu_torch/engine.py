@@ -4,12 +4,17 @@ metrics, callbacks and early stopping.
 
 Three loops, as in the JAX package:
 
-- no validation set, no before-iteration callback and no early stopping:
-  the trainer runs every iteration in one chunk; the after-iteration
-  callbacks then see each iteration with no results;
-- ``output_freq`` > 1: chunks of ``output_freq`` iterations, evaluated
-  and passed to the callbacks at each chunk's end;
+- no validation set, no before-iteration callback, no early stopping
+  and no custom objective: the trainer runs every iteration in one
+  chunk; the after-iteration callbacks then see each iteration with no
+  results;
+- ``output_freq`` > 1 and no custom objective: chunks of ``output_freq``
+  iterations, evaluated and passed to the callbacks at each chunk's end;
 - otherwise one iteration at a time, evaluated after each.
+
+A custom objective ``fobj`` sets ``objective`` to ``none`` unless the
+parameters name one, so the mask grower trains on its gradients; a
+custom metric ``feval`` joins every evaluation.
 """
 
 from __future__ import annotations
@@ -22,11 +27,12 @@ from .basic import Booster, Dataset
 from .config import canonicalize_params
 from .utils.log import Log
 
-_NOT_YET = ("fobj", "feval", "init_model", "checkpoint_dir", "checkpoint_manager")
+_NOT_YET = ("init_model", "checkpoint_dir", "checkpoint_manager")
 
 
 def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
-          valid_sets=None, valid_names=None, early_stopping_rounds: Optional[int] = None,
+          valid_sets=None, valid_names=None, fobj=None, feval=None,
+          early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[dict] = None, verbose_eval=True, learning_rates=None,
           callbacks=None, device=None, **kwargs) -> Booster:
     """Train a booster on ``device`` (``None``: the CUDA card; raises when
@@ -38,9 +44,12 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
     ``early_stopping_round`` parameter) stops when no validation metric
     improved for that many iterations and sets ``best_iteration`` and
     ``best_score``; ``evals_result`` receives the history;
-    ``learning_rates`` is a list or a function of the iteration.  Custom
-    objectives and metrics (``fobj``, ``feval``), ``init_model`` and
-    checkpoints are not ported yet and raise NotImplementedError."""
+    ``learning_rates`` is a list or a function of the iteration.
+    ``fobj(preds, train_set) -> (grad, hess)`` is a custom objective on
+    the raw scores; ``feval(preds, data) -> (name, value,
+    bigger_is_better)`` (or a list of them) a custom metric.
+    ``init_model`` and checkpoints are not ported yet and raise
+    NotImplementedError."""
     for name in _NOT_YET:
         if kwargs.pop(name, None) is not None:
             raise NotImplementedError(f"lightgbm_tpu_torch does not support {name} yet")
@@ -56,6 +65,8 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
                   "num_rounds", "num_boost_round", "early_stopping_round",
                   "early_stopping_rounds", "early_stopping"):
         params.pop(alias, None)
+    if fobj is not None:
+        params.setdefault("objective", "none")
 
     booster = Booster(params=params, train_set=train_set, device=device)
 
@@ -95,8 +106,8 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
         results = []
         if name_list:
             if eval_train:
-                results.extend(booster.eval_train())
-            results.extend(booster.eval_valid())
+                results.extend(booster.eval_train(feval))
+            results.extend(booster.eval_valid(feval))
         return results
 
     def after(i, results) -> bool:
@@ -112,14 +123,14 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
         return False
 
     period = int(canon.get("output_freq", 1))
-    if not name_list and not cbs_before and not early_stopping_rounds:
+    if fobj is None and not name_list and not cbs_before and not early_stopping_rounds:
         # one chunk: nothing to decide between iterations
         iter_before = gbdt.iter
         gbdt.train_iters(num_boost_round)
         for t in range(gbdt.iter - iter_before):
             if after(t, []):
                 break
-    elif not cbs_before and period > 1:
+    elif fobj is None and not cbs_before and period > 1:
         # chunks of output_freq iterations, evaluated at each chunk's end
         # (the reference CLI evaluates at output_freq, application.cpp:225-250)
         i = 0
@@ -138,7 +149,7 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
         for i in range(num_boost_round):
             for cb in cbs_before:
                 cb(callback_mod.CallbackEnv(booster, params, i, 0, num_boost_round, None))
-            finished = booster.update()
+            finished = booster.update(fobj=fobj)
             if after(i, evaluate()):
                 break
             if finished:

@@ -5,11 +5,13 @@ Each metric evaluates with torch ops on the scores' device, in float64
 (the JAX package's host path evaluates in float64 numpy; the reference
 reduces into ``double sum_loss``).  One function per metric: the JAX
 package's second, device copy (metric/device.py) is not carried over.
-The ranking metrics (NDCG, MAP) wait for the ranking objective.
+The ranking metrics (NDCG, MAP) evaluate query by query on the host in
+float64 numpy, as the JAX package's do.
 """
 
 from .binary import AUCMetric, BinaryErrorMetric, BinaryLoglossMetric
 from .multiclass import MultiErrorMetric, MultiLoglossMetric
+from .rank import MapMetric, NDCGMetric
 from .regression import (
     FairMetric,
     HuberMetric,
@@ -47,6 +49,10 @@ _FACTORY = {
     "ova": MultiLoglossMetric,
     "ovr": MultiLoglossMetric,
     "multi_error": MultiErrorMetric,
+    "ndcg": NDCGMetric,
+    "lambdarank": NDCGMetric,
+    "map": MapMetric,
+    "mean_average_precision": MapMetric,
 }
 
 
@@ -73,8 +79,10 @@ __all__ = [
     "HuberMetric",
     "L1Metric",
     "L2Metric",
+    "MapMetric",
     "MultiErrorMetric",
     "MultiLoglossMetric",
+    "NDCGMetric",
     "PoissonMetric",
     "RMSEMetric",
 ]

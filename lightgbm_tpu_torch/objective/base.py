@@ -18,8 +18,11 @@ class ObjectiveFunction:
     """``gradients_rowwise(score, label, weight) -> (grad, hess)`` is
     float32 elementwise torch math on the row's own values, in any row
     order (the partitioned trainer's channels).  ``kernel_params()`` hands
-    the same math to the CUDA update kernel as (kind, sigmoid, w_pos,
-    w_neg)."""
+    the same math to the CUDA update kernels as (kind, p0, p1, p2): the
+    kind of csrc/common.cuh ``ObjKind`` and three float32 constants
+    (binary: sigmoid, w_pos, w_neg; the regression objectives:
+    objective/regression.py).  An objective that is not row-local
+    (lambdarank) has ``get_gradients(score)`` over all rows instead."""
 
     name = "none"
     # gradients depend only on the row's own (score, label, weight)

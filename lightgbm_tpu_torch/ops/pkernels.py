@@ -269,13 +269,13 @@ def update_and_root_hist(p, layout: PLayout, objective, delta=None, sel=None, mu
     cells = num_features * num_bins * 3
     hist = torch.empty((num_features, num_bins, 3), dtype=torch.float32,
                        device=p.device) if with_hist else None
-    kind, sigmoid, w_pos, w_neg = objective.kernel_params()
+    kind, p0, p1, p2 = objective.kernel_params()
     lib = _build.lib()
     with stream_workspace(p, 0, cells if with_hist else 0) as (w, stream):
         rc = lib.lgbt_update_root_hist(
             p.data_ptr(), p.shape[1], n, *(None if v is None else v.data_ptr() for v in (d, s, m)),
             int(bool(with_hist)), layout.G, layout.H, layout.SEL, layout.SCORE, layout.LABEL,
-            layout.WEIGHT, int(_use_weight(layout, objective)), kind, sigmoid, w_pos, w_neg,
+            layout.WEIGHT, int(_use_weight(layout, objective)), kind, p0, p1, p2,
             num_features, num_bins, bits, w.ticket_ptr, w.cells.data_ptr(),
             None if hist is None else hist.data_ptr(), stream)
     _build.check(rc, "update_and_root_hist")
@@ -320,13 +320,13 @@ def update_channels(p, layout: PLayout, objective, delta=None, sel=None, k_class
     if not 0 <= k_class < layout.num_score:
         raise ValueError(f"score channel {k_class} of {layout.num_score}")
     d, s = (_vec(v, n, p.device) if v is not None else None for v in (delta, sel))
-    kind, sigmoid, w_pos, w_neg = objective.kernel_params()
+    kind, p0, p1, p2 = objective.kernel_params()
     with torch.cuda.device(p.device):
         rc = _build.lib().lgbt_update_channels(
             p.data_ptr(), p.shape[1], n, None if d is None else d.data_ptr(),
             None if s is None else s.data_ptr(), layout.G, layout.H, layout.SEL,
             layout.SCORE + k_class, layout.LABEL, layout.WEIGHT,
-            int(_use_weight(layout, objective)), kind, sigmoid, w_pos, w_neg, raw_stream(p))
+            int(_use_weight(layout, objective)), kind, p0, p1, p2, raw_stream(p))
     _build.check(rc, "update_channels")
     update_channels.launches += 1
     return p

@@ -61,6 +61,12 @@ def _objective(name, label, weight, **params):
     return obj
 
 
+# every row-local objective of B1 and B10 (csrc/common.cuh ObjKind), with
+# the parameters that put Huber's rows on both sides of its delta
+KINDS = ["binary", "regression", "regression_l1", "huber", "fair", "poisson"]
+KIND_PARAMS = {"huber": {"huber_delta": 0.3}, "fair": {"fair_c": 0.7}}
+
+
 def _assert_hist(hk, hr):
     hk, hr = hk.cpu().double(), hr.cpu().double()
     assert torch.equal(hk[..., 2], hr[..., 2])
@@ -69,10 +75,10 @@ def _assert_hist(hk, hr):
         assert float(err) <= 1e-5
 
 
-@pytest.mark.parametrize("objective", ["binary", "regression"])
+@pytest.mark.parametrize("objective", KINDS)
 def test_update_and_root_hist(dev, objective):
     P, lay, label, weight = _packed()
-    obj = _objective(objective, label, weight)
+    obj = _objective(objective, label, weight, **KIND_PARAMS.get(objective, {}))
     delta = torch.from_numpy(np.random.default_rng(1).standard_normal(N).astype(np.float32))
     Pk, Pr = P.to(dev), P.to(dev)
     before = pk.update_and_root_hist.launches
@@ -384,11 +390,11 @@ def test_train_cuda_matches_cpu(dev):
     np.testing.assert_allclose(bc.predict(X), bp.predict(X), rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("objective", ["binary", "regression"])
+@pytest.mark.parametrize("objective", KINDS)
 @pytest.mark.parametrize("with_sel", [False, True])
 def test_update_channels(dev, objective, with_sel):
     P, lay, label, weight = _packed()
-    obj = _objective(objective, label, weight)
+    obj = _objective(objective, label, weight, **KIND_PARAMS.get(objective, {}))
     rng = np.random.default_rng(4)
     delta = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
     sel = torch.from_numpy((rng.random(N) < 0.5).astype(np.float32)) if with_sel else None
@@ -401,10 +407,10 @@ def test_update_channels(dev, objective, with_sel):
     assert torch.equal(Pk, Pr)
 
 
-@pytest.mark.parametrize("objective", ["binary", "regression"])
+@pytest.mark.parametrize("objective", KINDS)
 def test_update_and_root_hist_sel_mul(dev, objective):
     P, lay, label, weight = _packed()
-    obj = _objective(objective, label, weight)
+    obj = _objective(objective, label, weight, **KIND_PARAMS.get(objective, {}))
     rng = np.random.default_rng(5)
     sel = torch.from_numpy((rng.random(N) < 0.4).astype(np.float32))
     mul = torch.from_numpy(np.where(rng.random(N) < 0.3, 7.0, 1.0).astype(np.float32))
@@ -419,6 +425,59 @@ def test_update_and_root_hist_sel_mul(dev, objective):
     Pn = P.to(dev)
     _, none = pk.update_and_root_hist(Pn, lay, obj, with_hist=False, **kw)
     assert none is None and torch.equal(Pn, Pk)
+
+
+class _UnknownKind:
+    """An objective whose kernel kind no source knows."""
+
+    weights = None
+
+    def kernel_params(self):
+        return (99, 1.0, 1.0, 1.0)
+
+
+def test_unknown_objective_kind_raises(dev):
+    """B1 and B10 dispatch on every kind by name: another kind launches
+    nothing and the wrapper raises, instead of training L2."""
+    P, lay, _, _ = _packed()
+    Pk = P.to(dev)
+    before = (pk.update_and_root_hist.launches, pk.update_channels.launches)
+    with pytest.raises(RuntimeError, match="update_and_root_hist"):
+        pk.update_and_root_hist(Pk, lay, _UnknownKind(), num_rows=N, num_features=F,
+                                num_bins=32)
+    with pytest.raises(RuntimeError, match="update_and_root_hist"):
+        pk.update_and_root_hist(Pk, lay, _UnknownKind(), num_rows=N, num_features=F,
+                                num_bins=32, with_hist=False)
+    with pytest.raises(RuntimeError, match="update_channels"):
+        pk.update_channels(Pk, lay, _UnknownKind(), num_rows=N)
+    torch.cuda.synchronize()
+    assert (pk.update_and_root_hist.launches, pk.update_channels.launches) == before
+    assert torch.equal(Pk, P.to(dev))
+
+
+@pytest.mark.parametrize("objective", KINDS[2:])
+def test_train_objectives_cuda_matches_cpu(dev, objective):
+    """Each regression objective on the fused path: the card's model
+    text equals the CPU's (both take the correctly rounded exp, no FMA,
+    histograms rounded once)."""
+    import lightgbm_tpu_torch as lgt
+
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((20000, 8)).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 1] + 0.3 * rng.standard_normal(20000)).astype(np.float32)
+    if objective == "poisson":
+        y = rng.poisson(np.exp(0.5 * X[:, 0])).astype(np.float32)
+    params = dict(objective=objective, num_leaves=31, learning_rate=0.2, max_bin=31,
+                  min_data_in_leaf=20, verbose=-1, **KIND_PARAMS.get(objective, {}))
+    pk.reset_launch_counts()
+    bc = lgt.train(params, lgt.Dataset(X, label=y), 3)
+    assert pk.launch_counts()["update_and_root_hist"] == 3
+    bp = lgt.train(params, lgt.Dataset(X, label=y), 3, device="cpu")
+
+    def text(b):
+        return b.model_to_string().split("feature importances:")[0]
+
+    assert text(bc) == text(bp)
 
 
 # update kernels' edge cases, (rows, features, bins, bits, select, every

@@ -159,8 +159,10 @@ DECLINED = [
     ("monotone constraints", dict(monotone_constraints=[1, 0, 0, 0]), {}),
     ("tree_learner=data", dict(tree_learner="data"), {}),
     ("out-of-core training", dict(out_of_core=True), {}),
+    # objective=binary (below) takes the partitioned trainer, which
+    # trains no given gradients: a custom objective runs with objective=none
     ("fobj", {}, dict(fobj=lambda preds, data: (preds, preds))),
-    ("feval", {}, dict(feval=lambda preds, data: ("m", 0.0, False))),
+    ("checkpoint_dir", {}, dict(checkpoint_dir="ckpt")),
     ("init_model", {}, dict(init_model="model.txt")),
 ]
 # the reference's own error (goss.py:38); the rest are not ported yet
