@@ -48,11 +48,17 @@ result line):
      leaves) quantized binary and quantized L2 on --small-rows x 28 (5
      iterations) and multiclass GOSS on the 100,000 Covertype-shaped rows
      (4 iterations at learning_rate 0.5: 2 warm-up, 2 sampled); then
-     each regression objective on --small-rows x 28 (--small-iters
-     iterations) and Huber with GOSS (4 iterations at learning_rate 0.5)
+     each regression objective on --small-rows x 28 (2 iterations) and
+     Huber with GOSS (4 iterations at learning_rate 0.5)
      on the fused path, 0 differing splits required; then lambdarank on
      the mask grower on ~20k documents of 170 mslr-web10k-shaped queries
-     (3 iterations);
+     (3 iterations); then the API's paths (phase_small_api) on the
+     binary and K=7 boosters above: init_model continuing them by 3
+     iterations, an LGBMClassifier fit whose model text must equal
+     lgt.train's, DART on the mask grower (31 leaves, 6 iterations, the
+     drop indices of each equal), and rollback_one_iter then update() at
+     K=1 (the delta off the band through score_add) and K=7 (the band
+     rewritten), each card against CPU;
   5. "higgs-10.5M" at full width: Higgs-shaped binary data (--rows plus a
      500k held-out set), max_bin=63, num_leaves=255, learning_rate=0.1,
      min_data_in_leaf=1, min_sum_hessian_in_leaf=100, --iters
@@ -86,7 +92,7 @@ result line):
      and update_channels' launches;
   5c'. the regression cells: the Higgs cell's binned data and
      parameters with objective regression_l1, huber (huber_delta 0.3),
-     fair and poisson, the 0/1 labels as targets, 5 iterations each on
+     fair and poisson, the 0/1 labels as targets, 3 iterations each on
      the fused path; prints s/iter, the objective's metric on the 500k
      held-out rows, peak memory and the host syncs of a tree (replayed
      under "error") and of a chunk;
@@ -95,6 +101,20 @@ result line):
      iterations; prints s/iter, the held-out AUC (within 0.005 of the
      Higgs cell's), peak memory, hist_segment_q's launches, a 3-iteration
      profiler window and the host syncs of one more iteration;
+  5e. the API at full width (phase_api) on the Higgs cell's data, its
+     500k held-out rows and the main run's booster: an LGBMClassifier
+     with TRAIN_PARAMS' config fits 10 estimators with an eval set and
+     early stopping (its trees byte-identical to the main run's); lgt.train
+     continues the main booster by 5 iterations through init_model (its
+     first 20 trees byte-identical); rollback_one_iter then update() (the
+     training scores on 100k rows within 1e-4 of predict, the regrown
+     tree's splits against the popped one's); pred_leaf (leaf values
+     summing to the raw prediction within 1e-5) and the prediction early
+     stop (freq 5, margin 1.0: rows exiting early, |dAUC|, ms); the
+     feature importances; 5-fold cv (five boosters of 8.4M rows on the
+     card at once, 5 rounds; the logloss mean must fall every round);
+     DART (10 iterations on the mask grower, trees dropped each
+     iteration, held-out AUC, host syncs of an iteration);
   6. "covertype-581k" at full width: Covertype-shaped data (581,012 rows,
      54 columns: 10 integer numeric, a 4-column and a 40-column one-hot,
      7 classes at Covertype's counts), the first 464,809 train and the
@@ -195,7 +215,7 @@ MASK_ITERS = 20
 # registered, so its kernels take B1's last four shared-memory slots
 OBJ_KINDS = (("regression_l1", {}), ("huber", {"huber_delta": 0.3}), ("fair", {}),
              ("poisson", {}))
-OBJ_ITERS = 5  # the full-width regression cells
+OBJ_ITERS = 3  # the full-width regression cells (cut from 5 to make room for the API's paths)
 # mslr-web10k-shaped (MSLR-WEB10K Fold1's training set: 723,412 documents
 # in 6,000 queries, 136 features, labels 0-4) and a 2,000-query
 # validation set; LightGBM's GPU-Performance.rst runs MS-LTR this way
@@ -208,6 +228,7 @@ RANK_ITERS = 10
 RANK_SMALL_QUERIES, RANK_SMALL_ITERS = 170, 3  # ~20k documents, card against CPU
 SMALL_MASK_ITERS, SMALL_MASK_LEAVES = 5, 31  # the mask grower's card-vs-CPU phases
 SMALL_GOSS_ITERS = 4  # at learning_rate 0.5: 2 warm-up and 2 sampled iterations
+SMALL_OBJ_ITERS = 2  # each regression objective card vs CPU (cut from --small-iters' 3)
 # Covertype (UCI, Blackard & Dean 1998): rows per class, and the ranges of
 # the 10 integer columns (Elevation, Aspect, Slope, the hydrology
 # distances, roadways, the three hillshades, fire points)
@@ -217,6 +238,16 @@ COV_NUMERIC = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7117
 COV_TRAIN_ROWS = 464_809  # the first 80 %; the last 116,203 are held out
 COV_ITERS = 20
 COV_SMALL_ROWS, COV_SMALL_ITERS = 100_000, 2  # the multiclass card-vs-CPU phase
+# the API's paths: LGBMClassifier's arguments for TRAIN_PARAMS'
+# config, and the depth of each path
+SKLEARN_PARAMS = dict(num_leaves=255, max_bin=63, learning_rate=0.1, min_child_samples=1,
+                      min_child_weight=100)
+API_SMALL_ITERS, SMALL_DART_ITERS = 3, 6  # init_model's 3 + 3; DART card vs CPU
+# the small DART phase drops more often than the defaults (drop_rate 0.1,
+# skip_drop 0.5), so six iterations drop trees to compare
+SMALL_DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", num_leaves=SMALL_MASK_LEAVES,
+                         drop_rate=0.5, skip_drop=0.2)
+API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 5, 10
 DeviceEvent = collections.namedtuple("DeviceEvent", "key count self_device_time_total")
 _TASK_SEED = 20260730  # bench.py: the task's informative weights never vary
 _N_INFORM = 8
@@ -1334,15 +1365,19 @@ def model_splits(text):
 
 
 def phase_small(rows, iters, dev):
-    """The same training on the card and on the CPU (plain versions)."""
+    """The same training on the card and on the CPU (plain versions), from
+    one binned Dataset.  Returns (X, y, the Dataset, {"cuda": booster,
+    "cpu": booster}) for the API phase."""
     import lightgbm_tpu_torch as lgt
 
     X, y = make_higgs_shaped(rows, seed=3)
     Xv, yv = make_higgs_shaped(50_000, seed=4)
-    out = {}
+    out, boosters = {}, {}
+    ds = lgt.Dataset(X, label=y)  # binned once, on the host, for both
     for name, d in (("cuda", dev), ("cpu", "cpu")):
         t0 = time.perf_counter()
-        bst = lgt.train(TRAIN_PARAMS, lgt.Dataset(X, label=y), iters, device=d)
+        bst = lgt.train(TRAIN_PARAMS, ds, iters, device=d)
+        boosters[name] = bst
         p = bst.predict(Xv)
         out[name] = (bst.model_to_string(), p, auc(yv, p))
         log(f"small {name}: {rows}x28, {iters} iterations, {time.perf_counter() - t0:.1f} s, "
@@ -1353,6 +1388,7 @@ def phase_small(rows, iters, dev):
     log(f"small cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} (tol 1e-3), "
         f"|dAUC| {dauc:.3e} (tol 1e-3)")
     assert dpred <= 1e-3 and dauc <= 1e-3
+    return X, y, ds, boosters
 
 
 def phase_small_sampled(rows, dev):
@@ -1365,6 +1401,7 @@ def phase_small_sampled(rows, dev):
     from lightgbm_tpu_torch.ops import pkernels as pk
 
     X, y = make_higgs_shaped(rows, seed=5)
+    ds = lgt.Dataset(X, label=y)
     # bagging redraws at iteration bagging_freq = 5, so it runs 6; GOSS 4
     for name, params, iters in (("bagging", BAG_PARAMS, SMALL_SAMPLED_ITERS),
                                 ("goss", GOSS_PARAMS, SMALL_GOSS_ITERS)):
@@ -1373,7 +1410,7 @@ def phase_small_sampled(rows, dev):
         for where, d in (("cuda", dev), ("cpu", "cpu")):
             t0 = time.perf_counter()
             pk.reset_launch_counts()
-            bst = lgt.train(params, lgt.Dataset(X, label=y), iters, device=d)
+            bst = lgt.train(params, ds, iters, device=d)
             out[where] = bst
             log(f"small {name} {where}: {rows}x28, {iters} iterations, "
                 f"{time.perf_counter() - t0:.1f} s; update_channels launches "
@@ -1395,33 +1432,35 @@ def phase_small_sampled(rows, dev):
             assert same, "the card's bagging masks differ from the CPU's"
 
 
-def phase_small_mask(rows, Xc, yc, dev):
+def phase_small_mask(small_ds, Xc, yc, dev):
     """The mask grower on the card and on the CPU (plain versions):
-    quantized binary and quantized L2 on rows x 28, and multiclass GOSS on
-    100,000 Covertype-shaped rows (K=7, learning_rate 0.5: 2 warm-up and 2
-    sampled iterations); 31 leaves.  The same trees (or a first differing
-    split that is a near-tie) and predictions within 1e-3."""
+    quantized binary (on phase_small's binned Dataset) and quantized L2 on
+    its rows x 28, and multiclass GOSS on 100,000 Covertype-shaped rows
+    (K=7, learning_rate 0.5: 2 warm-up and 2 sampled iterations); 31
+    leaves.  The same trees (or a first differing split that is a
+    near-tie) and predictions within 1e-3."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import pkernels as pk
 
-    X, y = make_higgs_shaped(rows, seed=3)
+    X = small_ds.data
     y_l2 = (X[:, 0] - 0.5 * X[:, 1] + 0.3 * X[:, 2] * X[:, 3]).astype(np.float32)
     small = dict(num_leaves=SMALL_MASK_LEAVES)
-    cases = (("quantized binary", dict(QUANT_PARAMS, **small), X, y, SMALL_MASK_ITERS,
+    cases = (("quantized binary", dict(QUANT_PARAMS, **small), X, small_ds, SMALL_MASK_ITERS,
               "hist_segment_q"),
-             ("quantized l2", dict(QUANT_PARAMS, objective="regression", **small), X, y_l2,
-              SMALL_MASK_ITERS, "hist_segment_q"),
+             ("quantized l2", dict(QUANT_PARAMS, objective="regression", **small), X,
+              lgt.Dataset(X, label=y_l2), SMALL_MASK_ITERS, "hist_segment_q"),
              ("multiclass goss", dict(COV_GOSS_PARAMS, learning_rate=0.5, **small),
-              Xc[:COV_SMALL_ROWS], yc[:COV_SMALL_ROWS], SMALL_GOSS_ITERS, "hist_segment"))
-    for name, params, Xs, ys, iters, kernel in cases:
+              Xc[:COV_SMALL_ROWS], lgt.Dataset(Xc[:COV_SMALL_ROWS], label=yc[:COV_SMALL_ROWS]),
+              SMALL_GOSS_ITERS, "hist_segment"))
+    for name, params, Xs, ds, iters, kernel in cases:
         out = {}
         for where, d in (("cuda", dev), ("cpu", "cpu")):
             t0 = time.perf_counter()
             pk.reset_launch_counts()
-            bst = lgt.train(params, lgt.Dataset(Xs, label=ys), iters, device=d)
+            bst = lgt.train(params, ds, iters, device=d)
             assert bst.boosting.ptrainer is None, f"{name} did not take the mask grower"
             out[where] = (bst.model_to_string(), bst.predict(Xs[:50_000]))
-            log(f"small {name} {where}: {len(ys)} rows, {iters} iterations, "
+            log(f"small {name} {where}: {len(Xs)} rows, {iters} iterations, "
                 f"{time.perf_counter() - t0:.1f} s; {kernel} launches "
                 f"{pk.launch_counts()[kernel]}")
         ndiff = compare_models(f"small {name} cuda vs cpu", out["cpu"][0], out["cuda"][0])
@@ -1431,9 +1470,10 @@ def phase_small_mask(rows, Xc, yc, dev):
         assert dpred <= 1e-3
 
 
-def phase_small_objectives(rows, iters, dev):
-    """Each regression objective on the fused path (the Higgs 0/1 targets
-    as regression targets, TRAIN_PARAMS), then Huber with GOSS at
+def phase_small_objectives(ds, iters, dev):
+    """Each regression objective on the fused path, on phase_small's binned
+    Dataset (the Higgs 0/1 targets as regression targets, TRAIN_PARAMS),
+    then Huber with GOSS at
     learning_rate 0.5 (update_channels from iteration 2 on), on the card
     and on the CPU (plain versions): 0 differing splits (both sides take
     the correctly rounded exp, no FMA, histograms rounded once) and
@@ -1441,7 +1481,7 @@ def phase_small_objectives(rows, iters, dev):
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import pkernels as pk
 
-    X, y = make_higgs_shaped(rows, seed=3)
+    X, rows = ds.data, ds.num_data()
     cases = [(name, dict(TRAIN_PARAMS, objective=name, **extra), iters)
              for name, extra in OBJ_KINDS]
     cases.append(("huber goss", dict(GOSS_PARAMS, objective="huber", huber_delta=0.3,
@@ -1451,7 +1491,7 @@ def phase_small_objectives(rows, iters, dev):
         for where, d in (("cuda", dev), ("cpu", "cpu")):
             t0 = time.perf_counter()
             pk.reset_launch_counts()
-            bst = lgt.train(params, lgt.Dataset(X, label=y), n_iter, device=d)
+            bst = lgt.train(params, ds, n_iter, device=d)
             assert bst.boosting.ptrainer is not None, f"{name} left the fused path"
             counts = pk.launch_counts()
             out[where] = (bst.model_to_string(), bst.predict(X[:50_000]))
@@ -1480,10 +1520,11 @@ def phase_small_rank(dev):
 
     X, y, sizes = make_mslr_shaped(RANK_SMALL_QUERIES, seed=51)
     out = {}
+    ds = lgt.Dataset(X, label=y, group=sizes)
     for where, d in (("cuda", dev), ("cpu", "cpu")):
         t0 = time.perf_counter()
         pk.reset_launch_counts()
-        bst = lgt.train(dict(RANK_PARAMS, metric="none"), lgt.Dataset(X, label=y, group=sizes),
+        bst = lgt.train(dict(RANK_PARAMS, metric="none"), ds,
                         RANK_SMALL_ITERS, device=d)
         assert bst.boosting.ptrainer is None, "lambdarank left the mask grower"
         out[where] = (bst.model_to_string(), bst.predict(X))
@@ -1495,6 +1536,92 @@ def phase_small_rank(dev):
     log(f"small lambdarank cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
         f"(tol 1e-3)")
     assert dpred <= 1e-3
+
+
+def phase_small_api(small, multi_boosters, dev):
+    """The API's new paths on the card and on the CPU (plain versions), on
+    phase_small's --small-rows x 28 rows and boosters (TRAIN_PARAMS,
+    --small-iters iterations) and phase_small_multi's K=7 boosters:
+    init_model continuation (API_SMALL_ITERS more iterations), an
+    LGBMClassifier fit whose model text must equal lgt.train's, DART on
+    the mask grower (SMALL_MASK_LEAVES leaves, drop indices equal each
+    iteration), and rollback_one_iter then update() on the fused path at
+    K=1 (the delta off the band through score_add) and K=7 (the band
+    rewritten).  Each card-vs-CPU check: 0 differing splits or a first
+    differing split that is a near-tie.  Returns the card's launch
+    counts of these paths."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    X, y, ds, boosters = small
+    counts = []
+
+    def both(name, fn, required=()):
+        out = {}
+        for where, d in (("cuda", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            if where == "cuda":
+                out[where], c = driven(f"small {name}", lambda: fn(where, d), required)
+                counts.append(c)
+            else:
+                out[where] = fn(where, d)
+            log(f"small {name} {where}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    # init_model: phase_small's boosters continued
+    cont = both("init_model", lambda where, d: lgt.train(
+        TRAIN_PARAMS, ds, API_SMALL_ITERS, init_model=boosters[where],
+        device=d), ("update_and_root_hist", "score_add"))
+    texts = {w: b.model_to_string() for w, b in cont.items()}
+    ndiff = compare_models("small init_model cuda vs cpu", texts["cpu"], texts["cuda"])
+    first = trees_text(boosters["cuda"].model_to_string())
+    log(f"small init_model: {cont['cuda'].current_iteration()} iterations, {ndiff} split "
+        f"differences; the initial model's trees kept: "
+        f"{trees_text(cont['cuda'].model_to_string(len(model_splits(first)))) == first}")
+    assert trees_text(cont["cuda"].model_to_string(len(model_splits(first)))) == first
+
+    # LGBMClassifier with TRAIN_PARAMS: lgt.train's model text
+    clf = lgt.LGBMClassifier(**SKLEARN_PARAMS, n_estimators=len(model_splits(first)),
+                             device=dev).fit(X, y)
+    same = clf.booster_.model_to_string() == boosters["cuda"].model_to_string()
+    log(f"small LGBMClassifier on the card: model text equal to lgt.train's: {same}")
+    assert same, "LGBMClassifier's model differs from lgt.train's"
+
+    # DART on the mask grower, one update at a time
+    def dart(where, d):
+        b = lgt.Booster(SMALL_DART_PARAMS, ds, device=d)
+        drops = []
+        for _ in range(SMALL_DART_ITERS):
+            b.update()
+            drops.append(list(b.boosting.drop_index))
+        return b, drops
+
+    dd = both("dart", dart, ("hist_segment",))
+    assert dd["cuda"][0].boosting.ptrainer is None
+    ndiff = compare_models("small dart cuda vs cpu", dd["cpu"][0].model_to_string(),
+                           dd["cuda"][0].model_to_string())
+    log(f"small dart: drop indices by iteration {dd['cuda'][1]} on the card, equal on the CPU: "
+        f"{dd['cuda'][1] == dd['cpu'][1]}; {ndiff} split differences")
+    assert dd["cuda"][1] == dd["cpu"][1], "DART's drops differ between the card and the CPU"
+    assert any(dd["cuda"][1]), "no tree was dropped"
+
+    # rollback then update, K=1 and K=7, on the boosters trained above
+    for name, bsts in (("binary", boosters), ("multiclass", multi_boosters)):
+        def roll(where, d, bsts=bsts):
+            b = bsts[where]
+            pt = b.boosting.ptrainer
+            b.rollback_one_iter()
+            dirty = pt.score_dirty
+            b.update()
+            return b, dirty
+
+        rr = both(f"rollback {name}", roll, ("score_add",))
+        ndiff = compare_models(f"small rollback {name} cuda vs cpu",
+                               rr["cpu"][0].model_to_string(), rr["cuda"][0].model_to_string())
+        log(f"small rollback {name}: band rewritten (K > 1) {rr['cuda'][1]}; {ndiff} split "
+            f"differences after the update")
+        assert rr["cuda"][1] == (name == "multiclass")
+    return counts
 
 
 def near_tie(ga, gb):
@@ -1509,6 +1636,12 @@ def trees_text(text):
     splits of every tree the booster holds even when ``num_iteration``
     cuts the trees written (as the JAX package does)."""
     return text.split("feature importances:")[0]
+
+
+def tree_blocks(text):
+    """A model's trees as text, without its header (a model loaded from
+    text writes no feature_infos) and its feature importances."""
+    return trees_text(text)[text.index("Tree=0"):]
 
 
 def compare_models(what, text_a, text_b):
@@ -1539,10 +1672,12 @@ def phase_small_multi(X, y, rows, iters, dev):
     import lightgbm_tpu_torch as lgt
 
     Xv, yv = X[-50_000:], y[-50_000:]
-    out = {}
+    out, boosters = {}, {}
+    ds = lgt.Dataset(X[:rows], label=y[:rows])
     for name, d in (("cuda", dev), ("cpu", "cpu")):
         t0 = time.perf_counter()
-        bst = lgt.train(COV_PARAMS, lgt.Dataset(X[:rows], label=y[:rows]), iters, device=d)
+        bst = lgt.train(COV_PARAMS, ds, iters, device=d)
+        boosters[name] = bst
         prob = bst.predict(Xv)
         out[name] = (bst.model_to_string(), prob, multi_logloss(yv, prob))
         log(f"small multiclass {name}: {rows}x54, K=7, {iters} iterations, "
@@ -1553,6 +1688,7 @@ def phase_small_multi(X, y, rows, iters, dev):
     log(f"small multiclass cuda vs cpu: {ndiff} split differences, max |dprob| {dprob:.3e} "
         f"(tol 1e-3), |d multi_logloss| {dll:.3e} (tol 1e-3)")
     assert dprob <= 1e-3 and dll <= 1e-3
+    return boosters
 
 
 def _tree_splits(res):
@@ -1938,6 +2074,7 @@ def phase_full(rows, iters, dev, repeat_iters):
         "higgs-10.5M", lambda: traced_iterations(lambda: run(iters)),
         ("update_and_root_hist", "level_stream", "split_stream", "score_add"))
     tally = th.selected_rows()
+    main_text = bst.model_to_string()  # before the checks below train on
     pt = bst.boosting.ptrainer
     its = pt.iter_seconds
     s_iter = float(np.median(its[1:])) if len(its) > 1 else float(its[0])
@@ -1981,10 +2118,11 @@ def phase_full(rows, iters, dev, repeat_iters):
     same = trees_text(bst2.model_to_string()) == trees_text(bst.model_to_string(repeat_iters))
     log(f"full: a repeat run of {repeat_iters} iterations gives byte-identical model text: "
         f"{same}")
+    del bst2
     return counts, dict(s_iter=s_iter, auc=a, peak_gib=peak, deterministic=same,
                         iter_seconds=its, profile=prof, syncs=syncs, tree_ms=costs,
-                        tail_rows=tally["split_stream"] // max(tally["split_stream_taken"], 1)), \
-        (ds, Xv, yv)
+                        tail_rows=tally["split_stream"] // max(tally["split_stream_taken"], 1),
+                        main_text=main_text), (ds, Xv, yv)
 
 
 def phase_sampled(ds, Xv, yv, dev, higgs_its):
@@ -2322,13 +2460,207 @@ def phase_covertype_goss(ds, Xv, yv, dev):
                         peak_gib=peak, profile=prof)
 
 
+def phase_api(higgs, main_text, dev):
+    """The API's new paths at full width, on the higgs-10.5M data (its
+    500k held-out rows) with TRAIN_PARAMS and the main run's model
+    (``main_text``, loaded as a Booster on the card): an LGBMClassifier
+    fit with an eval set and early stopping (trees byte-identical to the
+    main run's), init_model continuation of
+    bst, rollback_one_iter then update(), 5-fold cv, DART, pred_leaf and
+    the prediction early stop, and the feature importances.  Returns the
+    launch counts of its paths and its numbers."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+
+    ds, Xv, yv = higgs
+    X, y = ds.data, ds.get_label()
+    bst = lgt.Booster(model_str=main_text, device=dev)
+    n_main = bst.current_iteration()
+    counts, res = [], {}
+
+    def peak_reset():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+
+    fused = ("update_and_root_hist", "level_stream", "split_stream", "score_add")
+
+    # 1. the scikit-learn estimator
+    def fit():
+        peak_reset()
+        t = time.perf_counter()
+        clf = lgt.LGBMClassifier(**SKLEARN_PARAMS, n_estimators=API_CLF_ITERS, device=dev)
+        clf.fit(X, y, eval_set=[(Xv, yv)], early_stopping_rounds=5)
+        sync(dev)
+        return clf, time.perf_counter() - t
+
+    (clf, wall), c = driven("higgs-10.5M LGBMClassifier", fit, fused)
+    counts.append(c)
+    n_clf = clf.booster_.current_iteration()
+    same = (tree_blocks(clf.booster_.model_to_string())
+            == tree_blocks(bst.model_to_string(n_clf)))
+    a = auc(yv, clf.predict_proba(Xv)[:, 1])
+    log(f"higgs-10.5M LGBMClassifier: fit {API_CLF_ITERS} estimators with an eval set and "
+        f"early_stopping_rounds=5 in {wall:.2f} s (binning included); {n_clf} iterations, "
+        f"best_iteration_ {clf.best_iteration_}; its trees byte-identical to the main run's "
+        f"first {n_clf}: {same}; predict_proba AUC {a:.6f}; peak device memory {peak():.2f} GiB")
+    assert same, "the estimator's trees differ from the main run's"
+    res["clf"] = dict(wall=wall, auc=a)
+    del clf
+
+    # 2. continued training from the main run's booster
+    def cont():
+        peak_reset()
+        t = time.perf_counter()
+        b = lgt.train(TRAIN_PARAMS, ds, API_CONT_ITERS, init_model=bst, device=dev)
+        sync(dev)
+        return b, time.perf_counter() - t
+
+    (b2, wall), c = driven("higgs-10.5M init_model", cont, fused)
+    counts.append(c)
+    kept = tree_blocks(b2.model_to_string(n_main)) == tree_blocks(main_text)
+    a = auc(yv, b2.predict(Xv))
+    log(f"higgs-10.5M init_model: {n_main} + {API_CONT_ITERS} iterations in {wall:.2f} s (the "
+        f"initial model's predictions of the training rows included); its first {n_main} trees "
+        f"byte-identical to the main run's: {kept}; AUC after {b2.current_iteration()} "
+        f"iterations {a:.6f}; score_add launches {c['score_add']} (the initial scores, then "
+        f"each chunk's settle); peak device memory {peak():.2f} GiB")
+    assert kept and 0.6 < a <= 1.0
+    res["init_model"] = dict(wall=wall, auc=a, score_add=c["score_add"])
+
+    # 3. rollback, then one more iteration
+    rows = np.random.default_rng(1).choice(len(y), min(100_000, len(y)), replace=False)
+    n_it = b2.current_iteration()
+    before = b2.model_to_string()
+
+    def roll():
+        b2.rollback_one_iter()
+        sc = b2.boosting.scores[0].cpu().numpy()[rows]
+        b2.update()
+        return sc, b2.boosting.scores[0].cpu().numpy()[rows]
+
+    (sc_roll, sc_upd), c = driven("higgs-10.5M rollback", roll, ("score_add",))
+    counts.append(c)
+    d_roll = float(np.abs(sc_roll - b2.predict(X[rows], raw_score=True,
+                                               num_iteration=n_it - 1)).max())
+    d_upd = float(np.abs(sc_upd - b2.predict(X[rows], raw_score=True)).max())
+    ndiff = compare_models("higgs-10.5M rollback: the regrown tree vs the popped one", before,
+                           b2.model_to_string())
+    log(f"higgs-10.5M rollback: the last tree's delta off the band through score_add "
+        f"(launches {c['score_add']} with the update's settle); the training scores on "
+        f"{len(rows)} rows against predict(num_iteration={n_it - 1}) max |d| {d_roll:.3e} (tol "
+        f"1e-4); after the update against predict() {d_upd:.3e}; the regrown tree: {ndiff} "
+        f"split differences from the popped one")
+    assert d_roll <= 1e-4 and d_upd <= 1e-4
+    res["rollback"] = dict(d_roll=d_roll, d_update=d_upd, split_diffs=ndiff)
+
+    # 6. pred_leaf and the prediction early stop, on the main run's booster
+    t = time.perf_counter()
+    leaves = bst.predict(Xv, pred_leaf=True)
+    t_leaf = time.perf_counter() - t
+    s_leaf = np.zeros(len(yv))
+    for i, tree in enumerate(bst.boosting.models):
+        s_leaf += tree.leaf_value[leaves[:, i]]
+    t = time.perf_counter()
+    raw = bst.predict(Xv, raw_score=True)
+    t_full = time.perf_counter() - t
+    d_leaf = float(np.abs(s_leaf - raw).max())
+    es = dict(pred_early_stop=True, pred_early_stop_freq=5, pred_early_stop_margin=1.0)
+    t = time.perf_counter()
+    raw_es = bst.predict(Xv, raw_score=True, **es)
+    t_es = time.perf_counter() - t
+    early = float(np.mean(np.abs(raw_es - raw) > 1e-6))
+    d_auc = abs(auc(yv, raw_es) - auc(yv, raw))
+    log(f"higgs-10.5M pred_leaf: {leaves.shape} int32 in {1e3 * t_leaf:.1f} ms; the leaf values "
+        f"at those indices sum to predict(raw_score=True) within {d_leaf:.3e} (tol 1e-5); "
+        f"pred_early_stop (freq 5, margin 1.0): {100 * early:.2f} % of the rows exit early, "
+        f"|dAUC| {d_auc:.3e} against the full prediction; {1e3 * t_es:.1f} ms against "
+        f"{1e3 * t_full:.1f} ms")
+    assert leaves.shape == (len(yv), n_main) and d_leaf <= 1e-5
+    res["pred"] = dict(leaf_ms=1e3 * t_leaf, early_share=early, d_auc=d_auc,
+                       es_ms=1e3 * t_es, full_ms=1e3 * t_full)
+
+    # 7. feature importances
+    split_imp, gain_imp = bst.feature_importance("split"), bst.feature_importance("gain")
+    n_splits = sum(t.num_leaves - 1 for t in bst.boosting.models)
+    gains_ok = bool(np.all(np.isfinite(gain_imp)) and np.all(gain_imp >= 0))
+    log(f"higgs-10.5M importances: split counts sum to {int(split_imp.sum())} of {n_splits} "
+        f"splits; gains finite and >= 0: {gains_ok}")
+    assert int(split_imp.sum()) == n_splits and gains_ok
+    del b2
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 4. five-fold cv: five boosters of 8.4M rows on the card at once
+    def run_cv():
+        peak_reset()
+        t = time.perf_counter()
+        r = lgt.cv(TRAIN_PARAMS, ds, API_CV_ITERS, nfold=5, seed=0, return_cvbooster=True,
+                   device=dev)
+        sync(dev)
+        return r, time.perf_counter() - t
+
+    (r, wall), c = driven("higgs-10.5M cv", run_cv, fused)
+    counts.append(c)
+    folds = r.pop("cvbooster")
+    means = r["binary_logloss-mean"]
+    firsts = [b.boosting.ptrainer.chunk_seconds[0][0] for b in folds]
+    laters = [s for b in folds for s, _ in b.boosting.ptrainer.chunk_seconds[1:]]
+    capture = float(np.median(firsts) - np.median(laters))
+    log(f"higgs-10.5M cv: 5 folds of {folds[0].boosting.num_data} training rows, "
+        f"{API_CV_ITERS} rounds in {wall:.2f} s ({wall / API_CV_ITERS:.2f} s a round, subsets "
+        f"and set-up included); a fold's iteration {np.median(laters):.4f} s (chunk wall), its "
+        f"first {np.median(firsts):.3f} s (graph capture ~{capture:.3f} s); binary_logloss-mean "
+        f"{[round(m, 6) for m in means]}, -stdv {[round(v, 6) for v in r['binary_logloss-stdv']]};"
+        f" peak device memory {peak():.2f} GiB")
+    assert len(folds) == 5 and all(b.boosting.ptrainer is not None for b in folds)
+    assert all(m1 < m0 for m0, m1 in zip(means, means[1:])), "the cv logloss did not fall"
+    res["cv"] = dict(wall=wall, s_round=wall / API_CV_ITERS, peak_gib=peak(),
+                     capture_s=capture, logloss=means[-1])
+    del folds, r
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 5. DART at full width, one update at a time
+    def dart():
+        peak_reset()
+        b = lgt.Booster(dict(TRAIN_PARAMS, boosting="dart"), ds, device=dev)
+        drops = []
+        for _ in range(API_DART_ITERS - 1):
+            b.update()
+            drops.append(len(b.boosting.drop_index))
+        _, nsync = count_syncs(lambda: b.update())
+        drops.append(len(b.boosting.drop_index))
+        sync(dev)
+        return b, drops, nsync
+
+    (bd, drops, nsync), c = driven("higgs-10.5M DART", dart, ("hist_segment",))
+    counts.append(c)
+    assert bd.boosting.ptrainer is None
+    its = bd.boosting.iter_seconds
+    s_iter = float(np.median(its[1:]))
+    a = auc(yv, bd.predict(Xv))
+    log(f"higgs-10.5M DART: {API_DART_ITERS} iterations on the mask grower, s/iter {s_iter:.4f} "
+        f"(median after the first; first {its[0]:.3f} s); trees dropped by iteration {drops}; "
+        f"held-out AUC {a:.6f}; hist_segment launches {c['hist_segment']}; the last iteration "
+        f"({bd.boosting.models[-1].num_leaves - 1} splits, {drops[-1]} trees dropped) made "
+        f"{nsync} host syncs; peak device memory {peak():.2f} GiB")
+    assert np.isfinite(a) and 0.6 < a <= 1.0, "DART's held-out AUC out of range"
+    res["dart"] = dict(s_iter=s_iter, auc=a, drops=drops, syncs=nsync, peak_gib=peak())
+    del bd
+    return counts, res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--small-rows", type=int, default=200_000)
     ap.add_argument("--small-iters", type=int, default=3)
-    ap.add_argument("--repeat-iters", type=int, default=5)
+    ap.add_argument("--repeat-iters", type=int, default=3)
     args = ap.parse_args(argv)
 
     import torch
@@ -2370,12 +2702,16 @@ def main(argv=None):
     phase_feature_tiles(min(args.rows, 1_000_000), dev)
     log(f"kernels checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_small(args.small_rows, args.small_iters, dev)
-    phase_small_multi(Xc, yc, COV_SMALL_ROWS, COV_SMALL_ITERS, dev)
+    small = phase_small(args.small_rows, args.small_iters, dev)
+    multi = phase_small_multi(Xc, yc, COV_SMALL_ROWS, COV_SMALL_ITERS, dev)
     phase_small_sampled(args.small_rows, dev)
-    phase_small_mask(args.small_rows, Xc, yc, dev)
-    phase_small_objectives(args.small_rows, args.small_iters, dev)
+    phase_small_mask(small[2], Xc, yc, dev)
+    phase_small_objectives(small[2], SMALL_OBJ_ITERS, dev)
     phase_small_rank(dev)
+    t1 = time.perf_counter()
+    small_api_counts = phase_small_api(small, multi, dev)
+    del small, multi
+    log(f"small API paths in {time.perf_counter() - t1:.1f} s")
     log(f"small end to end in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
@@ -2389,8 +2725,11 @@ def main(argv=None):
     log(f"higgs-10.5M regression cells in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     q_counts, quant = phase_quantized(*higgs, dev, full["auc"])
-    del higgs
     log(f"higgs-10.5M-quantized in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    api_counts, _ = phase_api(higgs, full.pop("main_text"), dev)
+    del higgs
+    log(f"higgs-10.5M API paths in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cov_counts, cov_full = phase_covertype(cov, Xc[nc:], yc[nc:], COV_ITERS, dev)
     log(f"covertype-581k in {time.perf_counter() - t0:.1f} s")
@@ -2432,7 +2771,8 @@ def main(argv=None):
     for name in KERNEL_NAMES:
         k = kern[name]
         launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts]
-                       + cov_counts + sampled_counts + obj_counts)
+                       + cov_counts + sampled_counts + obj_counts + small_api_counts
+                       + api_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,

@@ -1,11 +1,16 @@
 """User-facing Dataset and Booster — PyTorch counterpart of
 lightgbm_tpu/basic.py (python-package/lightgbm/basic.py Dataset:551,
-Booster:1176) for in-memory arrays.  A validation Dataset built with
-``reference=`` bins with the training set's mappers and is evaluated on
-its unbundled bins."""
+Booster:1176) for in-memory arrays, pandas frames and scipy sparse
+matrices (densified).  A validation Dataset built with ``reference=``
+bins with the training set's mappers and is evaluated on its unbundled
+bins.  Pandas ``category`` columns train as categorical features; their
+levels travel in the model text's ``pandas_categorical:`` line, through
+which a DataFrame given to ``predict`` is coded.  pandas is imported only
+when a frame is given, so the package imports without it."""
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -19,21 +24,88 @@ from .utils.device import resolve_device
 from .utils.log import Log
 
 
-def _to_2d_float(data) -> np.ndarray:
+def _pandas_frame(data):
+    """The pandas module when ``data`` is a DataFrame, else None (pandas
+    stays unimported for every other input)."""
+    if type(data).__module__.split(".")[0] != "pandas":
+        return None
+    try:
+        import pandas as pd
+    except ImportError:  # pragma: no cover
+        return None
+    return pd if isinstance(data, pd.DataFrame) else None
+
+
+def _to_2d_float(data):
+    """-> (float64 matrix, column names or None, auto-categorical column
+    indices, their levels).  A pandas ``category``
+    column becomes its codes (missing -> NaN) and an auto-detected
+    categorical feature (the reference's _data_from_pandas under
+    categorical_feature="auto"); scipy sparse input is densified."""
+    pd = _pandas_frame(data)
+    if pd is not None:
+        cat_idx = [i for i, c in enumerate(data.columns)
+                   if isinstance(data.dtypes.iloc[i], pd.CategoricalDtype)]
+        levels = []
+        if cat_idx:
+            data = data.copy(deep=False)
+            for i in cat_idx:
+                col = data.columns[i]
+                levels.append(list(data[col].cat.categories))
+                codes = data[col].cat.codes.to_numpy(np.float64)
+                codes[codes < 0] = np.nan  # code -1 == missing
+                data[col] = codes
+        arr = data.to_numpy(dtype=np.float64)
+        names = [str(c) for c in data.columns]
+        return arr, names, cat_idx, levels
+    if hasattr(data, "tocsr") and hasattr(data, "toarray"):
+        # the pipeline is dense by design; EFB re-compacts exclusive columns
+        Log.warning("Sparse input is densified (%d x %d); EFB bundling recovers "
+                    "the memory on the device", *data.shape)
+        return np.asarray(data.toarray(), dtype=np.float64), None, [], []
     arr = np.asarray(data, dtype=np.float64)
-    return arr.reshape(-1, 1) if arr.ndim == 1 else arr
+    return (arr.reshape(-1, 1) if arr.ndim == 1 else arr), None, [], []
+
+
+def _map_pandas_categorical(data, pandas_categorical):
+    """A DataFrame to predict: its category columns coded through the
+    training levels (the model's ``pandas_categorical``), so the codes
+    line up with the trees' thresholds; unseen levels become NaN."""
+    pd = _pandas_frame(data)
+    if pd is None or not pandas_categorical:
+        return data
+    cat_cols = [c for i, c in enumerate(data.columns)
+                if isinstance(data.dtypes.iloc[i], pd.CategoricalDtype)]
+    if not cat_cols:
+        return data
+    if len(cat_cols) != len(pandas_categorical):
+        Log.fatal("predict data has %d pandas categorical columns but the model "
+                  "was trained with %d", len(cat_cols), len(pandas_categorical))
+    data = data.copy(deep=False)
+    for col, levels in zip(cat_cols, pandas_categorical):
+        codes = pd.Categorical(data[col], categories=levels).codes.astype(np.float64)
+        codes[codes < 0] = np.nan
+        data[col] = codes
+    return data
 
 
 class Dataset:
-    """Lazily-constructed binned dataset over a dense float matrix."""
+    """Lazily-constructed binned dataset over a dense float matrix (a
+    numpy array, a pandas frame or a scipy sparse matrix).
+    ``free_raw_data`` drops the raw matrix once binned (continued training
+    and subsets' raw rows then have none); ``silent`` is accepted for the
+    reference's signature (the ``verbose`` parameter sets the log
+    level)."""
 
     def __init__(self, data, label=None, max_bin: Optional[int] = None,
                  reference: Optional["Dataset"] = None, weight=None, group=None,
-                 init_score=None, feature_name="auto", categorical_feature="auto",
-                 params: Optional[Dict[str, Any]] = None):
+                 init_score=None, silent: bool = False, feature_name="auto",
+                 categorical_feature="auto", params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = False):
         if isinstance(data, str):
             raise NotImplementedError("lightgbm_tpu_torch does not load data files yet")
-        self.data = _to_2d_float(data)
+        (self.data, self.pandas_columns, self._auto_categorical,
+         self.pandas_categorical) = _to_2d_float(data)
         self.label = label
         self.reference = reference
         self.weight = weight
@@ -44,6 +116,7 @@ class Dataset:
             self.params.setdefault("max_bin", max_bin)
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
+        self.free_raw_data = free_raw_data
         self._constructed: Optional[BinnedDataset] = None
 
     def construct(self, extra_params: Optional[Dict[str, Any]] = None) -> BinnedDataset:
@@ -57,6 +130,8 @@ class Dataset:
         names = None
         if self.feature_name != "auto" and self.feature_name is not None:
             names = list(self.feature_name)
+        elif self.pandas_columns is not None:
+            names = self.pandas_columns
         cats: Optional[Sequence[int]] = None
         if self.categorical_feature != "auto" and self.categorical_feature:
             cats = []
@@ -68,18 +143,76 @@ class Dataset:
                         Log.fatal("Unknown categorical feature %s", c)
                 else:
                     cats.append(int(c))
-        ref = self.reference.construct() if self.reference is not None else None
+        elif self.categorical_feature == "auto" and self._auto_categorical:
+            cats = list(self._auto_categorical)
+        ref = None
+        if self.reference is not None:
+            ref = self.reference.construct()
+            self._remap_categorical_to_reference(self.reference)
         self._constructed = BinnedDataset.from_raw(
             self.data, cfg, label=self.label, weight=self.weight, group=self.group,
             init_score=self.init_score, feature_names=names, categorical_features=cats,
             reference=ref)
+        if self.free_raw_data:
+            self.data = None
         return self._constructed
+
+    def _remap_categorical_to_reference(self, ref: "Dataset") -> None:
+        """A validation frame's category codes follow its own levels; the
+        trees' thresholds follow the training set's.  Re-code each column
+        through the reference's ``pandas_categorical`` (levels unseen in
+        training become NaN); the categorical column counts must match."""
+        train_levels = ref.pandas_categorical or []
+        my_levels = self.pandas_categorical or []
+        if not my_levels and not train_levels:
+            return
+        if len(my_levels) != len(train_levels):
+            Log.fatal("train and valid dataset categorical_feature do not match: valid has %d "
+                      "pandas categorical columns, train has %d", len(my_levels),
+                      len(train_levels))
+        if self.data is None:
+            return
+        for col_idx, vl, tl in zip(self._auto_categorical, my_levels, train_levels):
+            if list(vl) == list(tl):
+                continue
+            pos = {v: i for i, v in enumerate(tl)}
+            lut = np.asarray([pos.get(v, np.nan) for v in vl], np.float64)
+            col = np.asarray(self.data[:, col_idx], np.float64)
+            ok = ~np.isnan(col)
+            out = np.full(col.shape, np.nan)
+            out[ok] = lut[col[ok].astype(np.int64)]
+            self.data[:, col_idx] = out
+        self.pandas_categorical = [list(t) for t in train_levels]
+
+    def create_valid(self, data, label=None, weight=None, group=None, init_score=None,
+                     silent: bool = False, params=None) -> "Dataset":
+        """A validation Dataset binned with this one's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight, group=group,
+                       init_score=init_score, silent=silent, params=params or self.params)
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._constructed is not None:
+            self._constructed.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._constructed is not None:
+            self._constructed.metadata.set_weights(weight)
+        return self
 
     def set_group(self, group) -> "Dataset":
         """Per-query sizes of a ranking task (Metadata::SetQuery)."""
         self.group = group
         if self._constructed is not None:
             self._constructed.metadata.set_query(group)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._constructed is not None:
+            self._constructed.metadata.set_init_score(init_score)
         return self
 
     def get_group(self):
@@ -91,11 +224,12 @@ class Dataset:
         return None if self.label is None else np.asarray(self.label)
 
     def get_weight(self):
-        if self._constructed is not None:
-            w = self._constructed.metadata.weights
-        else:
-            w = self.weight
-        return None if w is None else np.asarray(w)
+        if self._constructed is not None and self._constructed.metadata.weights is not None:
+            return np.asarray(self._constructed.metadata.weights)
+        return None if self.weight is None else np.asarray(self.weight)
+
+    def get_init_score(self):
+        return None if self.init_score is None else np.asarray(self.init_score)
 
     @classmethod
     def _of_binned(cls, binned: BinnedDataset) -> "Dataset":
@@ -104,6 +238,7 @@ class Dataset:
         ds = cls.__new__(cls)
         ds.data = None
         ds._constructed = binned
+        ds.label, ds.weight, ds.init_score = None, binned.metadata.weights, None
         qb = binned.metadata.query_boundaries
         ds.group = None if qb is None else np.diff(qb)
         return ds
@@ -111,10 +246,32 @@ class Dataset:
     def num_data(self) -> int:
         if self._constructed is not None:
             return self._constructed.num_data
-        return self.data.shape[0]
+        return 0 if self.data is None else self.data.shape[0]
 
     def num_feature(self) -> int:
-        return self.data.shape[1]
+        if self._constructed is not None:
+            return self._constructed.num_total_features
+        return 0 if self.data is None else self.data.shape[1]
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """A row subset sharing this dataset's bin mappers and binned rows
+        (Dataset::CopySubset; cv's folds): nothing is re-binned."""
+        used_indices = np.asarray(used_indices)
+        sub = Dataset.__new__(Dataset)
+        sub.data = self.data[used_indices] if self.data is not None else None
+        sub.pandas_columns = self.pandas_columns
+        sub._auto_categorical = list(self._auto_categorical)
+        sub.pandas_categorical = list(self.pandas_categorical)
+        sub.label = sub.weight = sub.init_score = None
+        sub.reference = self
+        sub.params = dict(params) if params else dict(self.params)
+        sub.feature_name = self.feature_name
+        sub.categorical_feature = self.categorical_feature
+        sub.free_raw_data = False
+        sub._constructed = self.construct().subset(used_indices)
+        qb = sub._constructed.metadata.query_boundaries
+        sub.group = None if qb is None else np.diff(qb)
+        return sub
 
 
 class Booster:
@@ -122,14 +279,17 @@ class Booster:
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None, model_file: Optional[str] = None,
-                 model_str: Optional[str] = None, device=None):
+                 model_str: Optional[str] = None, silent: bool = False, device=None):
         self.params = dict(params) if params else {}
         self.device = resolve_device(device)
         self.config = Config.from_params(self.params)
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._name_to_index: Dict[str, int] = {}
+        self.pandas_categorical = []
+        self._init_predictor: Optional["Booster"] = None  # continued training's initial model
         if train_set is not None:
+            self.pandas_categorical = train_set.pandas_categorical
             binned = train_set.construct(extra_params=self.params)
             self.train_dataset = train_set
             self.objective = create_objective(self.config)
@@ -145,6 +305,7 @@ class Booster:
             if model_file is not None:
                 with open(model_file) as f:
                     model_str = f.read()
+            model_str = self._strip_pandas_categorical(model_str)
             self.boosting.config = self.config
             self.boosting.load_model_from_string(model_str)
             self.objective = objective_from_string(self.boosting.objective_name_loaded)
@@ -153,6 +314,21 @@ class Booster:
             self._num_datasets = 0
         else:
             Log.fatal("Booster needs a train_set, model_file or model_str")
+
+    def _strip_pandas_categorical(self, model_str: str) -> str:
+        """Parse and remove the trailing ``pandas_categorical:`` line that
+        ``model_to_string`` writes; the span is cut from the raw line, so
+        CRLF files and trailing blanks strip cleanly."""
+        marker = "\npandas_categorical:"
+        pos = model_str.rfind(marker)
+        if pos >= 0:
+            raw_line, _, rest = model_str[pos + len(marker):].partition("\n")
+            try:
+                self.pandas_categorical = json.loads(raw_line.strip()) or []
+            except ValueError:
+                self.pandas_categorical = []
+            model_str = model_str[:pos] + rest
+        return model_str
 
     def _make_metrics(self, binned):
         """The configured metrics (the objective's name when none is set),
@@ -172,9 +348,16 @@ class Booster:
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Evaluate ``data`` (built with ``reference=`` the training
-        Dataset) under ``name`` after every iteration."""
+        Dataset) under ``name`` after every iteration.  In continued
+        training its scores start from the initial model's predictions of
+        its raw rows."""
         binned = data.construct()
-        self.boosting.add_valid(binned, self._make_metrics(binned), name)
+        init = None
+        if self._init_predictor is not None:
+            if data.data is None:
+                Log.fatal("Continued training requires the raw validation data")
+            init = self._init_predictor.boosting.predict_raw_scores(data.data)
+        self.boosting.add_valid(binned, self._make_metrics(binned), name, init_scores=init)
         self._name_to_index[name] = self._num_datasets
         self._num_datasets += 1
         return self
@@ -193,6 +376,12 @@ class Booster:
     def _raw_train_scores(self) -> np.ndarray:
         sc = self.boosting.train_score_host()
         return sc[0] if sc.shape[0] == 1 else sc.reshape(-1)
+
+    def rollback_one_iter(self) -> "Booster":
+        """Remove the last iteration's trees and their scores
+        (LGBM_BoosterRollbackOneIter)."""
+        self.boosting.rollback_one_iter()
+        return self
 
     def current_iteration(self) -> int:
         return self.boosting.current_iteration()
@@ -239,14 +428,26 @@ class Booster:
         return results
 
     # ------------------------------------------------------------------
-    def predict(self, data, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
+    def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
+                pred_leaf: bool = False, data_has_header: bool = False,
+                is_reshape: bool = True, **kwargs) -> np.ndarray:
         """Predictions of the first ``num_iteration`` iterations; -1 (the
         default) takes every tree the booster holds, also after early
         stopping, as the JAX package's ``Booster.predict`` does; pass
-        ``num_iteration=bst.best_iteration`` for the best iteration's."""
-        return self.boosting.predict(_to_2d_float(data), num_iteration=num_iteration,
-                                     raw_score=raw_score)
+        ``num_iteration=bst.best_iteration`` for the best iteration's.
+        ``pred_leaf`` gives each row's leaf index in every tree, (N, T)
+        int32.  Prediction parameters (``pred_early_stop``,
+        ``pred_early_stop_freq``, ``pred_early_stop_margin``) come from the
+        booster's params, and ``kwargs`` override them for this call.  A
+        DataFrame's category columns are coded through the training
+        levels.  ``data_has_header`` and ``is_reshape`` concern data files
+        and flat outputs, which this package does not produce."""
+        if isinstance(data, str):
+            raise NotImplementedError("lightgbm_tpu_torch does not load data files yet")
+        data = _to_2d_float(_map_pandas_categorical(data, self.pandas_categorical))[0]
+        config = Config.from_params(dict(self.params, **kwargs)) if kwargs else self.config
+        return self.boosting.predict(data, num_iteration=num_iteration, raw_score=raw_score,
+                                     pred_leaf=pred_leaf, config=config)
 
     def save_model(self, filename: str, num_iteration: int = -1) -> "Booster":
         with open(filename, "w") as f:
@@ -254,7 +455,50 @@ class Booster:
         return self
 
     def model_to_string(self, num_iteration: int = -1) -> str:
-        return self.boosting.save_model_to_string(num_iteration)
+        s = self.boosting.save_model_to_string(num_iteration)
+        if self.pandas_categorical:
+            s += "\npandas_categorical:" + json.dumps(self.pandas_categorical, default=str) + "\n"
+        return s
+
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as JSON (GBDT::DumpModel, gbdt.cpp:702-736)."""
+        b = self.boosting
+        return {
+            "name": b.sub_model_name(),
+            "version": "v2",
+            "num_class": b.num_class,
+            "num_tree_per_iteration": b.num_tree_per_iteration,
+            "label_index": b.label_idx,
+            "max_feature_idx": b.max_feature_idx,
+            "objective": b.objective.to_string() if b.objective else "",
+            "feature_names": list(b.feature_names),
+            "tree_info": [t.to_json() for t in b._used_models(num_iteration)],
+        }
+
+    def feature_importance(self, importance_type: str = "split") -> np.ndarray:
+        """(F,) split counts (``"split"``) or summed split gains
+        (``"gain"``) of every tree, by original feature."""
+        return self.boosting.feature_importance(importance_type)
 
     def feature_name(self) -> List[str]:
         return list(self.boosting.feature_names)
+
+    # pickling goes through the model text; the device travels with it
+    # and must exist where the booster is unpickled
+    def __getstate__(self):
+        return {"params": self.params, "model_str": self.model_to_string(),
+                "best_iteration": self.best_iteration, "best_score": self.best_score,
+                "device": str(self.device)}
+
+    def __setstate__(self, state):
+        new = Booster(params=state["params"], model_str=state["model_str"],
+                      device=state["device"])
+        self.__dict__.update(new.__dict__)
+        self.best_iteration = state["best_iteration"]
+        self.best_score = state["best_score"]
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo):
+        return Booster(params=self.params, model_str=self.model_to_string(), device=self.device)

@@ -17,6 +17,14 @@ The learners, as the JAX package routes them (gbdt.py:384-392):
   of the (K, N) scores, GOSS's or bagging's row select, per class the
   feature_fraction mask, the optional quantization and one tree, whose
   leaf values then go onto the scores through the grower's ``leaf_id``.
+
+Both learners also serve the user API's later steps: rollback of the last
+iteration (``rollback_one_iter``: on the partitioned trainer, K = 1
+subtracts the last tree's positional delta through score_add, K > 1
+rewrites the score band from the rolled-back scores), the hooks DART
+(boosting/dart.py) drops trees through (``get_training_score``,
+``_add_tree_to_train_scores``), and leaf-index and early-stopped
+prediction.
 """
 
 from __future__ import annotations
@@ -31,18 +39,21 @@ from ..model.ensemble import stack_trees
 from ..model.tree import Tree
 from ..ops.grow import GrowParams, grow_tree
 from ..ops.histogram import pack_bin_words
-from ..ops.predict import TreeArrays, predict_binned, predict_raw
+from ..ops.predict import (TreeArrays, predict_binned, predict_leaf, predict_raw,
+                           predict_words)
 from ..ops.qhist import local_absmax, max_rows_for, quantize_rows, scales_from_max
 from ..ops.split import FeatureMeta, SplitHyper
 from ..utils.log import Log
 from ..utils.random import Random
+from .pred_early_stop import (create_prediction_early_stop_instance, early_stop_type,
+                              leaf_values_table, predict_with_early_stop)
 
 
 def unsupported_feature(config):
     """The first configured feature neither of the port's tree learners
     runs yet, or None.  (What only the partitioned trainer declines goes
     to the mask grower: ptrainer.eligible.)"""
-    if config.boosting_type.lower() not in ("gbdt", "goss"):
+    if config.boosting_type.lower() not in ("gbdt", "goss", "dart"):
         return f"boosting={config.boosting_type}"
     if config.linear_tree:
         return "linear trees"
@@ -58,11 +69,14 @@ def unsupported_feature(config):
 class GBDT:
     """The gradient-boosting loop (class GBDT, gbdt.h:24-258)."""
 
+    supports_partitioned = True  # False in DART, whose drops run between iterations
+
     def __init__(self, device="cpu"):
         self.device = torch.device(device)
         self.models: List[Tree] = []
         self.iter = 0
         self.num_init_iteration = 0
+        self.num_init_trees = 0  # the leading trees of an initial model (continued training)
         self.boost_from_average_ = False
         self.train_set = None
         self.objective = None
@@ -119,7 +133,8 @@ class GBDT:
                         "training on f32 gradients", self.num_data,
                         max_rows_for(config.quantized_grad_bits), config.quantized_grad_bits)
             config.quantized_training = False
-        declined = eligible(config, train_set, objective, num_tree)
+        declined = (eligible(config, train_set, objective, num_tree)
+                    if self.supports_partitioned else f"boosting={config.boosting_type}")
         init = (np.asarray(train_set.metadata.init_score, np.float32).reshape(num_tree, -1)
                 if self.has_init_score else None)  # (K, N) or the class-major K*N layout
         if declined is None:
@@ -164,10 +179,13 @@ class GBDT:
         self.iter_seconds = []  # wall time of each iteration (device-synced)
         self.searches = {}  # the grower's captured split searches (CUDA graphs)
 
-    def add_valid(self, valid_set, valid_metrics, name: str):
+    def add_valid(self, valid_set, valid_metrics, name: str, init_scores=None):
         """GBDT::AddValidDataset (gbdt.cpp:220-250): the set's (unbundled)
-        bins go to the device, its scores start from its init score and
-        replay the trees already trained."""
+        bins go to the device, its scores start from its init score (plus
+        ``init_scores``, an initial model's (K, N) raw predictions of its
+        rows) and replay the trees this booster trained.  An initial
+        model's trees, read from model text, carry no bin thresholds, so
+        they enter only through ``init_scores``."""
         vb = torch.from_numpy(np.ascontiguousarray(valid_set.binned)).to(self.device)
         k = self.num_tree_per_iteration
         vs = torch.zeros((k, valid_set.num_data), dtype=torch.float32, device=self.device)
@@ -175,9 +193,12 @@ class GBDT:
         if init_score is not None:
             vs += torch.from_numpy(np.asarray(init_score, np.float32).reshape(k, -1)).to(
                 self.device)
-        if self.models:
+        if init_scores is not None:
+            vs += torch.from_numpy(np.asarray(init_scores, np.float32)).to(self.device)
+        trained = self.models[self.num_init_trees:]
+        if trained:
             for kk in range(k):
-                vs[kk] += predict_binned(vb, stack_trees(self.models[kk::k]))
+                vs[kk] += predict_binned(vb, stack_trees(trained[kk::k]))
         self.valid_sets.append(valid_set)
         self.valid_bins.append(vb)
         self.valid_scores.append(vs)
@@ -186,6 +207,19 @@ class GBDT:
         self.best_iter.append([0] * len(valid_metrics))
         self.best_score.append([-np.inf] * len(valid_metrics))
         self.best_msg.append([""] * len(valid_metrics))
+
+    def add_init_scores(self, init: np.ndarray) -> None:
+        """scores += the (K, N) float32 ``init`` (continued training's
+        scores of the initial model), before the first iteration: the
+        partitioned trainer takes them through score_add while its matrix
+        is still in original row order."""
+        if self.ptrainer is None:
+            self.scores += torch.from_numpy(np.ascontiguousarray(init, np.float32)).to(
+                self.device)
+            return
+        for k in range(self.num_tree_per_iteration):
+            self.ptrainer.add_score(init[k], k)
+        self.scores = self.ptrainer._scores()
 
     def refresh_config(self) -> None:
         """Re-derive the config-dependent state after a parameter reset
@@ -235,6 +269,8 @@ class GBDT:
             return False
         self._boost_from_average()
         K = self.num_tree_per_iteration
+        if self.ptrainer.score_dirty:
+            self.ptrainer.sync_scores_from(self.scores)
         trees, self.scores, n_done = self.ptrainer.train_chunk(num_iters, self.shrinkage_rate,
                                                                self.iter)
         chunk_trees = [[] for _ in range(K)]
@@ -267,6 +303,52 @@ class GBDT:
             arrays = stack_trees(trees)
             for vb, vs in zip(self.valid_bins, self.valid_scores):
                 vs[k] += predict_binned(vb, arrays)
+
+    def _add_tree_to_train_scores(self, tree: Tree, k: int) -> None:
+        """Class k's training scores += the tree's outputs, by a traversal
+        of the training set's bins (rollback and DART, where the grower's
+        partition no longer matches the tree; gbdt.py:874-891).  The mask
+        grower walks its packed bin words; the partitioned trainer, whose
+        matrix holds bundles in the last tree's row order, walks the host
+        bins in row chunks copied to the device."""
+        arrays = stack_trees([tree])
+        if self.ptrainer is None:
+            bits = self.grow_params.bits
+            self.scores[k] += predict_words(self.words, 32 // bits, bits, arrays)
+            return
+        binned = self.train_set.binned
+        step = 1 << 22
+        for lo in range(0, self.num_data, step):
+            part = binned[lo:lo + step]
+            part = torch.from_numpy(part if part.dtype == np.uint8 else part.astype(np.int32))
+            self.scores[k, lo:lo + step] += predict_binned(part.to(self.device), arrays)
+
+    def rollback_one_iter(self) -> None:
+        """GBDT::RollbackOneIter (gbdt.cpp:497-514; gbdt.py:1013-1035): the
+        last iteration's trees leave the model, the training and every
+        validation set's scores.  On the partitioned trainer with K = 1
+        the band loses the last tree's positional delta (score_add) while
+        the matrix still holds that tree's row order; otherwise the
+        trees are walked over the training bins and the band is rewritten
+        from those scores before the next chunk."""
+        if self.iter <= 0:
+            return
+        K = self.num_tree_per_iteration
+        last = self.models[-K:]
+        for tree in last:
+            tree.shrinkage(-1.0)
+        pt = self.ptrainer
+        if pt is not None and pt.rollback_last():
+            self.scores = pt._scores()
+        else:
+            for k, tree in enumerate(last):
+                self._add_tree_to_train_scores(tree, k)
+            if pt is not None:
+                pt.score_dirty = True
+        for k, tree in enumerate(last):
+            self._add_to_valid_scores([tree], k)
+        del self.models[-K:]
+        self.iter -= 1
 
     def train_one_iter_custom(self, gradients, hessians) -> bool:
         """One iteration on the mask grower from gradients and hessians
@@ -333,14 +415,19 @@ class GBDT:
         (objective_->GetGradients, gbdt.cpp:692-700); an objective that is
         not row-local (lambdarank) takes the scores of every row at once
         (gbdt.py:540-547)."""
+        score = self.get_training_score()
         if self.num_tree_per_iteration == 1:
             if self.objective.rowwise:
-                g, h = self.objective.gradients_rowwise(self.scores[0], self.label_t,
-                                                        self.weight_t)
+                g, h = self.objective.gradients_rowwise(score[0], self.label_t, self.weight_t)
             else:
-                g, h = self.objective.get_gradients(self.scores[0])
+                g, h = self.objective.get_gradients(score[0])
             return g[None], h[None]
-        return self.objective.gradients_rowwise_all(self.scores, self.label_t, self.weight_t)
+        return self.objective.gradients_rowwise_all(score, self.label_t, self.weight_t)
+
+    def get_training_score(self):
+        """The (K, N) scores the gradients are taken at; DART drops its
+        trees here first (GetTrainingScore, gbdt.py:549-551)."""
+        return self.scores
 
     def _adjust_gradients(self, grad, hess):
         """Hook for GOSS's re-weighting (boosting/goss.py); identity here."""
@@ -489,14 +576,39 @@ class GBDT:
         arrays = TreeArrays.from_stacked(stack_trees(models), self.device)
         return predict_raw(data, arrays, num_class=k)
 
-    def predict(self, data: np.ndarray, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
-        """(N,) or, for K > 1, (N, K) predictions."""
-        raw = self.predict_raw_scores(np.asarray(data, np.float64), num_iteration)
+    def predict(self, data: np.ndarray, num_iteration: int = -1, raw_score: bool = False,
+                pred_leaf: bool = False, config=None) -> np.ndarray:
+        """(N,) or, for K > 1, (N, K) predictions; with ``pred_leaf`` the
+        (N, T) int32 leaf of each row in each tree.  ``config`` (default:
+        the booster's) carries the prediction early stop
+        (gbdt.py:1845-1887)."""
+        data = np.asarray(data, np.float64)
+        config = config if config is not None else self.config
+        models = self._used_models(num_iteration)
+        if pred_leaf:
+            if not models:
+                return np.zeros((data.shape[0], 0), np.int32)
+            arrays = TreeArrays.from_stacked(stack_trees(models), self.device)
+            return predict_leaf(data, arrays).T.to(torch.int32).cpu().numpy()
+        if config is not None and config.pred_early_stop and models:
+            raw = self._predict_early_stop(data, models, config)
+        else:
+            raw = self.predict_raw_scores(data, num_iteration)
         if not raw_score and self.objective is not None:
             score = torch.as_tensor(raw, dtype=torch.float32, device=self.device)
             raw = self.objective.convert_output(score).double().cpu().numpy()
         return raw[0] if raw.shape[0] == 1 else raw.T
+
+    def _predict_early_stop(self, data, models, config) -> np.ndarray:
+        """(K, N) float64 raw scores with the margin exit
+        (prediction_early_stop.cpp, application/predictor.hpp)."""
+        K = self.num_tree_per_iteration
+        inst = create_prediction_early_stop_instance(
+            early_stop_type(K, self.objective), int(config.pred_early_stop_freq),
+            float(config.pred_early_stop_margin))
+        leaves = predict_leaf(data, TreeArrays.from_stacked(stack_trees(models), self.device))
+        values = leaf_values_table(models).to(self.device)
+        return predict_with_early_stop(leaves, values, K, inst).cpu().numpy()
 
     def sub_model_name(self) -> str:
         return "tree"
@@ -566,3 +678,15 @@ class GBDT:
         pairs = [(names[i], int(imp[i])) for i in range(len(imp)) if imp[i] > 0]
         pairs.sort(key=lambda p: -p[1])
         return pairs
+
+    def feature_importance(self, importance_type: str = "split") -> np.ndarray:
+        """(F,) float64 importance of every original feature over all the
+        trees held: splits with a positive gain counted (``"split"``) or
+        their gains summed (``"gain"``) (gbdt.py:1990-2000)."""
+        imp = np.zeros(self.max_feature_idx + 1, np.float64)
+        for tree in self.models:
+            for s in range(tree.num_leaves - 1):
+                if tree.split_gain[s] > 0:
+                    imp[tree.split_feature[s]] += (tree.split_gain[s]
+                                                   if importance_type == "gain" else 1)
+        return imp

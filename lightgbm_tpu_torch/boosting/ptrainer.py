@@ -35,7 +35,13 @@ or K trees (multiclass, gbdt.cpp:445-480):
      layout is current (the precomputed gradient planes make that safe;
      there is no pending delta)                                  [kernels]
 
-The scores are gathered back to original row order through ROWID.  With
+The scores are gathered back to original row order through ROWID.  The
+last chunk's last delta (K = 1) is kept while the matrix holds that
+tree's row order, so ``rollback_last`` can take it back off through
+score_add; any other change to the scores made outside the band (a
+rollback at K > 1, or after a chunk that stopped early) marks the band
+dirty, and the next chunk first rewrites it from the original-order
+scores (``sync_scores_from``).  With
 EFB bundles the matrix packs the dataset's (N, G) bundle bins and the
 grower expands bundle histograms through ``BundleMeta``.
 
@@ -140,6 +146,8 @@ class PartitionedTrainer:
         self.chunk_seconds = []  # (wall seconds, iterations) of each chunk
         self._base_key = threefry.PRNGKey(
             (int(config.bagging_seed) << 1) ^ int(config.feature_fraction_seed))
+        self.score_dirty = False  # the band lags GBDT.scores until sync_scores_from
+        self._last_delta = None  # the last tree's positional delta, for rollback_last
 
     def add_score(self, delta, k: int = 0) -> None:
         """score channel k += delta (a float32 scalar or (N,) array in
@@ -148,6 +156,32 @@ class PartitionedTrainer:
         d = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
         d = d.expand(self.num_rows).contiguous()
         self.p = score_add(self.p, self.layout, d, k, num_rows=self.num_rows)
+
+    def sync_scores_from(self, scores) -> None:
+        """Bring the K score channels to the (K, N) original-order
+        ``scores``: each channel gets target - current through score_add
+        (ptrainer.py:216-226)."""
+        lay, n = self.layout, self.num_rows
+        rowid = self.p[lay.ROWID, :n].to(torch.int64)
+        for k in range(self.K):
+            target = torch.index_select(scores[k].to(self.device), 0, rowid)
+            diff = (target - f32_row(self.p, lay.SCORE + k, n)).contiguous()
+            self.p = score_add(self.p, lay, diff, k, num_rows=n)
+        self.score_dirty = False
+        self._last_delta = None
+
+    def rollback_last(self) -> bool:
+        """Take the last tree's delta back off the score band through
+        score_add, which is exact in position while the matrix holds that
+        tree's row order (until the next chunk's canonical gather).
+        False when no such delta is held (K > 1, a chunk that stopped
+        early, or a second rollback): the caller then marks the band dirty
+        (ptrainer.py:238-246)."""
+        if self._last_delta is None:
+            return False
+        self.p = score_add(self.p, self.layout, -self._last_delta, 0, num_rows=self.num_rows)
+        self._last_delta = None
+        return True
 
     def _canonical_order(self, delta=None):
         """Gather the matrix back to original row order (column j holds
@@ -227,6 +261,7 @@ class PartitionedTrainer:
         (K, N) f32 tensor, n_done); the first iteration in which no tree
         found a split stops the chunk (it and the later ones are not
         returned).  Nothing reads the device until the chunk's end."""
+        self._last_delta = None
         if self.K > 1:
             return self._train_chunk_multi(T, lr, iter0)
         lay, n = self.layout, self.num_rows
@@ -246,7 +281,11 @@ class PartitionedTrainer:
         run.mark(run.T)
         # settle the last tree's delta, then original-order scores
         self.p = score_add(self.p, lay, delta, 0, num_rows=n)
-        return run.finish()
+        trees, scores, n_done = run.finish()
+        # a chunk that stopped early regathered the rows after its last tree
+        if 0 < n_done == run.T:
+            self._last_delta = delta
+        return trees, scores, n_done
 
     def _train_chunk_multi(self, T: int, lr: float, iter0: int):
         lay, n, params = self.layout, self.num_rows, self.params

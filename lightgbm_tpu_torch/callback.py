@@ -59,6 +59,9 @@ def print_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:
 log_evaluation = print_evaluation  # modern alias
 
 
+log_evaluation = print_evaluation  # the reference's later name
+
+
 def record_evaluation(eval_result: dict) -> Callable:
     """Record eval history into ``eval_result`` (callback.py:73-103)."""
     if not isinstance(eval_result, dict):

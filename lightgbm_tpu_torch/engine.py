@@ -1,6 +1,7 @@
-"""``train`` — PyTorch counterpart of lightgbm_tpu/engine.py (engine.py:23-320,
-python-package/lightgbm/engine.py train:17-199) with validation sets,
-metrics, callbacks and early stopping.
+"""``train`` and ``cv`` — PyTorch counterpart of lightgbm_tpu/engine.py
+(engine.py:23-489, python-package/lightgbm/engine.py train:17-199,
+cv:~250) with validation sets, metrics, callbacks, early stopping and
+continued training (``init_model``).
 
 Three loops, as in the JAX package:
 
@@ -22,19 +23,23 @@ from __future__ import annotations
 import collections
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .config import canonicalize_params
 from .utils.log import Log
 
-_NOT_YET = ("init_model", "checkpoint_dir", "checkpoint_manager")
+_NOT_YET = ("checkpoint_dir", "checkpoint_manager")
 
 
 def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
-          valid_sets=None, valid_names=None, fobj=None, feval=None,
+          valid_sets=None, valid_names=None, fobj=None, feval=None, init_model=None,
+          feature_name="auto", categorical_feature="auto",
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[dict] = None, verbose_eval=True, learning_rates=None,
-          callbacks=None, device=None, **kwargs) -> Booster:
+          keep_training_booster: bool = True, callbacks=None, device=None,
+          **kwargs) -> Booster:
     """Train a booster on ``device`` (``None``: the CUDA card; raises when
     none is present; ``"cpu"`` runs the kernels' plain PyTorch versions).
 
@@ -48,8 +53,13 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
     ``fobj(preds, train_set) -> (grad, hess)`` is a custom objective on
     the raw scores; ``feval(preds, data) -> (name, value,
     bigger_is_better)`` (or a list of them) a custom metric.
-    ``init_model`` and checkpoints are not ported yet and raise
-    NotImplementedError."""
+    ``init_model`` (a Booster or a model file) continues training from
+    its trees: the new trees are added after them, the training scores
+    start from its predictions of ``train_set``'s raw rows.
+    ``feature_name`` and ``categorical_feature`` override the Dataset's;
+    ``keep_training_booster`` is accepted for the reference's signature
+    (the booster returned can always train on).  Checkpoints are not
+    ported yet and raise NotImplementedError."""
     for name in _NOT_YET:
         if kwargs.pop(name, None) is not None:
             raise NotImplementedError(f"lightgbm_tpu_torch does not support {name} yet")
@@ -67,8 +77,14 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
         params.pop(alias, None)
     if fobj is not None:
         params.setdefault("objective", "none")
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
 
     booster = Booster(params=params, train_set=train_set, device=device)
+    if init_model is not None:
+        _apply_init_model(booster, init_model, train_set)
 
     name_list: List[str] = []
     if valid_sets is not None:
@@ -168,3 +184,175 @@ def _record_best_score(booster: Booster, best_score_list) -> None:
     for item in best_score_list:
         out[item[0]][item[1]] = item[2]
     booster.best_score = dict(out)
+
+
+def _apply_init_model(booster: Booster, init_model, train_set: Dataset) -> None:
+    """Continued training (engine.py:343-385, gbdt.cpp input_model): the
+    initial model's trees go first, and the training scores start from
+    its raw predictions of ``train_set``'s rows.  The initial model must
+    read the same features and grow as many trees an iteration."""
+    if isinstance(init_model, Booster):
+        model_str = init_model.model_to_string()
+    else:
+        with open(init_model) as f:
+            model_str = f.read()
+    prev = Booster(params=booster.params, model_str=model_str, device=booster.device)
+    b = booster.boosting
+    prev_nf = int(prev.boosting.max_feature_idx) + 1
+    new_nf = int(train_set.num_feature())
+    if prev_nf > 0 and prev_nf != new_nf:
+        Log.fatal("init_model was trained on %d features but the new training data has %d — "
+                  "continued training requires the same feature schema (same columns, same "
+                  "order). Retrain from scratch, or fix the data source that drifted.",
+                  prev_nf, new_nf)
+    prev_tpi = int(max(prev.boosting.num_tree_per_iteration, 1))
+    new_tpi = int(max(b.num_tree_per_iteration, 1))
+    if prev_tpi != new_tpi:
+        Log.fatal("init_model boosts %d tree(s) per iteration but the new training config "
+                  "boosts %d (different objective/num_class?) — continued training requires "
+                  "the same objective shape.", prev_tpi, new_tpi)
+    b.models = prev.boosting.models + b.models
+    b.num_init_trees = len(prev.boosting.models)
+    b.num_init_iteration = len(prev.boosting.models) // prev_tpi
+    b.boost_from_average_ = prev.boosting.boost_from_average_
+    if train_set.data is None:
+        Log.fatal("Continued training requires the raw training data")
+    init_scores = prev.boosting.predict_raw_scores(np.asarray(train_set.data, np.float64))
+    b.add_init_scores(init_scores.astype(np.float32))
+    booster._init_predictor = prev
+
+
+def _metric_rank(name: str, params: Dict[str, Any]) -> int:
+    """Position of a result metric in the configured metric list (a
+    prefix match takes decorated names like ndcg@5); unknown: last."""
+    metric = params.get("metric", "")
+    if isinstance(metric, str):
+        metric = [m for m in metric.replace(",", " ").split() if m]
+    for i, m in enumerate(metric or []):
+        if name == m or name.startswith(str(m)):
+            return i
+    return 1 << 30
+
+
+def _make_n_folds(n: int, label, nfold: int, stratified: bool, shuffle: bool, seed: int):
+    """[(train indices, test indices)] of each fold (engine.py _make_n_folds):
+    scikit-learn's StratifiedKFold for ``stratified`` when it imports,
+    else contiguous parts of a RandomState(seed) permutation."""
+    if stratified:
+        try:
+            from sklearn.model_selection import StratifiedKFold
+        except ImportError:
+            stratified = False
+        else:
+            skf = StratifiedKFold(n_splits=nfold, shuffle=shuffle,
+                                  random_state=seed if shuffle else None)
+            return list(skf.split(np.zeros(n), label))
+    idx = np.random.RandomState(seed).permutation(n) if shuffle else np.arange(n)
+    parts = np.array_split(idx, nfold)
+    return [(np.concatenate([parts[j] for j in range(nfold) if j != i]), parts[i])
+            for i in range(nfold)]
+
+
+def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 10, folds=None,
+       nfold: int = 5, stratified: bool = False, shuffle: bool = True, metrics=None,
+       fobj=None, feval=None, init_model=None, feature_name="auto",
+       categorical_feature="auto", early_stopping_rounds: Optional[int] = None,
+       fpreproc=None, verbose_eval=None, show_stdv: bool = True, seed: int = 0,
+       callbacks=None, return_cvbooster: bool = False,
+       device=None) -> Dict[str, List[float]]:
+    """k-fold cross-validation (engine.py:388-489): one booster a fold on
+    ``device`` (``None``: the CUDA card), each trained on the other folds'
+    rows of ``train_set`` (subsets sharing its bins) and evaluated on its
+    own, one iteration of every fold at a time.  Returns {"<metric>-mean":
+    [...], "<metric>-stdv": [...]} over the iterations.
+
+    ``folds`` (pairs of train and test indices) replace the ``nfold``
+    folds of a RandomState(``seed``) permutation (``shuffle``), or of
+    scikit-learn's StratifiedKFold (``stratified``, when it imports);
+    ``fpreproc(train, test, params)`` may change a fold's data and
+    params; ``init_model`` continues every fold from that model;
+    ``early_stopping_rounds`` stops when the first configured metric's
+    mean has not improved for that many iterations and cuts the results
+    at its best.  ``callbacks`` run after each iteration with the
+    aggregated results ("cv_agg", name, mean, bigger_is_better, stdv);
+    an early-stopping callback's stop cuts them the same way.  With
+    ``return_cvbooster`` the fold boosters come back under "cvbooster"
+    (the reference's later option)."""
+    params = dict(params or {})
+    if metrics is not None:
+        params["metric"] = metrics
+    canon = canonicalize_params(params)
+    num_boost_round = int(canon.pop("num_iterations", num_boost_round))
+    for alias in ("num_iterations", "num_iteration", "num_tree", "num_trees", "num_round",
+                  "num_rounds", "num_boost_round"):
+        params.pop(alias, None)
+    if fobj is not None:
+        params.setdefault("objective", "none")
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
+
+    full = train_set.construct()
+    if folds is None:
+        folds = _make_n_folds(full.num_data, np.asarray(full.metadata.label), nfold,
+                              stratified, shuffle, seed)
+    boosters = []
+    for train_idx, test_idx in folds:
+        tr = train_set.subset(np.sort(train_idx))
+        te = train_set.subset(np.sort(test_idx))
+        fold_params = params.copy()
+        if fpreproc is not None:
+            tr, te, fold_params = fpreproc(tr, te, fold_params)
+        bst = Booster(params=fold_params, train_set=tr, device=device)
+        if init_model is not None:
+            _apply_init_model(bst, init_model, tr)
+        bst.add_valid(te, "valid")
+        boosters.append(bst)
+
+    cbs = sorted(callbacks or [], key=lambda c: getattr(c, "order", 0))
+    cbs_before = [c for c in cbs if getattr(c, "before_iteration", False)]
+    cbs_after = [c for c in cbs if not getattr(c, "before_iteration", False)]
+    results = collections.defaultdict(list)
+    history: List[Dict[str, float]] = []
+    for i in range(num_boost_round):
+        for cb in cbs_before:
+            cb(callback_mod.CallbackEnv(boosters, params, i, 0, num_boost_round, None))
+        merged = collections.defaultdict(list)
+        for bst in boosters:
+            bst.update(fobj=fobj)
+            for _, name, val, bigger in bst.eval_valid(feval):
+                merged[(name, bigger)].append(val)
+        agg = []
+        for (name, bigger), vals in merged.items():
+            mean, std = float(np.mean(vals)), float(np.std(vals))
+            results[name + "-mean"].append(mean)
+            results[name + "-stdv"].append(std)
+            agg.append(("cv_agg", name, mean, bigger, std))
+        history.append({name: mean for _, name, mean, _, _ in agg})
+        if verbose_eval:
+            Log.info("[%d]\t%s", i + 1, "\t".join(
+                f"cv_agg {name}: {mean:g}" + (f" + {std:g}" if show_stdv else "")
+                for _, name, mean, _, std in agg))
+        best = None
+        try:
+            for cb in cbs_after:
+                cb(callback_mod.CallbackEnv(boosters, params, i, 0, num_boost_round, agg))
+        except callback_mod.EarlyStopException as es:
+            best = es.best_iteration
+        if best is None and early_stopping_rounds and len(history) > early_stopping_rounds:
+            # the first configured metric decides (the reference keys early
+            # stopping off the config's order)
+            name, bigger = min(merged.keys(), key=lambda kb: _metric_rank(kb[0], params))
+            series = results[name + "-mean"]
+            at = int(np.argmax(series) if bigger else np.argmin(series))
+            if len(series) - 1 - at >= early_stopping_rounds:
+                best = at
+        if best is not None:
+            for k in list(results.keys()):
+                results[k] = results[k][:best + 1]
+            break
+    out = dict(results)
+    if return_cvbooster:
+        out["cvbooster"] = boosters
+    return out

@@ -4,9 +4,9 @@ reference's Dataset/Metadata, src/io/dataset.cpp, metadata.cpp).
 The whole dataset is one dense row-major ``(N, F)`` uint8/uint16 matrix
 of bin indices, built on the host with numpy exactly as the JAX package
 builds it (same sample, same mappers, same bins), with the query groups
-of a ranking task.  Not ported yet: the distributed find-bin (raises
-NotImplementedError), row subsets for validation sets, and the binary
-dataset cache.
+of a ranking task, and its row subsets (cv folds) and validation sets.
+Not ported yet: the distributed find-bin (raises NotImplementedError)
+and the binary dataset cache.
 
 Parity notes:
 - trivial-feature filtering and used-feature mapping ↔ Dataset::Construct
@@ -200,6 +200,42 @@ class BinnedDataset:
         if info is not None:
             self.bundle = info
             self.bundled = build_bundled_matrix(self.binned, self.bin_mappers, info)
+
+    def create_valid(self, data, **kwargs) -> "BinnedDataset":
+        """Validation dataset aligned with this dataset's bin mappers
+        (Dataset::CreateValid, dataset.cpp)."""
+        return BinnedDataset.from_raw(data, Config(), reference=self, **kwargs)
+
+    def subset(self, indices) -> "BinnedDataset":
+        """Row subset sharing the bin mappers (Dataset::CopySubset): the
+        binned rows, label, weights and init score of ``indices``, nothing
+        re-binned.  A ranking set keeps its non-empty queries, in order,
+        with the rows of each that ``indices`` retains."""
+        indices = np.asarray(indices)
+        ds = BinnedDataset()
+        ds.binned = self.binned[indices]
+        ds.bin_mappers = self.bin_mappers
+        ds.used_feature_map = self.used_feature_map
+        ds.num_total_features = self.num_total_features
+        ds.feature_names = self.feature_names
+        ds.max_bin = self.max_bin
+        md = self.metadata
+        ds.metadata = Metadata(len(indices))
+        ds.metadata.set_label(md.label[indices])
+        if md.weights is not None:
+            ds.metadata.set_weights(md.weights[indices])
+        if md.query_boundaries is not None:
+            qb = md.query_boundaries
+            row_query = np.searchsorted(qb, indices, side="right") - 1
+            per_query = np.bincount(row_query, minlength=len(qb) - 1)
+            ds.metadata.set_query(per_query[per_query > 0])
+        if md.init_score is not None:
+            ns = len(md.init_score) // max(md.num_data, 1)
+            if ns > 1:  # class-major (K, N)
+                ds.metadata.set_init_score(md.init_score.reshape(ns, -1)[:, indices].ravel())
+            else:
+                ds.metadata.set_init_score(md.init_score[indices])
+        return ds
 
     # ------------------------------------------------------------------
     def feature_infos(self) -> List[str]:

@@ -167,6 +167,64 @@ class Tree:
         self.shrinkage_rate *= rate
 
     # ------------------------------------------------------------------
+    def predict_leaf_index(self, data: np.ndarray) -> np.ndarray:
+        """(N,) int32 leaf of each row of a raw float64 matrix
+        (Tree::GetLeaf, tree.h:232-276), on the host; the device version
+        over stacked trees is ops/predict.py ``predict_leaf``."""
+        from ..io.binning import MISSING_VALUE_RANGE
+
+        n = data.shape[0]
+        if self.num_leaves <= 1:
+            return np.zeros(n, np.int32)
+        node = np.zeros(n, np.int32)
+        active = node >= 0
+        while np.any(active):
+            j = np.where(active, node, 0)
+            fval = data[np.arange(n), self.split_feature[j]]
+            is_zero = (((fval > -MISSING_VALUE_RANGE) & (fval <= MISSING_VALUE_RANGE))
+                       | np.isnan(fval))
+            fval = np.where(is_zero, self.default_value[j], fval)
+            goes_left = np.where(self.decision_type[j] == 1,
+                                 fval.astype(np.int64) == self.threshold[j].astype(np.int64),
+                                 fval <= self.threshold[j])
+            node = np.where(active, np.where(goes_left, self.left_child[j],
+                                             self.right_child[j]), node)
+            active = node >= 0
+        return (~node).astype(np.int32)
+
+    def _node_json(self, idx: int) -> dict:
+        """Tree::NodeToJSON (tree.cpp:359-440)."""
+        if idx >= 0:
+            return {
+                "split_index": int(idx),
+                "split_feature": int(self.split_feature[idx]),
+                "split_gain": float(self.split_gain[idx]),
+                "threshold": float(self.threshold[idx]),
+                "decision_type": "==" if self.decision_type[idx] == 1 else "<=",
+                "default_value": float(self.default_value[idx]),
+                "internal_value": float(self.internal_value[idx]),
+                "internal_count": int(self.internal_count[idx]),
+                "left_child": self._node_json(self.left_child[idx]),
+                "right_child": self._node_json(self.right_child[idx]),
+            }
+        leaf = ~idx
+        return {
+            "leaf_index": int(leaf),
+            "leaf_parent": int(self.leaf_parent[leaf]),
+            "leaf_value": float(self.leaf_value[leaf]),
+            "leaf_count": int(self.leaf_count[leaf]),
+        }
+
+    def to_json(self) -> dict:
+        """Tree::ToJSON (tree.cpp:345-357)."""
+        return {
+            "num_leaves": int(self.num_leaves),
+            "shrinkage": float(self.shrinkage_rate),
+            "has_categorical": 1 if self.has_categorical else 0,
+            "tree_structure": self._node_json(0 if self.num_leaves > 1 else -1),
+        }
+
+    # ------------------------------------------------------------------
     def to_string(self) -> str:
         """Tree::ToString (tree.cpp:312-343) — reference text format."""
         n = self.num_leaves

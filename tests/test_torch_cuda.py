@@ -900,3 +900,82 @@ def test_tree_graph_needs_no_host_sync(dev):
             torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if _is_sync(w)]
     assert n_done == 3 and len(trees) == 3 and len(syncs) == 1
+
+
+def _binary_data(n=20000, seed=5):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, 8))
+    y = (rng.random(n) < 1 / (1 + np.exp(-(X @ rng.standard_normal(8))))).astype(np.float32)
+    return X, y
+
+
+API_PARAMS = dict(objective="binary", num_leaves=31, learning_rate=0.2, max_bin=31,
+                  min_data_in_leaf=20, verbose=-1)
+
+
+def test_init_scores_and_rollback_through_score_add(dev):
+    """Continued training's initial scores and rollback_one_iter's
+    subtract go through score_add on the card: each leaves the score band
+    bit-equal to the plain version applied to a copy of the band."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.engine import _apply_init_model
+
+    X, y = _binary_data()
+    init = lgt.train(API_PARAMS, lgt.Dataset(X, label=y), 3, device="cpu")
+    ds = lgt.Dataset(X, label=y)
+    bst = lgt.Booster(params=API_PARAMS, train_set=ds)
+    pt, n = bst.boosting.ptrainer, len(y)
+    ref = pt.p.clone()
+    scores = init.boosting.predict_raw_scores(X).astype(np.float32)
+    before = pk.score_add.launches
+    _apply_init_model(bst, init, ds)
+    assert pk.score_add.launches == before + 1
+    pk.score_add_ref(ref, pt.layout, torch.from_numpy(scores[0]).to(dev), num_rows=n)
+    torch.cuda.synchronize()
+    assert torch.equal(pt.p, ref)
+    bst.update()
+    bst.update()
+    ref, delta = pt.p.clone(), pt._last_delta.clone()
+    before = pk.score_add.launches
+    bst.rollback_one_iter()
+    assert pk.score_add.launches == before + 1 and not pt.score_dirty
+    pk.score_add_ref(ref, pt.layout, -delta, num_rows=n)
+    torch.cuda.synchronize()
+    assert torch.equal(pt.p, ref)
+    assert bst.current_iteration() == 4
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_rollback_cuda_matches_cpu(dev, K):
+    """Rollback then one more iteration, on the card and on the CPU: the
+    same model text (K = 3 rewrites the band from the scores)."""
+    import lightgbm_tpu_torch as lgt
+
+    X, y = _binary_data()
+    params = API_PARAMS
+    if K == 3:
+        y = np.digitize(X[:, 0] + 0.3 * X[:, 1], [-0.4, 0.5]).astype(np.float32)
+        params = dict(API_PARAMS, objective="multiclass", num_class=3)
+    texts = []
+    for d in (dev, "cpu"):
+        b = lgt.train(params, lgt.Dataset(X, label=y), 3, device=d)
+        b.rollback_one_iter()
+        b.update()
+        texts.append(b.model_to_string())
+    assert texts[0] == texts[1]
+
+
+def test_pred_leaf_cuda_matches_cpu(dev):
+    import lightgbm_tpu_torch as lgt
+
+    X, y = _binary_data()
+    text = lgt.train(API_PARAMS, lgt.Dataset(X, label=y), 4, device="cpu").model_to_string()
+    Xn = X.copy()
+    Xn[::7, 3] = np.nan
+    leaves = [lgt.Booster(model_str=text, device=d).predict(Xn, pred_leaf=True)
+              for d in (dev, "cpu")]
+    np.testing.assert_array_equal(leaves[0], leaves[1])
+    es = dict(pred_early_stop=True, pred_early_stop_freq=1, pred_early_stop_margin=1.0)
+    raw = [lgt.Booster(model_str=text, device=d).predict(Xn, raw_score=True, **es)
+           for d in (dev, "cpu")]
+    np.testing.assert_array_equal(raw[0], raw[1])

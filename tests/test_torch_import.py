@@ -1,7 +1,8 @@
 """lightgbm_tpu_torch stands alone: it and the chip scripts at the repo
-root import torch and numpy, never jax or the JAX package; it builds its
-kernels lazily, and its entry points refuse to fall back to the CPU
-silently."""
+root import torch and numpy, never jax or the JAX package (nor pandas,
+scipy or scikit-learn, which the card machine lacks: they load only when
+given their objects); it builds its kernels lazily, and its entry points
+refuse to fall back to the CPU silently."""
 
 import os
 import re
@@ -15,6 +16,28 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "lightgbm_tpu_torch"
+
+
+def test_new_modules_pull_in_no_optional_packages():
+    """The API modules import with no jax, pandas, scipy or sklearn, and a
+    numpy-only run through them loads none of those either."""
+    code = ("import sys, numpy as np, lightgbm_tpu_torch as lgt, lightgbm_tpu_torch.sklearn, "
+            "lightgbm_tpu_torch.boosting.dart, lightgbm_tpu_torch.boosting.pred_early_stop, "
+            "lightgbm_tpu_torch.engine, lightgbm_tpu_torch.callback; "
+            "X = np.random.default_rng(0).standard_normal((300, 4)); y = (X[:, 0] > 0) * 1.0; "
+            "p = dict(objective='binary', num_leaves=4, verbose=-1); "
+            "b = lgt.train(p, lgt.Dataset(X, label=y), 2, device='cpu'); "
+            "lgt.cv(p, lgt.Dataset(X, label=y), 1, nfold=2, device='cpu'); "
+            "lgt.LGBMClassifier(n_estimators=1, device='cpu').fit(X, y).predict(X); "
+            "b.predict(X, pred_leaf=True); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'lightgbm_tpu', 'pandas', 'scipy', 'sklearn')]; "
+            "assert not bad, bad; print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_import_pulls_in_no_jax():
@@ -60,6 +83,35 @@ def test_train_without_device_raises_when_no_card(monkeypatch):
     y = (X[:, 0] > 0).astype(np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lgt.train({"objective": "binary"}, lgt.Dataset(X, label=y), 1)
+
+
+NO_CARD_CALLS = {
+    "cv": lambda lgt, X, y: lgt.cv({"objective": "binary"}, lgt.Dataset(X, label=y), 1,
+                                   nfold=2),
+    "init_model": lambda lgt, X, y: lgt.train(
+        {"objective": "binary"}, lgt.Dataset(X, label=y), 1,
+        init_model=lgt.train({"objective": "binary"}, lgt.Dataset(X, label=y), 1,
+                             device="cpu")),
+    "LGBMRegressor": lambda lgt, X, y: lgt.LGBMRegressor(n_estimators=1).fit(X, y),
+    "LGBMClassifier": lambda lgt, X, y: lgt.LGBMClassifier(n_estimators=1).fit(X, y),
+    "LGBMRanker": lambda lgt, X, y: lgt.LGBMRanker(n_estimators=1).fit(X, y, group=[200]),
+    "__setstate__": lambda lgt, X, y: lgt.Booster.__new__(lgt.Booster).__setstate__(
+        dict(lgt.train({"objective": "binary"}, lgt.Dataset(X, label=y), 1,
+                       device="cpu").__getstate__(), device="cuda")),
+}
+
+
+@pytest.mark.parametrize("name", list(NO_CARD_CALLS))
+def test_new_entry_points_raise_when_no_card(name, monkeypatch):
+    """With device=None (the card) and no card, the API's entry points
+    raise instead of running on the CPU."""
+    import lightgbm_tpu_torch as lgt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.random.default_rng(0).standard_normal((200, 3))
+    y = (X[:, 0] > 0).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NO_CARD_CALLS[name](lgt, X, y)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

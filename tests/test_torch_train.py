@@ -13,8 +13,9 @@ plain PyTorch versions).  Binary logloss and weighted L2, 7 and 31 leaves.
 
 EFB-bundled binary data is held to the same split structure and
 predictions.  The features the port does not take yet raise
-NotImplementedError, naming themselves; bagging with GOSS raises the
-reference's own error.  (Multiclass has its own file,
+NotImplementedError, naming themselves; bagging with GOSS, DART with
+linear trees and an initial model of another feature count raise the
+reference's own errors.  (Multiclass has its own file,
 tests/test_torch_multiclass.py; sampling and validation have
 tests/test_torch_sampling.py and tests/test_torch_valid.py.)
 """
@@ -152,7 +153,8 @@ def test_jax_model_loads_into_port(trained, case):
 
 
 DECLINED = [
-    ("boosting=dart", dict(boosting="dart"), {}),
+    # DART trains (tests/test_torch_dart.py); with linear trees it is declined
+    ("boosting=dart", dict(boosting="dart", linear_tree=True), {}),
     ("Cannot use bagging in GOSS", dict(boosting="goss", bagging_fraction=0.5, bagging_freq=1),
      {}),
     ("linear trees", dict(linear_tree=True), {}),
@@ -163,10 +165,14 @@ DECLINED = [
     # trains no given gradients: a custom objective runs with objective=none
     ("fobj", {}, dict(fobj=lambda preds, data: (preds, preds))),
     ("checkpoint_dir", {}, dict(checkpoint_dir="ckpt")),
-    ("init_model", {}, dict(init_model="model.txt")),
+    # continued training runs (tests/test_torch_api.py); an initial model of
+    # another feature count is refused
+    ("init_model", {}, dict(init_model="narrow")),
 ]
-# the reference's own error (goss.py:38); the rest are not ported yet
-RAISES = {"Cannot use bagging in GOSS": LightGBMError}
+# the reference's own errors (goss.py:38, config.py's linear_tree checks,
+# engine.py's schema guard); the rest are not ported yet
+RAISES = {"Cannot use bagging in GOSS": LightGBMError, "boosting=dart": LightGBMError,
+          "init_model": LightGBMError}
 
 
 @pytest.mark.parametrize("what,params,kwargs", DECLINED, ids=[d[0] for d in DECLINED])
@@ -177,6 +183,9 @@ def test_declined_feature_raises(what, params, kwargs):
     if params.get("objective") != "multiclass":
         y = (y > 0).astype(np.float32)
     ds = lgt.Dataset(X, label=y)
+    if kwargs.get("init_model") == "narrow":
+        kwargs = dict(init_model=lgt.train(dict(objective="binary", verbose=-1),
+                                           lgt.Dataset(X[:, :3], label=y), 2, device="cpu"))
     with pytest.raises(RAISES.get(what, NotImplementedError), match=what):
         lgt.train(dict(dict(objective="binary", verbose=-1), **params), ds, 2, device="cpu",
                   **kwargs)
