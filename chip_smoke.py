@@ -43,13 +43,14 @@ result line):
      Covertype-shaped rows (K=7, 2 iterations) trained on the card and on
      the CPU (plain versions) — splits, predictions and AUC / multi
      logloss must agree; then --small-rows x 28 at learning_rate=0.5,
-     6 iterations with bagging and feature_fraction and 4 with GOSS, on
-     both, with the bagging masks compared; then on the mask grower (31
-     leaves) quantized binary and quantized L2 on --small-rows x 28 (5
-     iterations) and multiclass GOSS on the 100,000 Covertype-shaped rows
-     (4 iterations at learning_rate 0.5: 2 warm-up, 2 sampled); then
-     each regression objective on --small-rows x 28 (2 iterations) and
-     Huber with GOSS (4 iterations at learning_rate 0.5)
+     31 leaves, 6 iterations with bagging and feature_fraction and 4
+     with GOSS, on both, with the bagging masks compared; then on the
+     mask grower (31 leaves) quantized binary and quantized L2 on
+     --small-rows x 28 (5 iterations) and multiclass GOSS on the 100,000
+     Covertype-shaped rows (4 iterations at learning_rate 0.5: 2 warm-up,
+     2 sampled); then each regression objective on --small-rows x 28 (31
+     leaves, 2 iterations) and Huber with GOSS (4 iterations at
+     learning_rate 0.5)
      on the fused path, 0 differing splits required; then lambdarank on
      the mask grower on ~20k documents of 170 mslr-web10k-shaped queries
      (3 iterations); then the API's paths (phase_small_api) on the
@@ -58,7 +59,15 @@ result line):
      lgt.train's, DART on the mask grower (31 leaves, 6 iterations, the
      drop indices of each equal), and rollback_one_iter then update() at
      K=1 (the delta off the band through score_add) and K=7 (the band
-     rewritten), each card against CPU;
+     rewritten), each card against CPU; then the tree strategies
+     (phase_small_strategies) on the same binned rows, 31 leaves, 3
+     iterations on the mask grower, card against CPU: linear trees
+     (binary, L2; the same linear leaves, coefficients within 1e-4
+     relative), monotone constraints on the 4 features of largest
+     |corr(x, y)| (binary on float32 and on quantized gradients), and 3
+     fused iterations, 2 update(fobj=logistic) on the mask grower and
+     one more fused iteration (the band rewritten from the scores
+     through score_add, the training scores within 1e-5 of predict);
   5. "higgs-10.5M" at full width: Higgs-shaped binary data (--rows plus a
      500k held-out set), max_bin=63, num_leaves=255, learning_rate=0.1,
      min_data_in_leaf=1, min_sum_hessian_in_leaf=100, --iters
@@ -115,6 +124,15 @@ result line):
      card at once, 5 rounds; the logloss mean must fall every round);
      DART (10 iterations on the mask grower, trees dropped each
      iteration, held-out AUC, host syncs of an iteration);
+  5f. the tree strategies at full width (phase_strategies) on the Higgs
+     cell's binned data and parameters, 5 iterations each on the mask
+     grower: "higgs-10.5M-linear" (linear_tree; one update() at a time,
+     the fit's ms a tree by CUDA events, the share of linear leaves,
+     the host syncs of the last iteration) and "higgs-10.5M-monotone"
+     (the 6 features of largest |corr(x, y)| constrained by its sign; a
+     sweep of 200 held-out rows x 32 values of each constrained feature,
+     whose worst signed step must be >= -1e-6); s/iter, held-out AUC
+     (> 0.6), peak memory and hist_segment's launches of each;
   6. "covertype-581k" at full width: Covertype-shaped data (581,012 rows,
      54 columns: 10 integer numeric, a 4-column and a 40-column one-hot,
      7 classes at Covertype's counts), the first 464,809 train and the
@@ -229,6 +247,11 @@ RANK_SMALL_QUERIES, RANK_SMALL_ITERS = 170, 3  # ~20k documents, card against CP
 SMALL_MASK_ITERS, SMALL_MASK_LEAVES = 5, 31  # the mask grower's card-vs-CPU phases
 SMALL_GOSS_ITERS = 4  # at learning_rate 0.5: 2 warm-up and 2 sampled iterations
 SMALL_OBJ_ITERS = 2  # each regression objective card vs CPU (cut from --small-iters' 3)
+# the fused card-vs-CPU checks of sampling and of the regression
+# objectives grow 31-leaf trees (255 before PR 11): the CPU runs the
+# fused tree's static structure eagerly, L-1 steps a tree, so this cuts
+# their CPU halves several-fold while every kernel of the path still runs
+SMALL_CHECK_LEAVES = 31
 # Covertype (UCI, Blackard & Dean 1998): rows per class, and the ranges of
 # the 10 integer columns (Elevation, Aspect, Slope, the hydrology
 # distances, roadways, the three hillshades, fire points)
@@ -248,6 +271,10 @@ API_SMALL_ITERS, SMALL_DART_ITERS = 3, 6  # init_model's 3 + 3; DART card vs CPU
 SMALL_DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", num_leaves=SMALL_MASK_LEAVES,
                          drop_rate=0.5, skip_drop=0.2)
 API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 5, 10
+# the tree strategies: linear leaves (LightGBM's linear_tree) and
+# monotone constraints, card against CPU and at full width
+LINEAR_PARAMS = dict(TRAIN_PARAMS, linear_tree=True)
+SMALL_STRAT_ITERS, STRAT_ITERS = 3, 5
 DeviceEvent = collections.namedtuple("DeviceEvent", "key count self_device_time_total")
 _TASK_SEED = 20260730  # bench.py: the task's informative weights never vary
 _N_INFORM = 8
@@ -1393,8 +1420,9 @@ def phase_small(rows, iters, dev):
 
 def phase_small_sampled(rows, dev):
     """Bagging with feature_fraction, and GOSS, on the card and on the CPU
-    (plain versions) at learning_rate 0.5: the same trees (or a first
-    differing split that is a near-tie), and the same bagging masks."""
+    (plain versions) at learning_rate 0.5, SMALL_CHECK_LEAVES leaves: the
+    same trees (or a first differing split that is a near-tie), and the
+    same bagging masks."""
     import torch
 
     import lightgbm_tpu_torch as lgt
@@ -1405,7 +1433,7 @@ def phase_small_sampled(rows, dev):
     # bagging redraws at iteration bagging_freq = 5, so it runs 6; GOSS 4
     for name, params, iters in (("bagging", BAG_PARAMS, SMALL_SAMPLED_ITERS),
                                 ("goss", GOSS_PARAMS, SMALL_GOSS_ITERS)):
-        params = dict(params, learning_rate=0.5)
+        params = dict(params, learning_rate=0.5, num_leaves=SMALL_CHECK_LEAVES)
         out = {}
         for where, d in (("cuda", dev), ("cpu", "cpu")):
             t0 = time.perf_counter()
@@ -1472,8 +1500,8 @@ def phase_small_mask(small_ds, Xc, yc, dev):
 
 def phase_small_objectives(ds, iters, dev):
     """Each regression objective on the fused path, on phase_small's binned
-    Dataset (the Higgs 0/1 targets as regression targets, TRAIN_PARAMS),
-    then Huber with GOSS at
+    Dataset (the Higgs 0/1 targets as regression targets, TRAIN_PARAMS at
+    SMALL_CHECK_LEAVES leaves), then Huber with GOSS at
     learning_rate 0.5 (update_channels from iteration 2 on), on the card
     and on the CPU (plain versions): 0 differing splits (both sides take
     the correctly rounded exp, no FMA, histograms rounded once) and
@@ -1482,10 +1510,11 @@ def phase_small_objectives(ds, iters, dev):
     from lightgbm_tpu_torch.ops import pkernels as pk
 
     X, rows = ds.data, ds.num_data()
-    cases = [(name, dict(TRAIN_PARAMS, objective=name, **extra), iters)
+    small = dict(num_leaves=SMALL_CHECK_LEAVES)
+    cases = [(name, dict(TRAIN_PARAMS, objective=name, **extra, **small), iters)
              for name, extra in OBJ_KINDS]
     cases.append(("huber goss", dict(GOSS_PARAMS, objective="huber", huber_delta=0.3,
-                                     learning_rate=0.5), SMALL_GOSS_ITERS))
+                                     learning_rate=0.5, **small), SMALL_GOSS_ITERS))
     for name, params, n_iter in cases:
         out = {}
         for where, d in (("cuda", dev), ("cpu", "cpu")):
@@ -2654,6 +2683,229 @@ def phase_api(higgs, main_text, dev):
     return counts, res
 
 
+def monotone_directions(X, y, k, rows=1_000_000):
+    """The +1/-1 directions of the ``k`` features with the largest
+    |corr(x, y)| (over the first ``rows`` rows), each by its correlation's
+    sign, 0 for the rest: users constrain the features whose direction
+    they know."""
+    Xs, ys = X[:rows], y[:rows]
+    corr = np.array([np.corrcoef(Xs[:, j], ys)[0, 1] for j in range(X.shape[1])])
+    mono = [0] * X.shape[1]
+    for j in np.argsort(-np.abs(corr))[:k]:
+        mono[j] = int(np.sign(corr[j]))
+    return mono
+
+
+def logistic_fobj(preds, data):
+    """The binary logloss's gradients as a custom objective."""
+    p = 1.0 / (1.0 + np.exp(-np.asarray(preds, np.float64)))
+    return p - data.get_label(), p * (1.0 - p)
+
+
+def linear_coeff_err(models_a, models_b):
+    """Max relative difference of two models' leaf coefficients, tree by
+    tree (each tree's largest |coefficient| the scale), and whether their
+    leaf_is_linear agree."""
+    err, same = 0.0, True
+    for a, b in zip(models_a, models_b):
+        same &= bool(np.array_equal(a.leaf_is_linear[:a.num_leaves],
+                                    b.leaf_is_linear[:b.num_leaves]))
+        ca = np.concatenate([np.asarray(c, np.float64) for c in a.leaf_coeff] + [np.zeros(0)])
+        cb = np.concatenate([np.asarray(c, np.float64) for c in b.leaf_coeff] + [np.zeros(0)])
+        if ca.shape == cb.shape and ca.size:
+            err = max(err, float(np.abs(ca - cb).max() / max(np.abs(cb).max(), 1e-30)))
+        elif ca.shape != cb.shape:
+            same = False
+    return err, same
+
+
+def phase_small_strategies(small, dev):
+    """The tree strategies on the card against the CPU (plain versions) on
+    phase_small's --small-rows x 28 rows, 31 leaves, SMALL_STRAT_ITERS
+    iterations: linear trees (binary, L2), monotone constraints on 4
+    features (binary, float32 and quantized), then 3 fused iterations and
+    2 ``update(fobj=)`` (the custom trees on the mask grower) and one more
+    fused iteration, whose chunk rewrites the band through score_add.
+    Returns the card's launch counts of each path."""
+    import lightgbm_tpu_torch as lgt
+
+    X, y, ds, _ = small
+    y_l2 = (X[:, 0] - 0.5 * X[:, 1] + 0.3 * X[:, 2] * X[:, 3]).astype(np.float32)
+    leaves = dict(num_leaves=SMALL_MASK_LEAVES)
+    mono = monotone_directions(X, y, 4)
+    cases = (("linear binary", dict(LINEAR_PARAMS, **leaves), ds, "hist_segment"),
+             ("linear l2", dict(LINEAR_PARAMS, objective="regression", **leaves),
+              lgt.Dataset(X, label=y_l2), "hist_segment"),
+             ("monotone binary", dict(TRAIN_PARAMS, monotone_constraints=mono, **leaves), ds,
+              "hist_segment"),
+             ("monotone quantized", dict(QUANT_PARAMS, monotone_constraints=mono, **leaves), ds,
+              "hist_segment_q"))
+    counts = []
+    for name, params, d_s, kernel in cases:
+        out = {}
+        for where, d in (("cuda", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            bst, c = driven(f"small {name} {where}",
+                            lambda: lgt.train(params, d_s, SMALL_STRAT_ITERS, device=d),
+                            (kernel,) if where == "cuda" else ())
+            if where == "cuda":
+                counts.append(c)
+            assert bst.boosting.ptrainer is None, f"{name} did not take the mask grower"
+            out[where] = (bst, bst.predict(X[:50_000]))
+            log(f"small {name} {where}: {len(X)}x28, {SMALL_STRAT_ITERS} iterations, "
+                f"{time.perf_counter() - t0:.1f} s")
+        (bc, pc), (bp, pp) = out["cuda"], out["cpu"]
+        ndiff = compare_models(f"small {name} cuda vs cpu", bp.model_to_string(),
+                               bc.model_to_string())
+        dpred = float(np.abs(pc - pp).max())
+        msg = f"small {name} cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} " \
+              f"(tol 1e-3)"
+        if params.get("linear_tree"):
+            err, same = linear_coeff_err(bc.boosting.models, bp.boosting.models)
+            lin = sum(int(t.leaf_is_linear[:t.num_leaves].sum()) for t in bc.boosting.models)
+            msg += (f"; leaf_is_linear equal {same} ({lin} linear leaves); coefficients max rel "
+                    f"diff {err:.3e} (tol 1e-4)")
+            assert ndiff > 0 or (same and err <= 1e-4), f"{name}: the linear leaves differ"
+        log(msg)
+        assert dpred <= 1e-3
+
+    # update(fobj=) on a booster the partitioned trainer started
+    params = dict(TRAIN_PARAMS, **leaves)
+    out = {}
+    for where, d in (("cuda", dev), ("cpu", "cpu")):
+        def custom():
+            b = lgt.train(params, ds, 3, device=d, keep_training_booster=True)
+            for _ in range(2):
+                b.update(fobj=logistic_fobj)
+            return b
+
+        b, c = driven(f"small fobj on a fused booster {where}", custom,
+                      ("update_and_root_hist", "hist_segment") if where == "cuda" else ())
+        assert b.boosting.ptrainer is not None and b.boosting.ptrainer.score_dirty
+        _, c2 = driven(f"small fused iteration after fobj {where}", b.update,
+                       ("score_add",) if where == "cuda" else ())
+        if where == "cuda":
+            counts += [c, c2]
+        drift = float(np.abs(b.boosting.scores[0].cpu().numpy()[:50_000]
+                             - b.predict(X[:50_000], raw_score=True)).max())
+        out[where] = (b, drift, c2["score_add"])
+    ndiff = compare_models("small fobj on a fused booster cuda vs cpu",
+                           out["cpu"][0].model_to_string(), out["cuda"][0].model_to_string())
+    dpred = float(np.abs(out["cuda"][0].predict(X[:50_000])
+                         - out["cpu"][0].predict(X[:50_000])).max())
+    log(f"small fobj on a fused booster: 3 fused iterations, 2 update(fobj=logistic) on the "
+        f"mask grower, 1 fused iteration; cuda vs cpu: {ndiff} split differences, max |dpred| "
+        f"{dpred:.3e} (tol 1e-3); the card's training scores against predict max |d| "
+        f"{out['cuda'][1]:.3e} (tol 1e-5); score_add launches of the last fused iteration "
+        f"{out['cuda'][2]} (the band rewritten from the scores, then the chunk's settle)")
+    assert dpred <= 1e-3 and out["cuda"][1] <= 1e-5 and out["cuda"][2] >= 2
+    return counts
+
+
+def phase_strategies(higgs, dev):
+    """The tree strategies at full width on the higgs-10.5M cell's binned
+    data and parameters, STRAT_ITERS iterations each on the mask grower:
+    "higgs-10.5M-linear" (linear_tree) and "higgs-10.5M-monotone" (the 6
+    features of largest |corr(x, y)| constrained by its sign).  Returns
+    the launch counts of both paths and their numbers."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+
+    ds, Xv, yv = higgs
+    X, y = ds.data, ds.get_label()
+    counts, res = [], {}
+
+    def peak_reset():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+
+    # 1. linear trees, one update at a time, the fit timed by CUDA events
+    def linear():
+        peak_reset()
+        b = lgt.Booster(LINEAR_PARAMS, ds, device=dev)
+        fit = b.boosting._fit_linear_tree
+        fit_ms = []
+
+        def timed_fit(*args):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fit(*args)
+            e1.record()
+            e1.synchronize()
+            fit_ms.append(e0.elapsed_time(e1))
+
+        b.boosting._fit_linear_tree = timed_fit
+        for _ in range(STRAT_ITERS - 1):
+            b.update()
+        _, nsync = count_syncs(b.update)
+        sync(dev)
+        return b, fit_ms, nsync
+
+    (b, fit_ms, nsync), c = driven("higgs-10.5M-linear", linear, ("hist_segment",))
+    counts.append(c)
+    assert b.boosting.ptrainer is None
+    its = b.boosting.iter_seconds
+    s_iter = float(np.median(its[1:]))
+    trees = [t for t in b.boosting.models if t.is_linear]  # no boost-from-average tree
+    assert len(trees) == STRAT_ITERS
+    n_lin = sum(int(t.leaf_is_linear[:t.num_leaves].sum()) for t in trees)
+    n_leaves = sum(t.num_leaves for t in trees)
+    a = auc(yv, b.predict(Xv))
+    log(f"higgs-10.5M-linear: {STRAT_ITERS} iterations on the mask grower, s/iter {s_iter:.4f} "
+        f"(median after the first; first {its[0]:.3f} s); the fit {np.median(fit_ms):.1f} ms a "
+        f"tree (CUDA events, median; each {[round(m, 1) for m in fit_ms]}); {n_lin} of "
+        f"{n_leaves} leaves linear ({100 * n_lin / n_leaves:.1f} %); held-out AUC {a:.6f}; "
+        f"the last iteration made {nsync} host syncs; peak device memory {peak():.2f} GiB; "
+        f"hist_segment launches {c['hist_segment']}")
+    assert 0.6 < a <= 1.0, "higgs-10.5M-linear's held-out AUC out of range"
+    res["linear"] = dict(s_iter=s_iter, fit_ms=float(np.median(fit_ms)), linear_share=n_lin /
+                         n_leaves, auc=a, syncs=nsync, peak_gib=peak())
+    del b
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 2. monotone constraints on the 6 features users know the direction of
+    mono = monotone_directions(X, y, 6)
+
+    def monotone():
+        peak_reset()
+        t = time.perf_counter()
+        bst = lgt.train(dict(TRAIN_PARAMS, monotone_constraints=mono), ds, STRAT_ITERS,
+                        device=dev)
+        sync(dev)
+        return bst, time.perf_counter() - t
+
+    (b, wall), c = driven("higgs-10.5M-monotone", monotone, ("hist_segment",))
+    counts.append(c)
+    assert b.boosting.ptrainer is None
+    its = b.boosting.iter_seconds
+    s_iter = float(np.median(its[1:]))
+    a = auc(yv, b.predict(Xv))
+    # the sweep: 200 held-out rows x 32 values of each constrained feature
+    base, grid_n, worst = Xv[:200], 32, {}
+    for j in (j for j, s in enumerate(mono) if s):
+        grid = np.quantile(Xv[:, j], np.linspace(0.0, 1.0, grid_n))
+        Z = np.repeat(base[None], grid_n, axis=0)
+        Z[:, :, j] = grid[:, None]
+        p = b.predict(Z.reshape(-1, Z.shape[2]), raw_score=True).reshape(grid_n, len(base))
+        worst[j] = float((np.diff(p, axis=0) * mono[j]).min())
+    log(f"higgs-10.5M-monotone: features {[j for j, s in enumerate(mono) if s]} constrained by "
+        f"{[s for s in mono if s]}; {STRAT_ITERS} iterations in {wall:.2f} s, s/iter "
+        f"{s_iter:.4f} (median after the first; first {its[0]:.3f} s); held-out AUC {a:.6f}; "
+        f"the sweep's worst signed step by feature {worst} (tol -1e-6); peak device memory "
+        f"{peak():.2f} GiB; hist_segment launches {c['hist_segment']}")
+    assert 0.6 < a <= 1.0, "higgs-10.5M-monotone's held-out AUC out of range"
+    assert min(worst.values()) >= -1e-6, "a constrained feature's sweep moves the wrong way"
+    res["monotone"] = dict(s_iter=s_iter, auc=a, worst_step=min(worst.values()),
+                           peak_gib=peak())
+    del b
+    return counts, res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
@@ -2710,8 +2962,11 @@ def main(argv=None):
     phase_small_rank(dev)
     t1 = time.perf_counter()
     small_api_counts = phase_small_api(small, multi, dev)
-    del small, multi
     log(f"small API paths in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    small_strat_counts = phase_small_strategies(small, dev)
+    del small, multi
+    log(f"small tree strategies in {time.perf_counter() - t1:.1f} s")
     log(f"small end to end in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
@@ -2728,8 +2983,11 @@ def main(argv=None):
     log(f"higgs-10.5M-quantized in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     api_counts, _ = phase_api(higgs, full.pop("main_text"), dev)
-    del higgs
     log(f"higgs-10.5M API paths in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    strat_counts, _ = phase_strategies(higgs, dev)
+    del higgs
+    log(f"higgs-10.5M-linear and higgs-10.5M-monotone in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cov_counts, cov_full = phase_covertype(cov, Xc[nc:], yc[nc:], COV_ITERS, dev)
     log(f"covertype-581k in {time.perf_counter() - t0:.1f} s")
@@ -2772,7 +3030,7 @@ def main(argv=None):
         k = kern[name]
         launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts]
                        + cov_counts + sampled_counts + obj_counts + small_api_counts
-                       + api_counts)
+                       + api_counts + small_strat_counts + strat_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,

@@ -18,6 +18,16 @@ The learners, as the JAX package routes them (gbdt.py:384-392):
   feature_fraction mask, the optional quantization and one tree, whose
   leaf values then go onto the scores through the grower's ``leaf_id``.
 
+The tree strategies (tree/strategy.py, gbdt.py:235-258) run on the mask
+grower, which the partitioned trainer leaves them to: monotone
+constraints in its split search, and linear leaves fitted after each
+tree's growth, before shrinkage (``_fit_linear_tree``, gbdt.py:893-987),
+whose outputs then go onto the scores through the same partition.  Given
+gradients (a custom objective) also train on the mask grower, on a
+booster the partitioned trainer started too: its state is built at the
+first such iteration from the band's scores, and the band is rewritten
+from the scores before the next chunk (gbdt.py:582-588).
+
 Both learners also serve the user API's later steps: rollback of the last
 iteration (``rollback_one_iter``: on the partitioned trainer, K = 1
 subtracts the last tree's positional delta through score_add, K > 1
@@ -40,13 +50,16 @@ from ..model.tree import Tree
 from ..ops.grow import GrowParams, grow_tree
 from ..ops.histogram import pack_bin_words
 from ..ops.predict import (TreeArrays, predict_binned, predict_leaf, predict_raw,
-                           predict_words)
+                           predict_words, words_column)
 from ..ops.qhist import local_absmax, max_rows_for, quantize_rows, scales_from_max
 from ..ops.split import FeatureMeta, SplitHyper
+from ..tree.linear import (build_value_lut, leaf_path_features, linear_fit_stats,
+                           linear_leaf_scores, pack_path_features, solve_linear_leaves)
+from ..tree.strategy import TreeStrategy
 from ..utils.log import Log
 from ..utils.random import Random
 from .pred_early_stop import (create_prediction_early_stop_instance, early_stop_type,
-                              leaf_values_table, predict_with_early_stop)
+                              predict_with_early_stop, tree_outputs)
 
 
 def unsupported_feature(config):
@@ -55,10 +68,6 @@ def unsupported_feature(config):
     to the mask grower: ptrainer.eligible.)"""
     if config.boosting_type.lower() not in ("gbdt", "goss", "dart"):
         return f"boosting={config.boosting_type}"
-    if config.linear_tree:
-        return "linear trees"
-    if config._monotone_active():
-        return "monotone constraints"
     if config.tree_learner.lower() != "serial":
         return f"tree_learner={config.tree_learner}"
     if str(config.out_of_core).lower() in ("true", "1", "on", "yes"):
@@ -87,6 +96,7 @@ class GBDT:
         self.num_tree_per_iteration = 1
         self.feature_names: List[str] = []
         self.ptrainer = None
+        self.words = None  # the mask grower's packed bin words (_init_mask_grower)
         self.training_metrics = []
         self.valid_sets = []  # the BinnedDataset of each validation set
         self.valid_bins = []  # (N_i, F) bins of each validation set, on the device
@@ -96,6 +106,9 @@ class GBDT:
         self.best_iter = []
         self.best_score = []
         self.best_msg = []
+        self.strategy = TreeStrategy()
+        self._value_lut = None  # (F, B) bin values of the linear fits, built at first use
+        self._linear_k = None  # the fits' pinned coefficient width
 
     # ------------------------------------------------------------------
     def init(self, config, train_set, objective, training_metrics=()):
@@ -133,6 +146,8 @@ class GBDT:
                         "training on f32 gradients", self.num_data,
                         max_rows_for(config.quantized_grad_bits), config.quantized_grad_bits)
             config.quantized_training = False
+        # after the headroom check, so the strategy sees its decline
+        self.strategy = TreeStrategy.from_config(config, train_set)
         declined = (eligible(config, train_set, objective, num_tree)
                     if self.supports_partitioned else f"boosting={config.boosting_type}")
         init = (np.asarray(train_set.metadata.init_score, np.float32).reshape(num_tree, -1)
@@ -149,10 +164,11 @@ class GBDT:
             Log.info("Using the mask-based tree learner on %s (the partitioned one declines "
                      "%s)", self.device, declined)
 
-    def _init_mask_grower(self, init) -> None:
+    def _init_mask_grower(self, init, scores=None) -> None:
         """The mask grower's device state: the packed bin words, labels,
-        weights and (K, N) scores, and the sampling state of gbdt.py
-        init (bagging RandomState, feature_fraction LCG)."""
+        weights and (K, N) scores (``scores``, or zeros plus ``init``), and
+        the sampling state of gbdt.py init (bagging RandomState,
+        feature_fraction LCG)."""
         ts, cfg, dev = self.train_set, self.config, self.device
         binned = np.asarray(ts.binned)
         bits = 8 if binned.dtype == np.uint8 else 16
@@ -162,15 +178,19 @@ class GBDT:
         self.grow_params = GrowParams(
             num_leaves=int(cfg.num_leaves), num_bins=int(ts.max_num_bin),
             max_depth=int(cfg.max_depth), use_missing=bool(cfg.use_missing),
-            has_categorical=bool(self.meta.is_categorical.any()), bits=bits)
+            has_categorical=bool(self.meta.is_categorical.any()), bits=bits,
+            monotone=self.strategy.split_gain.monotone)
         md = ts.metadata
         self.label_t = torch.from_numpy(np.asarray(md.label, np.float32)).to(dev)
         self.weight_t = (None if md.weights is None else
                          torch.from_numpy(np.asarray(md.weights, np.float32)).to(dev))
-        self.scores = torch.zeros((self.num_tree_per_iteration, self.num_data),
-                                  dtype=torch.float32, device=dev)
-        if init is not None:
-            self.scores += torch.from_numpy(init).to(dev)
+        if scores is not None:
+            self.scores = scores
+        else:
+            self.scores = torch.zeros((self.num_tree_per_iteration, self.num_data),
+                                      dtype=torch.float32, device=dev)
+            if init is not None:
+                self.scores += torch.from_numpy(init).to(dev)
         self.select = torch.ones(self.num_data, dtype=torch.float32, device=dev)
         self.bag_rng = np.random.RandomState(cfg.bagging_seed)
         self.is_bagging = cfg.bagging_fraction < 1.0 and cfg.bagging_freq > 0
@@ -198,7 +218,8 @@ class GBDT:
         trained = self.models[self.num_init_trees:]
         if trained:
             for kk in range(k):
-                vs[kk] += predict_binned(vb, stack_trees(trained[kk::k]))
+                arrays = stack_trees(trained[kk::k])
+                vs[kk] += predict_binned(vb, arrays, self._lut_of(arrays))
         self.valid_sets.append(valid_set)
         self.valid_bins.append(vb)
         self.valid_scores.append(vs)
@@ -239,6 +260,7 @@ class GBDT:
             init_score = float(np.mean(np.asarray(self.train_set.metadata.label)))
             if self.ptrainer is not None:
                 self.ptrainer.add_score(np.float32(init_score))
+                self.scores = self.ptrainer._scores()
             else:
                 self.scores += float(np.float32(init_score))
             self.valid_scores = [vs + np.float32(init_score) for vs in self.valid_scores]
@@ -302,7 +324,7 @@ class GBDT:
         if trees and self.valid_bins:
             arrays = stack_trees(trees)
             for vb, vs in zip(self.valid_bins, self.valid_scores):
-                vs[k] += predict_binned(vb, arrays)
+                vs[k] += predict_binned(vb, arrays, self._lut_of(arrays))
 
     def _add_tree_to_train_scores(self, tree: Tree, k: int) -> None:
         """Class k's training scores += the tree's outputs, by a traversal
@@ -312,16 +334,17 @@ class GBDT:
         matrix holds bundles in the last tree's row order, walks the host
         bins in row chunks copied to the device."""
         arrays = stack_trees([tree])
+        lut = self._lut_of(arrays)
         if self.ptrainer is None:
             bits = self.grow_params.bits
-            self.scores[k] += predict_words(self.words, 32 // bits, bits, arrays)
+            self.scores[k] += predict_words(self.words, 32 // bits, bits, arrays, lut)
             return
         binned = self.train_set.binned
         step = 1 << 22
         for lo in range(0, self.num_data, step):
             part = binned[lo:lo + step]
             part = torch.from_numpy(part if part.dtype == np.uint8 else part.astype(np.int32))
-            self.scores[k, lo:lo + step] += predict_binned(part.to(self.device), arrays)
+            self.scores[k, lo:lo + step] += predict_binned(part.to(self.device), arrays, lut)
 
     def rollback_one_iter(self) -> None:
         """GBDT::RollbackOneIter (gbdt.cpp:497-514; gbdt.py:1013-1035): the
@@ -354,16 +377,25 @@ class GBDT:
         """One iteration on the mask grower from gradients and hessians
         given by the caller (a custom objective, ``fobj``), (N,) or the
         class-major (K*N,) of K trees; True when no tree found a split
-        (GBDT::TrainOneIter with gradients, gbdt.py:554-603)."""
-        if self.ptrainer is not None:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not support fobj on the partitioned trainer yet: "
-                "train a custom objective with objective=none (the default with fobj), "
-                "which the mask grower takes")
+        (GBDT::TrainOneIter with gradients, gbdt.py:554-603).  On a
+        booster the partitioned trainer started, the scores come from the
+        band unless the band lags them, the mask grower's state is built
+        at the first such iteration, and the band is marked to be
+        rewritten from the scores (B5 per class) before the next chunk."""
+        pt = self.ptrainer
+        if pt is not None:
+            if not pt.score_dirty:
+                self.scores = pt._scores()
+            if self.words is None:
+                self._init_mask_grower(None, scores=self.scores)
         shape = (self.num_tree_per_iteration, self.num_data)
         grad = torch.from_numpy(np.asarray(gradients, np.float32).reshape(shape))
         hess = torch.from_numpy(np.asarray(hessians, np.float32).reshape(shape))
-        return self._train_one_iter_mask(grad.to(self.device), hess.to(self.device))
+        stop = self._train_one_iter_mask(grad.to(self.device), hess.to(self.device))
+        if pt is not None:
+            pt.score_dirty = True
+            pt._last_delta = None
+        return stop
 
     # ------------------------------------------------------------------
     # the mask grower's iteration (gbdt.py:582-741, the serial branch)
@@ -389,12 +421,19 @@ class GBDT:
             if gr.num_splits > 0:
                 grown = True
                 tree = Tree.from_grow_result(gr, self.train_set)
+                if self.strategy.leaf_fit.linear:
+                    # fitted before shrinkage, which then scales the
+                    # coefficients and the intercept together
+                    self._fit_linear_tree(tree, gr, gk, hk)
                 tree.shrinkage(self.shrinkage_rate)
-                # scores[k] += leaf value of each row's leaf (ops/predict.py
-                # add_leaf_outputs: the grower's leaf_id is the partition)
-                lv = np.zeros(L, np.float32)
-                lv[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
-                self.scores[k] += torch.from_numpy(lv).to(self.device)[gr.leaf_id.long()]
+                if tree.is_linear and tree.leaf_is_linear[:tree.num_leaves].any():
+                    self._add_linear_train_scores(tree, gr, k)
+                else:
+                    # scores[k] += leaf value of each row's leaf (ops/predict.py
+                    # add_leaf_outputs: the grower's leaf_id is the partition)
+                    lv = np.zeros(L, np.float32)
+                    lv[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
+                    self.scores[k] += torch.from_numpy(lv).to(self.device)[gr.leaf_id.long()]
                 self._add_to_valid_scores([tree], k)
             else:
                 tree = Tree(2)  # an empty tree keeps the classes aligned
@@ -409,6 +448,64 @@ class GBDT:
             torch.cuda.synchronize(self.device)
         self.iter_seconds.append(time.perf_counter() - t0)
         return False
+
+    # ------------------------------------------------------------------
+    # linear leaves (tree/linear.py; gbdt.py:893-1011)
+    def _linear_lut(self) -> torch.Tensor:
+        """The (F, B) float32 bin-value table on the device that every
+        linear fit and binned walk reads, built at first use."""
+        if self._value_lut is None:
+            lut = build_value_lut(self.train_set, int(self.train_set.max_num_bin))
+            self._value_lut = torch.from_numpy(lut).to(self.device)
+        return self._value_lut
+
+    def _lut_of(self, arrays: dict):
+        """The value table when the stacked ``arrays`` carry linear
+        planes, else None."""
+        return self._linear_lut() if "leaf_feat_inner" in arrays else None
+
+    def _linear_kmax(self) -> int:
+        """The coefficient width every fit pads to: min(num_leaves - 1,
+        numerical features, max_depth when set), at least 1."""
+        if self._linear_k is None:
+            k = min(self.grow_params.num_leaves - 1,
+                    int((~self.meta.is_categorical).sum()))
+            if self.config.max_depth > 0:
+                k = min(k, self.config.max_depth)
+            self._linear_k = max(k, 1)
+        return self._linear_k
+
+    def _fit_linear_tree(self, tree: Tree, gr, gk, hk) -> None:
+        """Per-leaf ridge models of a freshly grown tree, before shrinkage:
+        the normal equations over the selected rows on the device, the
+        batched solve on the host (one read; card and CPU then solve the
+        same float32 matrices alike), the models set on ``tree``."""
+        L = self.grow_params.num_leaves
+        is_cat = self.meta.is_categorical.cpu().numpy()
+        paths = leaf_path_features(gr, is_cat)
+        fi, fv = pack_path_features(paths, L, k_max=self._linear_kmax())
+        bits = self.grow_params.bits
+        a, b = linear_fit_stats(words_column(self.words, 32 // bits, bits), gk, hk,
+                                self.select, gr.leaf_id, fi, fv, self._linear_lut(), L)
+        w, ok = solve_linear_leaves(a.cpu(), b.cpu(), fv, gr.leaf_cnt,
+                                    self.strategy.leaf_fit.linear_lambda,
+                                    self.hyper.lambda_l2)
+        w = w.numpy()
+        tree.set_linear_models(paths, w[:, 1:], w[:, 0], ok.numpy(), self.train_set)
+
+    def _add_linear_train_scores(self, tree: Tree, gr, k: int) -> None:
+        """scores[k] += a (shrunk) linear tree's outputs at the rows of the
+        grower's partition: linear leaves their model at the bins'
+        values, the others their constant."""
+        arrays = stack_trees([tree])
+        dev = self.device
+        planes = [torch.from_numpy(np.asarray(arrays[f][0])).to(dev) for f in
+                  ("leaf_feat_inner", "leaf_feat_valid", "leaf_coeff", "leaf_const",
+                   "leaf_value", "leaf_is_linear")]
+        planes[0] = planes[0].to(torch.int64)
+        bits = self.grow_params.bits
+        self.scores[k] += linear_leaf_scores(words_column(self.words, 32 // bits, bits),
+                                             gr.leaf_id, *planes, self._linear_lut())
 
     def _get_gradients(self):
         """(K, N) gradients and hessians of the current scores
@@ -607,8 +704,8 @@ class GBDT:
             early_stop_type(K, self.objective), int(config.pred_early_stop_freq),
             float(config.pred_early_stop_margin))
         leaves = predict_leaf(data, TreeArrays.from_stacked(stack_trees(models), self.device))
-        values = leaf_values_table(models).to(self.device)
-        return predict_with_early_stop(leaves, values, K, inst).cpu().numpy()
+        return predict_with_early_stop(tree_outputs(leaves, models, data), K,
+                                       inst).cpu().numpy()
 
     def sub_model_name(self) -> str:
         return "tree"

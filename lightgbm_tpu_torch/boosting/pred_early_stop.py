@@ -8,8 +8,9 @@ moves at once on the device: the trees' leaf of each row comes from one
 traversal (ops/predict.py ``predict_leaf``), then the iterations are added
 in blocks of ``round_period`` to the rows still active, and after each
 full block the rows whose margin passes the test retire.  Each tree's
-float64 leaf value is added in tree order, as the JAX package's loop
-adds them, so both compute the same numbers.
+float64 output (a linear leaf's model at the float64 row) is added in
+tree order, as the JAX package's loop adds them, so both compute the
+same numbers.
 """
 
 from __future__ import annotations
@@ -56,16 +57,15 @@ def _passes(kind: str, pred: torch.Tensor, margin: float) -> torch.Tensor:
     return top2[0] - top2[1] > margin
 
 
-def predict_with_early_stop(leaves: torch.Tensor, leaf_values: torch.Tensor, k: int,
+def predict_with_early_stop(vals: torch.Tensor, k: int,
                             early_stop: PredictionEarlyStopInstance) -> torch.Tensor:
-    """(K, N) float64 raw scores with the margin exit.  ``leaves`` is the
-    (T, N) leaf of each row in each tree, ``leaf_values`` the (T, L)
-    float64 leaf values, the trees in model order (iteration i's class k
-    at i * K + k, a boost-from-average tree counting as iteration 0)."""
-    T, n = leaves.shape
-    vals = torch.gather(leaf_values, 1, leaves)  # (T, N) float64
-    pred = torch.zeros((k, n), dtype=torch.float64, device=leaves.device)
-    active = torch.ones(n, dtype=torch.bool, device=leaves.device)
+    """(K, N) float64 raw scores with the margin exit.  ``vals`` is the
+    (T, N) float64 output of each row in each tree (``tree_outputs``), the
+    trees in model order (iteration i's class k at i * K + k, a
+    boost-from-average tree counting as iteration 0)."""
+    T, n = vals.shape
+    pred = torch.zeros((k, n), dtype=torch.float64, device=vals.device)
+    active = torch.ones(n, dtype=torch.bool, device=vals.device)
     period = early_stop.round_period
     n_iter = T // k
     for b0 in range(0, n_iter, period):
@@ -88,10 +88,40 @@ def early_stop_type(num_tree_per_iteration: int, objective) -> str:
     return "none"
 
 
-def leaf_values_table(models) -> torch.Tensor:
-    """(T, L) float64 leaf values of the trees, padded with zeros."""
+def tree_outputs(leaves: torch.Tensor, models, data: np.ndarray) -> torch.Tensor:
+    """(T, N) float64 output of each raw row in each tree, as the JAX
+    package's row loop takes it from ``Tree.predict``: the float64 leaf
+    value at the row's leaf ``leaves`` (T, N), or a linear leaf's intercept
+    plus its coefficients times the row's float64 path features, the
+    constant where that is not finite (a NaN path feature)."""
+    dev = leaves.device
     L = max(max((t.num_leaves for t in models), default=1), 1)
-    out = np.zeros((len(models), L), np.float64)
+    table = np.zeros((len(models), L), np.float64)
     for i, t in enumerate(models):
-        out[i, :max(t.num_leaves, 1)] = t.leaf_value[:max(t.num_leaves, 1)]
-    return torch.from_numpy(out)
+        table[i, :max(t.num_leaves, 1)] = t.leaf_value[:max(t.num_leaves, 1)]
+    vals = torch.gather(torch.from_numpy(table).to(dev), 1, leaves)
+    if not any(t.is_linear for t in models):
+        return vals
+    x_all = torch.from_numpy(np.ascontiguousarray(data, np.float64)).to(dev)
+    rows = torch.arange(x_all.shape[0], device=dev)[:, None]
+    for i, t in enumerate(models):
+        if not t.is_linear:
+            continue
+        k = max([1] + [len(fs) for fs in t.leaf_features])
+        feat = np.zeros((L, k), np.int64)
+        coeff = np.zeros((L, k), np.float64)
+        valid = np.zeros((L, k), bool)
+        const = np.zeros(L, np.float64)
+        is_lin = np.zeros(L, bool)
+        for li in np.nonzero(t.leaf_is_linear[:t.num_leaves])[0]:
+            n_f = len(t.leaf_features[li])
+            feat[li, :n_f], coeff[li, :n_f], valid[li, :n_f] = (t.leaf_features[li],
+                                                                t.leaf_coeff[li], True)
+            const[li], is_lin[li] = t.leaf_const[li], True
+        lv = leaves[i]
+        feat_t, coeff_t, valid_t = (torch.from_numpy(a).to(dev)[lv] for a in (feat, coeff, valid))
+        x = torch.where(valid_t, x_all[rows, feat_t], 0.0)
+        lin = torch.from_numpy(const).to(dev)[lv] + (coeff_t * x).sum(dim=1)
+        use = torch.from_numpy(is_lin).to(dev)[lv] & torch.isfinite(lin)
+        vals[i] = torch.where(use, lin, vals[i])
+    return vals

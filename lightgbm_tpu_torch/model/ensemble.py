@@ -1,5 +1,5 @@
 """Stacked tree arrays for batched prediction — the numpy half of
-lightgbm_tpu/model/ensemble.py."""
+lightgbm_tpu/model/ensemble.py, with the linear-leaf planes."""
 
 from __future__ import annotations
 
@@ -62,7 +62,8 @@ def stack_trees(trees: List) -> dict:
         leaf_value[i, :n] = tr.leaf_value[:n]
     thr_hi, thr_lo, thr_lo2 = split_hi_lo(threshold_real)
     dv_hi, dv_lo, dv_lo2 = split_hi_lo(default_value)
-    return {
+    out = _linear_planes(trees, t, L)
+    out.update({
         "split_feature_real": split_feature,
         "split_feature_inner": split_feature_inner,
         "threshold_bin": threshold_bin,
@@ -78,4 +79,41 @@ def stack_trees(trees: List) -> dict:
         "left_child": left,
         "right_child": right,
         "leaf_value": leaf_value,
-    }
+    })
+    return out
+
+
+LINEAR_FIELDS = ("leaf_feat_inner", "leaf_feat_real", "leaf_feat_valid", "leaf_coeff",
+                 "leaf_const", "leaf_is_linear")
+
+
+def _linear_planes(trees: List, t: int, L: int) -> dict:
+    """The (T, L, k) linear-leaf planes (JAX ensemble.py l.106-149),
+    emitted only when a tree has linear leaf models, so constant stacks
+    keep their layout: ``leaf_feat_inner`` for walks over bins (with a
+    value table), ``leaf_feat_real`` for raw rows; padded slots have
+    coefficient 0 and validity 0."""
+    if not any(getattr(tr, "is_linear", False) for tr in trees):
+        return {}
+    k = max([1] + [len(fs) for tr in trees if tr.is_linear for fs in tr.leaf_features])
+    feat_inner = np.zeros((t, L, k), np.int32)
+    feat_real = np.zeros((t, L, k), np.int32)
+    feat_valid = np.zeros((t, L, k), np.float32)
+    coeff = np.zeros((t, L, k), np.float32)
+    const = np.zeros((t, L), np.float32)
+    is_lin = np.zeros((t, L), np.bool_)
+    for i, tr in enumerate(trees):
+        if not tr.is_linear:
+            continue
+        n = max(tr.num_leaves, 1)
+        const[i, :n] = tr.leaf_const[:n]
+        is_lin[i, :n] = tr.leaf_is_linear[:n]
+        for li in range(min(n, len(tr.leaf_features))):
+            fs = tr.leaf_features[li]
+            if not fs or not tr.leaf_is_linear[li]:
+                continue
+            feat_real[i, li, :len(fs)] = fs
+            feat_inner[i, li, :len(fs)] = tr.leaf_features_inner[li]
+            feat_valid[i, li, :len(fs)] = 1.0
+            coeff[i, li, :len(fs)] = tr.leaf_coeff[li]
+    return dict(zip(LINEAR_FIELDS, (feat_inner, feat_real, feat_valid, coeff, const, is_lin)))

@@ -31,9 +31,16 @@ on the device; each split reads its two children's best splits back,
 one host sync.  On the card the two children's split search (hundreds
 of small PyTorch operations) is captured once as a CUDA graph and
 replayed for every split (``_ChildSearch``): the same kernels in one
-launch.  The data, feature
-and voting modes, monotone constraints and linear leaves of the JAX
-grower are not ported yet.
+launch.
+
+Monotone constraints (JAX grow.py l.214-224, 428-429, 455-470, 509-522):
+each leaf carries output bounds [lo, hi] in the host bookkeeping, the
+root (-inf, +inf).  A split's child outputs are clipped to its parent's
+bounds, and on a constrained feature the children's bounds meet at the
+midpoint of the two outputs (BasicLeafConstraints); the split search
+scores each leaf within its bounds (ops/split.py).  Linear leaves are
+fitted after growth (tree/linear.py, boosting/gbdt.py).  The data,
+feature and voting modes of the JAX grower are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ from .split import NEG_INF, FeatureMeta, SplitHyper, best_split_all_features, le
 
 class GrowParams(NamedTuple):
     """Growth parameters; ``bits`` is the width of a bin in the packed
-    words (8, or 16 for more than 256 bins)."""
+    words (8, or 16 for more than 256 bins); ``monotone`` the per-inner-
+    feature directions of the tree strategy (``TreeStrategy.split_gain``;
+    empty: unconstrained)."""
 
     num_leaves: int
     num_bins: int  # padded B
@@ -58,6 +67,7 @@ class GrowParams(NamedTuple):
     use_missing: bool = True
     has_categorical: bool = True
     bits: int = 8
+    monotone: tuple = ()
 
 
 class GrowResult(NamedTuple):
@@ -80,14 +90,17 @@ class GrowResult(NamedTuple):
     rec_internal_value: np.ndarray  # the parent's value
 
 
-def _best_rows(hist, sums, meta, hyper, feature_mask, params, quantized, qs):
+def _best_rows(hist, sums, meta, hyper, feature_mask, params, quantized, qs, mono=None,
+               bounds=None):
     """(S, 8) float32 best splits [gain, feat, thr, dbz, lg, lh, lc, 0] of
-    S leaves on the device: hist (S, F, B, 3), sums (S, 3) float32."""
+    S leaves on the device: hist (S, F, B, 3), sums (S, 3) float32; with
+    ``mono`` the (F,) directions, ``bounds`` the (2, S) leaves' [lo, hi]."""
     if quantized:
         hist = dequantize_hist(hist, qs)
+    lo, hi = (None, None) if mono is None else (bounds[0], bounds[1])
     r = best_split_all_features(hist, sums[:, 0], sums[:, 1], sums[:, 2], meta, hyper,
                                 feature_mask, params.use_missing, params.has_categorical,
-                                xla_prefix=quantized)
+                                xla_prefix=quantized, monotone=mono, leaf_lo=lo, leaf_hi=hi)
     return torch.stack([r.gain, r.feature.float(), r.threshold_bin.float(),
                         r.default_bin_for_zero.float(), r.left_sum_g, r.left_sum_h,
                         r.left_cnt, torch.zeros_like(r.gain)], dim=1)
@@ -95,9 +108,10 @@ def _best_rows(hist, sums, meta, hyper, feature_mask, params, quantized, qs):
 
 class _ChildSearch:
     """The split search of two children as one CUDA graph: static input
-    buffers (the histograms, sums, feature mask and scales), captured on
-    the first call and replayed after; it holds the FeatureMeta it was
-    captured with."""
+    buffers (the histograms, sums, feature mask, scales and, under
+    monotone constraints, the children's (2, 2) bounds), captured on the
+    first call and replayed after; it holds the FeatureMeta it was
+    captured with and its own copy of the monotone directions."""
 
     def __init__(self, dev, F, B, meta, hyper, params, quantized):
         self.meta, self.args = meta, (hyper, params, quantized)
@@ -106,20 +120,24 @@ class _ChildSearch:
         self.sums = torch.zeros((2, 3), dtype=torch.float32, device=dev)
         self.fmask = torch.zeros(F, dtype=torch.float32, device=dev)
         self.qs = torch.ones(2, dtype=torch.float32, device=dev)
+        self.bounds = torch.zeros((2, 2), dtype=torch.float32, device=dev)
+        self.mono = monotone_tensor(params, dev)
         self.graph = None
 
     def _run(self):
         hyper, params, quantized = self.args
         return _best_rows(self.hist, self.sums, self.meta, hyper, self.fmask, params, quantized,
-                          self.qs)
+                          self.qs, self.mono, self.bounds)
 
-    def __call__(self, left, right, sums, feature_mask, qs):
+    def __call__(self, left, right, sums, feature_mask, qs, bounds=None):
         self.hist[0].copy_(left)
         self.hist[1].copy_(right)
         self.sums.copy_(sums)
         self.fmask.copy_(feature_mask)
         if qs is not None:
             self.qs.copy_(qs)
+        if bounds is not None:
+            self.bounds.copy_(bounds)
         if self.graph is None:
             side = torch.cuda.Stream(self.hist.device)
             side.wait_stream(torch.cuda.current_stream(self.hist.device))
@@ -133,11 +151,21 @@ class _ChildSearch:
         return self.out
 
 
+def monotone_tensor(params: GrowParams, dev):
+    """The (F,) int64 monotone directions on ``dev``, or None when no
+    feature is constrained."""
+    if not any(c != 0 for c in params.monotone):
+        return None
+    return torch.tensor(params.monotone, dtype=torch.int64, device=dev)
+
+
 def _child_search(searches: dict, dev, F, B, meta, hyper, params,
                   quantized) -> _ChildSearch:
     """The captured child search for these shapes and parameters, from the
     caller's ``searches`` (each entry holds the meta tensors it keys on,
-    so their addresses stay theirs)."""
+    so their addresses stay theirs); ``params`` carries the monotone
+    directions, so a constrained and an unconstrained search never share
+    a graph."""
     key = (str(dev), F, B, tuple(float(v) for v in hyper), params, quantized,
            tuple(t.data_ptr() for t in meta))
     if key not in searches:
@@ -185,6 +213,10 @@ def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         p[W + 1] = hess.to(torch.float32).view(torch.int32)
         sel_w = select.to(torch.float32).view(torch.int32)
     hist_fn = hist_segment_q if quantized else hist_segment
+    mono_t = params.monotone
+    mono = monotone_tensor(params, dev)
+    if mono is not None and len(mono_t) != F:
+        raise ValueError(f"monotone direction vector has {len(mono_t)} entries for {F} features")
 
     def hist_of(sel_row):
         p[W + 2] = sel_row
@@ -195,15 +227,19 @@ def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         search = _child_search({} if searches is None else searches, dev, F, B, meta, hyper,
                                params, quantized)
 
-    def find_best(hists, sums, depth_ok):
+    def find_best(hists, sums, depth_ok, lo=None, hi=None):
         """(S, 8) f32 numpy best splits [gain, feat, thr, dbz, lg, lh, lc,
-        0] of S leaves: hists, S (F, B, 3) histograms; sums (S, 3) f32."""
+        0] of S leaves: hists, S (F, B, 3) histograms; sums (S, 3) f32;
+        under monotone constraints ``lo``/``hi`` the (S,) bounds."""
         s = upload(torch.from_numpy(np.ascontiguousarray(sums, np.float32)), dev)
+        bounds = None
+        if mono is not None:
+            bounds = upload(torch.from_numpy(np.array([lo, hi], np.float32)), dev)
         if search is not None and len(hists) == 2:
-            rows = search(hists[0], hists[1], s, feature_mask, qs if quantized else None)
+            rows = search(hists[0], hists[1], s, feature_mask, qs if quantized else None, bounds)
         else:
             rows = _best_rows(torch.stack(hists), s, meta, hyper, feature_mask, params,
-                              quantized, qs if quantized else None)
+                              quantized, qs if quantized else None, mono, bounds)
         out = rows.cpu().numpy()
         out[~np.asarray(depth_ok, bool), 0] = NEG_INF
         return out
@@ -222,8 +258,11 @@ def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     pool = torch.zeros((L, F, B, 3), dtype=root_hist.dtype, device=dev)
     pool[0] = root_hist
 
+    # the leaves' output bounds (monotone constraints; unused without)
+    leaf_lo = np.full(L, -np.inf, np.float32)
+    leaf_hi = np.full(L, np.inf, np.float32)
     bs = np.full((L, 8), NEG_INF, np.float32)
-    bs[0] = find_best([root_hist], root_sums[None], [True])[0]
+    bs[0] = find_best([root_hist], root_sums[None], [True], leaf_lo[:1], leaf_hi[:1])[0]
     leaf_sum = np.zeros((L, 3), np.float32)
     leaf_sum[0] = root_sums
     leaf_value = np.zeros(L, np.float32)
@@ -248,6 +287,17 @@ def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         rsum = leaf_sum[bl] - left
         lval = leaf_output_np(left[0], left[1], l1, l2)
         rval = leaf_output_np(rsum[0], rsum[1], l1, l2)
+        clo, chi = leaf_lo[[bl, bl]], leaf_hi[[bl, bl]]  # children's (left, right) bounds
+        if mono is not None:
+            # outputs clipped to the parent's bounds; on a constrained
+            # feature the children's bounds meet at the outputs' midpoint
+            plo, phi = leaf_lo[bl], leaf_hi[bl]
+            lval, rval = np.clip(lval, plo, phi), np.clip(rval, plo, phi)
+            mid = (lval + rval) * np.float32(0.5)
+            if mono_t[feat] > 0:
+                chi[0] = clo[1] = mid
+            elif mono_t[feat] < 0:
+                clo[0] = chi[1] = mid
 
         # ---- partition by predicate on the split feature's bin
         col = (p[feat // per] >> ((feat % per) * bits)) & vmask
@@ -274,7 +324,7 @@ def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         # ---- both children's best splits (the max_depth gate)
         depth = leaf_depth[bl] + 1
         ok = params.max_depth <= 0 or depth < params.max_depth
-        res = find_best([left_hist, right_hist], np.stack([left, rsum]), [ok, ok])
+        res = find_best([left_hist, right_hist], np.stack([left, rsum]), [ok, ok], clo, chi)
 
         rec_i[:, s] = (bl, feat, thr, dbz)
         rec_f[:, s] = (gain, lval, rval, left[2], rsum[2], leaf_value[bl])
@@ -282,6 +332,7 @@ def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         leaf_value[bl], leaf_value[right] = lval, rval
         leaf_cnt[bl], leaf_cnt[right] = left[2], rsum[2]
         leaf_depth[bl] = leaf_depth[right] = depth
+        leaf_lo[[bl, right]], leaf_hi[[bl, right]] = clo, chi
         bs[bl], bs[right] = res[0], res[1]
         s += 1
 

@@ -13,6 +13,13 @@ Decisions use the triple-float (hi, lo, lo2) compare ``_le3``, which
 reproduces the reference's float64 ``<=`` exactly on float32 hardware.
 The JAX package predicts through XLA with no Pallas kernel, and so does
 this module (plain torch).
+
+Linear leaves (the JAX package's ``predict_raw_linear`` and
+``tree/linear.py predict_linear_binned``): when the stacked trees carry linear planes
+(model/ensemble.py emits them only then), a linear leaf's output is
+const + coeff · x, x the raw value's float32 hi plane (a NaN path feature
+keeps the constant) or, over bins, the bin's representative value from
+the caller's value table; constant stacks take the plain gather.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ import numpy as np
 import torch
 
 from ..io.binning import MISSING_VALUE_RANGE
-from ..model.ensemble import split_hi_lo
+from ..model.ensemble import LINEAR_FIELDS, split_hi_lo
+from ..tree.linear import apply_linear, binned_values
 
 _MR = float(MISSING_VALUE_RANGE)
 _MR_HI = np.float32(_MR)
@@ -34,27 +42,57 @@ def _le3(ah, al, al2, bh, bl, bl2):
     return (ah < bh) | ((ah == bh) & (al < bl)) | ((ah == bh) & (al == bl) & (al2 <= bl2))
 
 
+def _to_device(arrays: dict, fields, device) -> dict:
+    """The named numpy arrays as tensors on ``device``, int32 widened to
+    int64 (index dtype)."""
+    out = {}
+    for f in fields:
+        a = np.asarray(arrays[f])
+        out[f] = torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32 else a).to(device)
+    return out
+
+
+def _linear_tensors(arrays: dict, device):
+    """The stack's linear planes on ``device``, or None for a constant
+    stack."""
+    return _to_device(arrays, LINEAR_FIELDS, device) if LINEAR_FIELDS[0] in arrays else None
+
+
 class TreeArrays:
-    """Stacked (T, M) node / (T, L) leaf tensors on one device."""
+    """Stacked (T, M) node / (T, L) leaf tensors on one device, and the
+    (T, L, k) linear planes when a tree has linear leaves."""
 
     FIELDS = ("split_feature_real", "threshold_real", "threshold_real_lo",
               "threshold_real_lo2", "default_value_real", "default_value_real_lo",
               "default_value_real_lo2", "is_categorical", "left_child", "right_child",
               "leaf_value")
 
-    def __init__(self, **kw):
+    def __init__(self, linear=None, **kw):
         for f in self.FIELDS:
             setattr(self, f, kw[f])
+        self.linear = linear
 
     @classmethod
     def from_stacked(cls, arrays: dict, device) -> "TreeArrays":
         """From model/ensemble.stack_trees numpy output."""
-        out = {}
-        for f in cls.FIELDS:
-            a = np.asarray(arrays[f])
-            t = torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32 else a)
-            out[f] = t.to(device)
-        return cls(**out)
+        return cls(linear=_linear_tensors(arrays, device),
+                   **_to_device(arrays, cls.FIELDS, device))
+
+
+def leaf_outputs(leaves: torch.Tensor, leaf_value: torch.Tensor, linear, feat: str,
+                 x_of) -> torch.Tensor:
+    """(T, N) float32 output of each row's leaf in each tree: the leaf
+    value, or for a linear leaf its model at ``x_of(feats, lo, hi)``'s
+    values of the plane ``linear[feat]`` (tree/linear.py
+    ``apply_linear``)."""
+    out = torch.gather(leaf_value, 1, leaves)
+    if linear is None:
+        return out
+    for t in range(leaves.shape[0]):
+        apply_linear(out[t], leaves[t], linear[feat][t], linear["leaf_feat_valid"][t],
+                     linear["leaf_coeff"][t], linear["leaf_const"][t],
+                     linear["leaf_is_linear"][t], x_of)
+    return out
 
 
 # rows a traversal walks at once: its (T, rows) node tensors stay near
@@ -101,15 +139,24 @@ def _leaves_raw(planes, trees: TreeArrays) -> torch.Tensor:
 
 
 def _chunked_raw(data: np.ndarray, trees: TreeArrays, fn):
-    """``fn(leaves)`` of each row chunk of ``data``, concatenated along the
-    last axis."""
+    """``fn(leaves, planes)`` of each row chunk of ``data`` (its leaves and
+    its (hi, lo, lo2) planes), concatenated along the last axis."""
     dev = trees.leaf_value.device
     planes = split_hi_lo(np.asarray(data, np.float64))
     outs = []
     for lo, hi in _row_chunks(planes[0].shape[0], trees.leaf_value.shape[0]):
         chunk = [torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(dev) for x in planes]
-        outs.append(fn(_leaves_raw(chunk, trees)))
+        outs.append(fn(_leaves_raw(chunk, trees), chunk))
     return torch.cat(outs, dim=-1)
+
+
+def raw_leaf_outputs(leaves: torch.Tensor, hi_plane: torch.Tensor,
+                     trees: TreeArrays) -> torch.Tensor:
+    """(T, N) float32 leaf outputs of raw rows whose float32 hi plane is
+    ``hi_plane`` (N, F): linear leaves read their path features there
+    (JAX ``predict_raw_linear``)."""
+    return leaf_outputs(leaves, trees.leaf_value, trees.linear, "leaf_feat_real",
+                        lambda feats, lo, hi: torch.gather(hi_plane[lo:hi], 1, feats))
 
 
 def predict_leaf(data: np.ndarray, trees: TreeArrays) -> torch.Tensor:
@@ -118,15 +165,15 @@ def predict_leaf(data: np.ndarray, trees: TreeArrays) -> torch.Tensor:
     same float64-exact compare), so a row's leaf and its raw score always
     follow one path (Tree::GetLeaf, the JAX package's
     ``Tree.predict_leaf_index`` row by row)."""
-    return _chunked_raw(data, trees, lambda leaves: leaves)
+    return _chunked_raw(data, trees, lambda leaves, planes: leaves)
 
 
 def predict_raw(data: np.ndarray, trees: TreeArrays, num_class: int = 1) -> np.ndarray:
     """(K, N) float64 raw scores, K = ``num_class``: class k is the
     float32 sum of each row's leaf value over the trees i with
     i % K == k (the model stores the K trees of an iteration in turn)."""
-    def sums(leaves):
-        vals = torch.gather(trees.leaf_value, 1, leaves)
+    def sums(leaves, planes):
+        vals = raw_leaf_outputs(leaves, planes[0], trees)
         return torch.stack([vals[k::num_class].sum(dim=0) for k in range(num_class)])
 
     return _chunked_raw(data, trees, sums).double().cpu().numpy()
@@ -136,14 +183,36 @@ BINNED_FIELDS = ("split_feature_inner", "threshold_bin", "zero_bin", "default_bi
                  "is_categorical", "left_child", "right_child", "leaf_value")
 
 
-def _predict_columns(n: int, column, arrays: dict, dev) -> torch.Tensor:
-    """(N,) float32 leaf-value sum of stacked trees over binned rows;
+def bins_column(bins: torch.Tensor):
+    """``column(f, rows)`` of an (N, F) bin tensor: the int64 bins of
+    features ``f`` at ``rows`` (broadcast)."""
+    return lambda f, rows: bins[rows, f].to(torch.int64)
+
+
+def words_column(words: torch.Tensor, per: int, bits: int):
+    """``column(f, rows)`` of the mask grower's (W, N) packed bin words
+    (ops/histogram.py ``pack_bin_words``: feature f in word f // per at
+    bit (f % per) * bits)."""
+    mask = (1 << bits) - 1
+
+    def column(f, rows):
+        w = words[f // per, rows].to(torch.int64) & 0xFFFFFFFF
+        return (w >> ((f % per) * bits)) & mask
+
+    return column
+
+
+def _predict_columns(n: int, column, arrays: dict, dev, lut=None) -> torch.Tensor:
+    """(N,) float32 output sum of stacked trees over binned rows;
     ``column(features (T, N), rows)`` gives each row's bin of the feature
     a tree's node tests.  A bin equal to a node's zero bin takes its
     default bin for zero, then ``==`` (categorical) or ``<=`` against the
-    threshold bin."""
-    a = {f: torch.from_numpy(np.asarray(arrays[f])).to(dev) for f in BINNED_FIELDS}
-    a = {f: (v.to(torch.int64) if v.dtype == torch.int32 else v) for f, v in a.items()}
+    threshold bin.  Linear leaves read their path features' bins through
+    ``lut``, the (F, B) value table (tree/linear.py ``build_value_lut``)."""
+    a = _to_device(arrays, BINNED_FIELDS, dev)
+    linear = _linear_tensors(arrays, dev)
+    if linear is not None and lut is None:
+        raise ValueError("linear trees over bins need the bin value table (lut)")
     T = a["leaf_value"].shape[0]
     rows = torch.arange(n, device=dev)
     tix = torch.arange(T, device=dev)[:, None]
@@ -156,27 +225,22 @@ def _predict_columns(n: int, column, arrays: dict, dev) -> torch.Tensor:
         goes_left = torch.where(a["is_categorical"][tix, j], fval == thr, fval <= thr)
         nxt = torch.where(goes_left, a["left_child"][tix, j], a["right_child"][tix, j])
         node = torch.where(node >= 0, nxt, node)
-    return torch.gather(a["leaf_value"], 1, ~node).sum(dim=0)
+    x_of = binned_values(column, lut) if linear is not None else None
+    return leaf_outputs(~node, a["leaf_value"], linear, "leaf_feat_inner", x_of).sum(dim=0)
 
 
-def predict_binned(bins: torch.Tensor, arrays: dict) -> torch.Tensor:
-    """(N,) float32 sum of the leaf values of stacked trees over binned
-    rows: ``bins`` is an (N, F) integer tensor of inner-feature bins (an
-    unbundled dataset's), ``arrays`` model/ensemble.stack_trees output."""
-    bins_t = bins.t()
-    return _predict_columns(bins.shape[0], lambda f, rows: bins_t[f, rows].to(torch.int64),
-                            arrays, bins.device)
+def predict_binned(bins: torch.Tensor, arrays: dict, lut=None) -> torch.Tensor:
+    """(N,) float32 sum of the outputs of stacked trees over binned rows:
+    ``bins`` is an (N, F) integer tensor of inner-feature bins (an
+    unbundled dataset's), ``arrays`` model/ensemble.stack_trees output,
+    ``lut`` the value table linear leaves need."""
+    return _predict_columns(bins.shape[0], bins_column(bins), arrays, bins.device, lut)
 
 
-def predict_words(words: torch.Tensor, per: int, bits: int, arrays: dict) -> torch.Tensor:
-    """``predict_binned`` over the mask grower's (W, N) packed bin words
-    (ops/histogram.py ``pack_bin_words``: feature f in word f // per at
-    bit (f % per) * bits), so a traversal of the training set needs no
-    (N, F) copy of its bins on the device."""
-    mask = (1 << bits) - 1
-
-    def column(f, rows):
-        w = words[f // per, rows].to(torch.int64) & 0xFFFFFFFF
-        return (w >> ((f % per) * bits)) & mask
-
-    return _predict_columns(words.shape[1], column, arrays, words.device)
+def predict_words(words: torch.Tensor, per: int, bits: int, arrays: dict,
+                  lut=None) -> torch.Tensor:
+    """``predict_binned`` over the mask grower's (W, N) packed bin words,
+    so a traversal of the training set needs no (N, F) copy of its bins
+    on the device."""
+    return _predict_columns(words.shape[1], words_column(words, per, bits), arrays,
+                            words.device, lut)

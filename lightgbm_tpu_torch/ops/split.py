@@ -106,6 +106,21 @@ def leaf_output(sum_g, sum_h, l1, l2):
     return -torch.sign(sum_g) * reg / (sum_h + l2)
 
 
+def _threshold_l1(sum_g, l1):
+    """ThresholdL1 (feature_histogram.hpp:238-242), signed."""
+    return torch.sign(sum_g) * torch.clamp(torch.abs(sum_g) - l1, min=0.0)
+
+
+def leaf_split_gain_given_output(sum_g, sum_h, l1, l2, output):
+    """GetLeafSplitGainGivenOutput (feature_histogram.hpp): the gain of a
+    leaf whose output is forced to ``output`` (the monotone-clipped
+    value).  At the unconstrained optimum it equals ``leaf_split_gain``
+    in real arithmetic but not in float32, so the unconstrained scan
+    keeps the closed form."""
+    sg_l1 = _threshold_l1(sum_g, l1)
+    return -(2.0 * sg_l1 * output + (sum_h + l2) * output * output)
+
+
 def leaf_output_np(sum_g, sum_h, l1, l2):
     """leaf_output in float32 numpy (host-side bookkeeping)."""
     g = np.asarray(sum_g, np.float32)
@@ -154,13 +169,22 @@ def cumsum_xla_order(x: torch.Tensor) -> torch.Tensor:
 
 def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
                            hyper: SplitHyper, feature_mask, use_missing: bool = True,
-                           has_categorical: bool = True, xla_prefix: bool = False):
+                           has_categorical: bool = True, xla_prefix: bool = False,
+                           monotone=None, leaf_lo=None, leaf_hi=None):
     """Per-feature best split for S leaves at once.
 
     hist (S, F, B, 3) f32; sum_g/sum_h/num_data (S,) leaf totals;
     feature_mask (F,) 0/1; ``xla_prefix`` takes the bin prefix sums in
     XLA's float32 order instead of float64.  Returns gain_f (S, F),
-    thr_f (S, F), dbz_f (S, F), left_f (S, F, 3)."""
+    thr_f (S, F), dbz_f (S, F), left_f (S, F, 3).
+
+    Monotone constraints (JAX l.141-215): ``monotone`` the (F,) int
+    direction vector, ``leaf_lo``/``leaf_hi`` the (S,) float32 output
+    bounds each leaf inherits.  Child outputs are clipped to the bounds,
+    gains scored at the clipped outputs, and a threshold of a
+    constrained feature whose outputs break its direction is invalid;
+    categorical candidates keep the unconstrained gain.  ``None`` runs
+    the unconstrained scan unchanged."""
     S, F, b, _ = hist.shape
     l1, l2 = _f32(hyper.lambda_l1, hist), _f32(hyper.lambda_l2, hist)
     min_cnt = _f32(hyper.min_data_in_leaf, hist)
@@ -168,7 +192,13 @@ def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
     sg = sum_g[:, None, None]
     sh = sum_h[:, None, None]
     sn = num_data[:, None, None]
-    gain_shift = leaf_split_gain(sum_g, sum_h, l1, l2)
+    if monotone is None:
+        gain_shift = leaf_split_gain(sum_g, sum_h, l1, l2)
+    else:
+        parent_out = torch.clamp(leaf_output(sum_g, sum_h, l1, l2), leaf_lo, leaf_hi)
+        gain_shift = leaf_split_gain_given_output(sum_g, sum_h, l1, l2, parent_out)
+        lo3, hi3 = leaf_lo[:, None, None], leaf_hi[:, None, None]
+        cdir = monotone[None, :, None]  # (1, F, 1)
     min_gain_shift = (gain_shift + _f32(hyper.min_gain_to_split, hist))[:, None, None]
 
     # prefix sums in float64, rounded once: the same float32 values on the
@@ -194,7 +224,15 @@ def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
         rg, rh, rc = sg - lg, sh - lh, sn - lc
         valid = (extra_valid[None] & (lc >= min_cnt) & (rc >= min_cnt)
                  & (lh >= min_hess) & (rh >= min_hess) & thr_ok[None])
-        gain = leaf_split_gain(lg, lh, l1, l2) + leaf_split_gain(rg, rh, l1, l2)
+        if monotone is None:
+            gain = leaf_split_gain(lg, lh, l1, l2) + leaf_split_gain(rg, rh, l1, l2)
+        else:
+            lout = torch.clamp(leaf_output(lg, lh, l1, l2), lo3, hi3)
+            rout = torch.clamp(leaf_output(rg, rh, l1, l2), lo3, hi3)
+            bad = ((cdir > 0) & (lout > rout)) | ((cdir < 0) & (lout < rout))
+            gain = (leaf_split_gain_given_output(lg, lh, l1, l2, lout)
+                    + leaf_split_gain_given_output(rg, rh, l1, l2, rout))
+            gain = torch.where(bad, NEG_INF, gain)
         return torch.where(valid & (gain > min_gain_shift), gain, NEG_INF)  # (S, F, B-1)
 
     always = torch.ones((F, b - 1), dtype=torch.bool, device=hist.device)
@@ -247,15 +285,20 @@ def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
 
 
 def finalize_split(gain_f, thr_f, dbz_f, left_f, sum_g, sum_h, num_data,
-                   hyper: SplitHyper) -> SplitResult:
+                   hyper: SplitHyper, leaf_lo=None, leaf_hi=None) -> SplitResult:
     """Argmax over features (first/lowest index wins ties) and SplitInfo
-    assembly, per leaf."""
+    assembly, per leaf; ``leaf_lo``/``leaf_hi`` (S,) clip the child
+    outputs (monotone bounds)."""
     l1, l2 = _f32(hyper.lambda_l1, gain_f), _f32(hyper.lambda_l2, gain_f)
     fbest = torch.argmax(gain_f, dim=1)  # (S,)
     sel = fbest[:, None]
     left = torch.gather(left_f, 1, sel[..., None].expand(-1, 1, 3))[:, 0]
     lg, lh, lc = left[:, 0], left[:, 1], left[:, 2]
     rg, rh, rc = sum_g - lg, sum_h - lh, num_data - lc
+    lout, rout = leaf_output(lg, lh, l1, l2), leaf_output(rg, rh, l1, l2)
+    if leaf_lo is not None:
+        lout = torch.clamp(lout, leaf_lo, leaf_hi)
+        rout = torch.clamp(rout, leaf_lo, leaf_hi)
     return SplitResult(
         gain=torch.gather(gain_f, 1, sel)[:, 0],
         feature=fbest,
@@ -263,16 +306,18 @@ def finalize_split(gain_f, thr_f, dbz_f, left_f, sum_g, sum_h, num_data,
         default_bin_for_zero=torch.gather(dbz_f, 1, sel)[:, 0],
         left_sum_g=lg, left_sum_h=lh, left_cnt=lc,
         right_sum_g=rg, right_sum_h=rh, right_cnt=rc,
-        left_output=leaf_output(lg, lh, l1, l2),
-        right_output=leaf_output(rg, rh, l1, l2),
+        left_output=lout,
+        right_output=rout,
     )
 
 
 def best_split_all_features(hist, sum_g, sum_h, num_data, meta, hyper, feature_mask,
                             use_missing: bool = True, has_categorical: bool = True,
-                            xla_prefix: bool = False) -> SplitResult:
+                            xla_prefix: bool = False, monotone=None, leaf_lo=None,
+                            leaf_hi=None) -> SplitResult:
     """Best split across every feature, per leaf of the batch."""
     gain_f, thr_f, dbz_f, left_f = best_split_per_feature(
         hist, sum_g, sum_h, num_data, meta, hyper, feature_mask, use_missing,
-        has_categorical, xla_prefix)
-    return finalize_split(gain_f, thr_f, dbz_f, left_f, sum_g, sum_h, num_data, hyper)
+        has_categorical, xla_prefix, monotone, leaf_lo, leaf_hi)
+    return finalize_split(gain_f, thr_f, dbz_f, left_f, sum_g, sum_h, num_data, hyper,
+                          leaf_lo if monotone is not None else None, leaf_hi)

@@ -979,3 +979,123 @@ def test_pred_leaf_cuda_matches_cpu(dev):
     raw = [lgt.Booster(model_str=text, device=d).predict(Xn, raw_score=True, **es)
            for d in (dev, "cpu")]
     np.testing.assert_array_equal(raw[0], raw[1])
+
+
+# ---- the tree strategies on the mask grower: monotone constraints and
+# linear leaves
+def _search_inputs(dev, seed, F=6, B=32):
+    """Two children's random (F, B, 3) histograms and (2, 3) sums."""
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(0, 50, (2, 1, B)).astype(np.float32).repeat(F, axis=1)
+    g = (rng.standard_normal((2, F, B)) * cnt).astype(np.float32)
+    h = (rng.random((2, F, B)) * cnt).astype(np.float32)
+    hist = torch.from_numpy(np.stack([g, h, cnt], axis=3)).to(dev)
+    return hist, hist[:, 0].sum(dim=1)
+
+
+def test_monotone_child_search_graph_equals_eager(dev):
+    """The captured monotone child search against its eager run: captured
+    at the first call, then replayed with new histograms and new bounds."""
+    from lightgbm_tpu_torch.ops import grow
+    from lightgbm_tpu_torch.ops.split import FeatureMeta, SplitHyper
+
+    F, B = 6, 32
+    meta = FeatureMeta(torch.full((F,), B, dtype=torch.int64, device=dev),
+                       torch.tensor([0, 3, 31, 7, 0, 12], dtype=torch.int64, device=dev),
+                       torch.zeros(F, dtype=torch.bool, device=dev))
+    hyper = SplitHyper(*(np.float32(v) for v in (0.0, 1.0, 5.0, 1e-3, 0.0)))
+    fmask = torch.ones(F, dtype=torch.float32, device=dev)
+    params = grow.GrowParams(num_leaves=15, num_bins=B, has_categorical=False,
+                             monotone=(1, -1, 0, 1, 0, -1))
+    searches = {}
+    for seed, bounds in ((0, [[-np.inf, -0.5], [np.inf, 0.7]]), (1, [[-0.2, -1.0], [0.4, 0.1]]),
+                         (2, [[-np.inf, -np.inf], [np.inf, np.inf]])):
+        hist, sums = _search_inputs(dev, seed, F, B)
+        b = torch.tensor(bounds, dtype=torch.float32, device=dev)
+        search = grow._child_search(searches, dev, F, B, meta, hyper, params, False)
+        got = search(hist[0], hist[1], sums, fmask, None, b).clone()
+        want = grow._best_rows(hist, sums, meta, hyper, fmask, params, False, None,
+                               grow.monotone_tensor(params, dev), b)
+        assert torch.equal(got, want), seed
+    assert len(searches) == 1  # one graph, replayed with each seed's inputs
+
+
+def test_constrained_and_plain_searches_apart(dev):
+    """One ``searches`` dict, two trees: the constrained grower and the
+    unconstrained one capture separate graphs, and each tree equals its
+    CPU run."""
+    from lightgbm_tpu_torch.ops import grow
+    from lightgbm_tpu_torch.ops.histogram import pack_bin_words
+    from lightgbm_tpu_torch.ops.split import FeatureMeta, SplitHyper
+
+    rng = np.random.default_rng(3)
+    n, F, B = 20000, 6, 32
+    bins = rng.integers(0, B, (n, F)).astype(np.uint8)
+    g = (bins[:, 0] / B - bins[:, 1] / B + 0.3 * rng.standard_normal(n)).astype(np.float32)
+    h = np.ones(n, np.float32)
+    hyper = SplitHyper(*(np.float32(v) for v in (0.0, 1.0, 20.0, 1e-3, 0.0)))
+    devices = (dev, torch.device("cpu"))
+    metas = {d.type: FeatureMeta(torch.full((F,), B, dtype=torch.int64, device=d),
+                                 torch.zeros(F, dtype=torch.int64, device=d),
+                                 torch.zeros(F, dtype=torch.bool, device=d)) for d in devices}
+    searches, trees = {}, {}
+    for mono in ((), (1, -1, 0, 0, 0, 0)):
+        params = grow.GrowParams(num_leaves=15, num_bins=B, has_categorical=False, monotone=mono)
+        for d in devices:
+            words = pack_bin_words(torch.from_numpy(bins).to(d), 4, 8)
+            trees[mono, d.type] = grow.grow_tree(
+                words, torch.from_numpy(g).to(d), torch.from_numpy(h).to(d),
+                torch.ones(n, device=d), torch.ones(F, device=d), metas[d.type], hyper, params,
+                searches=searches)
+        a, b = trees[mono, "cuda"], trees[mono, "cpu"]
+        assert a.num_splits == b.num_splits > 3
+        for name in ("rec_leaf", "rec_feat", "rec_thr", "rec_lval", "rec_rval"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    graphs = list(searches.values())
+    assert len(graphs) == 2 and graphs[0] is not graphs[1]
+    assert sorted(v.mono is None for v in graphs) == [False, True]
+
+
+def test_linear_fit_cuda_matches_cpu(dev):
+    """The float64 normal equations on the card against the CPU (each
+    rounded once to float32: equal within 1e-6 relative), and a linear
+    model trained on each: the same splits and linear leaves,
+    coefficients within 1e-4 relative, predictions within 1e-4."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.predict import bins_column
+    from lightgbm_tpu_torch.tree import linear as tl
+
+    rng = np.random.default_rng(8)
+    n, F, B, L = 50000, 6, 32, 9
+    bins = rng.integers(0, B, (n, F)).astype(np.uint8)
+    g = rng.standard_normal(n).astype(np.float32)
+    h = (rng.random(n) + 0.1).astype(np.float32)
+    sel = (rng.random(n) < 0.8).astype(np.float32)
+    leaf = rng.integers(0, L, n).astype(np.int32)
+    paths = [tuple(rng.choice(F, rng.integers(0, 4), replace=False)) for _ in range(L)]
+    fi, fv = tl.pack_path_features(paths, L, 3)
+    lut = np.sort(rng.standard_normal((F, B)).astype(np.float32), axis=1)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        t = [torch.from_numpy(x).to(d) for x in (bins, g, h, sel, leaf, lut)]
+        out.append(tl.linear_fit_stats(bins_column(t[0]), t[1], t[2], t[3], t[4], fi, fv, t[5],
+                                       L))
+    for x, y in zip(out[0], out[1]):
+        x, y = x.cpu().numpy(), y.numpy()
+        assert np.abs(x - y).max() <= 1e-6 * np.abs(y).max()
+
+    X = rng.standard_normal((20000, 5))
+    yv = X[:, 0] - 0.5 * X[:, 1] + 0.1 * rng.standard_normal(20000)
+    params = dict(objective="regression", num_leaves=15, linear_tree=True, linear_lambda=0.01,
+                  verbose=-1)
+    pk.reset_launch_counts()
+    bc = lgt.train(params, lgt.Dataset(X, label=yv), 3)
+    assert pk.launch_counts()["hist_segment"] > 0
+    bp = lgt.train(params, lgt.Dataset(X, label=yv), 3, device="cpu")
+    for a, b in zip(bc.boosting.models, bp.boosting.models):
+        np.testing.assert_array_equal(a.split_feature[:a.num_leaves - 1],
+                                      b.split_feature[:b.num_leaves - 1])
+        np.testing.assert_array_equal(a.leaf_is_linear, b.leaf_is_linear)
+        for ca, cb in zip(a.leaf_coeff, b.leaf_coeff):
+            np.testing.assert_allclose(ca, cb, rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(bc.predict(X), bp.predict(X), rtol=1e-4, atol=1e-4)

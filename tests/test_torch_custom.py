@@ -161,3 +161,52 @@ def test_update_and_eval_with_feval():
     assert tb.eval(tva, "held", logloss_feval) == jb.eval(jva, "held", logloss_feval)
     assert tb.eval_valid() == jb.eval_valid() == []
     assert tb.model_to_string() == jb.model_to_string()
+
+
+def test_update_fobj_on_fused_booster(monkeypatch):
+    """``Booster.update(fobj=)`` on a booster the partitioned trainer
+    started (3 binary iterations on it; the JAX package with
+    LIGHTGBM_TPU_PGROW=force): both take the mask grower from the band's
+    scores for a 4th and 5th tree.  The ``preds`` each ``fobj`` gets
+    agree within 1e-5 (the fused trees' sums differ in their last bits,
+    tests/test_torch_train.py), the trees' split lines are equal and the
+    raw predictions within 3e-3.  Then a fused iteration starts from the
+    band rewritten from the scores (B5), and two rollbacks take the
+    fused and a custom tree off again: the training scores stay within
+    1e-5 of ``predict(raw_score=True)`` throughout."""
+    monkeypatch.setenv("LIGHTGBM_TPU_PGROW", "force")
+    X, y = _data(n=1000)
+    params = dict(PARAMS, objective="binary")
+    seen = {}
+
+    def recording(tag):
+        def fobj(preds, data):
+            seen.setdefault(tag, []).append(np.array(preds, np.float64))
+            return logistic_fobj(preds, data)
+        return fobj
+
+    boosters = []
+    for mod, kw, tag in ((lgb, {}, "jax"), (lgt, {"device": "cpu"}, "port")):
+        b = mod.train(params, mod.Dataset(X, label=y), 3, keep_training_booster=True, **kw)
+        assert b.boosting.ptrainer is not None
+        for _ in range(2):
+            assert not b.update(fobj=recording(tag))
+        boosters.append(b)
+    jb, tb = boosters
+    assert tb.current_iteration() == jb.current_iteration() == 5
+    for a, b in zip(seen["jax"], seen["port"]):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5)
+    assert _split_lines(tb.model_to_string()) == _split_lines(jb.model_to_string())
+    np.testing.assert_allclose(tb.predict(X, raw_score=True), jb.predict(X, raw_score=True),
+                               rtol=3e-3, atol=3e-3)
+
+    def drift():
+        return np.abs(tb.boosting.scores[0].numpy() - tb.predict(X, raw_score=True)).max()
+
+    assert drift() <= 1e-5
+    assert tb.boosting.ptrainer.score_dirty
+    tb.update()  # the chunk rewrites the band from the scores first
+    assert not tb.boosting.ptrainer.score_dirty and drift() <= 1e-5
+    tb.rollback_one_iter()
+    tb.rollback_one_iter()
+    assert tb.current_iteration() == 4 and drift() <= 1e-5

@@ -157,13 +157,8 @@ DECLINED = [
     ("boosting=dart", dict(boosting="dart", linear_tree=True), {}),
     ("Cannot use bagging in GOSS", dict(boosting="goss", bagging_fraction=0.5, bagging_freq=1),
      {}),
-    ("linear trees", dict(linear_tree=True), {}),
-    ("monotone constraints", dict(monotone_constraints=[1, 0, 0, 0]), {}),
     ("tree_learner=data", dict(tree_learner="data"), {}),
     ("out-of-core training", dict(out_of_core=True), {}),
-    # objective=binary (below) takes the partitioned trainer, which
-    # trains no given gradients: a custom objective runs with objective=none
-    ("fobj", {}, dict(fobj=lambda preds, data: (preds, preds))),
     ("checkpoint_dir", {}, dict(checkpoint_dir="ckpt")),
     # continued training runs (tests/test_torch_api.py); an initial model of
     # another feature count is refused
