@@ -39,8 +39,8 @@ result line):
      quantized levels of the card against the CPU's; split_stream and
      level_stream at 1M rows x 28 features of 256 bins (features tiled
      over the grid, as at max_bin=255), unselected rows among them;
-  4. small end to end: --small-rows x 28 (binary) and 100,000
-     Covertype-shaped rows (K=7, 2 iterations) trained on the card and on
+  4. small end to end: --small-rows x 28 (binary, 255 leaves) and 100,000
+     Covertype-shaped rows (K=7, 31 leaves, 2 iterations) trained on the card and on
      the CPU (plain versions) — splits, predictions and AUC / multi
      logloss must agree; then --small-rows x 28 at learning_rate=0.5,
      31 leaves, 6 iterations with bagging and feature_fraction and 4
@@ -49,12 +49,12 @@ result line):
      --small-rows x 28 (5 iterations) and multiclass GOSS on the 100,000
      Covertype-shaped rows (4 iterations at learning_rate 0.5: 2 warm-up,
      2 sampled); then each regression objective on --small-rows x 28 (31
-     leaves, 2 iterations) and Huber with GOSS (4 iterations at
+     leaves, 1 iteration) and Huber with GOSS (4 iterations at
      learning_rate 0.5)
      on the fused path, 0 differing splits required; then lambdarank on
      the mask grower on ~20k documents of 170 mslr-web10k-shaped queries
-     (3 iterations); then the API's paths (phase_small_api) on the
-     binary and K=7 boosters above: init_model continuing them by 3
+     (2 iterations); then the API's paths (phase_small_api) on the
+     binary and K=7 boosters above: init_model continuing them by 2
      iterations, an LGBMClassifier fit whose model text must equal
      lgt.train's, DART on the mask grower (31 leaves, 6 iterations, the
      drop indices of each equal), and rollback_one_iter then update() at
@@ -121,7 +121,7 @@ result line):
      summing to the raw prediction within 1e-5) and the prediction early
      stop (freq 5, margin 1.0: rows exiting early, |dAUC|, ms); the
      feature importances; 5-fold cv (five boosters of 8.4M rows on the
-     card at once, 5 rounds; the logloss mean must fall every round);
+     card at once, 3 rounds; the logloss mean must fall every round);
      DART (10 iterations on the mask grower, trees dropped each
      iteration, held-out AUC, host syncs of an iteration);
   5f. the tree strategies at full width (phase_strategies) on the Higgs
@@ -133,6 +133,19 @@ result line):
      sweep of 200 held-out rows x 32 values of each constrained feature,
      whose worst signed step must be >= -1e-6); s/iter, held-out AUC
      (> 0.6), peak memory and hist_segment's launches of each;
+  5g. "higgs-10.5M-cli" (phase_cli): the command line at full width.
+     The main run's binned training set saved with Dataset.save_binary
+     (its size and seconds) and the 500k held-out rows written as a CSV
+     with a header; then, each a `python -m lightgbm_tpu_torch` process
+     on the card: task=train from a .conf with the main run's parameters,
+     data=the cache, valid_data=the CSV, metric=auc, --iters iterations
+     (its trees byte-identical to the main run's; wall, s/iter, peak
+     device and host memory, and the process's launch counts from its
+     log), task=predict of the CSV (within 1e-5 relative of the
+     in-process Booster.predict of the file; its AUC within 1e-4 of the
+     main run's) and task=ingest of the CSV with stream_ingest=true (bins
+     and mappers equal to the in-memory Dataset(csv)'s); the native
+     parser must have parsed the CSV in every process;
   6. "covertype-581k" at full width: Covertype-shaped data (581,012 rows,
      54 columns: 10 integer numeric, a 4-column and a 40-column one-hot,
      7 classes at Covertype's counts), the first 464,809 train and the
@@ -243,10 +256,10 @@ MSLR_LABEL_SHARE = (0.52, 0.32, 0.13, 0.02, 0.01)  # labels 0-4, mostly 0 and 1
 RANK_PARAMS = dict(TRAIN_PARAMS, objective="lambdarank", metric="ndcg",
                    ndcg_eval_at=[1, 3, 5, 10])
 RANK_ITERS = 10
-RANK_SMALL_QUERIES, RANK_SMALL_ITERS = 170, 3  # ~20k documents, card against CPU
+RANK_SMALL_QUERIES, RANK_SMALL_ITERS = 170, 2  # ~20k documents, card against CPU
 SMALL_MASK_ITERS, SMALL_MASK_LEAVES = 5, 31  # the mask grower's card-vs-CPU phases
 SMALL_GOSS_ITERS = 4  # at learning_rate 0.5: 2 warm-up and 2 sampled iterations
-SMALL_OBJ_ITERS = 2  # each regression objective card vs CPU (cut from --small-iters' 3)
+SMALL_OBJ_ITERS = 1  # each regression objective card vs CPU (2 before PR 12, 3 before PR 10)
 # the fused card-vs-CPU checks of sampling and of the regression
 # objectives grow 31-leaf trees (255 before PR 11): the CPU runs the
 # fused tree's static structure eagerly, L-1 steps a tree, so this cuts
@@ -265,12 +278,12 @@ COV_SMALL_ROWS, COV_SMALL_ITERS = 100_000, 2  # the multiclass card-vs-CPU phase
 # config, and the depth of each path
 SKLEARN_PARAMS = dict(num_leaves=255, max_bin=63, learning_rate=0.1, min_child_samples=1,
                       min_child_weight=100)
-API_SMALL_ITERS, SMALL_DART_ITERS = 3, 6  # init_model's 3 + 3; DART card vs CPU
+API_SMALL_ITERS, SMALL_DART_ITERS = 2, 6  # init_model's 2 + 2; DART card vs CPU
 # the small DART phase drops more often than the defaults (drop_rate 0.1,
 # skip_drop 0.5), so six iterations drop trees to compare
 SMALL_DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", num_leaves=SMALL_MASK_LEAVES,
                          drop_rate=0.5, skip_drop=0.2)
-API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 5, 10
+API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 3, 10
 # the tree strategies: linear leaves (LightGBM's linear_tree) and
 # monotone constraints, card against CPU and at full width
 LINEAR_PARAMS = dict(TRAIN_PARAMS, linear_tree=True)
@@ -1703,13 +1716,15 @@ def phase_small_multi(X, y, rows, iters, dev):
     Xv, yv = X[-50_000:], y[-50_000:]
     out, boosters = {}, {}
     ds = lgt.Dataset(X[:rows], label=y[:rows])
+    params = dict(COV_PARAMS, num_leaves=SMALL_CHECK_LEAVES)
     for name, d in (("cuda", dev), ("cpu", "cpu")):
         t0 = time.perf_counter()
-        bst = lgt.train(COV_PARAMS, ds, iters, device=d)
+        bst = lgt.train(params, ds, iters, device=d)
         boosters[name] = bst
         prob = bst.predict(Xv)
         out[name] = (bst.model_to_string(), prob, multi_logloss(yv, prob))
-        log(f"small multiclass {name}: {rows}x54, K=7, {iters} iterations, "
+        log(f"small multiclass {name}: {rows}x54, K=7, {SMALL_CHECK_LEAVES} leaves, {iters} "
+            f"iterations, "
             f"{time.perf_counter() - t0:.1f} s, multi_logloss {out[name][2]:.6f}")
     ndiff = compare_models("small multiclass cuda vs cpu", out["cpu"][0], out["cuda"][0])
     dprob = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
@@ -2802,6 +2817,134 @@ def phase_small_strategies(small, dev):
     return counts
 
 
+def _cli(args, cwd, timeout=600):
+    """``python -m lightgbm_tpu_torch`` with ``args`` in ``cwd`` (the
+    checkout's package, on the card); returns (stdout, wall seconds) and
+    fails on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch", *args], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t
+    if out.returncode != 0:
+        log(out.stdout[-4000:], out.stderr[-4000:])
+        raise RuntimeError(f"python -m lightgbm_tpu_torch {' '.join(args)}: exit "
+                           f"{out.returncode}")
+    return out.stdout, wall
+
+
+def _logged(stdout, prefix):
+    """The rest of each ``[Info]``/``[Debug]`` line of the CLI's log that
+    starts with ``prefix``."""
+    return [line.split("] ", 2)[2][len(prefix):] for line in stdout.splitlines()
+            if line.startswith("[LightGBM-TPU]") and line.split("] ", 2)[-1].startswith(prefix)]
+
+
+def phase_cli(higgs, main_text, main_auc, iters, dev):
+    """"higgs-10.5M-cli": the command line at full width on the Higgs
+    cell's data.  The main run's binned training set saved as a binary
+    cache; the 500k held-out rows written as a CSV with a header; then,
+    each a ``python -m lightgbm_tpu_torch`` process on the card:
+    task=train from a .conf with TRAIN_PARAMS (data=the cache,
+    valid_data=the CSV, metric=auc, --iters iterations; its trees
+    byte-identical to the main run's), task=predict of the CSV (within
+    1e-5 relative of the in-process Booster.predict of the same file; its
+    AUC within 1e-4 of the main run's) and task=ingest of the CSV with
+    stream_ingest=true (bins and mappers equal to the in-memory
+    Dataset(csv)'s); the native parser must have parsed the CSV in each.
+    Returns the training process's launch counts (its log's) and the
+    phase's numbers."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.data.reader import parser_blocks
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    ds, Xv, yv = higgs
+    work = os.path.join(HERE, "build", "chip_cli")
+    os.makedirs(work, exist_ok=True)
+    cache, csv = os.path.join(work, "higgs.train.bin"), os.path.join(work, "higgs.valid.csv")
+    res = {}
+    t = time.perf_counter()
+    ds.save_binary(cache)
+    res["save_binary_s"] = time.perf_counter() - t
+    res["cache_mib"] = os.path.getsize(cache) / 2**20
+    t = time.perf_counter()
+    np.savetxt(csv, np.column_stack([yv, Xv]), fmt="%.9g", delimiter=",", comments="",
+               header=",".join(["label"] + [f"f{i}" for i in range(Xv.shape[1])]))
+    res["csv_write_s"] = time.perf_counter() - t
+    log(f"cli: save_binary of the {ds.num_data()}x28 training set {res['save_binary_s']:.2f} s, "
+        f"{res['cache_mib']:.1f} MiB; the {len(yv)}-row CSV written in {res['csv_write_s']:.2f} s "
+        f"({os.path.getsize(csv) / 2**20:.1f} MiB)")
+    conf = os.path.join(work, "train.conf")
+    with open(conf, "w") as f:
+        f.write("task = train\n" + "".join(f"{k} = {v}\n" for k, v in TRAIN_PARAMS.items())
+                + f"data = {cache}\nvalid_data = {csv}\nheader = true\nmetric = auc\n"
+                f"num_trees = {iters}\noutput_model = model.txt\n")
+    native = "the native parser"
+
+    pk.reset_launch_counts()  # the counts below are the training process's own
+    out, wall = _cli([f"config={conf}", "verbosity=2"], work)
+    counts = json.loads(_logged(out, "Kernel launches: ")[0])
+    log(f"path higgs-10.5M-cli: launches {json.dumps(counts)}")
+    for k in ("update_and_root_hist", "level_stream", "split_stream", "score_add"):
+        assert counts[k] > 0, f"{k} was not launched on the higgs-10.5M-cli path"
+    its = [float(x.split()[0]) for x in _logged(out, "") if "seconds elapsed, finished" in x]
+    assert len(its) == iters, f"{len(its)} iterations logged"
+    aucs = [float(x.split(": ")[-1]) for x in _logged(out, "Iteration:") if "auc" in x]
+    text = open(os.path.join(work, "model.txt")).read()
+    same = tree_blocks(text) == tree_blocks(main_text)
+    res.update(wall=wall, s_iter=float(np.median(its[1:])), first_iter=its[0],
+               device_gib=float(_logged(out, "Peak device memory ")[0].split()[0]),
+               host_gib=float(_logged(out, "Peak host memory ")[0].split()[0]), valid_auc=aucs[-1])
+    log(f"higgs-10.5M-cli task=train: {iters} iterations from the cache, the CSV as a "
+        f"validation set, in {wall:.2f} s (the process: start, load, train, write); s/iter "
+        f"{res['s_iter']:.4f} (the stream's time between an iteration's events, median after "
+        f"the first; first {its[0]:.3f} s); validation auc {aucs[-1]:.6f}; peak device memory "
+        f"{res['device_gib']:.3f} GiB, peak host memory {res['host_gib']:.3f} GiB; trees "
+        f"byte-identical to the main run's: {same}")
+    assert same, "the CLI's trees differ from the main run's"
+    assert native in out, "the training process did not parse the CSV with the native parser"
+
+    out, wall = _cli(["task=predict", f"data={csv}", "header=true", "input_model=model.txt",
+                      "output_result=pred.txt"], work)
+    assert native in out, "the prediction process did not use the native parser"
+    pred = np.loadtxt(os.path.join(work, "pred.txt"))
+    t = time.perf_counter()
+    inproc = lgt.Booster(model_str=text, device=dev).predict(csv, data_has_header=True)
+    inproc_s = time.perf_counter() - t
+    rel = float(np.max(np.abs(pred - inproc) / np.maximum(np.abs(inproc), 1e-30)))
+    a = auc(yv, pred)
+    res.update(predict_wall=wall, predict_rel=rel, predict_auc=a)
+    log(f"higgs-10.5M-cli task=predict: {len(pred)} rows in {wall:.2f} s (the process); "
+        f"in-process Booster.predict of the file {inproc_s:.2f} s; max relative difference "
+        f"{rel:.2e} (limit 1e-5, %g keeps six digits); AUC of the file {a:.6f}, the main "
+        f"run's {main_auc:.6f}")
+    assert pred.shape == (len(yv),) and np.all(np.isfinite(pred))
+    assert rel <= 1e-5 and abs(a - main_auc) <= 1e-4
+
+    out, wall = _cli([f"config={conf}", "task=ingest", f"data={csv}", "stream_ingest=true",
+                      "verbosity=2"], work)
+    assert native in out, "the ingest process did not use the native parser"
+    report = json.loads(_logged(out, "Finished ingest: ")[0])
+    t = time.perf_counter()
+    mem = lgt.Dataset(csv, params=dict(TRAIN_PARAMS, header=True, stream_ingest="false"))
+    mem = mem.construct()
+    mem_s = time.perf_counter() - t
+    streamed = lgt.Dataset(csv + ".bin").construct()
+    same_bins = bool(np.array_equal(np.asarray(streamed.binned), mem.binned))
+    same_mappers = ([m.to_string() for m in streamed.bin_mappers]
+                    == [m.to_string() for m in mem.bin_mappers])
+    res.update(ingest_wall=wall, ingest_report=report)
+    log(f"higgs-10.5M-cli task=ingest: {report['rows']} rows streamed in {report['wall_s']} s "
+        f"({report['chunks_pass1']} + {report['chunks_pass2']} chunks of {report['chunk_rows']} "
+        f"rows, host RSS {report['rss_start_mb']} MB at the start, {report['rss_peak_mb']} MB at "
+        f"the peak), the process {wall:.2f} s; the "
+        f"in-memory Dataset(csv) {mem_s:.2f} s; bins equal {same_bins}, mappers equal "
+        f"{same_mappers}; parser blocks in this process {json.dumps(parser_blocks())}")
+    assert same_bins and same_mappers, "the streamed cache differs from the in-memory load"
+    assert parser_blocks().get("native"), "the native parser did not run in this process"
+    return counts, res
+
+
 def phase_strategies(higgs, dev):
     """The tree strategies at full width on the higgs-10.5M cell's binned
     data and parameters, STRAT_ITERS iterations each on the mask grower:
@@ -2910,8 +3053,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--small-rows", type=int, default=200_000)
-    ap.add_argument("--small-iters", type=int, default=3)
+    ap.add_argument("--small-rows", type=int, default=100_000)
+    ap.add_argument("--small-iters", type=int, default=2)
     ap.add_argument("--repeat-iters", type=int, default=3)
     args = ap.parse_args(argv)
 
@@ -2981,9 +3124,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     q_counts, quant = phase_quantized(*higgs, dev, full["auc"])
     log(f"higgs-10.5M-quantized in {time.perf_counter() - t0:.1f} s")
+    main_text = full.pop("main_text")
     t0 = time.perf_counter()
-    api_counts, _ = phase_api(higgs, full.pop("main_text"), dev)
+    api_counts, _ = phase_api(higgs, main_text, dev)
     log(f"higgs-10.5M API paths in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli_counts, _ = phase_cli(higgs, main_text, full["auc"], args.iters, dev)
+    log(f"higgs-10.5M-cli in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     strat_counts, _ = phase_strategies(higgs, dev)
     del higgs
@@ -3028,7 +3175,7 @@ def main(argv=None):
     entries = []
     for name in KERNEL_NAMES:
         k = kern[name]
-        launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts]
+        launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts, cli_counts]
                        + cov_counts + sampled_counts + obj_counts + small_api_counts
                        + api_counts + small_strat_counts + strat_counts)
         assert launches > 0, f"{name} was launched on no path"

@@ -1,7 +1,10 @@
 """User-facing Dataset and Booster — PyTorch counterpart of
 lightgbm_tpu/basic.py (python-package/lightgbm/basic.py Dataset:551,
-Booster:1176) for in-memory arrays, pandas frames and scipy sparse
-matrices (densified).  A validation Dataset built with ``reference=``
+Booster:1176) for in-memory arrays, pandas frames, scipy sparse
+matrices (densified) and data files: a binary dataset cache, or a CSV,
+TSV or LibSVM text file with its ``.weight`` / ``.query`` side files,
+parsed in memory or streamed (data/ingest.py) when large.  A validation
+Dataset built with ``reference=``
 bins with the training set's mappers and is evaluated on its unbundled
 bins.  Pandas ``category`` columns train as categorical features; their
 levels travel in the model text's ``pandas_categorical:`` line, through
@@ -10,6 +13,7 @@ when a frame is given, so the package imports without it."""
 
 from __future__ import annotations
 
+import copy
 import json
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -91,11 +95,16 @@ def _map_pandas_categorical(data, pandas_categorical):
 
 class Dataset:
     """Lazily-constructed binned dataset over a dense float matrix (a
-    numpy array, a pandas frame or a scipy sparse matrix).
-    ``free_raw_data`` drops the raw matrix once binned (continued training
-    and subsets' raw rows then have none); ``silent`` is accepted for the
-    reference's signature (the ``verbose`` parameter sets the log
-    level)."""
+    numpy array, a pandas frame or a scipy sparse matrix) or a data file
+    (a path).  A file is, in this order: a binary dataset cache
+    (``save_binary``); a text file streamed in two passes
+    (``data/ingest.py should_stream``: above 256 MiB, or as
+    ``stream_ingest`` / ``use_two_round_loading`` say); else a text file
+    parsed in memory.  The file's label, weights and query groups give
+    way to those passed here.  ``free_raw_data`` drops the raw matrix
+    once binned (continued training and subsets' raw rows then have
+    none); ``silent`` is accepted for the reference's signature (the
+    ``verbose`` parameter sets the log level)."""
 
     def __init__(self, data, label=None, max_bin: Optional[int] = None,
                  reference: Optional["Dataset"] = None, weight=None, group=None,
@@ -103,9 +112,13 @@ class Dataset:
                  categorical_feature="auto", params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = False):
         if isinstance(data, str):
-            raise NotImplementedError("lightgbm_tpu_torch does not load data files yet")
-        (self.data, self.pandas_columns, self._auto_categorical,
-         self.pandas_categorical) = _to_2d_float(data)
+            self.data_path = data
+            self.data, self.pandas_columns = None, None
+            self._auto_categorical, self.pandas_categorical = [], []
+        else:
+            self.data_path = None
+            (self.data, self.pandas_columns, self._auto_categorical,
+             self.pandas_categorical) = _to_2d_float(data)
         self.label = label
         self.reference = reference
         self.weight = weight
@@ -117,6 +130,7 @@ class Dataset:
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.free_raw_data = free_raw_data
+        self.label_idx = 0  # the label's column in a text file
         self._constructed: Optional[BinnedDataset] = None
 
     def construct(self, extra_params: Optional[Dict[str, Any]] = None) -> BinnedDataset:
@@ -127,6 +141,11 @@ class Dataset:
         merged = dict(extra_params) if extra_params else {}
         merged.update(self.params)
         cfg = Config.from_params({k: v for k, v in merged.items() if k != "categorical_feature"})
+        if self.data is None and self.data_path is not None:
+            ds = self._construct_from_file(cfg)
+            if ds is not None:
+                self._constructed = ds
+                return ds
         names = None
         if self.feature_name != "auto" and self.feature_name is not None:
             names = list(self.feature_name)
@@ -153,9 +172,51 @@ class Dataset:
             self.data, cfg, label=self.label, weight=self.weight, group=self.group,
             init_score=self.init_score, feature_names=names, categorical_features=cats,
             reference=ref)
+        self._constructed.label_idx = self.label_idx
         if self.free_raw_data:
             self.data = None
         return self._constructed
+
+    def _construct_from_file(self, cfg: Config) -> Optional[BinnedDataset]:
+        """The binned dataset of a binary cache or of a streamed text file
+        (the label, weights, groups and init score given here override the
+        file's); None after parsing a text file into ``self.data``, which
+        ``construct`` then bins like an array."""
+        if BinnedDataset.is_binary_cache(self.data_path):
+            # DatasetLoader::LoadFromBinFile
+            ds = BinnedDataset.load_binary(self.data_path)
+        else:
+            from .data.ingest import should_stream, stream_dataset
+
+            if not should_stream(self.data_path, cfg):
+                from .io.parser import load_text_file
+
+                feats, label, weights, group, names, self.label_idx = load_text_file(
+                    self.data_path, cfg)
+                self.data = feats
+                if self.label is None:
+                    self.label = label
+                if self.weight is None:
+                    self.weight = weights
+                if self.group is None:
+                    self.group = group
+                if self.feature_name == "auto":
+                    self.feature_name = names
+                return None
+            ref = self.reference.construct() if self.reference is not None else None
+            ds = stream_dataset(self.data_path, cfg, feature_name=self.feature_name,
+                                categorical_feature=self.categorical_feature, reference=ref)
+            self.label_idx = ds.label_idx
+        md = ds.metadata
+        if self.label is not None:
+            md.set_label(self.label)
+        if self.weight is not None:
+            md.set_weights(self.weight)
+        if self.group is not None:
+            md.set_query(self.group)
+        if self.init_score is not None:
+            md.set_init_score(self.init_score)
+        return ds
 
     def _remap_categorical_to_reference(self, ref: "Dataset") -> None:
         """A validation frame's category codes follow its own levels; the
@@ -186,7 +247,8 @@ class Dataset:
 
     def create_valid(self, data, label=None, weight=None, group=None, init_score=None,
                      silent: bool = False, params=None) -> "Dataset":
-        """A validation Dataset binned with this one's mappers."""
+        """A validation Dataset (an array, a frame or a data file) binned
+        with this one's mappers."""
         return Dataset(data, label=label, reference=self, weight=weight, group=group,
                        init_score=init_score, silent=silent, params=params or self.params)
 
@@ -236,7 +298,7 @@ class Dataset:
         """A constructed Dataset over ``binned`` (no raw data): what a
         custom metric receives for a validation set."""
         ds = cls.__new__(cls)
-        ds.data = None
+        ds.data, ds.data_path = None, None
         ds._constructed = binned
         ds.label, ds.weight, ds.init_score = None, binned.metadata.weights, None
         qb = binned.metadata.query_boundaries
@@ -253,11 +315,22 @@ class Dataset:
             return self._constructed.num_total_features
         return 0 if self.data is None else self.data.shape[1]
 
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned dataset to ``filename`` as a binary dataset
+        cache (Dataset::SaveBinaryFile; the JAX package's format, which
+        either package loads).  A dataset built from a text file records
+        that file's identity, so the cache is refused once the file
+        changes."""
+        self.construct().save_binary(filename, source_path=self.data_path)
+        return self
+
     def subset(self, used_indices, params=None) -> "Dataset":
         """A row subset sharing this dataset's bin mappers and binned rows
         (Dataset::CopySubset; cv's folds): nothing is re-binned."""
         used_indices = np.asarray(used_indices)
         sub = Dataset.__new__(Dataset)
+        sub.data_path = None
+        sub.label_idx = self.label_idx
         sub.data = self.data[used_indices] if self.data is not None else None
         sub.pandas_columns = self.pandas_columns
         sub._auto_categorical = list(self._auto_categorical)
@@ -440,12 +513,22 @@ class Booster:
         ``pred_early_stop_freq``, ``pred_early_stop_margin``) come from the
         booster's params, and ``kwargs`` override them for this call.  A
         DataFrame's category columns are coded through the training
-        levels.  ``data_has_header`` and ``is_reshape`` concern data files
-        and flat outputs, which this package does not produce."""
-        if isinstance(data, str):
-            raise NotImplementedError("lightgbm_tpu_torch does not load data files yet")
-        data = _to_2d_float(_map_pandas_categorical(data, self.pandas_categorical))[0]
+        levels.  ``data`` may be a text file (CSV, TSV or LibSVM), parsed
+        with the booster's column parameters (``label_column``,
+        ``ignore_column``, ...), its label column left out; it has a header
+        when ``data_has_header`` or the ``header`` parameter says so.
+        ``is_reshape`` concerns flat outputs, which this package does not
+        produce."""
         config = Config.from_params(dict(self.params, **kwargs)) if kwargs else self.config
+        if isinstance(data, str):
+            from .io.parser import load_text_file
+
+            file_config = config
+            if data_has_header and not config.has_header:
+                file_config = copy.copy(config)
+                file_config.has_header = True
+            data = load_text_file(data, file_config)[0]
+        data = _to_2d_float(_map_pandas_categorical(data, self.pandas_categorical))[0]
         return self.boosting.predict(data, num_iteration=num_iteration, raw_score=raw_score,
                                      pred_leaf=pred_leaf, config=config)
 

@@ -40,6 +40,7 @@ prediction.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import List
 
 import numpy as np
@@ -60,6 +61,15 @@ from ..utils.log import Log
 from ..utils.random import Random
 from .pred_early_stop import (create_prediction_early_stop_instance, early_stop_type,
                               predict_with_early_stop, tree_outputs)
+
+
+def _read_only_tensor(a: np.ndarray) -> torch.Tensor:
+    """``torch.from_numpy`` of a host array that is only read (a binary
+    cache's bins are a read-only memmap), without PyTorch's warning about
+    arrays that are not writable."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a)
 
 
 def unsupported_feature(config):
@@ -172,7 +182,7 @@ class GBDT:
         ts, cfg, dev = self.train_set, self.config, self.device
         binned = np.asarray(ts.binned)
         bits = 8 if binned.dtype == np.uint8 else 16
-        bins = torch.from_numpy(binned if bits == 8 else binned.astype(np.int32)).to(dev)
+        bins = _read_only_tensor(binned if bits == 8 else binned.astype(np.int32)).to(dev)
         self.words = pack_bin_words(bins, 32 // bits, bits)
         del bins
         self.grow_params = GrowParams(
@@ -206,7 +216,7 @@ class GBDT:
         rows) and replay the trees this booster trained.  An initial
         model's trees, read from model text, carry no bin thresholds, so
         they enter only through ``init_scores``."""
-        vb = torch.from_numpy(np.ascontiguousarray(valid_set.binned)).to(self.device)
+        vb = _read_only_tensor(np.ascontiguousarray(valid_set.binned)).to(self.device)
         k = self.num_tree_per_iteration
         vs = torch.zeros((k, valid_set.num_data), dtype=torch.float32, device=self.device)
         init_score = valid_set.metadata.init_score

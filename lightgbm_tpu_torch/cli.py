@@ -1,0 +1,289 @@
+"""The command line — PyTorch counterpart of lightgbm_tpu/cli.py
+(src/application/application.cpp + src/main.cpp):
+``python -m lightgbm_tpu_torch task=train config=train.conf`` reads the
+reference's key=value argv and .conf files unmodified (LoadParameters,
+application.cpp:48-104); the command line wins over the file.
+
+Tasks: ``train`` (a text file or a binary cache, validation files, the
+model file, ``is_save_binary_file``, the reference's model-text
+snapshots at ``snapshot_freq``), ``predict`` (one ``%g`` line a row,
+tab-separated columns for several outputs), ``convert_model`` (the
+standalone C++ predictor) and ``ingest`` (a text file streamed into the
+binary cache ``<data>.bin``; also the ``ingest`` subcommand).
+
+Training and prediction run on the CUDA card unless the ``device``
+parameter says ``cpu`` (``gpu`` and ``cuda`` name the card; any other
+value is refused).  Not ported yet, each raising NotImplementedError:
+training checkpoints (``checkpoint_freq`` > 0, ``checkpoint_dir``,
+``checkpoint_resume=true|force``, the ``resume`` subcommand) and the
+``report`` subcommand wait for the port's checkpoints and observability;
+``serve`` and ``fleet`` for its serving; ``factory`` for its factory.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import resource
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from .basic import Booster, Dataset
+from .config import PARAM_ALIASES, Config
+from .utils.log import Log
+
+# subcommands of the JAX package's CLI that wait for modules not ported yet
+_NOT_YET_SUBCOMMANDS = {
+    "report": "run-trace reports (the port's observability)",
+    "resume": "training checkpoints",
+    "serve": "the prediction server (the port's serving)",
+    "fleet": "serving fleets (the port's serving)",
+    "factory": "the training factory",
+}
+
+
+def parse_argv(argv: List[str]) -> Dict[str, str]:
+    """key=value argv parsing (LoadParameters, application.cpp:48-61)."""
+    params: Dict[str, str] = {}
+    for arg in argv:
+        if "=" in arg:
+            key, _, value = arg.partition("=")
+            key = key.strip().strip('"').strip("'")
+            value = value.strip().strip('"').strip("'")
+            if key:
+                params[key] = value
+        else:
+            Log.warning("Unknown parameter in command line: %s", arg)
+    return params
+
+
+def parse_config_file(path: str) -> Dict[str, str]:
+    """.conf parsing with '#' comments (application.cpp:66-98)."""
+    params: Dict[str, str] = {}
+    if not os.path.exists(path):
+        Log.warning("Config file %s doesn't exist, will ignore", path)
+        return params
+    with open(path) as f:
+        for line in f:
+            if "#" in line:
+                line = line[: line.index("#")]
+            line = line.strip()
+            if not line:
+                continue
+            if "=" in line:
+                key, _, value = line.partition("=")
+                key = key.strip().strip('"').strip("'")
+                value = value.strip().strip('"').strip("'")
+                if key:
+                    params[key] = value
+            else:
+                Log.warning("Unknown parameter in config file: %s", line)
+    return params
+
+
+def load_all_params(argv: List[str]) -> Dict[str, str]:
+    """The command line's parameters, then the config file's that the
+    command line does not set under any alias (application.cpp:87-89)."""
+    params = parse_argv(argv)
+    cfg_path = params.get("config_file") or params.get("config")
+    if cfg_path:
+        for key, value in parse_config_file(cfg_path).items():
+            canon = PARAM_ALIASES.get(key, key)
+            if key not in params and canon not in params and not any(
+                    PARAM_ALIASES.get(k, k) == canon for k in params):
+                params[key] = value
+    params.pop("config", None)
+    params.pop("config_file", None)
+    return params
+
+
+def device_of(params: Dict[str, str]) -> Optional[str]:
+    """The device the parameters ask for: None (the CUDA card) unless the
+    ``device`` key says ``cpu``; ``gpu`` and ``cuda`` name the card, any
+    other value raises."""
+    value = None
+    for key, v in params.items():
+        if PARAM_ALIASES.get(key, key) == "device":
+            value = str(v).strip().lower()
+    if value is None or value in ("gpu", "cuda"):
+        return None
+    if value == "cpu":
+        return "cpu"
+    Log.fatal("device=%s: lightgbm_tpu_torch runs on the CUDA card (device=gpu or cuda) "
+              "or on the CPU (device=cpu)", value)
+    raise AssertionError  # unreachable
+
+
+def _refuse_checkpoints(config: Config) -> None:
+    """The JAX CLI writes training checkpoints; the port does not yet."""
+    resume = str(config.checkpoint_resume).lower()
+    for key, on in (("checkpoint_freq", config.checkpoint_freq > 0),
+                    ("checkpoint_dir", bool(config.checkpoint_dir)),
+                    ("checkpoint_resume", resume in ("true", "force"))):
+        if on:
+            raise NotImplementedError(
+                f"lightgbm_tpu_torch does not support training checkpoints ({key}) yet; "
+                "snapshot_freq writes the reference's model-text snapshots")
+
+
+def _eval_period(gbdt, config: Config, num_iters: int) -> int:
+    """Iterations a chunk may run before the loop must evaluate: every
+    iteration for early stopping on a validation set, every
+    ``output_freq`` when a metric is logged, else the whole run."""
+    has_valid = any(gbdt.valid_metrics)
+    if config.early_stopping_round > 0 and has_valid:
+        return 1
+    if has_valid or gbdt.training_metrics:
+        return max(int(config.output_freq), 1)
+    return max(num_iters, 1)
+
+
+def run_train(config: Config, params: Dict[str, str], device=None) -> Booster:
+    """InitTrain + Train (application.cpp:188-250): the training file (a
+    text file or a binary cache) and the validation files, then
+    ``GBDT.train_iters(is_eval=True)`` in chunks that end where the
+    reference's loop evaluates (early stopping, ``output_freq``) or
+    writes a snapshot; each iteration's seconds are logged from the
+    chunk's record.  Writes ``output_model``."""
+    if not config.data:
+        Log.fatal("No training data, application quit")
+    _refuse_checkpoints(config)
+    train_ds = Dataset(config.data, params=dict(params))
+    booster = Booster(params=dict(params), train_set=train_ds, device=device)
+    for vpath in config.valid_data:
+        booster.add_valid(train_ds.create_valid(vpath), os.path.basename(vpath))
+    if config.is_save_binary_file:
+        train_ds.save_binary(config.data + ".bin")
+
+    b = booster.boosting
+    num_iters = config.num_iterations
+    period = _eval_period(b, config, num_iters)
+    snap = config.snapshot_freq
+    Log.info("Started training...")
+    it = 0
+    while it < num_iters:
+        stop = min(num_iters, (it // period + 1) * period)
+        if snap > 0:
+            stop = min(stop, (it // snap + 1) * snap)
+        record = b.ptrainer.iter_seconds if b.ptrainer is not None else b.iter_seconds
+        n_rec, iter_before, t0 = len(record), b.iter, time.perf_counter()
+        finished = b.train_iters(stop - it, is_eval=True)
+        done = b.iter - iter_before
+        secs = record[n_rec:]
+        if len(secs) != done:  # a learner that keeps no per-iteration record
+            secs = [(time.perf_counter() - t0) / max(done, 1)] * done
+        for k, s in enumerate(secs):
+            Log.info("%f seconds elapsed, finished iteration %d", s, it + k + 1)
+        it += done
+        if snap > 0 and done and it % snap == 0:
+            path = f"{config.output_model}.snapshot_iter_{it}"
+            booster.save_model(path)
+            Log.info("Saved snapshot to %s", path)
+        if finished or done == 0:
+            Log.info("Early stopping at iteration %d", it)
+            break
+    booster.save_model(config.output_model)
+    Log.info("Finished training, model saved to %s", config.output_model)
+    Log.info("Peak host memory %.3f GiB (resident)",
+             resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+    if booster.device.type == "cuda":
+        import torch
+
+        peak = torch.cuda.max_memory_allocated(booster.device) / 2**30
+        Log.info("Peak device memory %.3f GiB", peak)
+    if Log.get_level() >= 2:
+        from .ops import pkernels
+
+        Log.debug("Kernel launches: %s", json.dumps(pkernels.launch_counts()))
+    return booster
+
+
+def run_predict(config: Config, params: Dict[str, str], device=None) -> None:
+    """Predict path (application.cpp:252-260, predictor.hpp): one line a
+    row, ``%g``, tab-separated for several outputs."""
+    if not config.data:
+        Log.fatal("No data for prediction, application quit")
+    if not config.input_model:
+        Log.fatal("No model file for prediction, application quit")
+    booster = Booster(params=dict(params), model_file=config.input_model, device=device)
+    preds = np.atleast_1d(booster.predict(
+        config.data, num_iteration=config.num_iteration_predict,
+        raw_score=config.is_predict_raw_score, pred_leaf=config.is_predict_leaf_index))
+    with open(config.output_result, "w") as f:
+        if preds.ndim == 1:
+            f.writelines(f"{v:g}\n" for v in preds)
+        else:
+            f.writelines("\t".join(f"{v:g}" for v in row) + "\n" for row in preds)
+    Log.info("Finished prediction, results saved to %s", config.output_result)
+
+
+def run_convert_model(config: Config, params: Dict[str, str], device=None) -> None:
+    """task=convert_model (application.cpp:268-273): the standalone C++
+    if-else predictor (convert_model.py, GBDT::ModelToIfElse)."""
+    from .convert_model import model_to_cpp
+
+    if not config.input_model:
+        Log.fatal("No model file for convert_model, application quit")
+    if config.convert_model_language not in ("", "cpp"):
+        Log.fatal("Unsupported convert_model_language %s (only cpp)",
+                  config.convert_model_language)
+    booster = Booster(model_file=config.input_model, device=device)
+    out = config.convert_model or "gbdt_prediction.cpp"
+    with open(out, "w") as f:
+        f.write(model_to_cpp(booster.boosting))
+    Log.info("Finished converting model to C++ code, saved to %s", out)
+
+
+def run_ingest(config: Config, params: Dict[str, str], device=None) -> None:
+    """task=ingest: stream a text file through the two-pass ingest
+    (data/ingest.py) into the binary cache ``<data>.bin`` without ever
+    holding its raw float matrix; training then loads the cache.  Host
+    only: no device is used."""
+    from .data.ingest import stream_dataset
+
+    if not config.data:
+        Log.fatal("No data for ingest, application quit")
+    ds = stream_dataset(config.data, config)
+    out = config.data + ".bin"
+    ds.save_binary(out, source_path=config.data)
+    report = dict(ds.ingest_report, output=out)
+    Log.info("Finished ingest: %s", json.dumps(report))
+
+
+_TASKS = {"train": run_train, "predict": run_predict, "prediction": run_predict,
+          "test": run_predict, "convert_model": run_convert_model, "ingest": run_ingest}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Application::Run (application.h:82, main.cpp:4-21): 0 on success,
+    1 (with the error logged) when the task fails."""
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] in _NOT_YET_SUBCOMMANDS:
+        raise NotImplementedError(f"lightgbm_tpu_torch does not support the {argv[0]} "
+                                  f"subcommand ({_NOT_YET_SUBCOMMANDS[argv[0]]}) yet")
+    if argv and argv[0] == "ingest":
+        argv = ["task=ingest"] + argv[1:]
+    try:
+        params = load_all_params(argv)
+        config = Config.from_params(params)
+        run = _TASKS.get(config.task)
+        if run is None:
+            Log.fatal("Unknown task type %s", config.task)
+        device = device_of(params)
+        if run is not run_ingest:
+            from .utils.device import resolve_device
+
+            device = resolve_device(device)
+        run(config, params, device)
+    except Exception as ex:  # main.cpp catches and exits non-zero
+        Log.warning("Met Exceptions: %s", ex)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,19 +5,23 @@ The whole dataset is one dense row-major ``(N, F)`` uint8/uint16 matrix
 of bin indices, built on the host with numpy exactly as the JAX package
 builds it (same sample, same mappers, same bins), with the query groups
 of a ranking task, and its row subsets (cv folds) and validation sets.
-Not ported yet: the distributed find-bin (raises NotImplementedError)
-and the binary dataset cache.
+Not ported yet: the distributed find-bin (raises NotImplementedError).
 
 Parity notes:
 - trivial-feature filtering and used-feature mapping ↔ Dataset::Construct
   (dataset.cpp:210)
 - metadata (labels/weights/query boundaries/init score) ↔ Metadata
   (dataset.h:36–248, metadata.cpp)
+- binary cache save/load ↔ SaveBinaryFile/LoadFromBinFile
+  (dataset.cpp, dataset_loader.cpp:263): the JAX package's npz, format
+  v2 (data/cache.py), with the same magic and members, so a cache
+  written by either package loads in the other.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import json
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -25,6 +29,8 @@ from ..config import Config
 from ..utils.log import Log
 from ..utils.random import Random
 from .binning import CATEGORICAL, NUMERICAL, BinMapper
+
+_BINARY_MAGIC = "lightgbm_tpu.dataset.v1"
 
 
 class Metadata:
@@ -98,6 +104,7 @@ class BinnedDataset:
         self.label_idx: int = 0
         self.bundle = None  # EFB BundleInfo (io/bundle.py); None = unbundled
         self.bundled: Optional[np.ndarray] = None  # (N, G) uint8 bundle bins
+        self.cache_path: Optional[str] = None  # the binary cache this was loaded from
         # raw (unbinned) copy is not kept — predictions on training data run
         # on the binned representation like the reference's score updater.
 
@@ -247,6 +254,116 @@ class BinnedDataset:
         return infos
 
     # ------------------------------------------------------------------
+    def save_binary(self, path: str, source_path: Optional[str] = None) -> None:
+        """The binary dataset cache (Dataset::SaveBinaryFile), format v2,
+        written to exactly ``path``: members stored uncompressed, so the
+        bin matrix's bytes are contiguous in the file; the
+        ``__cache_meta__`` header records the format version, per-block
+        CRCs and, given ``source_path``, the source file's identity, so a
+        cache that no longer matches its source is refused."""
+        from ..data.cache import build_cache_meta, chunk_crcs
+
+        meta = build_cache_meta(self.binned, self.metadata.label, source_path=source_path)
+        payload: Dict[str, np.ndarray] = {
+            "magic": np.asarray(_BINARY_MAGIC),
+            "__cache_meta__": np.asarray(json.dumps(meta)),
+            "chunk_crc": chunk_crcs(self.binned),
+            "binned": self.binned,
+            "used_feature_map": self.used_feature_map,
+            "num_total_features": np.asarray(self.num_total_features),
+            "feature_names": np.asarray(self.feature_names),
+            "max_bin": np.asarray(self.max_bin),
+            "label": self.metadata.label,
+            "num_mappers": np.asarray(len(self.bin_mappers)),
+        }
+        if self.metadata.weights is not None:
+            payload["weights"] = self.metadata.weights
+        if self.metadata.query_boundaries is not None:
+            payload["query_boundaries"] = self.metadata.query_boundaries
+        if self.metadata.init_score is not None:
+            payload["init_score"] = self.metadata.init_score
+        for i, m in enumerate(self.bin_mappers):
+            st = m.state()
+            payload[f"m{i}_meta"] = np.asarray(
+                [st["num_bin"], st["bin_type"], int(st["is_trivial"]), st["default_bin"]],
+                dtype=np.int64)
+            payload[f"m{i}_fl"] = np.asarray([st["sparse_rate"], st["min_val"], st["max_val"]],
+                                             dtype=np.float64)
+            payload[f"m{i}_bounds"] = st["bin_upper_bound"]
+            payload[f"m{i}_cats"] = st["bin_2_categorical"]
+        # a file object: np.savez appends .npz to a bare name
+        with open(path, "wb") as f:
+            np.savez(f, **payload)
+
+    @staticmethod
+    def is_binary_cache(path: str) -> bool:
+        """True when ``path`` is a saved binary dataset (zip magic and the
+        payload's magic): DatasetLoader checks the binary header before
+        parsing text (dataset_loader.cpp LoadFromBinFile)."""
+        try:
+            with open(path, "rb") as f:
+                if f.read(4) != b"PK\x03\x04":
+                    return False
+            with np.load(path, allow_pickle=False) as z:
+                return "magic" in z and str(z["magic"]) == _BINARY_MAGIC
+        except Exception:
+            return False
+
+    @classmethod
+    def load_binary(cls, path: str) -> "BinnedDataset":
+        """A cache written by ``save_binary`` (of either package).  A
+        format-v1 cache, a newer format and a cache whose source file has
+        changed are refused; the bin matrix is a read-only memmap of the
+        file where the format allows it."""
+        from ..data.cache import (CACHE_FORMAT_VERSION, open_cache_reader, read_cache_meta,
+                                  stale_reason)
+
+        with np.load(path, allow_pickle=False) as z:
+            if str(z["magic"]) != _BINARY_MAGIC:
+                Log.fatal("File %s is not a lightgbm_tpu binary dataset", path)
+            meta = read_cache_meta(z)
+            if meta is None:
+                Log.fatal("Binary dataset %s predates cache format v%d (no version/fingerprint "
+                          "header) — regenerate it with task=ingest", path,
+                          CACHE_FORMAT_VERSION)
+            if int(meta.get("format_version", 0)) > CACHE_FORMAT_VERSION:
+                Log.fatal("Binary dataset %s has cache format v%s, newer than this build "
+                          "supports (v%d)", path, meta.get("format_version"),
+                          CACHE_FORMAT_VERSION)
+            stale = stale_reason(meta)
+            if stale:
+                Log.fatal("Refusing stale binary dataset %s: %s — regenerate the cache with "
+                          "task=ingest (or delete it)", path, stale)
+            ds = cls()
+            reader = open_cache_reader(path)
+            if reader is not None:
+                ds.binned = reader.memmap()
+                ds.cache_path = path
+                reader.close()
+            else:
+                ds.binned = z["binned"]
+            ds.used_feature_map = z["used_feature_map"]
+            ds.num_total_features = int(z["num_total_features"])
+            ds.feature_names = [str(s) for s in z["feature_names"]]
+            ds.max_bin = int(z["max_bin"])
+            ds.metadata = Metadata(ds.binned.shape[0])
+            ds.metadata.set_label(z["label"])
+            if "weights" in z:
+                ds.metadata.set_weights(z["weights"])
+            if "query_boundaries" in z:
+                ds.metadata.query_boundaries = z["query_boundaries"].astype(np.int64)
+            if "init_score" in z:
+                ds.metadata.set_init_score(z["init_score"])
+            for i in range(int(z["num_mappers"])):
+                mm, fl = z[f"m{i}_meta"], z[f"m{i}_fl"]
+                ds.bin_mappers.append(BinMapper.from_state({
+                    "num_bin": mm[0], "bin_type": mm[1], "is_trivial": bool(mm[2]),
+                    "default_bin": mm[3], "sparse_rate": fl[0], "min_val": fl[1],
+                    "max_val": fl[2], "bin_upper_bound": z[f"m{i}_bounds"],
+                    "bin_2_categorical": z[f"m{i}_cats"]}))
+        return ds
+
+
 def _find_bin_mappers(data: np.ndarray, config: Config, categorical: set) -> List[BinMapper]:
     """Sample rows then FindBin per feature (dataset_loader.cpp:661–776)."""
     n = data.shape[0]
@@ -294,11 +411,24 @@ def find_bin_mappers_from_sample(
     return mappers
 
 
-def _bin_matrix(data: np.ndarray, mappers: List[BinMapper], used_map: np.ndarray) -> np.ndarray:
-    """(N, F) bin matrix: uint8 unless some feature needs more than 256
-    bins (the packed-matrix sizing rule)."""
+def packed_bin_dtype(mappers: List[BinMapper]):
+    """uint8 unless some feature needs more than 256 bins (the bin
+    matrix's sizing rule, shared with the streamed ingest's pass 2)."""
     max_bins = max((m.num_bin for m in mappers), default=2)
-    out = np.empty((data.shape[0], len(mappers)), np.uint8 if max_bins <= 256 else np.uint16)
+    return np.uint8 if max_bins <= 256 else np.uint16
+
+
+def bin_rows_into(out: np.ndarray, start: int, data: np.ndarray, mappers: List[BinMapper],
+                  used_map: np.ndarray) -> None:
+    """Bin raw rows into ``out[start:start + len(data)]`` (the streamed
+    ingest's pass-2 write)."""
+    stop = start + data.shape[0]
     for inner, real in enumerate(used_map):
-        out[:, inner] = mappers[inner].value_to_bin(data[:, int(real)]).astype(out.dtype)
+        out[start:stop, inner] = mappers[inner].value_to_bin(data[:, int(real)]).astype(out.dtype)
+
+
+def _bin_matrix(data: np.ndarray, mappers: List[BinMapper], used_map: np.ndarray) -> np.ndarray:
+    """(N, F) bin matrix of the raw rows."""
+    out = np.empty((data.shape[0], len(mappers)), dtype=packed_bin_dtype(mappers))
+    bin_rows_into(out, 0, data, mappers, used_map)
     return out

@@ -1099,3 +1099,57 @@ def test_linear_fit_cuda_matches_cpu(dev):
         for ca, cb in zip(a.leaf_coeff, b.leaf_coeff):
             np.testing.assert_allclose(ca, cb, rtol=1e-4, atol=1e-7)
     np.testing.assert_allclose(bc.predict(X), bp.predict(X), rtol=1e-4, atol=1e-4)
+
+
+def _cli_files(d):
+    """A TSV training file, a CSV validation file with a header and a conf."""
+    rng = np.random.default_rng(12)
+    X = rng.standard_normal((30000, 6)).round(5)
+    y = (X[:, 0] - X[:, 1] + 0.3 * rng.standard_normal(30000) > 0).astype(int)
+    np.savetxt(d / "t.tsv", np.column_stack([y[:25000], X[:25000]]), delimiter="\t", fmt="%g")
+    np.savetxt(d / "v.csv", np.column_stack([y[25000:], X[25000:]]), delimiter=",", fmt="%g",
+               header="y,a,b,c,d,e,f", comments="")
+    (d / "train.conf").write_text("task=train\nobjective=binary\nmetric=auc\ndata=t.tsv\n"
+                                  "num_trees=4\nnum_leaves=31\nmax_bin=63\nsnapshot_freq=-1\n"
+                                  "verbose=-1\n")
+
+
+def test_cli_train_and_predict_on_card_match_cpu(dev, tmp_path, monkeypatch):
+    """The CLI trains on the card when no device is named (the fused
+    kernels launch) with the trees of device=cpu, and predicts a file
+    with a header."""
+    from lightgbm_tpu_torch import cli
+
+    _cli_files(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    pk.reset_launch_counts()
+    assert cli.main(["config=train.conf", "output_model=card.txt"]) == 0
+    counts = pk.launch_counts()
+    for k in ("update_and_root_hist", "level_stream", "score_add"):
+        assert counts[k] > 0, k
+    assert cli.main(["config=train.conf", "output_model=cpu.txt", "device=cpu"]) == 0
+    card, cpu = (open(f).read() for f in ("card.txt", "cpu.txt"))
+    assert card[card.index("Tree=0"):card.index("feature importances")] == \
+        cpu[cpu.index("Tree=0"):cpu.index("feature importances")]
+    for device, out in ((None, "p_card.txt"), ("cpu", "p_cpu.txt")):
+        argv = ["task=predict", "data=v.csv", "header=true", "input_model=card.txt",
+                f"output_result={out}"] + ([f"device={device}"] if device else [])
+        assert cli.main(argv) == 0
+    assert open("p_card.txt").read() == open("p_cpu.txt").read()
+    assert len(open("p_card.txt").read().splitlines()) == 5000
+
+
+def test_cli_cache_and_valid_file_on_card(dev, tmp_path, monkeypatch):
+    """task=train with is_save_binary_file on the card (one chunk), then
+    from the cache it wrote with a validation file (a chunk an
+    iteration): the same trees."""
+    from lightgbm_tpu_torch import cli
+
+    _cli_files(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["config=train.conf", "is_save_binary_file=true", "output_model=a.txt"]) == 0
+    assert cli.main(["config=train.conf", "data=t.tsv.bin", "valid_data=v.csv", "header=true",
+                     "output_model=b.txt"]) == 0
+    a, b = (open(f).read() for f in ("a.txt", "b.txt"))
+    assert a[a.index("Tree=0"):a.index("feature importances")] == \
+        b[b.index("Tree=0"):b.index("feature importances")]

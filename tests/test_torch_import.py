@@ -23,7 +23,9 @@ def test_new_modules_pull_in_no_optional_packages():
     numpy-only run through them loads none of those either."""
     code = ("import sys, numpy as np, lightgbm_tpu_torch as lgt, lightgbm_tpu_torch.sklearn, "
             "lightgbm_tpu_torch.boosting.dart, lightgbm_tpu_torch.boosting.pred_early_stop, "
-            "lightgbm_tpu_torch.engine, lightgbm_tpu_torch.callback; "
+            "lightgbm_tpu_torch.engine, lightgbm_tpu_torch.callback, lightgbm_tpu_torch.cli, "
+            "lightgbm_tpu_torch.data, lightgbm_tpu_torch.native, lightgbm_tpu_torch.pmml, "
+            "lightgbm_tpu_torch.plotting, lightgbm_tpu_torch.convert_model; "
             "X = np.random.default_rng(0).standard_normal((300, 4)); y = (X[:, 0] > 0) * 1.0; "
             "p = dict(objective='binary', num_leaves=4, verbose=-1); "
             "b = lgt.train(p, lgt.Dataset(X, label=y), 2, device='cpu'); "
@@ -31,7 +33,8 @@ def test_new_modules_pull_in_no_optional_packages():
             "lgt.LGBMClassifier(n_estimators=1, device='cpu').fit(X, y).predict(X); "
             "b.predict(X, pred_leaf=True); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'lightgbm_tpu', 'pandas', 'scipy', 'sklearn')]; "
+            "('jax', 'lightgbm_tpu', 'pandas', 'scipy', 'sklearn', 'matplotlib', 'graphviz', "
+            "'triton')]; "
             "assert not bad, bad; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
@@ -43,6 +46,8 @@ def test_new_modules_pull_in_no_optional_packages():
 def test_import_pulls_in_no_jax():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.engine, "
             "lightgbm_tpu_torch.convert, lightgbm_tpu_torch.ops.pkernels, "
+            "lightgbm_tpu_torch.cli, lightgbm_tpu_torch.data.ingest, lightgbm_tpu_torch.native, "
+            "lightgbm_tpu_torch.pmml, lightgbm_tpu_torch.plotting, "
             "lightgbm_tpu_torch.ops.grow, lightgbm_tpu_torch.ops.histogram, "
             "lightgbm_tpu_torch.ops.qhist, lightgbm_tpu_torch.boosting.goss; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -112,6 +117,53 @@ def test_new_entry_points_raise_when_no_card(name, monkeypatch):
     y = (X[:, 0] > 0).astype(np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NO_CARD_CALLS[name](lgt, X, y)
+
+
+def test_data_files_pull_in_no_optional_packages(tmp_path):
+    """A CSV and a LibSVM file parsed (native library), streamed, cached
+    and trained on, and the CLI's train and predict tasks, load no jax,
+    pandas, matplotlib or graphviz."""
+    code = ("import sys, numpy as np, lightgbm_tpu_torch as lgt; "
+            "from lightgbm_tpu_torch import cli; "
+            "p = dict(objective='binary', num_leaves=4, verbose=-1); "
+            "lgt.Dataset('d.csv', params={'stream_ingest': 'true'}).save_binary('d.bin'); "
+            "b = lgt.train(p, lgt.Dataset('d.bin'), 2, device='cpu'); b.predict('d.csv'); "
+            "lgt.Dataset('d.svm').construct(); "
+            "assert cli.main(['data=d.csv', 'num_trees=2', 'device=cpu', 'verbose=-1']) == 0; "
+            "assert cli.main(['task=predict', 'data=d.csv', 'input_model=LightGBM_model.txt', "
+            "'device=cpu']) == 0; "
+            "from lightgbm_tpu_torch.data.reader import parser_blocks; "
+            "assert parser_blocks().get('native'), parser_blocks(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'lightgbm_tpu', 'pandas', 'scipy', 'matplotlib', 'graphviz', 'triton')]; "
+            "assert not bad, bad; print('ok')")
+    X = np.random.default_rng(0).standard_normal((300, 4))
+    np.savetxt(tmp_path / "d.csv", np.column_stack([X[:, 0] > 0, X]), delimiter=",", fmt="%g")
+    (tmp_path / "d.svm").write_text("".join(
+        f"{int(r[0] > 0)} " + " ".join(f"{j}:{v:g}" for j, v in enumerate(r) if v > -0.5) + "\n"
+        for r in X))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("LIGHTGBM_TPU_NO_NATIVE", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_path_entry_points_raise_when_no_card(monkeypatch, tmp_path):
+    """A Dataset from a file trains on the card by default, and the
+    card's absence raises; a prediction of a file does too."""
+    import lightgbm_tpu_torch as lgt
+
+    X = np.random.default_rng(0).standard_normal((200, 3))
+    np.savetxt(tmp_path / "d.csv", np.column_stack([X[:, 0] > 0, X]), delimiter=",", fmt="%g")
+    model = lgt.train({"objective": "binary", "verbose": -1}, lgt.Dataset(str(tmp_path / "d.csv")),
+                      1, device="cpu").model_to_string()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lgt.train({"objective": "binary"}, lgt.Dataset(str(tmp_path / "d.csv")), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lgt.Booster(model_str=model).predict(str(tmp_path / "d.csv"))
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
