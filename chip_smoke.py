@@ -138,14 +138,30 @@ result line):
      (its size and seconds) and the 500k held-out rows written as a CSV
      with a header; then, each a `python -m lightgbm_tpu_torch` process
      on the card: task=train from a .conf with the main run's parameters,
-     data=the cache, valid_data=the CSV, metric=auc, --iters iterations
-     (its trees byte-identical to the main run's; wall, s/iter, peak
-     device and host memory, and the process's launch counts from its
-     log), task=predict of the CSV (within 1e-5 relative of the
+     data=the cache, valid_data=the CSV, metric=auc, --iters iterations,
+     a checkpoint every 5 iterations, LIGHTGBM_TPU_TRACE and
+     LIGHTGBM_TPU_METRICS set, sent SIGTERM once its log shows iteration
+     8 (it must flush a checkpoint, log "preempted" and exit 0 without a
+     model), then `python -m lightgbm_tpu_torch resume` with the same
+     arguments (it resumes from that checkpoint; its trees byte-identical
+     to the main run's; wall, s/iter, peak device and host memory, and
+     both processes' launch counts from their logs; `report --json` of
+     the two traces must count --iters iteration records; each
+     checkpoint's size and capture, serialize and write seconds from the
+     traces, and the restore's), task=predict of the CSV (within 1e-5 relative of the
      in-process Booster.predict of the file; its AUC within 1e-4 of the
      main run's) and task=ingest of the CSV with stream_ingest=true (bins
      and mappers equal to the in-memory Dataset(csv)'s); the native
      parser must have parsed the CSV in every process;
+  4b. (after the tree strategies, phase_small_ckpt) resume on the card:
+     K=7 on 100,000 Covertype-shaped rows (31 leaves, 4 iterations), GOSS
+     (6, learning_rate 0.5), DART (6) and quantized binary (5) on
+     --small-rows x 28, each trained uninterrupted, then with a
+     checkpoint every 2 or 3 iterations and killed mid-run, then resumed:
+     the resumed model text must be byte-identical;
+  5*. after phase 5's sync checks, the same with tracing on (a fused tree
+     replayed under "error", a 2-iteration chunk) and GBDT.train_iters(2)
+     with tracing off and on: tracing must add no host sync;
   6. "covertype-581k" at full width: Covertype-shaped data (581,012 rows,
      54 columns: 10 integer numeric, a 4-column and a 40-column one-hot,
      7 classes at Covertype's counts), the first 464,809 train and the
@@ -187,6 +203,7 @@ import argparse
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -288,6 +305,20 @@ API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 3, 10
 # monotone constraints, card against CPU and at full width
 LINEAR_PARAMS = dict(TRAIN_PARAMS, linear_tree=True)
 SMALL_STRAT_ITERS, STRAT_ITERS = 3, 5
+# checkpoints: the CLI's checkpoint every 5 iterations, SIGTERM once its
+# log shows iteration 8; the small resume cases (name, params, rows of
+# phase_small's data or the Covertype-shaped ones, iterations,
+# checkpoint_freq, killed past iteration, the kernels each must launch)
+CLI_CKPT_FREQ, CLI_PREEMPT_AT = 5, 8
+SMALL_CKPT_CASES = (
+    ("multiclass K=7", dict(COV_PARAMS, num_leaves=SMALL_CHECK_LEAVES), "cov", 4, 2, 2,
+     ("update_multi_and_hists", "score_add")),
+    ("goss", dict(GOSS_PARAMS, learning_rate=0.5, num_leaves=SMALL_CHECK_LEAVES), "higgs", 6,
+     3, 4, ("update_and_root_hist", "update_channels", "score_add")),
+    ("dart", SMALL_DART_PARAMS, "higgs", 6, 3, 4, ("hist_segment",)),
+    ("quantized", dict(QUANT_PARAMS, num_leaves=SMALL_MASK_LEAVES), "higgs", 5, 2, 3,
+     ("hist_segment_q",)),
+)
 DeviceEvent = collections.namedtuple("DeviceEvent", "key count self_device_time_total")
 _TASK_SEED = 20260730  # bench.py: the task's informative weights never vary
 _N_INFORM = 8
@@ -2044,6 +2075,30 @@ def fused_grower_syncs(pt, dev, lr=0.1):
     return 0, chunk
 
 
+def traced_syncs(bst, dev, chunk_syncs):
+    """fused_grower_syncs again with tracing on (LIGHTGBM_TPU_TRACE's
+    tracer), and the host syncs of GBDT.train_iters(2) (the chunk, its
+    trees and, with tracing on, its two iter records) with tracing off,
+    then on: tracing must add none."""
+    from lightgbm_tpu_torch.obs import tracer
+    from lightgbm_tpu_torch.obs.report import load_trace
+
+    gbdt = bst.boosting
+    _, off = count_syncs(lambda: gbdt.train_iters(2))
+    path = os.path.join(HERE, "build", "chip_trace", "syncs.jsonl")
+    tracer.configure(path)
+    try:
+        tree, chunk = fused_grower_syncs(gbdt.ptrainer, dev)
+        _, on = count_syncs(lambda: gbdt.train_iters(2))
+    finally:
+        tracer.close()
+    its = [r for r in load_trace(path) if r.get("ev") == "iter"]
+    log(f"tracing on: a fused tree replay {tree} host syncs, a 2-iteration chunk {chunk} "
+        f"(off: {chunk_syncs}); GBDT.train_iters(2) {on} host syncs (off: {off}), "
+        f"{len(its)} iter records, wall_s {[r['wall_s'] for r in its]}")
+    assert tree == 0 and chunk == chunk_syncs and on == off and len(its) == 2
+
+
 def tree_costs(pt, dev):
     """Device ms of one tree's graph replay (class 0) on a fresh root, and
     of the same graph with an all-zero feature mask: no split anywhere,
@@ -2140,6 +2195,7 @@ def phase_full(rows, iters, dev, repeat_iters):
         log(f"  iteration {t}: {1e3 * sec:.2f} ms between its events, host syncs "
             f"{row['syncs']}, launches {json.dumps(row['launches'])}")
     syncs = fused_grower_syncs(pt, dev)
+    traced_syncs(bst, dev, syncs[1])
     costs = tree_costs(pt, dev)
     assert np.all(np.isfinite(pred)) and pred.shape == (yv.shape[0],)
     assert 0.6 < a <= 1.0, "held-out AUC out of range"
@@ -2817,11 +2873,68 @@ def phase_small_strategies(small, dev):
     return counts
 
 
-def _cli(args, cwd, timeout=600):
+def phase_small_ckpt(small_ds, Xc, yc, dev):
+    """Resume on the card (SMALL_CKPT_CASES): each case trained without a
+    checkpoint, then with a checkpoint every ``freq`` iterations and
+    killed (a callback raising at the first boundary past iteration
+    ``at``, before the manager saves there, so the iterations since the
+    last checkpoint are lost), then resumed in the same directory; the
+    resumed model text must be byte-identical to the uninterrupted
+    one's.  K=7 on COV_SMALL_ROWS Covertype-shaped rows,
+    the others on phase_small's binned Dataset.  Returns the launch counts
+    of each case's three runs."""
+    import tempfile
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ckpt import CheckpointStore
+
+    class Kill(Exception):
+        pass
+
+    cov = lgt.Dataset(Xc[:COV_SMALL_ROWS], label=yc[:COV_SMALL_ROWS])
+    counts = []
+    for name, params, data, iters, freq, at, required in SMALL_CKPT_CASES:
+        ds = cov if data == "cov" else small_ds
+
+        def killer(env, at=at):
+            if env.model.boosting.iter > at:
+                raise Kill()
+        killer.order = 35  # before the checkpoint manager (40)
+
+        def run(params=params, ds=ds, iters=iters, freq=freq, killer=killer):
+            t0 = time.perf_counter()
+            full = lgt.train(params, ds, iters, device=dev).model_to_string()
+            t1 = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+                try:
+                    lgt.train(params, ds, iters, device=dev, checkpoint_dir=d,
+                              checkpoint_freq=freq, callbacks=[killer])
+                    raise RuntimeError("the killed run finished")
+                except Kill:
+                    pass
+                step = max(CheckpointStore(d).steps())
+                t2 = time.perf_counter()
+                res = lgt.train(params, ds, iters, device=dev, checkpoint_dir=d,
+                                checkpoint_freq=freq).model_to_string()
+                t3 = time.perf_counter()
+            return full == res, step, (t1 - t0, t2 - t1, t3 - t2)
+
+        (same, step, secs), c = driven(f"small ckpt {name}", run, required)
+        counts.append(c)
+        log(f"small ckpt {name}: {iters} iterations, a checkpoint every {freq}, killed past "
+            f"iteration {at}, resumed from iteration {step}: model text byte-identical to the "
+            f"uninterrupted run's: {same} (runs {secs[0]:.1f} / {secs[1]:.1f} / "
+            f"{secs[2]:.1f} s)")
+        assert same, f"the resumed {name} run differs from the uninterrupted one"
+        assert step == at // freq * freq
+    return counts
+
+
+def _cli(args, cwd, timeout=600, env=None):
     """``python -m lightgbm_tpu_torch`` with ``args`` in ``cwd`` (the
-    checkout's package, on the card); returns (stdout, wall seconds) and
-    fails on a non-zero exit."""
-    env = dict(os.environ, PYTHONPATH=HERE)
+    checkout's package, on the card; ``env`` added to the environment);
+    returns (stdout, wall seconds) and fails on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=HERE, **(env or {}))
     t = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch", *args], cwd=cwd, env=env,
                          capture_output=True, text=True, timeout=timeout)
@@ -2831,6 +2944,57 @@ def _cli(args, cwd, timeout=600):
         raise RuntimeError(f"python -m lightgbm_tpu_torch {' '.join(args)}: exit "
                            f"{out.returncode}")
     return out.stdout, wall
+
+
+def _cli_preempted(args, cwd, env, at, timeout=900):
+    """``_cli`` that sends SIGTERM once the process's log shows iteration
+    ``at``; the process must flush a checkpoint and exit 0 ("preempted").
+    Returns (stdout, wall seconds, the seconds from the signal to the
+    exit)."""
+    import signal
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=HERE, **env)
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "lightgbm_tpu_torch", *args], cwd=cwd,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    watchdog = threading.Timer(timeout, proc.kill)
+    watchdog.start()
+    lines, t_sig = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if t_sig is None and f"finished iteration {at}" in line:
+                proc.send_signal(signal.SIGTERM)
+                t_sig = time.perf_counter()
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out, end = "".join(lines), time.perf_counter()
+    if rc != 0 or t_sig is None or "preempted" not in out:
+        log(out[-4000:])
+        raise RuntimeError(f"the preempted CLI run: exit {rc}, signal sent {t_sig is not None}")
+    return out, end - t, end - t_sig
+
+
+def _ckpt_records(trace):
+    """Each checkpoint of a trace: its iteration, bytes and the capture,
+    serialize and write seconds (the ckpt.capture and ckpt.serialize
+    spans, the ckpt.saved event's write_s), and the restore's seconds."""
+    from lightgbm_tpu_torch.obs.report import load_trace
+
+    recs = load_trace(trace)
+    cap = [r["dur_s"] for r in recs if r.get("name") == "ckpt.capture"]
+    ser = [r["dur_s"] for r in recs if r.get("name") == "ckpt.serialize"]
+    saved = [r for r in recs if r.get("name") == "ckpt.saved"]
+    rows = [dict(iter=r["iter"], bytes=r["bytes"], capture_s=c, serialize_s=z,
+                 write_s=r["write_s"]) for r, c, z in zip(saved, cap, ser)]
+    restore = [r["dur_s"] for r in recs if r.get("name") == "ckpt.restore"]
+    return rows, restore, recs
 
 
 def _logged(stdout, prefix):
@@ -2846,13 +3010,19 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
     cache; the 500k held-out rows written as a CSV with a header; then,
     each a ``python -m lightgbm_tpu_torch`` process on the card:
     task=train from a .conf with TRAIN_PARAMS (data=the cache,
-    valid_data=the CSV, metric=auc, --iters iterations; its trees
-    byte-identical to the main run's), task=predict of the CSV (within
+    valid_data=the CSV, metric=auc, --iters iterations, a checkpoint every
+    CLI_CKPT_FREQ iterations, LIGHTGBM_TPU_TRACE and LIGHTGBM_TPU_METRICS
+    set), sent SIGTERM once its log shows iteration CLI_PREEMPT_AT (it
+    must flush a checkpoint and exit 0, "preempted"), then ``resume``,
+    which finishes the run from that checkpoint (its trees byte-identical
+    to the main run's; ``report --json`` of the two traces counts --iters
+    iteration records; each checkpoint's size and capture, serialize and
+    write seconds logged), task=predict of the CSV (within
     1e-5 relative of the in-process Booster.predict of the same file; its
     AUC within 1e-4 of the main run's) and task=ingest of the CSV with
     stream_ingest=true (bins and mappers equal to the in-memory
     Dataset(csv)'s); the native parser must have parsed the CSV in each.
-    Returns the training process's launch counts (its log's) and the
+    Returns the training processes' launch counts (their logs') and the
     phase's numbers."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.data.reader import parser_blocks
@@ -2881,10 +3051,56 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
                 f"num_trees = {iters}\noutput_model = model.txt\n")
     native = "the native parser"
 
-    pk.reset_launch_counts()  # the counts below are the training process's own
-    out, wall = _cli([f"config={conf}", "verbosity=2"], work)
-    counts = json.loads(_logged(out, "Kernel launches: ")[0])
-    log(f"path higgs-10.5M-cli: launches {json.dumps(counts)}")
+    pk.reset_launch_counts()  # the counts below are the training processes' own
+    ck = os.path.join(work, "ck")
+    shutil.rmtree(ck, ignore_errors=True)
+    if os.path.exists(os.path.join(work, "model.txt")):
+        os.remove(os.path.join(work, "model.txt"))
+    traces = [os.path.join(work, f"{w}.jsonl") for w in ("train", "resume")]
+    prom = os.path.join(work, "train.prom")
+    args = [f"config={conf}", "verbosity=2", f"checkpoint_dir={ck}",
+            f"checkpoint_freq={CLI_CKPT_FREQ}"]
+    out1, wall1, exit_s = _cli_preempted(
+        args, work, dict(LIGHTGBM_TPU_TRACE=traces[0], LIGHTGBM_TPU_METRICS=prom),
+        CLI_PREEMPT_AT)
+    step = int(_logged(out1, "Training preempted: checkpoint flushed at iteration ")[0].split(
+        ";")[0])
+    assert not os.path.exists(os.path.join(work, "model.txt")), "the preempted run finished"
+    out2, wall2 = _cli(["resume"] + args, work,
+                       env=dict(LIGHTGBM_TPU_TRACE=traces[1], LIGHTGBM_TPU_METRICS=prom))
+    resumed = int(_logged(out2, "Resuming training from checkpoint at iteration ")[0])
+    out, wall = out1 + out2, wall1 + wall2
+    c1, c2 = (json.loads(_logged(o, "Kernel launches: ")[0]) for o in (out1, out2))
+    counts = {k: c1[k] + c2[k] for k in c1}
+    log(f"path higgs-10.5M-cli: launches {json.dumps(counts)} (the preempted process "
+        f"{json.dumps(c1)}, the resumed one {json.dumps(c2)})")
+    reports = [json.loads(_cli(["report", tr, "--json"], work)[0].strip().splitlines()[-1])
+               for tr in traces]
+    n_iter_recs = sum(r["iterations"] for r in reports)
+    ckpts, restore_s, recs1 = _ckpt_records(traces[0])
+    ckpts2, restore_s, recs2 = _ckpt_records(traces[1])
+    ckpts += ckpts2
+    from lightgbm_tpu_torch.obs.metrics import parse_text_format
+
+    prom_text = open(prom).read()
+    mirrored = parse_text_format(prom_text)["lightgbm_tpu_ckpt_bytes_total"]["samples"]
+    log(f"higgs-10.5M-cli preemption: SIGTERM after iteration {CLI_PREEMPT_AT} (the log's), "
+        f"checkpoint flushed at iteration {step}, the process exited {exit_s:.2f} s after the "
+        f"signal; resume restored iteration {resumed} in {restore_s[0]:.3f} s (ckpt.restore); "
+        f"report --json: {reports[0]['iterations']} + {reports[1]['iterations']} = "
+        f"{n_iter_recs} iteration records (limit {iters}); the resumed process's metrics "
+        f"dump: lightgbm_tpu_ckpt_bytes_total {json.dumps(mirrored)}")
+    for c in ckpts:
+        log(f"  checkpoint at iteration {c['iter']}: {c['bytes']} bytes "
+            f"({c['bytes'] / 2**20:.1f} MiB); capture {c['capture_s']:.3f} s, serialize "
+            f"{c['serialize_s']:.3f} s, write {c['write_s']:.3f} s")
+    assert step >= CLI_PREEMPT_AT and resumed == step and n_iter_recs == iters
+    assert reports[1]["last_iter"] == iters - 1 and reports[0]["last_iter"] == step - 1
+    assert [c["iter"] for c in ckpts] == sorted(
+        set(list(range(CLI_CKPT_FREQ, step, CLI_CKPT_FREQ)) + [step]
+            + list(range((step // CLI_CKPT_FREQ + 1) * CLI_CKPT_FREQ, iters + 1,
+                         CLI_CKPT_FREQ))))
+    res["preempt"] = dict(step=step, exit_s=exit_s, restore_s=restore_s[0], checkpoints=ckpts)
     for k in ("update_and_root_hist", "level_stream", "split_stream", "score_add"):
         assert counts[k] > 0, f"{k} was not launched on the higgs-10.5M-cli path"
     its = [float(x.split()[0]) for x in _logged(out, "") if "seconds elapsed, finished" in x]
@@ -2896,12 +3112,13 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
                device_gib=float(_logged(out, "Peak device memory ")[0].split()[0]),
                host_gib=float(_logged(out, "Peak host memory ")[0].split()[0]), valid_auc=aucs[-1])
     log(f"higgs-10.5M-cli task=train: {iters} iterations from the cache, the CSV as a "
-        f"validation set, in {wall:.2f} s (the process: start, load, train, write); s/iter "
+        f"validation set, in {wall:.2f} s (the two processes: start, load, train, write; "
+        f"{wall1:.2f} s preempted, {wall2:.2f} s resumed); s/iter "
         f"{res['s_iter']:.4f} (the stream's time between an iteration's events, median after "
         f"the first; first {its[0]:.3f} s); validation auc {aucs[-1]:.6f}; peak device memory "
         f"{res['device_gib']:.3f} GiB, peak host memory {res['host_gib']:.3f} GiB; trees "
         f"byte-identical to the main run's: {same}")
-    assert same, "the CLI's trees differ from the main run's"
+    assert same, "the resumed CLI run's trees differ from the main run's"
     assert native in out, "the training process did not parse the CSV with the native parser"
 
     out, wall = _cli(["task=predict", f"data={csv}", "header=true", "input_model=model.txt",
@@ -3108,8 +3325,11 @@ def main(argv=None):
     log(f"small API paths in {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     small_strat_counts = phase_small_strategies(small, dev)
-    del small, multi
     log(f"small tree strategies in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    small_ckpt_counts = phase_small_ckpt(small[2], Xc, yc, dev)
+    del small, multi
+    log(f"small checkpoint resumes in {time.perf_counter() - t1:.1f} s")
     log(f"small end to end in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
@@ -3177,7 +3397,7 @@ def main(argv=None):
         k = kern[name]
         launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts, cli_counts]
                        + cov_counts + sampled_counts + obj_counts + small_api_counts
-                       + api_counts + small_strat_counts + strat_counts)
+                       + api_counts + small_strat_counts + strat_counts + small_ckpt_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,

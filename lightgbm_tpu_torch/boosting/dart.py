@@ -117,3 +117,21 @@ class DART(GBDT):
                 else:
                     self.sum_weight -= self.tree_weight[i] * (1.0 / (k_drop + cfg.learning_rate))
                     self.tree_weight[i] *= k_drop / (k_drop + cfg.learning_rate)
+
+    def export_train_state(self):
+        """DART's drop stream and tree-weight ledger, which model text
+        cannot carry (dart.py:130-146)."""
+        arrays, py = super().export_train_state()
+        py["dart"] = {"drop_rng": self.random_for_drop.get_state(),
+                      "tree_weight": [float(w) for w in self.tree_weight],
+                      "sum_weight": float(self.sum_weight)}
+        return arrays, py
+
+    def import_train_state(self, arrays, py) -> None:
+        super().import_train_state(arrays, py)
+        st = py["dart"]
+        self.random_for_drop.set_state(st["drop_rng"])
+        self.tree_weight = [float(w) for w in st["tree_weight"]]
+        self.sum_weight = float(st["sum_weight"])
+        self.drop_index = []
+        self.is_update_score_cur_iter = False

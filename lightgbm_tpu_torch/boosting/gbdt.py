@@ -48,6 +48,9 @@ import torch
 
 from ..model.ensemble import stack_trees
 from ..model.tree import Tree
+from ..obs import fence, tracer
+from ..obs.audit import audit
+from ..obs.trace import total_compiles
 from ..ops.grow import GrowParams, grow_tree
 from ..ops.histogram import pack_bin_words
 from ..ops.predict import (TreeArrays, predict_binned, predict_leaf, predict_raw,
@@ -58,6 +61,7 @@ from ..tree.linear import (build_value_lut, leaf_path_features, linear_fit_stats
                            linear_leaf_scores, pack_path_features, solve_linear_leaves)
 from ..tree.strategy import TreeStrategy
 from ..utils.log import Log
+from ..utils.profiling import timetag
 from ..utils.random import Random
 from .pred_early_stop import (create_prediction_early_stop_instance, early_stop_type,
                               predict_with_early_stop, tree_outputs)
@@ -126,6 +130,8 @@ class GBDT:
         its ``eligible`` takes the configuration, else the mask grower."""
         from .ptrainer import PartitionedTrainer, eligible
 
+        tracer.refresh_from_env()  # LIGHTGBM_TPU_TRACE may be set per run
+        audit.refresh_from_env()  # LIGHTGBM_TPU_AUDIT, the split-decision trail
         # with a custom objective (objective=None) the class count comes
         # from config.num_class (gbdt.cpp ResetTrainingData: num_class_)
         num_tree = objective.num_tree_per_iteration if objective is not None else max(
@@ -158,6 +164,11 @@ class GBDT:
             config.quantized_training = False
         # after the headroom check, so the strategy sees its decline
         self.strategy = TreeStrategy.from_config(config, train_set)
+        # the mask grower's random streams (gbdt.py init: the bagging
+        # RandomState, the feature_fraction LCG), made here so that a
+        # checkpoint carries them whichever learner runs
+        self.bag_rng = np.random.RandomState(config.bagging_seed)
+        self.feature_rng = Random(config.feature_fraction_seed)
         declined = (eligible(config, train_set, objective, num_tree)
                     if self.supports_partitioned else f"boosting={config.boosting_type}")
         init = (np.asarray(train_set.metadata.init_score, np.float32).reshape(num_tree, -1)
@@ -176,9 +187,8 @@ class GBDT:
 
     def _init_mask_grower(self, init, scores=None) -> None:
         """The mask grower's device state: the packed bin words, labels,
-        weights and (K, N) scores (``scores``, or zeros plus ``init``), and
-        the sampling state of gbdt.py init (bagging RandomState,
-        feature_fraction LCG)."""
+        weights, (K, N) scores (``scores``, or zeros plus ``init``) and the
+        row select."""
         ts, cfg, dev = self.train_set, self.config, self.device
         binned = np.asarray(ts.binned)
         bits = 8 if binned.dtype == np.uint8 else 16
@@ -202,9 +212,7 @@ class GBDT:
             if init is not None:
                 self.scores += torch.from_numpy(init).to(dev)
         self.select = torch.ones(self.num_data, dtype=torch.float32, device=dev)
-        self.bag_rng = np.random.RandomState(cfg.bagging_seed)
         self.is_bagging = cfg.bagging_fraction < 1.0 and cfg.bagging_freq > 0
-        self.feature_rng = Random(cfg.feature_fraction_seed)
         self.full_feature_mask = torch.ones(ts.num_features, dtype=torch.float32, device=dev)
         self.iter_seconds = []  # wall time of each iteration (device-synced)
         self.searches = {}  # the grower's captured split searches (CUDA graphs)
@@ -262,6 +270,83 @@ class GBDT:
         self.shrinkage_rate = self.config.learning_rate
 
     # ------------------------------------------------------------------
+    # checkpoints (ckpt/state.py; gbdt.py:1628-1700)
+    def export_train_state(self):
+        """Everything the next iteration reads beyond the config, the
+        dataset and the trees: the (K, N) training scores and each
+        validation set's, the row select, the bagging and feature_fraction
+        streams, the early-stopping bests.  Returns (numpy arrays, a
+        JSON-serializable dict), under the JAX package's names; the
+        card's tensors are copied to the host here.  The partitioned
+        trainer adds its row permutation, which only the JAX package's
+        trainer reads; its own select is ones (its bagging draws are
+        keyed by the iteration)."""
+        K = self.num_tree_per_iteration
+        mask = self.words is not None  # the mask grower's state exists
+        arrays = {
+            "scores": self.scores.cpu().numpy().astype(np.float32, copy=True),
+            "select": (self.select.cpu().numpy().astype(np.float32, copy=True) if mask
+                       else np.ones(self.num_data, np.float32)),
+        }
+        for i, vs in enumerate(self.valid_scores):
+            arrays[f"valid_scores_{i}"] = vs.cpu().numpy().astype(np.float32, copy=True)
+        st = self.bag_rng.get_state()
+        arrays["bag_rng_keys"] = np.asarray(st[1], np.uint32)
+        py = {
+            "iter": int(self.iter),
+            "num_init_iteration": int(self.num_init_iteration),
+            "num_init_trees": int(self.num_init_trees),
+            "boost_from_average": bool(self.boost_from_average_),
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "bag_rng": [str(st[0]), int(st[2]), int(st[3]), float(st[4])],
+            "feature_rng": self.feature_rng.get_state(),
+            "need_re_bagging": False,
+            "best_iter": [list(b) for b in self.best_iter],
+            "best_score": [list(b) for b in self.best_score],
+            "best_msg": [list(b) for b in self.best_msg],
+            "class_need_train": [True] * K,
+            "class_default_output": [0.0] * K,
+            "mask_grower": mask,
+        }
+        if self.ptrainer is not None:
+            arrays["pt_rowid"] = self.ptrainer.export_perm()
+        return arrays, py
+
+    def import_train_state(self, arrays, py) -> None:
+        """The inverse of :meth:`export_train_state`, into a booster built
+        with the same config and data (``self.models`` is restored first,
+        by ckpt/state.py).  Tensors go to this booster's device.  On the
+        partitioned trainer the band's score channels are zeroed and
+        marked dirty: the next chunk writes the restored scores into them
+        exactly (sync_scores_from: 0 + target)."""
+        dev = self.device
+        self.iter = int(py["iter"])
+        self.num_init_iteration = int(py["num_init_iteration"])
+        self.num_init_trees = int(py.get("num_init_trees", self.num_init_iteration
+                                         * self.num_tree_per_iteration))
+        self.boost_from_average_ = bool(py["boost_from_average"])
+        self.shrinkage_rate = float(py["shrinkage_rate"])
+        self.scores = torch.from_numpy(np.array(arrays["scores"], np.float32)).to(dev)
+        if py.get("mask_grower") and self.words is None:
+            # a partitioned booster that had turned to the mask grower
+            # (update with a custom objective)
+            self._init_mask_grower(None, scores=self.scores)
+        if self.words is not None:
+            self.select = torch.from_numpy(np.array(arrays["select"], np.float32)).to(dev)
+        for i in range(len(self.valid_scores)):
+            self.valid_scores[i] = torch.from_numpy(
+                np.array(arrays[f"valid_scores_{i}"], np.float32)).to(dev)
+        name, pos, has_gauss, cached = py["bag_rng"]
+        self.bag_rng.set_state((str(name), np.asarray(arrays["bag_rng_keys"], np.uint32),
+                                int(pos), int(has_gauss), float(cached)))
+        self.feature_rng.set_state(py["feature_rng"])
+        self.best_iter = [list(map(int, b)) for b in py["best_iter"]]
+        self.best_score = [list(map(float, b)) for b in py["best_score"]]
+        self.best_msg = [list(map(str, b)) for b in py["best_msg"]]
+        if self.ptrainer is not None:
+            self.ptrainer.import_perm(arrays.get("pt_rowid"))
+
+    # ------------------------------------------------------------------
     def _boost_from_average(self):
         """gbdt.cpp:381-399 + LabelAverage (:349-379)."""
         if (not self.models and self.config.boost_from_average and not self.has_init_score
@@ -300,25 +385,38 @@ class GBDT:
         if num_iters <= 0:
             return False
         self._boost_from_average()
-        K = self.num_tree_per_iteration
-        if self.ptrainer.score_dirty:
-            self.ptrainer.sync_scores_from(self.scores)
-        trees, self.scores, n_done = self.ptrainer.train_chunk(num_iters, self.shrinkage_rate,
-                                                               self.iter)
+        K, pt = self.num_tree_per_iteration, self.ptrainer
+        if pt.score_dirty:
+            pt.sync_scores_from(self.scores)
+        n_sec, c0 = len(pt.iter_seconds), total_compiles()
+        with timetag.phase("tree"):
+            trees, self.scores, n_done = pt.train_chunk(num_iters, self.shrinkage_rate,
+                                                        self.iter)
+        if tracer.enabled:
+            # each iteration's record from the CUDA-event seconds that the
+            # chunk's one read carried: tracing adds no sync to the chunk
+            # (the chunk's graph captures count on its first iteration)
+            for t, secs in enumerate(pt.iter_seconds[n_sec:n_sec + n_done]):
+                leaves = sum(r.num_splits + (r.num_splits > 0) for r in trees[t])
+                tracer.emit_iter(self.iter + t, secs, {"fused_chunk": secs},
+                                 compiles=total_compiles() - c0 if t == 0 else 0,
+                                 leaves=int(leaves), trees=K, mode="fused")
         chunk_trees = [[] for _ in range(K)]
-        for iter_trees in trees:
+        for t, iter_trees in enumerate(trees):
             for k, res in enumerate(iter_trees):
                 if res.num_splits > 0:
                     tree = Tree.from_grow_result(res, self.train_set)
                     tree.shrinkage(self.shrinkage_rate)
+                    audit.record_tree(self.iter + t, k, res, tree)
                     chunk_trees[k].append(tree)
                 else:
                     tree = Tree(2)  # a class with no split: an empty tree keeps alignment
                 self.models.append(tree)
         # the validation scores advance once per chunk and class, by one
         # traversal of the chunk's stacked trees
-        for k in range(K):
-            self._add_to_valid_scores(chunk_trees[k], k)
+        with timetag.phase("valid_score"):
+            for k in range(K):
+                self._add_to_valid_scores(chunk_trees[k], k)
         self.iter += n_done
         if n_done < num_iters:
             Log.warning("Stopped training because there are no more leaves that meet "
@@ -412,42 +510,71 @@ class GBDT:
     def _train_one_iter_mask(self, grad=None, hess=None) -> bool:
         """One boosting iteration on the mask grower, on the objective's
         gradients or the (K, N) ``grad`` and ``hess`` given; True when no
-        class found a split (its empty trees are then dropped)."""
+        class found a split (its empty trees are then dropped).  With
+        tracing on, the iteration is a trace record whose phases are the
+        JAX package's (gbdt.py:616-690), each fenced on the card."""
         t0 = time.perf_counter()
         self._boost_from_average()
-        if grad is None:
-            grad, hess = self._get_gradients()
-        grad, hess = self._adjust_gradients(grad, hess)
-        self._bagging(self.iter)
         K, L = self.num_tree_per_iteration, self.grow_params.num_leaves
         grown = False
-        for k in range(K):
-            feature_mask = self._feature_mask()
-            gk, hk, qscale = grad[k], hess[k], None
-            if self.config.quantized_training:
-                gk, hk, qscale = self._quantize_class(gk, hk, k)
-            gr = grow_tree(self.words, gk, hk, self.select, feature_mask, self.meta, self.hyper,
-                           self.grow_params, qscale=qscale, searches=self.searches)
-            if gr.num_splits > 0:
-                grown = True
-                tree = Tree.from_grow_result(gr, self.train_set)
-                if self.strategy.leaf_fit.linear:
-                    # fitted before shrinkage, which then scales the
-                    # coefficients and the intercept together
-                    self._fit_linear_tree(tree, gr, gk, hk)
-                tree.shrinkage(self.shrinkage_rate)
-                if tree.is_linear and tree.leaf_is_linear[:tree.num_leaves].any():
-                    self._add_linear_train_scores(tree, gr, k)
+        leaves_grown = 0
+        with tracer.iteration(self.iter) as irec:
+            with timetag.phase("boosting"):
+                if grad is None:
+                    grad, hess = self._get_gradients()
+                fence((grad, hess))
+            with timetag.phase("bagging"):
+                grad, hess = self._adjust_gradients(grad, hess)
+                self._bagging(self.iter)
+                fence(self.select)
+            for k in range(K):
+                feature_mask = self._feature_mask()
+                with timetag.phase("tree"):
+                    gk, hk, qscale = grad[k], hess[k], None
+                    if self.config.quantized_training:
+                        gk, hk, qscale = self._quantize_class(gk, hk, k)
+                    gr = grow_tree(self.words, gk, hk, self.select, feature_mask, self.meta,
+                                   self.hyper, self.grow_params, qscale=qscale,
+                                   searches=self.searches)
+                    fence(gr.leaf_id)
+                if gr.num_splits > 0:
+                    grown = True
+                    leaves_grown += gr.num_splits + 1
+                    tree = Tree.from_grow_result(gr, self.train_set)
+                    if self.strategy.leaf_fit.linear:
+                        # fitted before shrinkage, which then scales the
+                        # coefficients and the intercept together
+                        self._fit_linear_tree(tree, gr, gk, hk)
+                    tree.shrinkage(self.shrinkage_rate)
+                    audit.record_tree(self.iter, k, gr, tree)
+                    if self.strategy.split_gain.constrained and tracer.enabled:
+                        # splits on constrained features took the clipped
+                        # gain path of ops/split.py
+                        mono = self.strategy.split_gain.monotone
+                        tracer.counter("tree.monotone_clip", float(sum(
+                            1 for f in gr.rec_feat[:gr.num_splits] if mono[int(f)] != 0)))
+                    with timetag.phase("train_score"):
+                        if tree.is_linear and tree.leaf_is_linear[:tree.num_leaves].any():
+                            self._add_linear_train_scores(tree, gr, k)
+                        else:
+                            # scores[k] += leaf value of each row's leaf (ops/predict.py
+                            # add_leaf_outputs: the grower's leaf_id is the partition)
+                            lv = np.zeros(L, np.float32)
+                            lv[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
+                            self.scores[k] += torch.from_numpy(lv).to(self.device)[
+                                gr.leaf_id.long()]
+                        fence(self.scores)
+                    with timetag.phase("valid_score"):
+                        self._add_to_valid_scores([tree], k)
+                        fence(self.valid_scores)
                 else:
-                    # scores[k] += leaf value of each row's leaf (ops/predict.py
-                    # add_leaf_outputs: the grower's leaf_id is the partition)
-                    lv = np.zeros(L, np.float32)
-                    lv[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
-                    self.scores[k] += torch.from_numpy(lv).to(self.device)[gr.leaf_id.long()]
-                self._add_to_valid_scores([tree], k)
-            else:
-                tree = Tree(2)  # an empty tree keeps the classes aligned
-            self.models.append(tree)
+                    tree = Tree(2)  # an empty tree keeps the classes aligned
+                self.models.append(tree)
+            if irec is not None:
+                irec["leaves"] = leaves_grown
+                irec["trees"] = K
+                if self.is_bagging:
+                    irec["bagged_rows"] = int(self.select.sum())
         if not grown:
             Log.warning("Stopped training because there are no more leaves that meet "
                         "the split requirements.")
@@ -490,6 +617,10 @@ class GBDT:
         the normal equations over the selected rows on the device, the
         batched solve on the host (one read; card and CPU then solve the
         same float32 matrices alike), the models set on ``tree``."""
+        with tracer.span("tree.leaf_fit", leaves=tree.num_leaves):
+            self._fit_linear_leaves(tree, gr, gk, hk)
+
+    def _fit_linear_leaves(self, tree: Tree, gr, gk, hk) -> None:
         L = self.grow_params.num_leaves
         is_cat = self.meta.is_categorical.cpu().numpy()
         paths = leaf_path_features(gr, is_cat)
@@ -573,6 +704,9 @@ class GBDT:
         bits = self.config.quantized_grad_bits
         mx = local_absmax(gk, hk, self.select).cpu().numpy()
         qscale = scales_from_max(mx[0], mx[1], bits)
+        # keyed by the global iteration, which a checkpoint restores: the
+        # JAX package's parallel learners key theirs by a tree counter
+        # that import_train_state must re-anchor (_qiter); this needs none
         seed = (int(self.config.seed) * 2654435761 + self.iter * 97 + k * 131071
                 + 1) & 0xFFFFFFFF
         gq, hq = quantize_rows(gk, hk, qscale, seed, bits)

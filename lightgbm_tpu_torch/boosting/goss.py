@@ -13,6 +13,7 @@ split each sampled iteration.  The model is named "tree", as GBDT's is.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import threefry
@@ -52,3 +53,16 @@ class GOSS(GBDT):
 
     def _bagging(self, iter_: int) -> None:
         """GOSS replaces bagging (its select comes from _adjust_gradients)."""
+
+    def export_train_state(self):
+        """The mask grower's GOSS key is chained (split each sampled
+        iteration), so a checkpoint carries it (goss.py:74-86), as the
+        uint32 pair a JAX key is; the partitioned trainer's GOSS keeps no
+        state (its key folds the iteration)."""
+        arrays, py = super().export_train_state()
+        arrays["goss_key"] = np.asarray(self._goss_key, np.uint32)
+        return arrays, py
+
+    def import_train_state(self, arrays, py) -> None:
+        super().import_train_state(arrays, py)
+        self._goss_key = tuple(int(v) for v in np.asarray(arrays["goss_key"], np.uint32))

@@ -183,6 +183,33 @@ class PartitionedTrainer:
         self._last_delta = None
         return True
 
+    def export_perm(self) -> np.ndarray:
+        """The (N,) int32 ROWID channel: the row order the last tree left
+        (ptrainer.py:250).  Checkpoints carry it for the JAX package's
+        trainer, whose float sums follow the layout; this trainer gathers
+        canonical row order before every tree, so its trees do not depend
+        on it."""
+        return self.p[self.layout.ROWID, :self.num_rows].cpu().numpy().astype(np.int32)
+
+    def import_perm(self, rowid=None) -> None:
+        """A checkpoint's restore into a freshly packed matrix
+        (ptrainer.py:258): the columns permuted to ``rowid``'s row order
+        when given (a JAX or port checkpoint; any order gives the same
+        trees here), the K score channels zeroed, the band marked dirty
+        so that the next chunk writes the restored scores into them
+        exactly (``sync_scores_from``: 0 + target)."""
+        lay, n = self.layout, self.num_rows
+        if rowid is not None:
+            rowid = np.asarray(rowid, np.int64)
+            if rowid.shape != (n,):
+                raise ValueError(f"checkpoint row permutation has shape {rowid.shape}, "
+                                 f"expected ({n},)")
+            idx = torch.from_numpy(rowid).to(self.device)
+            self.p[:, :n] = torch.index_select(self.p[:, :n], 1, idx)
+        self.p[lay.SCORE:lay.SCORE + self.K, :n] = 0  # int32 0 is +0.0f
+        self._last_delta = None
+        self.score_dirty = True
+
     def _canonical_order(self, delta=None):
         """Gather the matrix back to original row order (column j holds
         row j) and re-map the positional pending delta, if any, through

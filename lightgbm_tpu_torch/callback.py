@@ -2,9 +2,11 @@
 (python-package/lightgbm/callback.py print_evaluation:35,
 record_evaluation:73, reset_parameter:106, early_stopping:141).
 
-The JAX package's callbacks also carry checkpoint hooks (``ckpt_name``,
-``ckpt_state``, ``ckpt_restore``) for its checkpoint manager; they are
-left out here until ``ckpt/`` is ported.
+``record_evaluation`` and ``early_stopping`` carry the checkpoint hooks
+(``ckpt_name``, ``ckpt_state``, ``ckpt_restore``; callback.py:81-95,
+185-211) through which ``ckpt.CheckpointManager`` saves and restores
+their state, so a resumed run records the same history and stops where
+the uninterrupted run stops.
 """
 
 from __future__ import annotations
@@ -56,9 +58,6 @@ def print_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:
     return callback
 
 
-log_evaluation = print_evaluation  # modern alias
-
-
 log_evaluation = print_evaluation  # the reference's later name
 
 
@@ -83,7 +82,20 @@ def record_evaluation(eval_result: dict) -> Callable:
             eval_result[data_name].setdefault(eval_name, [])
             eval_result[data_name][eval_name].append(result)
 
+    # checkpoint hooks: the history lives in the caller's dict
+    def ckpt_state():
+        return {d: {m: list(v) for m, v in dd.items()} for d, dd in eval_result.items()}
+
+    def ckpt_restore(state):
+        eval_result.clear()
+        for d, dd in state.items():
+            eval_result[d] = collections.OrderedDict(
+                (m, [float(x) for x in v]) for m, v in dd.items())
+
     callback.order = 20
+    callback.ckpt_name = "record_evaluation"
+    callback.ckpt_state = ckpt_state
+    callback.ckpt_restore = ckpt_restore
     return callback
 
 
@@ -170,5 +182,27 @@ def early_stopping(stopping_rounds: int, verbose: bool = True) -> Callable:
                     )
                 raise EarlyStopException(best_iter[i], best_score_list[i])
 
+    # checkpoint hooks: the bests and their iterations are the patience
+    # state; without them a resumed run would restart the window
+    def ckpt_state():
+        return {
+            "best_score": list(best_score),
+            "best_iter": list(best_iter),
+            "best_score_list": [None if b is None else [list(x) for x in b]
+                                for b in best_score_list],
+            "bigger": [bool(op(1.0, 0.0)) for op in cmp_op],
+        }
+
+    def ckpt_restore(state):
+        best_score[:] = [float(x) for x in state["best_score"]]
+        best_iter[:] = [int(x) for x in state["best_iter"]]
+        best_score_list[:] = [None if b is None else [tuple(x) for x in b]
+                              for b in state["best_score_list"]]
+        cmp_op[:] = [(lambda x, y: x > y) if big else (lambda x, y: x < y)
+                     for big in state["bigger"]]
+
     callback.order = 30
+    callback.ckpt_name = "early_stopping"
+    callback.ckpt_state = ckpt_state
+    callback.ckpt_restore = ckpt_restore
     return callback

@@ -27,6 +27,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+from ..obs.trace import note_compile
+
 SRC = Path(__file__).resolve().parent / "parser.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _LOCK = threading.Lock()
@@ -38,6 +40,7 @@ def _build(src: Path, out: str) -> bool:
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", str(src), "-o", out]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        note_compile("build")
         return True
     except (OSError, subprocess.SubprocessError):
         return False

@@ -24,6 +24,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+from ..obs.trace import note_compile
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -117,6 +119,7 @@ def build() -> Path:
         for log in tmp.glob("*.log"):
             os.replace(log, out.parent / log.name)
         os.replace(so, out)  # atomic: a concurrent build sees all or nothing
+        note_compile("build")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out

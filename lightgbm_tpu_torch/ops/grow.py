@@ -50,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs.trace import note_compile
 from .histogram import hist_segment, hist_segment_q, histogram_from_parent, upload
 from .qhist import dequantize_hist, dequantize_sums
 from .split import NEG_INF, FeatureMeta, SplitHyper, best_split_all_features, leaf_output_np
@@ -147,6 +148,7 @@ class _ChildSearch:
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.out = self._run()
+            note_compile("graph_capture")
         self.graph.replay()
         return self.out
 

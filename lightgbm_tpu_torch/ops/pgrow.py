@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs.trace import note_compile
 from .histogram import release_stream_workspace
 from .pkernels import KERNELS, PLayout, hist_dyn, hist_segments, level_stream, split_stream
 from .split import (
@@ -208,6 +209,23 @@ class PTreeResult(NamedTuple):
     @property
     def rec_internal_value(self):
         return self.recs_raw[:, 9]
+
+
+def split_audit_rows(gr):
+    """The accepted splits of a grown tree's host records, in acceptance
+    order (pgrow.py:621): the audit trail's rows (obs/audit.py).  Takes
+    anything with the record fields ``Tree.from_grow_result`` reads
+    (``ops/grow.GrowResult`` of the mask grower, the host
+    :class:`PTreeResult` of a fused chunk), so both growers' trails are
+    comparable; floats keep their float32 values."""
+    ns = int(gr.num_splits)
+    if ns <= 0:
+        return
+    leaf, thr, dbz = (np.asarray(x) for x in (gr.rec_leaf, gr.rec_thr, gr.rec_dbz))
+    gain, lcnt, rcnt = (np.asarray(x) for x in (gr.rec_gain, gr.rec_lcnt, gr.rec_rcnt))
+    for s in range(ns):
+        yield {"s": s, "leaf": int(leaf[s]), "bin": int(thr[s]), "dbz": int(dbz[s]),
+               "gain": float(gain[s]), "lcnt": int(lcnt[s]), "rcnt": int(rcnt[s])}
 
 
 def _meta_table(meta: FeatureMeta, bmeta, f: int, bits: int) -> torch.Tensor:
@@ -480,6 +498,7 @@ class _TreeGraph:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream):
             self.out = run(self.fmask, self.root)
+        note_compile("graph_capture")
         # the capture launched nothing: its launches happen at each replay
         self.launches = [k.launches - b for k, b in zip(KERNELS, before)]
         for k, b in zip(KERNELS, before):

@@ -13,8 +13,9 @@ against the JAX package's.
 - ``task=predict`` against the JAX ``Booster.predict(path)`` of the same
   model, ``task=convert_model`` string-equal to the JAX ``model_to_cpp``
   and compiled with g++ (``PredictRaw`` within 1e-6 of the port's raw
-  scores), ``task=ingest``, ``is_save_binary_file``, the snapshots, and
-  what the port refuses (checkpoints, ``resume``, other devices);
+  scores), ``task=ingest``, ``is_save_binary_file``, the snapshots, the
+  checkpoint keys, ``resume`` and ``report``, and what the port refuses
+  (``serve``, ``fleet``, ``factory``, other devices);
 - one run of ``python -m lightgbm_tpu_torch`` as a subprocess.
 
 The JAX package's own CLI is not run here: under jax 0.9 its
@@ -296,16 +297,55 @@ def test_ingest_and_save_binary(binary_dir, tmp_path):
     (["checkpoint_resume=true"], "checkpoint_resume"),
     (["checkpoint_resume=force"], "checkpoint_resume"),
 ])
-def test_checkpoint_keys_raise(binary_dir, argv, match):
-    params = cli.load_all_params([f"config={binary_dir / 'train.conf'}", *argv])
+def test_checkpoint_keys_raise(binary_dir, tmp_path, argv, match):
+    """The checkpoint keys, which raised NotImplementedError before the
+    port had checkpoints, now act as in the JAX CLI: ``checkpoint_freq``
+    writes checkpoints beside the model, ``checkpoint_dir`` moves them
+    (at snapshot_freq when no checkpoint_freq is set), ``checkpoint_resume``
+    resumes (``force`` requires a checkpoint, and raises without one).
+    Tests/test_torch_ckpt_fault.py holds the resumed models."""
+    for name in ("binary.train", "binary.train.weight", "binary.test"):
+        (tmp_path / name).write_bytes((binary_dir / name).read_bytes())
+    base = [f"config={binary_dir / 'train.conf'}", "num_trees=4", "snapshot_freq=-1",
+            "output_model=m.txt"]
+    if match == "checkpoint_dir":
+        base[2] = "snapshot_freq=2"
+    params = cli.load_all_params(base + argv)
     from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ckpt import CheckpointStore
 
-    with pytest.raises(NotImplementedError, match=match):
-        cli.run_train(Config.from_params(params), params, "cpu")
+    def run():
+        return cli.run_train(Config.from_params(params), params, "cpu")
+
+    if argv == ["checkpoint_resume=force"]:
+        with pytest.raises(lgt.LightGBMError, match="No valid checkpoint"):
+            _in(tmp_path, run)
+        return
+    _in(tmp_path, run)
+    where = {"checkpoint_freq": tmp_path, "checkpoint_dir": tmp_path / "ck"}.get(match)
+    if where is not None:
+        assert CheckpointStore(str(where)).steps() == [2, 4]
+        assert CheckpointStore(str(where)).complete_step() == 4
+    else:
+        assert not (tmp_path / "MANIFEST.json").exists()  # nothing to checkpoint
+    assert (tmp_path / "m.txt").exists()
 
 
 @pytest.mark.parametrize("sub", ["resume", "report", "serve", "fleet", "factory"])
-def test_subcommands_not_ported_raise(sub):
+def test_subcommands_not_ported_raise(sub, binary_dir, tmp_path, capsys):
+    """``serve``, ``fleet`` and ``factory`` wait for modules not ported
+    yet.  ``resume`` and ``report`` run since the port has checkpoints and
+    observability: ``resume`` with no checkpoint fails (exit 1, "No valid
+    checkpoint"), ``report`` without a trace prints its usage (exit 2)."""
+    if sub == "resume":
+        argv = [sub, f"data={binary_dir / 'binary.train'}", "device=cpu", "num_trees=1"]
+        assert _in(tmp_path, lambda: cli.main(argv)) == 1
+        assert "No valid checkpoint" in capsys.readouterr().out
+        return
+    if sub == "report":
+        assert cli.main([sub]) == 2
+        assert "usage" in capsys.readouterr().err
+        return
     with pytest.raises(NotImplementedError, match=f"the {sub} subcommand"):
         cli.main([sub, "data=x"])
 

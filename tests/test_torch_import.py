@@ -49,7 +49,10 @@ def test_import_pulls_in_no_jax():
             "lightgbm_tpu_torch.cli, lightgbm_tpu_torch.data.ingest, lightgbm_tpu_torch.native, "
             "lightgbm_tpu_torch.pmml, lightgbm_tpu_torch.plotting, "
             "lightgbm_tpu_torch.ops.grow, lightgbm_tpu_torch.ops.histogram, "
-            "lightgbm_tpu_torch.ops.qhist, lightgbm_tpu_torch.boosting.goss; "
+            "lightgbm_tpu_torch.ops.qhist, lightgbm_tpu_torch.boosting.goss, "
+            "lightgbm_tpu_torch.ckpt, lightgbm_tpu_torch.obs.report, "
+            "lightgbm_tpu_torch.obs.metrics, lightgbm_tpu_torch.obs.audit, "
+            "lightgbm_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.')]; "
             "assert not bad, bad; print('ok')")

@@ -159,7 +159,9 @@ DECLINED = [
      {}),
     ("tree_learner=data", dict(tree_learner="data"), {}),
     ("out-of-core training", dict(out_of_core=True), {}),
-    ("checkpoint_dir", {}, dict(checkpoint_dir="ckpt")),
+    # checkpoints train (tests/test_torch_ckpt.py); resume="force" with an
+    # empty checkpoint directory is refused
+    ("checkpoint_dir", {}, dict(checkpoint_dir="checkpoint_dir", checkpoint_resume="force")),
     # continued training runs (tests/test_torch_api.py); an initial model of
     # another feature count is refused
     ("init_model", {}, dict(init_model="narrow")),
@@ -167,7 +169,7 @@ DECLINED = [
 # the reference's own errors (goss.py:38, config.py's linear_tree checks,
 # engine.py's schema guard); the rest are not ported yet
 RAISES = {"Cannot use bagging in GOSS": LightGBMError, "boosting=dart": LightGBMError,
-          "init_model": LightGBMError}
+          "init_model": LightGBMError, "checkpoint_dir": LightGBMError}
 
 
 @pytest.mark.parametrize("what,params,kwargs", DECLINED, ids=[d[0] for d in DECLINED])
