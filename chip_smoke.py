@@ -39,14 +39,14 @@ result line):
      quantized levels of the card against the CPU's; split_stream and
      level_stream at 1M rows x 28 features of 256 bins (features tiled
      over the grid, as at max_bin=255), unselected rows among them;
-  4. small end to end: --small-rows x 28 (binary, 255 leaves) and 100,000
+  4. small end to end: --small-rows x 28 (binary, 255 leaves) and 50,000
      Covertype-shaped rows (K=7, 31 leaves, 2 iterations) trained on the card and on
      the CPU (plain versions) — splits, predictions and AUC / multi
      logloss must agree; then --small-rows x 28 at learning_rate=0.5,
      31 leaves, 6 iterations with bagging and feature_fraction and 4
      with GOSS, on both, with the bagging masks compared; then on the
      mask grower (31 leaves) quantized binary and quantized L2 on
-     --small-rows x 28 (5 iterations) and multiclass GOSS on the 100,000
+     --small-rows x 28 (5 iterations) and multiclass GOSS on the 50,000
      Covertype-shaped rows (4 iterations at learning_rate 0.5: 2 warm-up,
      2 sampled); then each regression objective on --small-rows x 28 (31
      leaves, 1 iteration) and Huber with GOSS (4 iterations at
@@ -153,8 +153,32 @@ result line):
      main run's) and task=ingest of the CSV with stream_ingest=true (bins
      and mappers equal to the in-memory Dataset(csv)'s); the native
      parser must have parsed the CSV in every process;
+  5h. "higgs-10.5M-serve" (phase_serve): serving on the card.  The main
+     model packed as v1 (exact) and v2 (quantized), a 1,000-tree
+     artifact (its 20 trees 50 times, leaf values / 50, held against
+     ops/predict.predict_raw), the small linear model as v3 and the
+     small K=7 model; each PackedPredictor warmed at 4096 rows (one CUDA
+     graph per bucket), then 200 predicts of 1-4096 rows with no new
+     capture; exact: the walk's leaves equal pred_leaf's and the scores
+     within 1e-6 relative of Booster.predict; quantized: the same leaves,
+     scores within drift_bound; p50/p99 ms and rows/s at 1, 128 and 2048
+     rows, and the host's part of a 128-row request.  Then `python -m
+     lightgbm_tpu_torch serve` with a registry: 8 client threads send the
+     500k held-out rows in requests of 1-2048 rows (every answer within
+     1e-6 of Booster.predict, the AUC the main run's; latency, rows/s,
+     the mean coalesced batch, /metrics, captures after warmup 0, peak
+     device memory); a second pass over 150k rows during which a
+     same-shape retrain (leaf values x 1.1) is published: 0 failed
+     requests, each answer its version's, the swap in place with 0
+     captures; a third (2 clients, requests of 1-64 of the first 20k
+     rows, repeated until it answers) during which the 1,000-tree
+     artifact (leaf values x 0.9/50, another shape class) is published:
+     0 failed, each answer its version's, one capture a bucket beside the
+     live graphs; SIGTERM with two requests
+     in flight: /readyz 503, both answered within 1e-6 of the 1,000-tree
+     model, exit 0.  Serving launches none of the ten kernels;
   4b. (after the tree strategies, phase_small_ckpt) resume on the card:
-     K=7 on 100,000 Covertype-shaped rows (31 leaves, 4 iterations), GOSS
+     K=7 on 50,000 Covertype-shaped rows (31 leaves, 4 iterations), GOSS
      (6, learning_rate 0.5), DART (6) and quantized binary (5) on
      --small-rows x 28, each trained uninterrupted, then with a
      checkpoint every 2 or 3 iterations and killed mid-run, then resumed:
@@ -290,7 +314,7 @@ COV_NUMERIC = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7117
                (0, 254), (0, 254), (0, 254), (0, 7173))
 COV_TRAIN_ROWS = 464_809  # the first 80 %; the last 116,203 are held out
 COV_ITERS = 20
-COV_SMALL_ROWS, COV_SMALL_ITERS = 100_000, 2  # the multiclass card-vs-CPU phase
+COV_SMALL_ROWS, COV_SMALL_ITERS = 50_000, 2  # the multiclass card-vs-CPU phase
 # the API's paths: LGBMClassifier's arguments for TRAIN_PARAMS'
 # config, and the depth of each path
 SKLEARN_PARAMS = dict(num_leaves=255, max_bin=63, learning_rate=0.1, min_child_samples=1,
@@ -1507,7 +1531,7 @@ def phase_small_sampled(rows, dev):
 def phase_small_mask(small_ds, Xc, yc, dev):
     """The mask grower on the card and on the CPU (plain versions):
     quantized binary (on phase_small's binned Dataset) and quantized L2 on
-    its rows x 28, and multiclass GOSS on 100,000 Covertype-shaped rows
+    its rows x 28, and multiclass GOSS on 50,000 Covertype-shaped rows
     (K=7, learning_rate 0.5: 2 warm-up and 2 sampled iterations); 31
     leaves.  The same trees (or a first differing split that is a
     near-tie) and predictions within 1e-3."""
@@ -2797,7 +2821,8 @@ def phase_small_strategies(small, dev):
     features (binary, float32 and quantized), then 3 fused iterations and
     2 ``update(fobj=)`` (the custom trees on the mask grower) and one more
     fused iteration, whose chunk rewrites the band through score_add.
-    Returns the card's launch counts of each path."""
+    Returns the card's launch counts of each path and the card's linear
+    binary model text (phase_serve packs it as a v3 artifact)."""
     import lightgbm_tpu_torch as lgt
 
     X, y, ds, _ = small
@@ -2826,6 +2851,8 @@ def phase_small_strategies(small, dev):
             log(f"small {name} {where}: {len(X)}x28, {SMALL_STRAT_ITERS} iterations, "
                 f"{time.perf_counter() - t0:.1f} s")
         (bc, pc), (bp, pp) = out["cuda"], out["cpu"]
+        if name == "linear binary":
+            linear_text = bc.model_to_string()
         ndiff = compare_models(f"small {name} cuda vs cpu", bp.model_to_string(),
                                bc.model_to_string())
         dpred = float(np.abs(pc - pp).max())
@@ -2870,7 +2897,7 @@ def phase_small_strategies(small, dev):
         f"{out['cuda'][1]:.3e} (tol 1e-5); score_add launches of the last fused iteration "
         f"{out['cuda'][2]} (the band rewritten from the scores, then the chunk's settle)")
     assert dpred <= 1e-3 and out["cuda"][1] <= 1e-5 and out["cuda"][2] >= 2
-    return counts
+    return counts, linear_text
 
 
 def phase_small_ckpt(small_ds, Xc, yc, dev):
@@ -3162,6 +3189,442 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
     return counts, res
 
 
+SERVE_BATCHES = (1, 128, 2048)  # bench.py _bench_serving's batch sizes
+SERVE_TILES = 50  # the 1,000-tree artifact: the main model's 20 trees 50 times
+SERVE_CLIENTS = 8
+SERVE_MIXED = 200  # mixed-size predicts a warmed predictor answers with no capture
+SERVE_SWAP_ROWS = 150_000  # the hot-swap pass: the first held-out rows again
+# the pass that swaps in another shape class: 2 clients send requests of
+# 1-64 rows (the first 20k held-out rows, again until the new model
+# answers), so the batcher keeps replaying while the new ladder is
+# captured; with 8 clients of 1-2048 rows the captures took ~16 s, the
+# capture thread waiting for the GIL behind the handler threads' parsing
+SERVE_RESHAPE_CLIENTS, SERVE_RESHAPE_ROWS, SERVE_RESHAPE_MAX = 2, 20_000, 64
+
+
+def _scaled_artifact(art, factor, tiles=1):
+    """``art``'s trees ``tiles`` times, every leaf value times ``factor``
+    (a retrain of the same shape class when ``tiles`` is 1)."""
+    from lightgbm_tpu_torch.serve import PredictorArtifact
+
+    fields = {f: np.tile(np.asarray(getattr(art.arrays, f)), (tiles, 1))
+              for f in type(art.arrays).FIELDS}
+    fields["leaf_value"] = (fields["leaf_value"] * np.float32(factor)).astype(np.float32)
+    return PredictorArtifact(type(art.arrays)(**fields),
+                             dict(art.meta, num_trees=art.meta["num_trees"] * tiles))
+
+
+def _median_ms(fn, reps=50):
+    ms = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return ms
+
+
+def _batch_times(pred, X, reps=50):
+    """p50 / p99 ms of one ``predict`` (host rows in, host rows out: the
+    encoding, the copy in, the replay, the copy out) and rows/s at its
+    p50, by batch size."""
+    out = {}
+    for bs in SERVE_BATCHES:
+        lo = iter(range(0, reps * 997, 997))
+        ms = _median_ms(lambda: pred.predict(X[next(lo) % (len(X) - bs):][:bs]), reps)
+        p50 = float(np.percentile(ms, 50))
+        out[bs] = dict(p50_ms=round(p50, 4), p99_ms=round(float(np.percentile(ms, 99)), 4),
+                       rows_per_s=round(bs / p50 * 1e3, 1))
+    return out
+
+
+def _in_process(name, art, X, exact_raw, dev, leaves=None, leaves_of=None, bound=None):
+    """A PackedPredictor on the card: warmup(4096)'s captures, then
+    SERVE_MIXED predicts of 1-4096 rows with no new capture; its raw
+    scores against ``exact_raw`` (within ``bound``, else 1e-6 relative)
+    and, with ``leaves``, the walk's leaves; times by batch size."""
+    from lightgbm_tpu_torch.obs.trace import total_compiles
+    from lightgbm_tpu_torch.serve import PackedPredictor
+
+    p = PackedPredictor(art, device=dev)
+    t = time.perf_counter()
+    warm = p.warmup(4096)
+    warm_s = time.perf_counter() - t
+    rng = np.random.default_rng(11)
+    c0 = total_compiles()
+    for n in rng.integers(1, 4097, SERVE_MIXED):
+        lo = int(rng.integers(0, len(X) - n))
+        p.predict(X[lo:lo + n])
+    captures = total_compiles() - c0
+    raw = p.predict(X[:len(exact_raw)], raw_score=True)
+    dmax = float(np.abs(raw - exact_raw).max())
+    rel = dmax / max(float(np.abs(exact_raw).max()), 1e-30)
+    same = None
+    if leaves is not None:
+        same = bool(np.array_equal(leaves_of(p, X[:len(leaves)]), leaves))
+    res = dict(warmup_captures=warm["compiles"], warmup_s=round(warm_s, 3),
+               buckets=len(warm["buckets"]), levels=p.raw.levels,
+               captures_after_warmup=captures, max_abs_err=dmax, max_rel_err=rel,
+               leaves_equal=same, device_mib=round(p.device_bytes / 2**20, 3),
+               batches=_batch_times(p, X))
+    if bound is not None:
+        res["drift_bound"] = bound
+    log(f"serve {name}: {json.dumps(res)}")
+    assert captures == 0, f"{name}: {captures} captures after warmup"
+    assert (dmax <= bound) if bound is not None else (rel <= 1e-6), f"{name}: scores off"
+    assert same is not False, f"{name}: the walk's leaves differ from pred_leaf's"
+    return p, res
+
+
+def _http(port, path, body=None, timeout=120):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _jsonl(rows):
+    return ("\n".join(json.dumps(r) for r in rows.tolist()) + "\n").encode()
+
+
+def _answers(body):
+    return np.asarray(json.loads(b"[" + body.strip().replace(b"\n", b",") + b"]"), np.float64)
+
+
+def _traffic(port, X, seed, on_request=None, until_version=None, clients=SERVE_CLIENTS,
+             max_rows=2048):
+    """``clients`` threads send the rows of ``X`` in requests of
+    1-``max_rows`` rows (sizes drawn from ``seed``, bodies encoded before the clock
+    starts, answers decoded after it stops).  With ``until_version`` they
+    go round the requests again (at most 20 rounds) until an answer of
+    that version has come back.  Returns (the request cuts, each answer's
+    (cut, version, predictions), client latencies in ms, failures, wall
+    seconds)."""
+    import threading
+
+    rng = np.random.default_rng(seed)
+    cuts, lo = [], 0
+    while lo < len(X):
+        n = int(rng.integers(1, max_rows + 1))
+        cuts.append((lo, min(len(X), lo + n)))
+        lo += n
+    bodies = [_jsonl(X[a:b]) for a, b in cuts]
+    answers, lat, fails, seen = [], [], [], set()
+    lock = threading.Lock()
+    todo = iter(range(len(cuts) * (1 if until_version is None else 20)))
+
+    def client():
+        while True:
+            with lock:
+                j = next(todo, None)
+                if j is not None and j >= len(cuts) and until_version in seen:
+                    j = None
+            if j is None:
+                return
+            if on_request is not None:
+                on_request(j, len(cuts))
+            i = j % len(cuts)
+            t = time.perf_counter()
+            code, hdr, body = _http(port, "/predict", bodies[i])
+            ms = 1e3 * (time.perf_counter() - t)
+            with lock:
+                lat.append(ms)
+                if code == 200:
+                    seen.add(int(hdr["X-Model-Version"]))
+                    answers.append((i, int(hdr["X-Model-Version"]), body))
+                else:
+                    fails.append((i, code, body[:200]))
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t
+    return cuts, [(i, v, _answers(b)) for i, v, b in answers], lat, fails, wall
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_serve(higgs, main_text, main_auc, small_texts, cov_rows, dev):
+    """"higgs-10.5M-serve": serving on the card.  The main model (20 trees
+    x 255 leaves, 28 features) packed as v1 (exact) and v2 (quantized), a
+    1,000-tree artifact (the 20 trees 50 times, leaf values / 50), the
+    small linear model as v3 and the small K=7 model: each warmed at 4096
+    rows in process, SERVE_MIXED mixed-size predicts with no capture,
+    leaves and scores checked, p50/p99 by batch size, and the host's part
+    of a request.  Then `python -m lightgbm_tpu_torch serve` with a
+    registry: SERVE_CLIENTS clients send the 500k held-out rows in
+    requests of 1-2048 rows (every answer against Booster.predict, the
+    AUC against the main run's); a second pass over SERVE_SWAP_ROWS rows
+    during which a same-shape retrain (leaf values x 1.1) is published (in
+    place, 0 captures); a third (SERVE_RESHAPE_*) during which the
+    1,000-tree artifact (leaf values x 0.9/50) is published (another shape
+    class: its ladder captured in the background while the live graphs
+    replay); SIGTERM with two
+    30,000-row requests in flight."""
+    import signal
+    import threading
+
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.model.ensemble import split_hi_lo
+    from lightgbm_tpu_torch.obs.metrics import parse_text_format
+    from lightgbm_tpu_torch.ops.predict import _leaves_raw, predict_raw
+    from lightgbm_tpu_torch.ops.qpredict import drift_bound, qleaves
+    from lightgbm_tpu_torch.serve import PackedPredictor, PredictorArtifact
+    from lightgbm_tpu_torch.serve.registry import ModelRegistry
+    from lightgbm_tpu_torch.serve.server import _parse_rows
+
+    _, Xv, yv = higgs
+    X = np.asarray(Xv, np.float64)
+    res = {}
+    bst = lgt.Booster(model_str=main_text, device=dev)
+    t = time.perf_counter()
+    art = PredictorArtifact.from_booster(bst)
+    qart = art.quantize()
+    big = _scaled_artifact(art, 1.0 / SERVE_TILES, SERVE_TILES)
+    res["pack_s"] = round(time.perf_counter() - t, 3)
+    n_chk = 100_000
+    leaves = bst.predict(X[:n_chk], pred_leaf=True)
+    exact_raw = bst.predict(X[:n_chk], raw_score=True)
+
+    def exact_leaves(p, rows):
+        planes = [torch.from_numpy(a).to(dev) for a in split_hi_lo(rows)]
+        return _leaves_raw(planes, p.raw.trees, levels=p.raw.levels).T.cpu().numpy()
+
+    def quant_leaves(p, rows):
+        codes = torch.from_numpy(p.raw._host_input(rows)).to(dev)
+        return qleaves(codes, p.raw.trees, p.raw.levels).T.cpu().numpy()
+
+    _, res["exact_20"] = _in_process("exact 20 trees", art, X, exact_raw, dev, leaves,
+                                     exact_leaves)
+    qp, res["quantized_20"] = _in_process("quantized 20 trees", qart, X, exact_raw, dev,
+                                          leaves, quant_leaves,
+                                          drift_bound(art.arrays.leaf_value))
+    big_raw = predict_raw(X[:n_chk], big.arrays.to_device(dev))[0]
+    _, res["exact_1000"] = _in_process("exact 1000 trees", big, X, big_raw, dev)
+    _, res["quantized_1000"] = _in_process("quantized 1000 trees", big.quantize(), X, big_raw,
+                                           dev, bound=drift_bound(big.arrays.leaf_value))
+    for key, text, rows in (("linear_v3", small_texts["linear"], X[:50_000]),
+                            ("multiclass_k7", small_texts["k7"], cov_rows)):
+        b = lgt.Booster(model_str=text, device=dev)
+        a = PredictorArtifact.from_booster(b)
+        p = PackedPredictor(a, device=dev)
+        warm = p.warmup(4096)
+        want, got = b.predict(rows), p.predict(rows)
+        err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        res[key] = dict(format_version=a.meta["format_version"], flavor=a.flavor,
+                        warmup_captures=warm["compiles"], rows=len(rows), max_rel_err=err,
+                        shape=list(got.shape))
+        log(f"serve {key}: {json.dumps(res[key])}")
+        assert err <= 1e-6, f"{key}: {err:.3e} relative from Booster.predict"
+    # the host's part of a 128-row request
+    body = _jsonl(X[:128])
+    res["host_ms_128_rows"] = {
+        name: round(float(np.median(_median_ms(fn))), 4) for name, fn in (
+            ("parse_rows", lambda: _parse_rows(body)),
+            ("split_hi_lo", lambda: split_hi_lo(X[:128])),
+            ("quantize_data", lambda: qp.raw._host_input(X[:128])))}
+    log(f"serve host ms of a 128-row request: {json.dumps(res['host_ms_128_rows'])}")
+
+    # ---- over HTTP: a server process with a registry
+    work = os.path.join(HERE, "build", "chip_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    model = art.save(os.path.join(work, "higgs.npz"))
+    reg = os.path.join(work, "registry")
+    port = _free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "lightgbm_tpu_torch", "serve",
+                             f"model={model}", f"registry={reg}", f"port={port}",
+                             "max_queue_rows=65536", "registry_poll_ms=100"]
+                            + (["device=cpu"] if dev.type == "cpu" else []), cwd=work,
+                            env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        while True:
+            try:
+                if _http(port, "/readyz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if proc.poll() is not None or time.perf_counter() - t0 > 240:
+                raise RuntimeError("serve did not become ready:\n" + "".join(lines)[-4000:])
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        st0 = json.loads(_http(port, "/stats")[2])
+        exp = {1: bst.predict(X)}
+        scaled = _scaled_artifact(art, 1.1)
+        sraw = torch.as_tensor(predict_raw(X, scaled.arrays.to_device(dev)),
+                               dtype=torch.float32, device=dev)
+        exp[2] = bst.boosting.objective.convert_output(sraw).double().cpu().numpy()[0]
+
+        def check(cuts, answers):
+            worst, versions, preds = 0.0, collections.Counter(), np.empty(cuts[-1][1])
+            for i, ver, out in answers:
+                a, b = cuts[i]
+                versions[ver] += 1
+                worst = max(worst, float(np.abs(out - exp[ver][a:b]).max()))
+                preds[a:b] = out
+            return worst, dict(versions), preds
+
+        cuts, answers, lat, fails, wall = _traffic(port, X, 2026)
+        assert not fails, f"failed requests: {fails[:5]}"
+        worst, versions, preds = check(cuts, answers)
+        http_auc = auc(yv, preds)
+        st = json.loads(_http(port, "/stats")[2])
+        b = st["batcher"]
+        fams = parse_text_format(_http(port, "/metrics")[2].decode())
+        res["http"] = dict(
+            ready_s=round(ready_s, 2), requests=len(cuts), rows=len(X), clients=SERVE_CLIENTS,
+            wall_s=round(wall, 3), rows_per_s=round(len(X) / wall, 1),
+            latency_p50_ms=round(float(np.percentile(lat, 50)), 3),
+            latency_p99_ms=round(float(np.percentile(lat, 99)), 3),
+            mean_batch_rows=round(b["rows"] / max(b["batches"], 1), 2), batches=b["batches"],
+            failed=len(fails), versions=versions, max_abs_err=worst, auc=http_auc,
+            main_auc=main_auc, auc_equal=http_auc == main_auc,
+            warmup_captures=st0["compiles"]["predict_compiles"],
+            captures_after_warmup=(st["compiles"]["graph_captures"]
+                                   - st0["compiles"]["graph_captures"]),
+            device_peak_mib=round(st["device_peak_bytes"] / 2**20, 2),
+            metrics_families=len(fams),
+            metrics_latency_count=fams["lightgbm_tpu_serve_latency_seconds"]["samples"][
+                "lightgbm_tpu_serve_latency_seconds_count"])
+        log(f"serve http: {json.dumps(res['http'])}")
+        assert worst <= 1e-6, f"an HTTP answer is {worst:.3e} from Booster.predict"
+        assert res["http"]["captures_after_warmup"] == 0
+        assert abs(http_auc - main_auc) <= 1e-9, (http_auc, main_auc)
+
+        # a same-shape retrain published mid-traffic
+        published = threading.Lock()
+        state = {}
+
+        def publish(i, n):
+            if i >= n * 3 // 10 and "v" not in state and published.acquire(blocking=False):
+                state["at"] = i
+                state["v"] = ModelRegistry(reg).publish(scaled)
+
+        cuts, answers, lat, fails, wall = _traffic(port, X[:SERVE_SWAP_ROWS], 7, publish)
+        assert not fails, f"failed requests across the swap: {fails[:5]}"
+        worst, versions, _ = check(cuts, answers)
+        for _ in range(300):
+            st = json.loads(_http(port, "/stats")[2])
+            if st["swap"]["swaps"] >= 1:
+                break
+            time.sleep(0.1)
+        swap = st["swap"]["last"]
+        res["swap"] = dict(requests=len(cuts), published_at=state.get("at"), versions=versions,
+                           failed=len(fails), max_abs_err=worst, swap_ms=swap.get("swap_ms"),
+                           in_place=swap.get("in_place"), new_captures=swap.get("new_compiles"),
+                           latency_p99_ms=round(float(np.percentile(lat, 99)), 3),
+                           captures_after_warmup=(st["compiles"]["graph_captures"]
+                                                  - st0["compiles"]["graph_captures"]))
+        log(f"serve swap: {json.dumps(res['swap'])}")
+        assert worst <= 1e-6 and state["v"] == 2 and 2 in versions, res["swap"]
+        assert swap["in_place"] and swap["new_compiles"] == 0
+        assert res["swap"]["captures_after_warmup"] == 0
+
+        # another shape class published mid-traffic: the 1,000-tree
+        # artifact's ladder is captured beside the live predictor
+        other = _scaled_artifact(art, 0.9 / SERVE_TILES, SERVE_TILES)
+        n_other = max(SERVE_RESHAPE_ROWS, 30_000)  # the pass and the SIGTERM requests
+        oraw = torch.as_tensor(predict_raw(X[:n_other], other.arrays.to_device(dev)),
+                               dtype=torch.float32, device=dev)
+        exp[3] = bst.boosting.objective.convert_output(oraw).double().cpu().numpy()[0]
+        state.clear()
+        published = threading.Lock()
+        c_before = st["compiles"]["graph_captures"]
+
+        def publish_other(i, n):
+            if i >= n * 2 // 10 and "v" not in state and published.acquire(blocking=False):
+                state["at"] = i
+                state["v"] = ModelRegistry(reg).publish(other)
+
+        cuts, answers, lat, fails, wall = _traffic(port, X[:SERVE_RESHAPE_ROWS], 8,
+                                                   publish_other, until_version=3,
+                                                   clients=SERVE_RESHAPE_CLIENTS,
+                                                   max_rows=SERVE_RESHAPE_MAX)
+        assert not fails, f"failed requests across the reshaping swap: {fails[:5]}"
+        worst, versions, _ = check(cuts, answers)
+        for _ in range(300):
+            st = json.loads(_http(port, "/stats")[2])
+            if st["swap"]["swaps"] >= 2:
+                break
+            time.sleep(0.1)
+        swap = st["swap"]["last"]
+        res["swap_other_shape"] = dict(
+            requests=len(answers), clients=SERVE_RESHAPE_CLIENTS,
+            published_at=state.get("at"), versions=versions,
+            failed=len(fails), max_abs_err=worst, swap_ms=swap.get("swap_ms"),
+            in_place=swap.get("in_place"), new_captures=swap.get("new_compiles"),
+            buckets=st0["compiles"]["predict_compiles"],
+            latency_p50_ms=round(float(np.percentile(lat, 50)), 3),
+            latency_p99_ms=round(float(np.percentile(lat, 99)), 3),
+            captures=st["compiles"]["graph_captures"] - c_before)
+        log(f"serve swap to another shape: {json.dumps(res['swap_other_shape'])}")
+        assert worst <= 1e-6 and state["v"] == 3 and 3 in versions, res["swap_other_shape"]
+        assert not swap["in_place"] and swap["to_version"] == 3, swap
+        assert swap["new_compiles"] == st0["compiles"]["predict_compiles"], swap
+        assert res["swap_other_shape"]["captures"] == swap["new_compiles"]
+
+        # SIGTERM with two requests in flight (their rows' parsing holds
+        # them in the server's in-flight count)
+        body = _jsonl(X[:30_000])
+        got = []
+        flight = [threading.Thread(target=lambda: got.append(_http(port, "/predict", body)))
+                  for _ in range(2)]
+        for th in flight:
+            th.start()
+        time.sleep(0.15)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        ready = []
+        for _ in range(200):
+            try:
+                ready.append(_http(port, "/readyz", timeout=5)[0])
+            except OSError:
+                break
+            if ready[-1] == 503:
+                break
+            time.sleep(0.005)
+        for th in flight:
+            th.join(timeout=60)
+        rc = proc.wait(timeout=60)
+        exit_s = time.perf_counter() - t_sig
+        reader.join(timeout=10)
+        out = "".join(lines)
+        res["sigterm"] = dict(readyz=ready, inflight=[c for c, _, _ in got], exit_code=rc,
+                              exit_s=round(exit_s, 3), drained="drained and stopped" in out)
+        log(f"serve sigterm: {json.dumps(res['sigterm'])}")
+        assert 503 in ready and res["sigterm"]["inflight"] == [200, 200], res["sigterm"]
+        assert rc == 0 and "drained and stopped" in out, out[-3000:]
+        for _, _, body in got:
+            assert np.abs(_answers(body) - exp[3][:30_000]).max() <= 1e-6
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log("serve: " + json.dumps(res))
+    return res
+
+
 def phase_strategies(higgs, dev):
     """The tree strategies at full width on the higgs-10.5M cell's binned
     data and parameters, STRAT_ITERS iterations each on the mask grower:
@@ -3270,7 +3733,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--small-rows", type=int, default=100_000)
+    ap.add_argument("--small-rows", type=int, default=50_000)
     ap.add_argument("--small-iters", type=int, default=2)
     ap.add_argument("--repeat-iters", type=int, default=3)
     args = ap.parse_args(argv)
@@ -3324,7 +3787,8 @@ def main(argv=None):
     small_api_counts = phase_small_api(small, multi, dev)
     log(f"small API paths in {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
-    small_strat_counts = phase_small_strategies(small, dev)
+    small_strat_counts, linear_text = phase_small_strategies(small, dev)
+    serve_texts = dict(linear=linear_text, k7=multi["cuda"].model_to_string())
     log(f"small tree strategies in {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     small_ckpt_counts = phase_small_ckpt(small[2], Xc, yc, dev)
@@ -3351,6 +3815,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     cli_counts, _ = phase_cli(higgs, main_text, full["auc"], args.iters, dev)
     log(f"higgs-10.5M-cli in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_serve(higgs, main_text, full["auc"], serve_texts, Xc[nc:][:50_000], dev)
+    log(f"higgs-10.5M-serve in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     strat_counts, _ = phase_strategies(higgs, dev)
     del higgs

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import time
 import warnings
+from types import SimpleNamespace
 from typing import List
 
 import numpy as np
@@ -56,6 +57,7 @@ from ..ops.histogram import pack_bin_words
 from ..ops.predict import (TreeArrays, predict_binned, predict_leaf, predict_raw,
                            predict_words, words_column)
 from ..ops.qhist import local_absmax, max_rows_for, quantize_rows, scales_from_max
+from ..ops.qpredict import QTrees, qpredict_scores, quant_predict_enabled, quantize_tree_arrays
 from ..ops.split import FeatureMeta, SplitHyper
 from ..tree.linear import (build_value_lut, leaf_path_features, linear_fit_stats,
                            linear_leaf_scores, pack_path_features, solve_linear_leaves)
@@ -814,8 +816,30 @@ class GBDT:
         k = self.num_tree_per_iteration
         if not models:
             return np.zeros((k, data.shape[0]))
+        if quant_predict_enabled():
+            if not any(getattr(t, "is_linear", False) for t in models):
+                q, trees = self._quantized_trees(models, k)
+                return qpredict_scores(data, q, trees, num_class=k)
+            Log.warning("LIGHTGBM_TPU_QUANT_PREDICT=1 ignored: quantized serving does not "
+                        "support linear-leaf models; serving exact")
         arrays = TreeArrays.from_stacked(stack_trees(models), self.device)
         return predict_raw(data, arrays, num_class=k)
+
+    def _quantized_trees(self, models, k: int):
+        """``LIGHTGBM_TPU_QUANT_PREDICT=1``: the int16 rank-quantized host
+        record of ``models`` (ops/qpredict.py; routing exact, leaves
+        float16, ``drift_bound`` bounds the output) and its node planes on
+        the booster's device, cached per (len(models), k, linear) and the
+        trees themselves."""
+        key = (len(models), k, False)
+        cached = getattr(self, "_qtrees", None)
+        if (cached is None or cached[0] != key
+                or any(a is not b for a, b in zip(cached[2], models))):
+            q = quantize_tree_arrays(SimpleNamespace(**stack_trees(models)),
+                                     num_features=int(self.max_feature_idx) + 1)
+            cached = (key, (q, QTrees(q, self.device)), list(models))
+            self._qtrees = cached
+        return cached[1]
 
     def predict(self, data: np.ndarray, num_iteration: int = -1, raw_score: bool = False,
                 pred_leaf: bool = False, config=None) -> np.ndarray:

@@ -27,9 +27,11 @@ profiler.  ``report`` summarizes a trace or diffs two audit trails
 
 Training and prediction run on the CUDA card unless the ``device``
 parameter says ``cpu`` (``gpu`` and ``cuda`` name the card; any other
-value is refused).  Not ported yet, each raising NotImplementedError:
-``serve`` and ``fleet`` wait for the port's serving, ``factory`` for its
-factory.
+value is refused).  ``serve`` runs the prediction server
+(serve/server.py: ``python -m lightgbm_tpu_torch serve model=m.npz``, on
+the card unless ``device=cpu``).  Not ported yet, each raising
+NotImplementedError: ``fleet`` waits for the port's fleet proxy, ``factory``
+for its factory.
 """
 
 from __future__ import annotations
@@ -49,8 +51,7 @@ from .utils.log import Log
 
 # subcommands of the JAX package's CLI that wait for modules not ported yet
 _NOT_YET_SUBCOMMANDS = {
-    "serve": "the prediction server (the port's serving)",
-    "fleet": "serving fleets (the port's serving)",
+    "fleet": "serving fleets: FleetProxy and spawn_replicas, queue A item 8b",
     "factory": "the training factory",
 }
 
@@ -336,6 +337,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .obs.report import main as report_main
 
         return report_main(argv[1:])
+    if argv and argv[0] == "serve":
+        from .serve.server import main as serve_main
+
+        return serve_main(argv[1:])
     if argv and argv[0] == "ingest":
         argv = ["task=ingest"] + argv[1:]
     if argv and argv[0] == "resume":

@@ -1,5 +1,5 @@
-"""Prometheus text-format metrics registry — PyTorch-port copy of the
-training half of lightgbm_tpu/obs/metrics.py.
+"""Prometheus text-format metrics registry — PyTorch-port copy of
+lightgbm_tpu/obs/metrics.py.
 
 - :class:`MetricsRegistry` holds **counters** (monotone) and **gauges**
   (sampled), thread-safe; a metric may be **fn-backed**, its value read
@@ -13,8 +13,12 @@ training half of lightgbm_tpu/obs/metrics.py.
   so a run's checkpoint counters land in the same dump.  With tracing
   off the mirror is never called.
 
-The serving metrics (histograms, labeled families, rolling quantiles)
-wait for the port's serving.  The JAX package's XLA compile counters have
+The serving layer (serve/) adds **fixed-bucket histograms** (cumulative
+``le`` buckets, ``_sum``/``_count``), **labeled families** (one child per
+model version or route, pruned after every swap) and
+:class:`RollingQuantile` (a window's exact quantiles, a control input,
+not a metric); for the same observations their text is the JAX
+registry's line for line.  The JAX package's XLA compile counters have
 no torch form; the port registers its analogue instead:
 ``lightgbm_tpu_cuda_graph_captures_total`` and
 ``lightgbm_tpu_lazy_builds_total`` (obs/trace.py ``note_compile``).
@@ -24,7 +28,8 @@ from __future__ import annotations
 
 import re
 import threading
-from typing import Callable, Dict, List, Optional
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence
 
 PREFIX = "lightgbm_tpu_"
 
@@ -113,6 +118,172 @@ class Gauge:
         return [f"{self.name} {_fmt(self.value())}"]
 
 
+# default latency ladder (seconds): sub-ms serving hits through
+# multi-second stragglers
+LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                   0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+# power-of-two row ladder matching the serving bucket ladder
+BATCH_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                 512.0, 1024.0, 2048.0, 4096.0)
+
+
+class Histogram:
+    """Fixed-bucket histogram: per-bucket counts are kept exclusive and
+    rendered cumulative with a final ``le="+Inf"`` bucket, plus
+    ``_sum`` and ``_count`` series (the Prometheus contract
+    ``bucket[+Inf] == count``)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str = "",
+                 buckets: Sequence[float] = LATENCY_BUCKETS):
+        self.name = name
+        self.help = help
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        if not self.buckets:
+            raise ValueError(f"histogram {name} needs at least one bucket")
+        self._counts = [0] * (len(self.buckets) + 1)  # last = overflow
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        i = len(self.buckets)
+        for j, b in enumerate(self.buckets):
+            if v <= b:
+                i = j
+                break
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    def value(self) -> float:  # symmetry with counter/gauge (snapshot())
+        return float(self._count)
+
+    def quantile(self, q: float) -> float:
+        """Smallest bucket upper bound covering fraction ``q`` of the
+        observations (0.0 when empty).  Bucket-resolution only — what
+        an SLO verdict needs, not a billing meter."""
+        with self._lock:
+            counts = list(self._counts)
+            total = self._count
+        if total <= 0:
+            return 0.0
+        target = float(q) * total
+        acc = 0
+        for b, c in zip(self.buckets, counts):
+            acc += c
+            if acc >= target:
+                return float(b)
+        return float(self.buckets[-1])
+
+    def samples(self) -> List[str]:
+        with self._lock:
+            counts = list(self._counts)
+            total = self._count
+            s = self._sum
+        out = []
+        acc = 0
+        for b, c in zip(self.buckets, counts):
+            acc += c
+            out.append(f'{self.name}_bucket{{le="{b:g}"}} {acc}')
+        out.append(f'{self.name}_bucket{{le="+Inf"}} {total}')
+        out.append(f"{self.name}_sum {_fmt(s)}")
+        out.append(f"{self.name}_count {total}")
+        return out
+
+
+class RollingQuantile:
+    """Exact quantiles over a sliding window of the last ``window``
+    observations.  Unlike :class:`Histogram` (cumulative, bucket
+    resolution) this *adapts*: the fleet proxy derives its hedge delay
+    from the p95 of recent attempt latencies, so the trigger tracks the
+    fleet's current speed instead of its lifetime average.  Not a
+    Prometheus metric — a control-loop input."""
+
+    def __init__(self, window: int = 512):
+        self._window = max(1, int(window))
+        self._buf: deque = deque(maxlen=self._window)
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._buf.append(float(value))
+
+    def count(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+    def quantile(self, q: float) -> float:
+        """Exact order statistic over the window (0.0 when empty)."""
+        with self._lock:
+            vals = sorted(self._buf)
+        if not vals:
+            return 0.0
+        i = min(len(vals) - 1, max(0, int(float(q) * len(vals))))
+        return vals[i]
+
+
+class LabeledFamily:
+    """One metric family split by a single label — per-model-version
+    serving metrics (``requests{model_version="3"}``) without an
+    unbounded cardinality risk: children are created per label value and
+    ``prune()``'d back to the versions actually loaded after every swap.
+    Child samples are re-emitted with the label pair injected, merging
+    with any labels the child already carries (histogram ``le``)."""
+
+    def __init__(self, name: str, help: str = "", child_cls=Counter,
+                 label: str = "model_version", **kw):
+        self.name = name
+        self.help = help
+        self.cls = child_cls
+        self.kind = child_cls.kind
+        self.label = label
+        self._kw = kw
+        self._children: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def labels(self, value) -> object:
+        key = str(value)
+        with self._lock:
+            c = self._children.get(key)
+            if c is None:
+                c = self.cls(self.name, self.help, **self._kw)
+                self._children[key] = c
+            return c
+
+    def children(self) -> Dict[str, object]:
+        with self._lock:
+            return dict(self._children)
+
+    def prune(self, keep) -> None:
+        """Drop children whose label value is not in ``keep`` — bounds
+        scrape cardinality to the versions currently loaded."""
+        keep = {str(k) for k in keep}
+        with self._lock:
+            for k in list(self._children):
+                if k not in keep:
+                    del self._children[k]
+
+    def value(self) -> float:
+        return sum(c.value() for c in self.children().values())
+
+    def samples(self) -> List[str]:
+        out: List[str] = []
+        for key, c in sorted(self.children().items()):
+            pair = f'{self.label}="{key}"'
+            for s in c.samples():
+                metric, val = s.rsplit(None, 1)
+                if "{" in metric:
+                    head, rest = metric.split("{", 1)
+                    out.append(f"{head}{{{pair},{rest} {val}")
+                else:
+                    out.append(f"{metric}{{{pair}}} {val}")
+        return out
+
+
 class MetricsRegistry:
     """Process-global named-metric store.  ``counter``/``gauge`` are
     get-or-create (idempotent by name); re-registering an fn-backed
@@ -148,6 +319,23 @@ class MetricsRegistry:
     def gauge(self, name: str, help: str = "",
               fn: Optional[Callable[[], float]] = None) -> Gauge:
         return self._get_or_create(Gauge, name, help, fn=fn)
+
+    def histogram(self, name: str, help: str = "",
+                  buckets: Sequence[float] = LATENCY_BUCKETS) -> Histogram:
+        return self._get_or_create(Histogram, name, help, buckets=buckets)
+
+    def labeled_counter(self, name: str, help: str = "",
+                        label: str = "model_version") -> LabeledFamily:
+        return self._get_or_create(LabeledFamily, name, help,
+                                   child_cls=Counter, label=label)
+
+    def labeled_histogram(self, name: str, help: str = "",
+                          label: str = "model_version",
+                          buckets: Sequence[float] = LATENCY_BUCKETS,
+                          ) -> LabeledFamily:
+        return self._get_or_create(LabeledFamily, name, help,
+                                   child_cls=Histogram, label=label,
+                                   buckets=buckets)
 
     # -- tracer mirror -------------------------------------------------
     def _mirror_target(self, n: str):
@@ -202,6 +390,12 @@ class MetricsRegistry:
             lines.extend(m.samples())
         return "\n".join(lines) + ("\n" if lines else "")
 
+    def snapshot(self) -> Dict[str, float]:
+        """{name: scalar value} view (histograms report their count)."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return {m.name: m.value() for m in metrics}
+
     def dump(self, path: str) -> None:
         with open(path, "w") as f:
             f.write(self.render())
@@ -210,23 +404,27 @@ class MetricsRegistry:
 registry = MetricsRegistry()
 
 
-def _compile_stat(kind: str) -> Callable[[], float]:
-    def read() -> float:
-        from .trace import compile_counts
+def _graph_captures() -> float:
+    from .trace import graph_captures
 
-        return float(compile_counts().get(kind, 0))
+    return float(graph_captures())
 
-    return read
+
+def _lazy_builds() -> float:
+    from .trace import compile_counts
+
+    return float(compile_counts().get("build", 0))
 
 
 def _install_default_collectors(reg: MetricsRegistry) -> None:
     """The port's compile analogue, read at render time."""
     reg.counter("lightgbm_tpu_cuda_graph_captures_total",
-                "CUDA graph captures (fused trees, mask-grower split searches)",
-                fn=_compile_stat("graph_capture"))
+                "CUDA graph captures (fused trees, mask-grower split searches, "
+                "serving buckets)",
+                fn=_graph_captures)
     reg.counter("lightgbm_tpu_lazy_builds_total",
                 "lazy builds of the CUDA kernel library and the native parser",
-                fn=_compile_stat("build"))
+                fn=_lazy_builds)
 
 
 _install_default_collectors(registry)

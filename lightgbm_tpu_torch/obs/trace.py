@@ -42,22 +42,35 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
-# the port's analogue of XLA compiles, by kind ("graph_capture", "build")
+# the port's analogue of XLA compiles, by kind: "build", "graph_capture"
+# (training graphs) and "graph_capture.<walk>" (a serving walk's bucket,
+# e.g. "graph_capture.serve.qpredict"); the server captures from its
+# warmup, swap and request threads at once
 _COMPILES: Dict[str, int] = {}
+_COMPILES_LOCK = threading.Lock()
 
 
 def note_compile(kind: str) -> None:
     """Count one CUDA graph capture or one lazy build (always on: one
-    dict update, on paths that cost milliseconds or more)."""
-    _COMPILES[kind] = _COMPILES.get(kind, 0) + 1
+    locked dict update, on paths that cost milliseconds or more)."""
+    with _COMPILES_LOCK:
+        _COMPILES[kind] = _COMPILES.get(kind, 0) + 1
 
 
 def total_compiles() -> int:
-    return sum(_COMPILES.values())
+    with _COMPILES_LOCK:
+        return sum(_COMPILES.values())
 
 
 def compile_counts() -> Dict[str, int]:
-    return dict(_COMPILES)
+    with _COMPILES_LOCK:
+        return dict(_COMPILES)
+
+
+def graph_captures() -> int:
+    """CUDA graph captures of every kind, training and serving."""
+    with _COMPILES_LOCK:
+        return sum(v for k, v in _COMPILES.items() if k.startswith("graph_capture"))
 
 
 class _NullSpan:

@@ -11,6 +11,9 @@ raw batch goes in row chunks that keep the (T, rows) tensors near 2^26
 elements.
 Decisions use the triple-float (hi, lo, lo2) compare ``_le3``, which
 reproduces the reference's float64 ``<=`` exactly on float32 hardware.
+``Booster.predict`` steps until every row sits on a leaf (a host read a
+step); the server's walk (serve/compilecache.py) gives ``_leaves_raw`` a
+static step count (``walk_levels``) so that a CUDA graph can hold it.
 The JAX package predicts through XLA with no Pallas kernel, and so does
 this module (plain torch).
 
@@ -79,6 +82,99 @@ class TreeArrays:
                    **_to_device(arrays, cls.FIELDS, device))
 
 
+class PackedTreeArrays:
+    """Stacked (T, M) node / (T, L) leaf numpy arrays under the JAX
+    package's ``TreeArrays.FIELDS`` names: the host record of a packed
+    predictor artifact (serve/artifact.py), binned planes included, so an
+    artifact written by either package loads in the other.  A tree with
+    one leaf has node 0 as (left=~0, right=~0)."""
+
+    FIELDS = (
+        "split_feature",  # (T, M) int32 — inner (binned) feature
+        "split_feature_real",  # (T, M) int32 — original feature
+        "threshold_bin",  # (T, M) int32
+        "threshold_real",  # (T, M) f32 hi plane
+        "threshold_real_lo",  # (T, M) f32 lo plane
+        "threshold_real_lo2",  # (T, M) f32 lo2 plane
+        "zero_bin",  # (T, M) int32
+        "default_bin_for_zero",  # (T, M) int32
+        "default_value_real",  # (T, M) f32 hi plane
+        "default_value_real_lo",  # (T, M) f32 lo plane
+        "default_value_real_lo2",  # (T, M) f32 lo2 plane
+        "is_categorical",  # (T, M) bool
+        "left_child",  # (T, M) int32  (>=0 node, <0 → leaf ~idx)
+        "right_child",  # (T, M) int32
+        "leaf_value",  # (T, L) f32 (post-shrinkage)
+    )
+
+    def __init__(self, **kw):
+        for f in self.FIELDS:
+            setattr(self, f, kw[f])
+
+    def validate(self) -> "PackedTreeArrays":
+        """Every field 2-D, (T, M) for the node planes and (T, L) for
+        ``leaf_value``; raises ValueError naming the first offending
+        field."""
+        t_m = None
+        for f in PackedTreeArrays.FIELDS:
+            shape = tuple(getattr(getattr(self, f), "shape", ()))
+            if len(shape) != 2:
+                raise ValueError(f"TreeArrays.{f} must be 2-D, got shape {shape}")
+            if f == "leaf_value":
+                if t_m is not None and shape[0] != t_m[0]:
+                    raise ValueError(f"TreeArrays.leaf_value has {shape[0]} trees but the "
+                                     f"node arrays have {t_m[0]}")
+            elif t_m is None:
+                t_m = shape
+            elif shape != t_m:
+                raise ValueError(f"TreeArrays.{f} has shape {shape}, expected {t_m} "
+                                 f"(T, M) like the other node arrays")
+        return self
+
+    def to_device(self, device) -> TreeArrays:
+        """The raw walk's tensors on ``device`` (linear planes included)."""
+        host = {f: getattr(self, f) for f in self.FIELDS}
+        linear = None
+        if isinstance(self, PackedLinearTreeArrays):
+            linear = _to_device({f: getattr(self, f) for f in self.LINEAR_FIELDS},
+                                self.LINEAR_FIELDS, device)
+        return TreeArrays(linear=linear, **_to_device(host, TreeArrays.FIELDS, device))
+
+
+class PackedLinearTreeArrays(PackedTreeArrays):
+    """``PackedTreeArrays`` and the (T, L, K) linear-leaf planes of a v3
+    artifact (JAX ``LinearTreeArrays``)."""
+
+    LINEAR_FIELDS = (
+        "leaf_feat_real",  # (T, L, K) int32 — raw-path gather index
+        "leaf_feat_valid",  # (T, L, K) f32 0/1 — padded-slot mask
+        "leaf_coeff",  # (T, L, K) f32 (post-shrinkage)
+        "leaf_const",  # (T, L) f32 (post-shrinkage)
+        "leaf_is_linear",  # (T, L) bool
+    )
+    FIELDS = PackedTreeArrays.FIELDS + LINEAR_FIELDS
+
+    def validate(self) -> "PackedLinearTreeArrays":
+        tlk = None
+        for f in ("leaf_feat_real", "leaf_feat_valid", "leaf_coeff"):
+            shape = tuple(getattr(getattr(self, f), "shape", ()))
+            if len(shape) != 3:
+                raise ValueError(f"LinearTreeArrays.{f} must be 3-D (T, L, K), "
+                                 f"got shape {shape}")
+            if tlk is None:
+                tlk = shape
+            elif shape != tlk:
+                raise ValueError(f"LinearTreeArrays.{f} has shape {shape}, expected "
+                                 f"{tlk} like the other coefficient planes")
+        PackedTreeArrays.validate(self)
+        for f in ("leaf_const", "leaf_is_linear"):
+            shape = tuple(getattr(getattr(self, f), "shape", ()))
+            if len(shape) != 2:
+                raise ValueError(f"LinearTreeArrays.{f} must be 2-D (T, L), "
+                                 f"got shape {shape}")
+        return self
+
+
 def leaf_outputs(leaves: torch.Tensor, leaf_value: torch.Tensor, linear, feat: str,
                  x_of) -> torch.Tensor:
     """(T, N) float32 output of each row's leaf in each tree: the leaf
@@ -105,9 +201,32 @@ def _row_chunks(n: int, T: int):
     return [(lo, min(n, lo + step)) for lo in range(0, n, step)] or [(0, 0)]
 
 
-def _leaves_raw(planes, trees: TreeArrays) -> torch.Tensor:
+def walk_levels(left_child: np.ndarray, right_child: np.ndarray) -> int:
+    """1 + the deepest split node's depth over stacked (T, M) child arrays
+    (``>= 0`` a node, ``< 0`` a leaf): the steps after which every row of
+    every tree sits on a leaf.  Padded slots are unreachable from node 0."""
+    left = np.asarray(left_child, np.int64)
+    right = np.asarray(right_child, np.int64)
+    t, m = left.shape
+    depth = np.full((t, m), -1, np.int64)
+    depth[:, 0] = 0
+    d = 0
+    while True:
+        cur = depth == d
+        if not cur.any():
+            return d
+        for child in (left, right):
+            ti, j = np.nonzero(cur & (child >= 0))
+            depth[ti, child[ti, j]] = d + 1
+        d += 1
+
+
+def _leaves_raw(planes, trees: TreeArrays, levels=None) -> torch.Tensor:
     """(T, N) int64 leaf of each row of the (hi, lo, lo2) feature planes in
-    each stacked tree."""
+    each stacked tree.  Without ``levels`` the walk steps until every row
+    sits on a leaf (a host read a step); with it, exactly ``levels`` steps
+    (at least ``walk_levels`` of the trees) and no read of the device, so
+    the walk can be captured in a CUDA graph: a finished row stays put."""
     dev = trees.leaf_value.device
     T = trees.leaf_value.shape[0]
     n = planes[0].shape[0]
@@ -117,7 +236,12 @@ def _leaves_raw(planes, trees: TreeArrays) -> torch.Tensor:
     def at(a, j):  # (T, M) node array at (T, N) node indices
         return a[tix, j]
 
-    while bool((node >= 0).any()):
+    def more(step):
+        return bool((node >= 0).any()) if levels is None else step < levels
+
+    step = 0
+    while more(step):
+        step += 1
         j = node.clamp(min=0)
         feat = at(trees.split_feature_real, j)
         v_hi, v_lo, v_lo2 = (torch.gather(x.expand(T, n, x.shape[1]), 2, feat[..., None])[..., 0]
@@ -173,10 +297,27 @@ def predict_raw(data: np.ndarray, trees: TreeArrays, num_class: int = 1) -> np.n
     float32 sum of each row's leaf value over the trees i with
     i % K == k (the model stores the K trees of an iteration in turn)."""
     def sums(leaves, planes):
-        vals = raw_leaf_outputs(leaves, planes[0], trees)
-        return torch.stack([vals[k::num_class].sum(dim=0) for k in range(num_class)])
+        return class_sums(raw_leaf_outputs(leaves, planes[0], trees), num_class)
 
     return _chunked_raw(data, trees, sums).double().cpu().numpy()
+
+
+# torch.sum over the trees (dim 0) on the CPU sums the columns of a
+# partial block of this many in another order, so a row's sum would
+# depend on how many rows share its batch; whole blocks sum alike
+_CPU_SUM_COLS = 128
+
+
+def class_sums(vals: torch.Tensor, num_class: int) -> torch.Tensor:
+    """(K, N) float32 sums of (T, N) tree outputs, class k over the trees
+    i with i % K == k.  On the CPU the columns are padded to whole blocks
+    of ``_CPU_SUM_COLS``, so a row's sum is the same in a batch of any
+    size (a served row's equals ``Booster.predict``'s)."""
+    n = vals.shape[1]
+    vals = vals.float()
+    if vals.device.type == "cpu" and n % _CPU_SUM_COLS:
+        vals = torch.nn.functional.pad(vals, (0, _CPU_SUM_COLS - n % _CPU_SUM_COLS))
+    return torch.stack([vals[k::num_class].sum(dim=0)[:n] for k in range(num_class)])
 
 
 BINNED_FIELDS = ("split_feature_inner", "threshold_bin", "zero_bin", "default_bin_for_zero",

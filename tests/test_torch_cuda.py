@@ -1153,3 +1153,147 @@ def test_cli_cache_and_valid_file_on_card(dev, tmp_path, monkeypatch):
     a, b = (open(f).read() for f in ("a.txt", "b.txt"))
     assert a[a.index("Tree=0"):a.index("feature importances")] == \
         b[b.index("Tree=0"):b.index("feature importances")]
+
+
+# ---- serving: one CUDA graph per row bucket (serve/compilecache.py)
+def _served_models():
+    """A binary model with NaN and zero values, a K=3 softmax one and a
+    linear-leaf one, trained on the CPU; their artifacts."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.serve import PredictorArtifact
+
+    X, y = _binary_data()
+    X = X.copy()
+    X[::9, 1] = np.nan
+    X[::11, 2] = 0.0
+    base = dict(num_leaves=31, learning_rate=0.2, verbose=-1)
+    runs = (dict(base, objective="binary"),
+            dict(base, objective="multiclass", num_class=3),
+            dict(base, objective="regression", linear_tree=True))
+    labels = (y, (X[:, 0] > 0.3).astype(np.float64) + (X[:, 1] > 0), X[:, 0] - X[:, 2])
+    arts = [PredictorArtifact.from_booster(lgt.train(p, lgt.Dataset(X, label=lab), 4,
+                                                     device="cpu"))
+            for p, lab in zip(runs, labels)]
+    return X, arts
+
+
+def _eager_walk(p, rows, raw_score=True):
+    """(K, n) float64 outputs of a PackedPredictor's walk called eagerly on
+    its device (no graph) over the pieces the predictor walks, each padded
+    to its bucket: the exact and linear walks through ops/predict, the
+    quantized through ops/qpredict."""
+    from lightgbm_tpu_torch.model.ensemble import split_hi_lo
+    from lightgbm_tpu_torch.ops.predict import _leaves_raw, class_sums, raw_leaf_outputs
+    from lightgbm_tpu_torch.ops.qpredict import qpredict_raw, quantize_data
+
+    r = p.raw
+    k = r.num_class_arrays
+    rows = np.asarray(rows, np.float64)[:, :r.num_features]
+    step = r._piece_rows()
+    outs = []
+    for lo in range(0, len(rows), step):
+        piece = rows[lo:lo + step]
+        n = len(piece)
+        piece = np.pad(piece, ((0, r.bucket(n) - n), (0, 0)))
+        if p.quantized:
+            a = r._arrays
+            codes = quantize_data(piece, a.qbin_edges, a.qbin_offsets, a.feature_flags)
+            raw = qpredict_raw(torch.from_numpy(codes).to(r.device), r.trees, r.levels, k)
+        else:
+            planes = [torch.from_numpy(x).to(r.device) for x in split_hi_lo(piece)]
+            leaves = _leaves_raw(planes, r.trees, levels=r.levels)
+            raw = class_sums(raw_leaf_outputs(leaves, planes[0], r.trees), k)
+        if not raw_score and r.objective is not None:
+            raw = r.objective.convert_output(raw)
+        outs.append(raw[:, :n].double().cpu().numpy())
+    return np.concatenate(outs, axis=1)
+
+
+@pytest.mark.parametrize("flavor", ["exact", "quantized", "multiclass", "linear"])
+def test_serving_graphs_equal_eager_at_every_bucket(dev, flavor):
+    """Each bucket's replay equals the eager walk on the card bit for bit
+    (raw and converted), and a warmed predictor captures nothing more
+    over mixed sizes, pieces past the largest bucket included."""
+    from lightgbm_tpu_torch.obs.trace import total_compiles
+    from lightgbm_tpu_torch.serve import PackedPredictor
+    from lightgbm_tpu_torch.serve.compilecache import bucket_ladder
+
+    X, arts = _served_models()
+    art = {"exact": arts[0], "quantized": arts[0].quantize(), "multiclass": arts[1],
+           "linear": arts[2]}[flavor]
+    graphs = PackedPredictor(art, device=dev)
+    stats = graphs.warmup(512)
+    assert stats["compiles"] == len(bucket_ladder(512)) == len(graphs.raw._graphs)
+    c0 = total_compiles()
+    for n in [1, 7, 8, 9, 100, 255, 256, 257, 512, 513, 2000]:
+        for raw_score in (True, False):
+            a = graphs.raw.predict_scores(X[:n], raw_score=raw_score)
+            np.testing.assert_array_equal(a, _eager_walk(graphs, X[:n], raw_score))
+    assert total_compiles() == c0
+    cpu = PackedPredictor(art, device="cpu").predict(X[:600])
+    np.testing.assert_allclose(graphs.predict(X[:600]), cpu, rtol=1e-6, atol=1e-7)
+
+
+def test_serving_same_shape_swap_captures_nothing(dev):
+    """A same-shape retrain swapped into a warmed slot: in place, 0
+    captures, the new model's predictions from the old buffers."""
+    from lightgbm_tpu_torch.serve import PackedPredictor, PredictorArtifact, SwappablePredictor
+
+    X, arts = _served_models()
+    art = arts[0]
+    fields = {f: np.array(getattr(art.arrays, f)) for f in type(art.arrays).FIELDS}
+    fields["leaf_value"] = (fields["leaf_value"] * np.float32(1.1)).astype(np.float32)
+    new = PredictorArtifact(type(art.arrays)(**fields), art.meta)
+    slot = SwappablePredictor(PackedPredictor(art, device=dev), version=1)
+    slot.warmup(256)
+    live = slot.predictor
+    st = slot.swap_to(new, 2, warmup_max_rows=256)
+    assert st["in_place"] and st["new_compiles"] == 0 and slot.predictor is live
+    out, ver = slot.predict(X[:300], raw_score=True)
+    assert ver == 2
+    np.testing.assert_array_equal(out, _eager_walk(PackedPredictor(new, device=dev), X[:300])[0])
+
+
+def test_serving_swap_to_another_shape_under_load(dev):
+    """A swap to another shape class (binary -> K=3) while a thread keeps
+    replaying the live graphs: the new ladder is captured on its own
+    stream beside them (new_compiles = the bucket count), no request
+    fails, and each answer is its own version's."""
+    import threading
+    import time
+
+    from lightgbm_tpu_torch.serve import PackedPredictor, SwappablePredictor
+    from lightgbm_tpu_torch.serve.compilecache import bucket_ladder
+
+    X, arts = _served_models()
+    want = {1: PackedPredictor(arts[0], device="cpu").predict(X[:700], raw_score=True),
+            2: PackedPredictor(arts[1], device="cpu").predict(X[:700], raw_score=True)}
+    slot = SwappablePredictor(PackedPredictor(arts[0], device=dev), version=1)
+    slot.warmup(1024)
+    answers, errors, stop = [], [], threading.Event()
+
+    def client():
+        rng = np.random.default_rng(3)
+        while not stop.is_set():
+            n = int(rng.integers(1, 700))
+            try:
+                answers.append((n,) + slot.predict(X[:n], raw_score=True))
+            except Exception as e:  # noqa: BLE001 - every failure is reported
+                errors.append(repr(e))
+
+    th = threading.Thread(target=client)
+    th.start()
+    try:
+        st = slot.swap_to(arts[1], 2, warmup_max_rows=1024)
+        deadline = time.monotonic() + 30
+        while not any(v == 2 for _, _, v in answers[-5:]) and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        th.join()
+    assert not errors, errors[:3]
+    assert not st["in_place"] and st["new_compiles"] == len(bucket_ladder(1024))
+    versions = {v for _, _, v in answers}
+    assert versions == {1, 2}
+    for n, out, v in answers:
+        np.testing.assert_allclose(out, want[v][:n], rtol=1e-6, atol=1e-6)

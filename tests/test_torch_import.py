@@ -25,13 +25,17 @@ def test_new_modules_pull_in_no_optional_packages():
             "lightgbm_tpu_torch.boosting.dart, lightgbm_tpu_torch.boosting.pred_early_stop, "
             "lightgbm_tpu_torch.engine, lightgbm_tpu_torch.callback, lightgbm_tpu_torch.cli, "
             "lightgbm_tpu_torch.data, lightgbm_tpu_torch.native, lightgbm_tpu_torch.pmml, "
-            "lightgbm_tpu_torch.plotting, lightgbm_tpu_torch.convert_model; "
+            "lightgbm_tpu_torch.plotting, lightgbm_tpu_torch.convert_model, "
+            "lightgbm_tpu_torch.serve.server; "
+            "from lightgbm_tpu_torch.serve import PackedPredictor, PredictorArtifact; "
             "X = np.random.default_rng(0).standard_normal((300, 4)); y = (X[:, 0] > 0) * 1.0; "
             "p = dict(objective='binary', num_leaves=4, verbose=-1); "
             "b = lgt.train(p, lgt.Dataset(X, label=y), 2, device='cpu'); "
             "lgt.cv(p, lgt.Dataset(X, label=y), 1, nfold=2, device='cpu'); "
             "lgt.LGBMClassifier(n_estimators=1, device='cpu').fit(X, y).predict(X); "
             "b.predict(X, pred_leaf=True); "
+            "PackedPredictor(PredictorArtifact.from_booster(b, quantized=True, "
+            "leaf_dtype='bfloat16'), device='cpu').predict(X); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'lightgbm_tpu', 'pandas', 'scipy', 'sklearn', 'matplotlib', 'graphviz', "
             "'triton')]; "
@@ -52,7 +56,8 @@ def test_import_pulls_in_no_jax():
             "lightgbm_tpu_torch.ops.qhist, lightgbm_tpu_torch.boosting.goss, "
             "lightgbm_tpu_torch.ckpt, lightgbm_tpu_torch.obs.report, "
             "lightgbm_tpu_torch.obs.metrics, lightgbm_tpu_torch.obs.audit, "
-            "lightgbm_tpu_torch.utils.profiling; "
+            "lightgbm_tpu_torch.utils.profiling, lightgbm_tpu_torch.serve.server, "
+            "lightgbm_tpu_torch.ops.qpredict; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.')]; "
             "assert not bad, bad; print('ok')")
