@@ -177,6 +177,26 @@ result line):
      live graphs; SIGTERM with two requests
      in flight: /readyz 503, both answered within 1e-6 of the 1,000-tree
      model, exit 0.  Serving launches none of the ten kernels;
+  5i. "higgs-10.5M-ooc" (phase_ooc, after 5d): the Higgs cell's binned
+     data and parameters on the mask grower with the bin matrix
+     streamed (out_of_core=true, ~64 MiB chunks through the pinned
+     ring), float and quantized, 3 iterations each, model text
+     byte-identical to the resident mask grower's; then
+     out_of_core=auto with LIGHTGBM_TPU_DEVICE_BUDGET below the packed
+     bins (1 iteration, routing must engage); s/iter, streamed GB/s,
+     overlap_pct, passes and chunks a tree, peak memory against the
+     resident run's, a 256 MiB pinned copy's GB/s and the pass's bound,
+     the staging copy's GB/s at 1 and 8 threads.  In phase 3 B8/B9's
+     carry mode at --rows x 28 folded over the plan's chunks against
+     one resident launch and the plain carry (phase_kernels_carry);
+  5j. "higgs-10.5M-fleet" (phase_fleet, after 5h): the main model on two
+     `python -m lightgbm_tpu_torch serve` replicas sharing a registry,
+     behind `python -m lightgbm_tpu_torch fleet backends=...`; 4
+     closed-loop clients (1-64 held-out rows a request) for 6 s while a
+     retrain is published through the proxy and a replica SIGKILLed (0
+     failed, each answer its version's, the survivor on v2); then the
+     replica restarted with a 300 ms LIGHTGBM_TPU_SERVE_FAULT delay (its
+     breaker opens, hedges win, 0 failed);
   4b. (after the tree strategies, phase_small_ckpt) resume on the card:
      K=7 on 50,000 Covertype-shaped rows (31 leaves, 4 iterations), GOSS
      (6, learning_rate 0.5), DART (6) and quantized binary (5) on
@@ -190,7 +210,7 @@ result line):
      54 columns: 10 integer numeric, a 4-column and a 40-column one-hot,
      7 classes at Covertype's counts), the first 464,809 train and the
      last 116,203 are held out; objective=multiclass, the Higgs cell's
-     training parameters, 20 iterations; prints s/iter,
+     training parameters, 12 iterations (20 before PR 15); prints s/iter,
      held-out multi_logloss and accuracy, peak memory, launches and the
      idle share (with update_multi_and_hists' device ms a launch and an
      iteration, as higgs-10.5M's window gives update_and_root_hist's),
@@ -201,8 +221,8 @@ result line):
      hist_dyn off) against the tree of update_multi_and_hists's class-0
      histogram.
   6b. "covertype-581k-goss": the covertype cell's data and parameters with
-     boosting=goss (top_rate 0.2, other_rate 0.1) on the mask grower, 20
-     iterations (10 warm-up, 10 sampled); prints s/iter of each kind,
+     boosting=goss (top_rate 0.2, other_rate 0.1) on the mask grower, 14
+     iterations (10 warm-up, 4 sampled; 20 before PR 15); prints s/iter of each kind,
      held-out multi_logloss and accuracy, hist_segment's launches, and
      a one-iteration profiler window.
   6c. "mslr-web10k-shaped": lambdarank on the mask grower at MSLR-WEB10K
@@ -225,6 +245,7 @@ kernel; the last line is {"ok": true, "device": {...}}.
 
 import argparse
 import collections
+import io
 import json
 import os
 import shutil
@@ -281,6 +302,9 @@ SMALL_SAMPLED_ITERS = 6  # the small bagging phase: bagging_freq=5 redraws at it
 QUANT_PARAMS = dict(TRAIN_PARAMS, use_quantized_grad=True)
 COV_GOSS_PARAMS = dict(COV_PARAMS, boosting="goss", top_rate=0.2, other_rate=0.1)
 MASK_ITERS = 20
+# covertype-581k-goss: 10 warm-up iterations (1 / learning_rate) and 4
+# sampled (20 before PR 15, cut to make room for phase_ooc and phase_fleet)
+COV_GOSS_ITERS = 14
 # the regression objectives of B1 and B10 (csrc/common.cuh ObjKind) with
 # the parameters their phases train with: huber_delta 0.3 puts the Higgs
 # 0/1 targets' rows on both sides of the delta; poisson is the last kind
@@ -313,7 +337,7 @@ COV_CLASS_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
 COV_NUMERIC = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7117),
                (0, 254), (0, 254), (0, 254), (0, 7173))
 COV_TRAIN_ROWS = 464_809  # the first 80 %; the last 116,203 are held out
-COV_ITERS = 20
+COV_ITERS = 12  # 20 before PR 15 (cut to make room for phase_ooc and phase_fleet)
 COV_SMALL_ROWS, COV_SMALL_ITERS = 50_000, 2  # the multiclass card-vs-CPU phase
 # the API's paths: LGBMClassifier's arguments for TRAIN_PARAMS'
 # config, and the depth of each path
@@ -2555,7 +2579,7 @@ def phase_covertype_goss(ds, Xv, yv, dev):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        bst = lgt.train(COV_GOSS_PARAMS, ds, MASK_ITERS, device=dev)
+        bst = lgt.train(COV_GOSS_PARAMS, ds, COV_GOSS_ITERS, device=dev)
         sync(dev)
         return bst, time.perf_counter() - t
 
@@ -2568,7 +2592,7 @@ def phase_covertype_goss(ds, Xv, yv, dev):
     ll = multi_logloss(yv, prob)
     acc = float(np.mean(np.argmax(prob, axis=1) == yv))
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
-    log(f"covertype-581k-goss: {MASK_ITERS} iterations ({bst.num_trees} trees) in {wall:.2f} "
+    log(f"covertype-581k-goss: {COV_GOSS_ITERS} iterations ({bst.num_trees} trees) in {wall:.2f} "
         f"s; s/iter warm-up {s_warm:.4f} (median of iterations 1-{warm - 1}), sampled "
         f"{s_samp:.4f} (median of iterations {warm}-{len(its) - 1}); held-out multi_logloss "
         f"{ll:.6f} (prior entropy {prior_entropy():.6f}), accuracy {acc:.6f}; peak device "
@@ -3625,6 +3649,444 @@ def phase_serve(higgs, main_text, main_auc, small_texts, cov_rows, dev):
     return res
 
 
+# ----------------------------------------------------------------------
+# out of core (phase_ooc) and the serving fleet (phase_fleet)
+OOC_ITERS = 3  # each streamed run and its resident twin
+OOC_AUTO_ITERS = 1  # the run that LIGHTGBM_TPU_DEVICE_BUDGET routes
+FLEET_CLIENTS, FLEET_MAX_ROWS = 4, 64
+FLEET_SECONDS, FLEET_FAULT_SECONDS = 6.0, 5.0
+FLEET_FAULT = "delay:300"  # the restarted replica's LIGHTGBM_TPU_SERVE_FAULT
+# with two replicas the fleet median is the mean of their two EWMAs, so a
+# slow replica's EWMA never exceeds twice it: the latency breaker's k
+# (3 by default) must be below 2 to open on one of two
+FLEET_BREAKER_K = 1.5
+
+
+def pinned_h2d_gbps(dev, mib=256, reps=5):
+    """GB/s of one plain copy of ``mib`` MiB from pinned host memory to the
+    card (the median of ``reps`` between two CUDA events)."""
+    import torch
+
+    if dev.type != "cuda":
+        return float("nan")
+    h = torch.empty(mib << 20, dtype=torch.uint8, pin_memory=True)
+    d = torch.empty_like(h, device=dev)
+    ms = time_cuda(lambda: d.copy_(h, non_blocking=True), reps)
+    del h, d
+    return (mib << 20) / (ms / 1e3) / 1e9
+
+
+def staging_gbps(binned, dev, rows=2_400_256):
+    """GB/s of the ring's staging copy of ``rows`` rows of ``binned`` into
+    a pinned buffer (data/prefetch.py ``_stage``), by thread count: the
+    median of 5."""
+    import torch
+
+    from lightgbm_tpu_torch.data import prefetch
+
+    if dev.type != "cuda":
+        return {}
+    src = binned[:rows]
+    dst = torch.empty(src.shape, dtype=torch.uint8, pin_memory=True).numpy()
+    out = {}
+    for k in (1, prefetch.STAGING_THREADS):
+        ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            prefetch._stage(dst, src, threads=k)
+            ms.append(time.perf_counter() - t)
+        out[k] = src.nbytes / float(np.median(ms)) / 1e9
+    return out
+
+
+def phase_kernels_carry(rows, chunk_rows, dev, seed=19):
+    """B8 and B9's carry mode at the higgs width: rows x 28 features, 64
+    bins, 60 % of the rows selected, folded over the out-of-core plan's
+    chunks into one carry.  Finalized it must equal one resident launch
+    over all the rows (B9 exactly, B8 after its single rounding), and the
+    carry must equal the plain version's carry.  Times a carry-mode launch
+    over one chunk against its plain version and bound.  Returns
+    {name: {carry_*}}."""
+    import torch
+
+    from lightgbm_tpu_torch.data.prefetch import ChunkPlan
+    from lightgbm_tpu_torch.ops import histogram as th
+
+    F, B = 28, 64
+    rng = np.random.default_rng(seed)
+    bins = torch.from_numpy(rng.integers(0, B, size=(rows, F), dtype=np.uint8)).to(dev)
+    g = torch.from_numpy(rng.standard_normal(rows, dtype=np.float32)).to(dev)
+    h = torch.from_numpy(np.abs(rng.standard_normal(rows, dtype=np.float32))).to(dev)
+    qg = torch.from_numpy(rng.integers(-15, 16, rows).astype(np.int16)).to(dev)
+    qh = torch.from_numpy(rng.integers(1, 16, rows).astype(np.int16)).to(dev)
+    sel = torch.from_numpy((rng.random(rows) < 0.6).astype(np.float32)).to(dev)
+    plan = ChunkPlan(rows, chunk_rows)
+    W = th.num_words(F, 4)
+    out = {}
+    for quantized in (False, True):
+        P, kern, _ = hist_rows(bins, *((qg, qh) if quantized else (g, h)), sel, quantized)
+        name = kern.__name__
+        whole = kern(P, 0, rows, F, B)
+        carry = th.new_carry(F, B, quantized, dev)
+        plain = th.new_carry(F, B, quantized, dev)
+        for lo, hi in plan.bounds:
+            th.accumulate_histogram(carry, P, lo, hi, F, B)
+            th._segment_hist_ref(P, lo, hi, F, B, 4, 8, None, quantized, carry=plain)
+        folded = th.finalize_histogram(carry)
+        sync(dev)
+        equal_whole = bool(torch.equal(folded, whole))
+        # against the plain carry: B9 exactly; B8's float64 sums of
+        # millions of rows in another order differ in their last bits, so
+        # its rounded histogram is held as every B8 is (check_hist)
+        err = check_mask_hist(f"{name} carry", folded, th.finalize_histogram(plain))
+        equal_plain = bool(torch.equal(carry, plain.to(carry.dtype)))
+        lo, hi = plan.bounds[0]
+        nsel = int(sel[lo:hi].sum())
+        one = th.new_carry(F, B, quantized, dev)
+        ms = burst_ms(lambda: th.accumulate_histogram(one, P, lo, hi, F, B))
+        pms = time_cuda(lambda: th._segment_hist_ref(P, lo, hi, F, B, 4, 8, None, quantized,
+                                                     carry=one), 3)
+        work = hist_work(hi - lo, nsel, W, F, B)
+        work["bytes"] += F * B * 3 * (4 if quantized else 8)  # the carry read and written
+        bound = finish_bounds({"x": work})["x"]
+        out[name] = dict(carry_ms=ms, carry_plain_ms=pms, carry_bound_ms=bound["bound_ms"],
+                         carry_chunks=plan.num_chunks, carry_equal_whole=equal_whole,
+                         carry_equal_plain=equal_plain, carry_max_abs_err=err)
+        log(f"kernel {name} carry mode at {rows} x {F}, {plan.num_chunks} chunks of "
+            f"{chunk_rows}: folded == one resident launch {equal_whole}, carry bit-equal to "
+            f"the plain carry {equal_plain}; one chunk ({nsel} rows selected) {ms:.4f} ms, "
+            f"plain {pms:.2f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        assert equal_whole, f"{name}: the folded carry differs from one resident launch"
+        assert equal_plain or not quantized, f"{name}: the carry differs from the plain one"
+        del P
+    return out
+
+
+def phase_ooc(ds, dev):
+    """"higgs-10.5M-ooc": the Higgs cell's binned data and parameters (255
+    leaves, max_bin 63) on the mask grower with the bin matrix streamed
+    (out_of_core=true, ooc_chunk_rows on auto: ~64 MiB chunks), float and
+    quantized, OOC_ITERS iterations each, against the resident mask
+    grower's run of the same parameters (LIGHTGBM_TPU_PGROW=0): the model
+    text byte-identical.  Then out_of_core=auto with
+    LIGHTGBM_TPU_DEVICE_BUDGET one byte below the packed bins: routing
+    engages and gives the resident text.  Prints s/iter, the streamed
+    GB/s, overlap_pct, passes and chunks a tree, peak device memory
+    against the resident run's, and a plain 256 MiB pinned copy's GB/s
+    with the pass's bound from it.  Returns the streamed paths' launch
+    counts and the numbers."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+
+    res = {"h2d_pinned_gbps": pinned_h2d_gbps(dev)}
+    binned = ds.construct(TRAIN_PARAMS)
+    res["staging_gbps"] = staging_gbps(np.asarray(binned.binned), dev)
+    packed = int(binned.num_data) * int(binned.num_features) * int(binned.binned.dtype.itemsize)
+    counts = []
+
+    def run(params, iters):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        bst = lgt.train(params, ds, iters, device=dev)
+        sync(dev)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+        return bst, time.perf_counter() - t, peak
+
+    env = {k: os.environ.get(k) for k in ("LIGHTGBM_TPU_PGROW", "LIGHTGBM_TPU_DEVICE_BUDGET",
+                                          "LIGHTGBM_TPU_OOC")}
+    os.environ["LIGHTGBM_TPU_PGROW"] = "0"
+    os.environ.pop("LIGHTGBM_TPU_OOC", None)
+    try:
+        for kind, params, kernel in (("float", TRAIN_PARAMS, "hist_segment"),
+                                     ("quantized", QUANT_PARAMS, "hist_segment_q")):
+            rb, r_wall, r_peak = run(params, OOC_ITERS)
+            assert rb.boosting.ooc is None and rb.boosting.ptrainer is None
+            want, r_its = rb.model_to_string(), rb.boosting.iter_seconds
+            del rb
+            (ob, o_wall, o_peak), c = driven(f"higgs-10.5M-ooc {kind}", lambda: run(
+                dict(params, out_of_core="true"), OOC_ITERS), (kernel,))
+            counts.append(c)
+            ooc = ob.boosting.ooc
+            st = ooc.stats.as_dict()
+            its = ob.boosting.iter_seconds
+            passes = st["passes"] / OOC_ITERS
+            pass_bytes = st["bytes"] / st["passes"]
+            pass_ms = 1e3 * sum(its) / st["passes"]
+            r = dict(s_iter=float(np.median(its[1:])), first_iter_s=its[0], wall_s=o_wall,
+                     resident_s_iter=float(np.median(r_its[1:])), resident_wall_s=r_wall,
+                     plan=ooc.plan.fingerprint(), depth=ooc.depth,
+                     passes_a_tree=passes, chunks_a_tree=st["chunks"] / OOC_ITERS,
+                     streamed_gbps=st["bytes"] / sum(its) / 1e9,
+                     copy_gbps=st["bytes"] / st["copy_s"] / 1e9 if st["copy_s"] else None,
+                     overlap_pct=st["overlap_pct"], fetch_s=st["fetch_s"],
+                     stall_s=st["stall_s"], pass_ms=pass_ms,
+                     pass_bound_ms=pass_bytes / (res["h2d_pinned_gbps"] * 1e9) * 1e3,
+                     peak_gib=o_peak, resident_peak_gib=r_peak,
+                     peak_inflight=st["peak_inflight"],
+                     launches=c[kernel], same_text=ob.model_to_string() == want)
+            res[kind] = r
+            log(f"higgs-10.5M-ooc {kind}: {json.dumps(r)}")
+            assert r["same_text"], f"the streamed {kind} model differs from the resident one"
+            assert st["peak_inflight"] <= ooc.depth
+            del ob
+        # auto routing past a device budget just below the packed bins
+        rb, _, _ = run(TRAIN_PARAMS, OOC_AUTO_ITERS)
+        want = rb.model_to_string()
+        del rb
+        os.environ["LIGHTGBM_TPU_DEVICE_BUDGET"] = str(packed - 1)
+        (ab, a_wall, _), c = driven("higgs-10.5M-ooc auto", lambda: run(
+            dict(TRAIN_PARAMS, out_of_core="auto"), OOC_AUTO_ITERS), ("hist_segment",))
+        counts.append(c)
+        res["auto"] = dict(budget=packed - 1, packed_bytes=packed,
+                           engaged=ab.boosting.ooc is not None, wall_s=a_wall,
+                           chunk_rows=ab.boosting.ooc.plan.chunk_rows,
+                           same_text=ab.model_to_string() == want)
+        log(f"higgs-10.5M-ooc auto: {json.dumps(res['auto'])}")
+        assert res["auto"]["engaged"] and res["auto"]["same_text"], res["auto"]
+        del ab
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log("higgs-10.5M-ooc: " + json.dumps(res))
+    return counts, res
+
+
+def _gpu_used_mib():
+    """The card's memory.used in MiB, as nvidia-smi reads it (its
+    per-process table names no process inside a container)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def _closed_loop(port, X, exp, seconds, seed, clients=FLEET_CLIENTS, on_tick=None):
+    """``clients`` threads send requests of 1-FLEET_MAX_ROWS rows of ``X``
+    (random offsets from ``seed``) for ``seconds``; each answer must carry
+    one version and equal that version's predictions ``exp[v]`` within
+    1e-6.  ``on_tick(elapsed)`` runs on the caller's thread meanwhile.
+    Returns (answers by version, failures, latencies ms, rows, wall)."""
+    import threading
+
+    lock = threading.Lock()
+    versions, fails, lat, nrows = collections.Counter(), [], [], [0]
+    stop = time.monotonic() + seconds
+
+    def client(k):
+        rng = np.random.default_rng(seed + k)
+        while time.monotonic() < stop:
+            n = int(rng.integers(1, FLEET_MAX_ROWS + 1))
+            a = int(rng.integers(0, len(X) - n))
+            t = time.perf_counter()
+            try:
+                code, hdr, body = _http(port, "/predict", _jsonl(X[a:a + n]), timeout=60)
+            except OSError as e:
+                code, hdr, body = -1, {}, repr(e).encode()
+            ms = 1e3 * (time.perf_counter() - t)
+            err = None
+            if code != 200:
+                err = (code, body[:200])
+            else:
+                v = int(hdr.get("X-Model-Version", -1))
+                if v not in exp:
+                    err = ("version", v)
+                elif np.abs(_answers(body) - exp[v][a:a + n]).max() > 1e-6:
+                    err = ("answer", v)
+            with lock:
+                lat.append(ms)
+                if err:
+                    fails.append(err)
+                else:
+                    versions[v] += 1
+                    nrows[0] += n
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    for th in threads:
+        th.start()
+    while any(th.is_alive() for th in threads):
+        if on_tick is not None:
+            on_tick(time.perf_counter() - t0)
+        time.sleep(0.05)
+    for th in threads:
+        th.join()
+    return dict(versions), fails, lat, nrows[0], time.perf_counter() - t0
+
+
+def _wait_http(port, path, proc, deadline_s, t0):
+    """Seconds from ``t0`` until GET ``path`` answers 200."""
+    while True:
+        try:
+            if _http(port, path, timeout=5)[0] == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if proc.poll() is not None or time.perf_counter() - t0 > deadline_s:
+            raise RuntimeError(f"port {port} never answered {path} (exit {proc.poll()})")
+        time.sleep(0.05)
+
+
+def phase_fleet(higgs, main_text, dev):
+    """"higgs-10.5M-fleet": the main model (20 trees x 255 leaves) served by
+    two `python -m lightgbm_tpu_torch serve` replicas on the one card,
+    sharing a registry seeded with it, behind `python -m
+    lightgbm_tpu_torch fleet backends=...`.  FLEET_CLIENTS closed-loop
+    clients send requests of 1-FLEET_MAX_ROWS held-out rows for
+    FLEET_SECONDS; meanwhile a same-shape retrain (leaf values x 1.1) is
+    published through the proxy's /models and one replica is SIGKILLed:
+    0 failed requests, every answer stamped with one version and within
+    1e-6 of that version's predictions, the survivor on v2.  Then the
+    killed replica is restarted on its port with LIGHTGBM_TPU_SERVE_FAULT
+    = FLEET_FAULT: its breaker opens (/fleet/stats) and hedged requests
+    carry the traffic, again with 0 failed.  Prints client p50/p99 and
+    rows/s through the proxy, each replica's start (/healthz) and ready
+    (/readyz) seconds and device memory (the growth of nvidia-smi's
+    memory.used over both, halved, and each replica's own PyTorch
+    peak)."""
+    import signal
+
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.predict import predict_raw
+    from lightgbm_tpu_torch.serve import PredictorArtifact
+    from lightgbm_tpu_torch.serve.fleet import _free_ports
+    from lightgbm_tpu_torch.serve.registry import ModelRegistry
+
+    _, Xv, _ = higgs
+    X = np.asarray(Xv, np.float64)
+    bst = lgt.Booster(model_str=main_text, device=dev)
+    art = PredictorArtifact.from_booster(bst)
+    retrain = _scaled_artifact(art, 1.1)
+    sraw = torch.as_tensor(predict_raw(X, retrain.arrays.to_device(dev)), dtype=torch.float32,
+                           device=dev)
+    exp = {1: bst.predict(X),
+           2: bst.boosting.objective.convert_output(sraw).double().cpu().numpy()[0]}
+    work = os.path.join(HERE, "build", "chip_fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    reg = os.path.join(work, "registry")
+    ModelRegistry(reg).publish(art)
+    ports = _free_ports(3)
+    serve_args = [f"registry={reg}", "registry_poll_ms=100", "max_queue_rows=65536"] + (
+        ["device=cpu"] if dev.type == "cpu" else [])
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("LIGHTGBM_TPU_SERVE_FAULT", None)
+    procs, logs = {}, {}
+
+    def start(name, argv, extra_env=None):
+        f = open(os.path.join(work, f"{name}.log"), "w")
+        logs[name] = f
+        procs[name] = subprocess.Popen([sys.executable, "-m", "lightgbm_tpu_torch"] + argv,
+                                       cwd=work, env=dict(env, **(extra_env or {})), stdout=f,
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    res = {"replicas": {}}
+    try:
+        used0 = _gpu_used_mib() if dev.type == "cuda" else None
+        t0 = time.perf_counter()
+        for i in (0, 1):
+            start(f"r{i}", ["serve", f"port={ports[i]}"] + serve_args)
+        backends = ",".join(f"127.0.0.1:{p}" for p in ports[:2])
+        start("proxy", ["fleet", f"backends={backends}", f"port={ports[2]}",
+                        "health_poll_ms=200", "policy=rr", f"breaker_k={FLEET_BREAKER_K}"])
+        for i in (0, 1):
+            p = procs[f"r{i}"]
+            res["replicas"][f"r{i}"] = dict(start_s=_wait_http(ports[i], "/healthz", p, 240, t0),
+                                            ready_s=_wait_http(ports[i], "/readyz", p, 240, t0))
+        res["proxy_start_s"] = _wait_http(ports[2], "/healthz", procs["proxy"], 120, t0)
+        for _ in range(100):  # the proxy's prober has found both
+            if json.loads(_http(ports[2], "/fleet/stats")[2])["healthy"] == 2:
+                break
+            time.sleep(0.1)
+        if used0 is not None:  # the card's memory.used grew by both replicas' contexts
+            res["replica_device_mib_each"] = (_gpu_used_mib() - used0) / 2
+        for i in (0, 1):
+            st = json.loads(_http(ports[i], "/stats")[2])
+            res["replicas"][f"r{i}"]["torch_peak_mib"] = round(st["device_peak_bytes"] / 2**20, 2)
+        log(f"fleet replicas: {json.dumps(res)}")
+
+        # a same-shape retrain through the proxy, then a SIGKILL
+        events = {}
+
+        def tick(t):
+            if t > 1.5 and "published" not in events:
+                buf = io.BytesIO()
+                retrain.save_to_bytes(buf)
+                code, _, body = _http(ports[2], "/models", buf.getvalue())
+                events["published"] = (round(t, 3), code, json.loads(body).get("version"))
+            if t > 3.0 and "killed" not in events:
+                procs["r0"].send_signal(signal.SIGKILL)
+                events["killed"] = round(t, 3)
+
+        versions, fails, lat, nrows, wall = _closed_loop(ports[2], X, exp, FLEET_SECONDS, 100,
+                                                         on_tick=tick)
+        procs["r0"].wait(timeout=60)
+        surv = json.loads(_http(ports[1], "/stats")[2])
+        res["swap_and_kill"] = dict(
+            clients=FLEET_CLIENTS, requests=len(lat), rows=nrows, failed=len(fails),
+            versions=versions, published=events.get("published"), killed_at=events.get("killed"),
+            survivor_version=surv["model_version"], wall_s=round(wall, 3),
+            rows_per_s=round(nrows / wall, 1),
+            latency_p50_ms=round(float(np.percentile(lat, 50)), 3),
+            latency_p99_ms=round(float(np.percentile(lat, 99)), 3))
+        log(f"fleet swap and kill: {json.dumps(res['swap_and_kill'])}")
+        assert not fails, f"failed requests: {fails[:5]}"
+        assert events["published"][2] == 2 and 2 in versions, res["swap_and_kill"]
+        assert surv["model_version"] == 2
+
+        # the killed replica back on its port, wounded: every predict late
+        t2 = time.perf_counter()
+        start("r0_fault", ["serve", f"port={ports[0]}"] + serve_args,
+              {"LIGHTGBM_TPU_SERVE_FAULT": FLEET_FAULT})
+        restart = dict(start_s=_wait_http(ports[0], "/healthz", procs["r0_fault"], 240, t2),
+                       ready_s=_wait_http(ports[0], "/readyz", procs["r0_fault"], 240, t2))
+        addr = f"127.0.0.1:{ports[0]}"
+        for _ in range(100):  # the proxy's prober restores it
+            st = json.loads(_http(ports[2], "/fleet/stats")[2])
+            if all(b["healthy"] for b in st["backends"]):
+                break
+            time.sleep(0.1)
+        picked0 = next(b for b in st["backends"] if b["addr"] == addr)["requests"]
+        versions, fails, lat, nrows, wall = _closed_loop(ports[2], X, {2: exp[2]},
+                                                         FLEET_FAULT_SECONDS, 200)
+        st = json.loads(_http(ports[2], "/fleet/stats")[2])
+        wounded = next(b for b in st["backends"] if b["addr"] == addr)
+        res["fault"] = dict(
+            spec=FLEET_FAULT, restart=restart, requests=len(lat), failed=len(fails),
+            versions=versions, breaker=wounded["breaker"],
+            wounded_attempts=wounded["requests"] - picked0,
+            hedges=st["hedges"], open_breakers=st["open_breakers"],
+            rows_per_s=round(nrows / wall, 1),
+            latency_p50_ms=round(float(np.percentile(lat, 50)), 3),
+            latency_p99_ms=round(float(np.percentile(lat, 99)), 3))
+        log(f"fleet wounded replica: {json.dumps(res['fault'])}")
+        assert not fails, f"failed requests with a wounded replica: {fails[:5]}"
+        assert wounded["breaker"] and wounded["breaker"]["opens"] >= 1, res["fault"]
+        assert st["hedges"]["launched"] >= 1 and st["hedges"]["wins"] >= 1, res["fault"]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs.values():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+    log("fleet: " + json.dumps(res))
+    return res
+
+
 def phase_strategies(higgs, dev):
     """The tree strategies at full width on the higgs-10.5M cell's binned
     data and parameters, STRAT_ITERS iterations each on the mask grower:
@@ -3774,6 +4236,12 @@ def main(argv=None):
     phase_update_edges(dev)
     b1_kinds, b10_kinds = phase_kernels_objectives(args.rows, dev)
     kern.update(phase_kernels_mask(args.rows, dev))
+    from lightgbm_tpu_torch.boosting.ooc import resolve_chunk_rows
+
+    ooc_chunk = resolve_chunk_rows(Config.from_params(TRAIN_PARAMS), 28, 1)
+    for name, v in phase_kernels_carry(args.rows, ooc_chunk, dev).items():
+        kern[name].update(v)
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], v["carry_max_abs_err"])
     phase_feature_tiles(min(args.rows, 1_000_000), dev)
     log(f"kernels checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3808,6 +4276,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     q_counts, quant = phase_quantized(*higgs, dev, full["auc"])
     log(f"higgs-10.5M-quantized in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ooc_counts, _ = phase_ooc(higgs[0], dev)
+    log(f"higgs-10.5M-ooc in {time.perf_counter() - t0:.1f} s")
     main_text = full.pop("main_text")
     t0 = time.perf_counter()
     api_counts, _ = phase_api(higgs, main_text, dev)
@@ -3818,6 +4289,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_serve(higgs, main_text, full["auc"], serve_texts, Xc[nc:][:50_000], dev)
     log(f"higgs-10.5M-serve in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_fleet(higgs, main_text, dev)
+    log(f"higgs-10.5M-fleet in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     strat_counts, _ = phase_strategies(higgs, dev)
     del higgs
@@ -3863,7 +4337,7 @@ def main(argv=None):
     for name in KERNEL_NAMES:
         k = kern[name]
         launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts, cli_counts]
-                       + cov_counts + sampled_counts + obj_counts + small_api_counts
+                       + cov_counts + sampled_counts + obj_counts + small_api_counts + ooc_counts
                        + api_counts + small_strat_counts + strat_counts + small_ckpt_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
@@ -3874,7 +4348,7 @@ def main(argv=None):
                             **{x: v for x, v in k.items()
                                if x.startswith(("single", "tail", "library_single", "wide",
                                                 "path", "device", "sel_mul", "ova", "empty",
-                                                "kinds"))}))
+                                                "kinds", "carry"))}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ from .gbdt import GBDT
 
 class DART(GBDT):
     supports_partitioned = False  # the drops and normalization run between iterations
+    supports_ooc = False  # the drops walk the whole matrix every iteration
 
     def init(self, config, train_set, objective, training_metrics=()):
         super().init(config, train_set, objective, training_metrics)

@@ -86,8 +86,6 @@ def unsupported_feature(config):
         return f"boosting={config.boosting_type}"
     if config.tree_learner.lower() != "serial":
         return f"tree_learner={config.tree_learner}"
-    if str(config.out_of_core).lower() in ("true", "1", "on", "yes"):
-        return "out-of-core training"
     return None
 
 
@@ -95,6 +93,10 @@ class GBDT:
     """The gradient-boosting loop (class GBDT, gbdt.h:24-258)."""
 
     supports_partitioned = True  # False in DART, whose drops run between iterations
+    # out-of-core streaming (boosting/ooc.py) replays the mask grower's
+    # split loop; DART opts out: its drops re-score dropped trees over the
+    # whole matrix every iteration, which would multiply the passes
+    supports_ooc = True
 
     def __init__(self, device="cpu"):
         self.device = torch.device(device)
@@ -113,6 +115,7 @@ class GBDT:
         self.feature_names: List[str] = []
         self.ptrainer = None
         self.words = None  # the mask grower's packed bin words (_init_mask_grower)
+        self.ooc = None  # the out-of-core learner, which streams the words instead
         self.training_metrics = []
         self.valid_sets = []  # the BinnedDataset of each validation set
         self.valid_bins = []  # (N_i, F) bins of each validation set, on the device
@@ -171,8 +174,13 @@ class GBDT:
         # checkpoint carries them whichever learner runs
         self.bag_rng = np.random.RandomState(config.bagging_seed)
         self.feature_rng = Random(config.feature_fraction_seed)
-        declined = (eligible(config, train_set, objective, num_tree)
-                    if self.supports_partitioned else f"boosting={config.boosting_type}")
+        ooc_rows = self._resolve_out_of_core(config, train_set)
+        if ooc_rows:
+            declined = "out-of-core training"
+        elif self.supports_partitioned:
+            declined = eligible(config, train_set, objective, num_tree)
+        else:
+            declined = f"boosting={config.boosting_type}"
         init = (np.asarray(train_set.metadata.init_score, np.float32).reshape(num_tree, -1)
                 if self.has_init_score else None)  # (K, N) or the class-major K*N layout
         if declined is None:
@@ -183,25 +191,51 @@ class GBDT:
             self.scores = self.ptrainer._scores()
             Log.info("Using partitioned tree learner on %s", self.device)
         else:
-            self._init_mask_grower(init)
+            self._init_mask_grower(init, ooc_rows=ooc_rows)
             Log.info("Using the mask-based tree learner on %s (the partitioned one declines "
                      "%s)", self.device, declined)
 
-    def _init_mask_grower(self, init, scores=None) -> None:
-        """The mask grower's device state: the packed bin words, labels,
-        weights, (K, N) scores (``scores``, or zeros plus ``init``) and the
-        row select."""
+    def _resolve_out_of_core(self, config, train_set) -> int:
+        """The out-of-core chunk rows, or 0 to train in memory (JAX
+        gbdt.py:167-199): only the serial mask grower streams; a boosting
+        type that cannot is refused when streaming is forced and trains in
+        memory under ``auto``."""
+        from .ooc import resolve_out_of_core
+
+        on, chunk_rows, why = resolve_out_of_core(config, train_set, self.device)
+        if on and not self.supports_ooc:
+            unsupported = f"boosting type {type(self).__name__}"
+            if "forced" in why:
+                Log.fatal("out_of_core=true is not supported with %s (out-of-core training "
+                          "replays the mask grower's split loop)", unsupported)
+            Log.warning("out-of-core auto-routing (%s) skipped: not supported with %s; "
+                        "training in-memory", why, unsupported)
+            return 0
+        if on:
+            Log.info("Out-of-core routing: %s", why)
+        return chunk_rows if on else 0
+
+    def _init_mask_grower(self, init, scores=None, ooc_rows: int = 0) -> None:
+        """The mask grower's device state: the packed bin words (or, with
+        ``ooc_rows``, the out-of-core learner that streams them in chunks of
+        that many rows), labels, weights, (K, N) scores (``scores``, or
+        zeros plus ``init``) and the row select."""
         ts, cfg, dev = self.train_set, self.config, self.device
         binned = np.asarray(ts.binned)
         bits = 8 if binned.dtype == np.uint8 else 16
-        bins = _read_only_tensor(binned if bits == 8 else binned.astype(np.int32)).to(dev)
-        self.words = pack_bin_words(bins, 32 // bits, bits)
-        del bins
+        if not ooc_rows:
+            bins = _read_only_tensor(binned if bits == 8 else binned.astype(np.int32)).to(dev)
+            self.words = pack_bin_words(bins, 32 // bits, bits)
+            del bins
         self.grow_params = GrowParams(
             num_leaves=int(cfg.num_leaves), num_bins=int(ts.max_num_bin),
             max_depth=int(cfg.max_depth), use_missing=bool(cfg.use_missing),
             has_categorical=bool(self.meta.is_categorical.any()), bits=bits,
             monotone=self.strategy.split_gain.monotone)
+        if ooc_rows:
+            from .ooc import OocTrainer
+
+            self.ooc = OocTrainer(ts, cfg, self.grow_params, ooc_rows, dev)
         md = ts.metadata
         self.label_t = torch.from_numpy(np.asarray(md.label, np.float32)).to(dev)
         self.weight_t = (None if md.weights is None else
@@ -284,7 +318,7 @@ class GBDT:
         trainer reads; its own select is ones (its bagging draws are
         keyed by the iteration)."""
         K = self.num_tree_per_iteration
-        mask = self.words is not None  # the mask grower's state exists
+        mask = self._mask_grower_ready()
         arrays = {
             "scores": self.scores.cpu().numpy().astype(np.float32, copy=True),
             "select": (self.select.cpu().numpy().astype(np.float32, copy=True) if mask
@@ -329,11 +363,11 @@ class GBDT:
         self.boost_from_average_ = bool(py["boost_from_average"])
         self.shrinkage_rate = float(py["shrinkage_rate"])
         self.scores = torch.from_numpy(np.array(arrays["scores"], np.float32)).to(dev)
-        if py.get("mask_grower") and self.words is None:
+        if py.get("mask_grower") and not self._mask_grower_ready():
             # a partitioned booster that had turned to the mask grower
             # (update with a custom objective)
             self._init_mask_grower(None, scores=self.scores)
-        if self.words is not None:
+        if self._mask_grower_ready():
             self.select = torch.from_numpy(np.array(arrays["select"], np.float32)).to(dev)
         for i in range(len(self.valid_scores)):
             self.valid_scores[i] = torch.from_numpy(
@@ -347,6 +381,11 @@ class GBDT:
         self.best_msg = [list(map(str, b)) for b in py["best_msg"]]
         if self.ptrainer is not None:
             self.ptrainer.import_perm(arrays.get("pt_rowid"))
+
+    def _mask_grower_ready(self) -> bool:
+        """The mask grower's state exists (resident words or the
+        out-of-core learner)."""
+        return self.words is not None or self.ooc is not None
 
     # ------------------------------------------------------------------
     def _boost_from_average(self):
@@ -445,6 +484,10 @@ class GBDT:
         bins in row chunks copied to the device."""
         arrays = stack_trees([tree])
         lut = self._lut_of(arrays)
+        if self.ooc is not None:
+            # out of core: the walk is per row, so streaming it is exact
+            self.ooc.add_tree_scores(self.scores[k], arrays, lut)
+            return
         if self.ptrainer is None:
             bits = self.grow_params.bits
             self.scores[k] += predict_words(self.words, 32 // bits, bits, arrays, lut)
@@ -535,9 +578,13 @@ class GBDT:
                     gk, hk, qscale = grad[k], hess[k], None
                     if self.config.quantized_training:
                         gk, hk, qscale = self._quantize_class(gk, hk, k)
-                    gr = grow_tree(self.words, gk, hk, self.select, feature_mask, self.meta,
-                                   self.hyper, self.grow_params, qscale=qscale,
-                                   searches=self.searches)
+                    if self.ooc is not None:
+                        gr = self.ooc.grow(gk, hk, self.select, feature_mask, self.meta,
+                                           self.hyper, qscale=qscale, searches=self.searches)
+                    else:
+                        gr = grow_tree(self.words, gk, hk, self.select, feature_mask,
+                                       self.meta, self.hyper, self.grow_params, qscale=qscale,
+                                       searches=self.searches)
                     fence(gr.leaf_id)
                 if gr.num_splits > 0:
                     grown = True
@@ -628,8 +675,12 @@ class GBDT:
         paths = leaf_path_features(gr, is_cat)
         fi, fv = pack_path_features(paths, L, k_max=self._linear_kmax())
         bits = self.grow_params.bits
-        a, b = linear_fit_stats(words_column(self.words, 32 // bits, bits), gk, hk,
-                                self.select, gr.leaf_id, fi, fv, self._linear_lut(), L)
+        if self.ooc is not None:
+            a, b = self.ooc.folder.fold_linear_stats(gk, hk, self.select, gr.leaf_id, fi, fv,
+                                                     self._linear_lut(), L)
+        else:
+            a, b = linear_fit_stats(words_column(self.words, 32 // bits, bits), gk, hk,
+                                    self.select, gr.leaf_id, fi, fv, self._linear_lut(), L)
         w, ok = solve_linear_leaves(a.cpu(), b.cpu(), fv, gr.leaf_cnt,
                                     self.strategy.leaf_fit.linear_lambda,
                                     self.hyper.lambda_l2)
@@ -646,6 +697,10 @@ class GBDT:
                   ("leaf_feat_inner", "leaf_feat_valid", "leaf_coeff", "leaf_const",
                    "leaf_value", "leaf_is_linear")]
         planes[0] = planes[0].to(torch.int64)
+        if self.ooc is not None:
+            self.ooc.folder.fold_linear_scores(self.scores[k], gr.leaf_id, *planes,
+                                               self._linear_lut())
+            return
         bits = self.grow_params.bits
         self.scores[k] += linear_leaf_scores(words_column(self.words, 32 // bits, bits),
                                              gr.leaf_id, *planes, self._linear_lut())

@@ -26,10 +26,11 @@ by either package loads in the other; the blob holds host arrays only and
 carries no device: ``capture`` reads the card, ``restore`` writes to the
 booster's device.
 
-Not ported yet: the multi-host canonical layout (``merge_to_canonical`` /
-``reshard_to_local``; waits for the port's distributed training) and the
-out-of-core chunk schedule (waits for its out-of-core training).
-``restore`` refuses blobs that carry either.
+An out-of-core run records its chunk schedule (``ooc_schedule``, the JAX
+package's string) and ``restore`` refuses a blob whose schedule is not
+the run's.  Not ported yet: the multi-host canonical layout
+(``merge_to_canonical`` / ``reshard_to_local``; waits for the port's
+distributed training); ``restore`` refuses blobs that carry it.
 """
 
 from __future__ import annotations
@@ -307,6 +308,10 @@ def capture(booster, extra_py: Optional[Dict[str, Any]] = None) -> TrainState:
             "num_valid": len(b.valid_scores),
             "best_iteration": int(getattr(booster, "best_iteration", -1)),
         }
+        ooc = getattr(b, "ooc", None)
+        if ooc is not None:
+            # the chunk schedule's identity (the JAX package's string)
+            meta["ooc_schedule"] = ooc.schedule_fingerprint()
         if extra_py:
             py.update(extra_py)
     return TrainState(meta, py, arrays)
@@ -322,10 +327,6 @@ def restore(booster, state: TrainState) -> TrainState:
         raise CheckpointMismatch(
             f"checkpoint holds the canonical layout of a {state.meta['world_size']}-process "
             "run; resuming it waits for the port's distributed training")
-    if state.meta.get("ooc_schedule") is not None:
-        raise CheckpointMismatch(
-            "checkpoint was written by out-of-core training; resuming it waits for the "
-            "port's out-of-core training")
     cfp, dfp = config_fingerprint(b.config), data_fingerprint(b.train_set)
     if state.meta["config_fingerprint"] != cfp:
         raise CheckpointMismatch(
@@ -344,6 +345,14 @@ def restore(booster, state: TrainState) -> TrainState:
         raise CheckpointMismatch(
             f"checkpoint has {state.meta['num_valid']} valid sets, "
             f"run registered {len(b.valid_scores)}")
+    ooc = getattr(b, "ooc", None)
+    want_sched = state.meta.get("ooc_schedule")
+    have_sched = ooc.schedule_fingerprint() if ooc is not None else None
+    if want_sched != have_sched:
+        raise CheckpointMismatch(
+            f"checkpoint out-of-core chunk schedule {want_sched!r} != this run's "
+            f"{have_sched!r}; resuming on another streaming grid is refused — rerun with "
+            "the original out_of_core/ooc_chunk_rows settings")
     with tracer.span("ckpt.restore", iter=state.iteration):
         b.models = unpack_trees(state.arrays)
         b.import_train_state(state.arrays, state.py)

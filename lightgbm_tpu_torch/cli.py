@@ -29,9 +29,11 @@ Training and prediction run on the CUDA card unless the ``device``
 parameter says ``cpu`` (``gpu`` and ``cuda`` name the card; any other
 value is refused).  ``serve`` runs the prediction server
 (serve/server.py: ``python -m lightgbm_tpu_torch serve model=m.npz``, on
-the card unless ``device=cpu``).  Not ported yet, each raising
-NotImplementedError: ``fleet`` waits for the port's fleet proxy, ``factory``
-for its factory.
+the card unless ``device=cpu``); ``fleet`` runs replicas behind the
+load-balancing proxy (serve/fleet.py: ``python -m lightgbm_tpu_torch
+fleet registry=dir replicas=2``, or ``backends=h:p,...`` in front of
+running servers).  Not ported yet, raising NotImplementedError:
+``factory`` waits for the port's training factory.
 """
 
 from __future__ import annotations
@@ -51,7 +53,6 @@ from .utils.log import Log
 
 # subcommands of the JAX package's CLI that wait for modules not ported yet
 _NOT_YET_SUBCOMMANDS = {
-    "fleet": "serving fleets: FleetProxy and spawn_replicas, queue A item 8b",
     "factory": "the training factory",
 }
 
@@ -341,6 +342,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .serve.server import main as serve_main
 
         return serve_main(argv[1:])
+    if argv and argv[0] == "fleet":
+        from .serve.fleet import main as fleet_main
+
+        return fleet_main(argv[1:])
     if argv and argv[0] == "ingest":
         argv = ["task=ingest"] + argv[1:]
     if argv and argv[0] == "resume":

@@ -53,6 +53,15 @@
 //      rounds (copies) the accumulator to the output, zeroes it and the
 //      two counters for the next call, and adds the list's length to a
 //      tally.
+// Carry mode (out-of-core training, ops/histogram.py
+// accumulate_histogram): the accumulator is a caller-owned (F, B, 3)
+// carry, float64 (B8) or int32 (B9), that the launch only adds to; the
+// last block resets the list's length and the ticket but neither rounds
+// nor zeroes the carry.  Chunks of rows fold into one carry launch after
+// launch, and seg_round_kernel rounds a float64 carry to float32 once,
+// after the last chunk: the float64 sums of a row set do not depend on
+// how its rows were cut, so the folded histogram is the one a single
+// launch over all the rows gives.
 // Many bins: the features are tiled over gridDim.y, down to one feature a
 // tile (the stripes then narrow to the tile), and the staged chunk
 // shortens from 256 rows to 4 when even that does not fit; so float64
@@ -86,6 +95,7 @@ struct SegHistArgs {
   void* acc;           // (F, B, 3) cells; 0 between calls
   long long* tally;    // selected rows summed over calls, or null
   void* out;           // (F, B, 3) float32 (float) or int32 (quantized)
+  int carry;           // acc is the caller's carry: no rounding, no zeroing
 };
 
 // float channels into float64 cells, or int levels into int32 cells
@@ -299,13 +309,22 @@ __global__ void __launch_bounds__(kHistThreads, 1) seg_hist_kernel(SegHistArgs a
     }
   }
 
-  // the last block rounds the accumulator to the output and resets
+  // the last block rounds the accumulator to the output and resets (a
+  // carry stays as the blocks left it)
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(a.ticket, 1u) == (unsigned)(active * gridDim.y - 1);
   __syncthreads();
   if (!last) return;
   __threadfence();
+  if (a.carry) {
+    if (threadIdx.x == 0) {
+      if (a.tally) *a.tally += count;
+      *a.count = 0;
+      *a.ticket = 0;
+    }
+    return;
+  }
   C* acc = reinterpret_cast<C*>(a.acc);
   auto* out = reinterpret_cast<typename HistTypes<Q>::out*>(a.out);
   const int cells = a.nf * a.nb * 3;
@@ -326,6 +345,14 @@ __global__ void __launch_bounds__(kHistThreads, 1) seg_hist_kernel(SegHistArgs a
     *a.count = 0;
     *a.ticket = 0;
   }
+}
+
+// A float64 carry rounded to float32, once a cell.
+__global__ void __launch_bounds__(kThreads) seg_round_kernel(const hacc* carry, float* out,
+                                                             long long cells) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < cells;
+       i += (long long)gridDim.x * kThreads)
+    out[i] = (float)__ldg(carry + i);
 }
 
 // Zero the list's length and the ticket after a failed launch, so the
@@ -413,4 +440,42 @@ extern "C" int lgbt_segment_hist(void* P, long long ld, int lo, int hi, int bits
   a.out = out;
   if (quantized) return lgbt::launch_seg_hist<true>(a, (cudaStream_t)stream);
   return lgbt::launch_seg_hist<false>(a, (cudaStream_t)stream);
+}
+
+// The carry mode of the same kernels: the selected rows of columns
+// [lo, hi) added into carry, an (F, B, 3) float64 (float) or int32
+// (quantized) tensor that the caller zeroes once and keeps across launches.
+extern "C" int lgbt_segment_hist_carry(void* P, long long ld, int lo, int hi, int bits, int nf,
+                                       int nb, int row_g, int row_h, int row_sel, int quantized,
+                                       void* work, void* carry, void* tally, void* stream) {
+  lgbt::SegHistArgs a{};
+  a.P = (const int32_t*)P;
+  a.ld = ld;
+  a.lo = lo;
+  a.hi = hi;
+  a.bits = bits;
+  a.nf = nf;
+  a.nb = nb;
+  a.row_g = row_g;
+  a.row_h = row_h;
+  a.row_sel = row_sel;
+  a.count = (int*)work;
+  a.ticket = (unsigned*)work + 1;
+  a.idx = (int*)work + 2;
+  a.acc = carry;
+  a.tally = (long long*)tally;
+  a.out = nullptr;
+  a.carry = 1;
+  if (quantized) return lgbt::launch_seg_hist<true>(a, (cudaStream_t)stream);
+  return lgbt::launch_seg_hist<false>(a, (cudaStream_t)stream);
+}
+
+// out (float32) = carry (float64) rounded, `cells` cells.
+extern "C" int lgbt_segment_hist_round(void* carry, void* out, long long cells, void* stream) {
+  if (cells <= 0) return 0;
+  const long long blocks = std::min<long long>((cells + lgbt::kThreads - 1) / lgbt::kThreads,
+                                               4096);
+  lgbt::seg_round_kernel<<<(unsigned)blocks, lgbt::kThreads, 0, (cudaStream_t)stream>>>(
+      (const lgbt::hacc*)carry, (float*)out, cells);
+  return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """Data files on the host — the PyTorch port's copy of lightgbm_tpu/data/
-(numpy only, no torch), the counterpart of the reference's
-TextReader/PipelineReader and the sampling half of DatasetLoader:
+(numpy only, no torch, but for the two streaming modules below), the
+counterpart of the reference's TextReader/PipelineReader and the
+sampling half of DatasetLoader:
 
   ``reader``  chunked CSV/TSV/LibSVM parsers (native parser per block,
               pandas' C engine as the fallback), the one backend of both
@@ -16,8 +17,14 @@ TextReader/PipelineReader and the sampling half of DatasetLoader:
               an uncompressed npz with a version and source-identity
               header and per-block CRCs
 
-The JAX package's ``prefetch`` and ``chunksource`` (its out-of-core
-trainer's) are not ported yet.
+Out-of-core training's streaming seam (boosting/ooc.py), which uses
+torch and is imported only by it:
+
+  ``prefetch``     the chunk plan, the array and cache chunk sources and
+                   the bounded prefetch ring (pinned buffers, a copy
+                   stream and events on the card)
+  ``chunksource``  the chunk stream and the fold algebra of the streamed
+                   mask grower
 """
 
 from .cache import (CACHE_FORMAT_VERSION, CacheReader, build_cache_meta,  # noqa: F401

@@ -49,6 +49,8 @@ SIGNATURES = {
     "lgbt_update_multi_hist": [_P, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,
                                _I, _I, _P, _P, _P, _P],
     "lgbt_segment_hist": [_P, _L, *[_I] * 9, _P, _P, _P, _P, _P],
+    "lgbt_segment_hist_carry": [_P, _L, *[_I] * 9, _P, _P, _P, _P],
+    "lgbt_segment_hist_round": [_P, _P, _L, _P],
 }
 
 

@@ -33,6 +33,13 @@ of small PyTorch operations) is captured once as a CUDA graph and
 replayed for every split (``_ChildSearch``): the same kernels in one
 launch.
 
+Out of core (boosting/ooc.py) the same loop runs with ``stream``, a
+``data/chunksource.py ChunkFolder``, in place of the resident words: the
+root histogram and each split's partition and child histograms are one
+streamed pass each over row chunks copied to the card (``fold_root``,
+``fold_split``), folding both children into float64 (int32) carries that
+are rounded once after the pass; everything else is this function's.
+
 Monotone constraints (JAX grow.py l.214-224, 428-429, 455-470, 509-522):
 each leaf carries output bounds [lo, hi] in the host bookkeeping, the
 root (-inf, +inf).  A split's child outputs are clipped to its parent's
@@ -175,54 +182,89 @@ def _child_search(searches: dict, dev, F, B, meta, hyper, params,
     return searches[key]
 
 
+def word_column(row: torch.Tensor, feat: int, per: int, bits: int) -> torch.Tensor:
+    """Feature ``feat``'s bins from its int32 word row (``pack_bin_words``)."""
+    return (row >> ((feat % per) * bits)) & ((1 << bits) - 1)
+
+
+def partition_goes_left(col: torch.Tensor, zero_bin: int, dbz: int, thr: int,
+                        is_cat: bool) -> torch.Tensor:
+    """DataPartition::Split's predicate on the split feature's bins
+    (dense_bin.hpp:191-232): the zero bin takes the split's default bin,
+    then ``==`` the threshold (categorical) or ``<=`` it."""
+    fval = torch.where(col == zero_bin, dbz, col)
+    return (fval == thr) if is_cat else (fval <= thr)
+
+
+def value_words(grad, hess, select):
+    """The kernels' (g, h, select) channel rows as (N,) int32: float32 bits,
+    or the int16 levels and the 0/1 select as plain int32 words."""
+    if not torch.is_floating_point(grad):
+        return grad.to(torch.int32), hess.to(torch.int32), select.to(torch.int32)
+    return (grad.to(torch.float32).view(torch.int32), hess.to(torch.float32).view(torch.int32),
+            select.to(torch.float32).view(torch.int32))
+
+
+def root_totals(grad, hess, select, qscale=None) -> np.ndarray:
+    """The root's (3,) float32 [sum g, sum h, count] over the selected rows
+    (LeafSplits::Init): float64 sums rounded once, or exact integer sums
+    of the levels dequantized."""
+    if not torch.is_floating_point(grad):
+        s64 = select.to(torch.int64)
+        sums_q = torch.stack([(grad.to(torch.int64) * s64).sum(),
+                              (hess.to(torch.int64) * s64).sum(), s64.sum()]).cpu().numpy()
+        return dequantize_sums(sums_q, qscale)
+    sel32 = select.to(torch.float32)
+    return torch.stack([(grad * sel32).double().sum(), (hess * sel32).double().sum(),
+                        sel32.double().sum()]).float().cpu().numpy()
+
+
 def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               select: torch.Tensor, feature_mask: torch.Tensor, meta: FeatureMeta,
               hyper: SplitHyper, params: GrowParams, qscale=None,
-              searches: dict = None) -> GrowResult:
+              searches: dict = None, stream=None) -> GrowResult:
     """Grow one leaf-wise tree.
 
     words: the (W, N) int32 bin words of the training bins
-    (``histogram.pack_bin_words``, packed once per training); grad, hess:
-    (N,) float32, or int16 levels (``qhist.quantize_rows``) with
-    ``qscale`` their (2,) float32 scales; select: (N,) float32 0/1
+    (``histogram.pack_bin_words``, packed once per training), or None
+    with ``stream`` (out of core: a ``ChunkFolder`` that streams them);
+    grad, hess: (N,) float32, or int16 levels (``qhist.quantize_rows``)
+    with ``qscale`` their (2,) float32 scales; select: (N,) float32 0/1
     bagging mask; feature_mask: (F,) float32 0/1; ``searches``: a dict
     the caller keeps from tree to tree, so the split search's CUDA graph
     is captured once (without it, once per tree)."""
     quantized = not torch.is_floating_point(grad)
     if quantized and qscale is None:
         raise ValueError("integer grad/hess require the qscale argument")
-    dev = words.device
-    W, n = words.shape
+    dev = grad.device
+    n = grad.shape[0]
     F = int(meta.num_bins.shape[0])
     L, B, bits = params.num_leaves, params.num_bins, params.bits
     per = 32 // bits
-    vmask = (1 << bits) - 1
     l1, l2 = np.float32(hyper.lambda_l1), np.float32(hyper.lambda_l2)
     default_bin = meta.default_bin.cpu().numpy()
     is_cat = meta.is_categorical.cpu().numpy()
-
-    # the packed matrix of the kernels: bin words, g, h, and a select row
-    # rewritten for each leaf histogram
-    p = torch.empty((W + 3, n), dtype=torch.int32, device=dev)
-    p[:W] = words
+    g_w, h_w, sel_w = value_words(grad, hess, select)
     if quantized:
-        p[W] = grad.to(torch.int32)
-        p[W + 1] = hess.to(torch.int32)
-        sel_w = select.to(torch.int32)
         qs = upload(torch.from_numpy(np.asarray(qscale, np.float32)), dev)
-    else:
-        p[W] = grad.to(torch.float32).view(torch.int32)
-        p[W + 1] = hess.to(torch.float32).view(torch.int32)
-        sel_w = select.to(torch.float32).view(torch.int32)
-    hist_fn = hist_segment_q if quantized else hist_segment
     mono_t = params.monotone
     mono = monotone_tensor(params, dev)
     if mono is not None and len(mono_t) != F:
         raise ValueError(f"monotone direction vector has {len(mono_t)} entries for {F} features")
 
-    def hist_of(sel_row):
-        p[W + 2] = sel_row
-        return hist_fn(p, 0, n, F, B, per, bits)
+    if stream is None:
+        # the packed matrix of the kernels: bin words, g, h, and a select
+        # row rewritten for each leaf histogram
+        W = words.shape[0]
+        p = torch.empty((W + 3, n), dtype=torch.int32, device=dev)
+        p[:W] = words
+        p[W] = g_w
+        p[W + 1] = h_w
+        hist_fn = hist_segment_q if quantized else hist_segment
+
+        def hist_of(sel_row):
+            p[W + 2] = sel_row
+            return hist_fn(p, 0, n, F, B, per, bits)
 
     search = None
     if dev.type == "cuda":
@@ -247,16 +289,9 @@ def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         return out
 
     # ---- root (LeafSplits::Init + the root histogram)
-    if quantized:
-        s64 = select.to(torch.int64)
-        sums_q = torch.stack([(grad.to(torch.int64) * s64).sum(),
-                              (hess.to(torch.int64) * s64).sum(), s64.sum()]).cpu().numpy()
-        root_sums = dequantize_sums(sums_q, qscale)
-    else:
-        sel32 = select.to(torch.float32)
-        root_sums = torch.stack([(grad * sel32).double().sum(), (hess * sel32).double().sum(),
-                                 sel32.double().sum()]).float().cpu().numpy()
-    root_hist = hist_of(sel_w)
+    root_sums = root_totals(grad, hess, select, qscale)
+    root_hist = (hist_of(sel_w) if stream is None
+                 else stream.fold_root(g_w, h_w, sel_w, quantized))
     pool = torch.zeros((L, F, B, 3), dtype=root_hist.dtype, device=dev)
     pool[0] = root_hist
 
@@ -301,23 +336,32 @@ def grow_tree(words: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             elif mono_t[feat] < 0:
                 clo[0] = chi[1] = mid
 
-        # ---- partition by predicate on the split feature's bin
-        col = (p[feat // per] >> ((feat % per) * bits)) & vmask
-        fval = torch.where(col == int(default_bin[feat]), dbz, col)
-        goes_left = (fval == thr) if is_cat[feat] else (fval <= thr)
-        in_leaf = leaf_id == bl
-        leaf_id.masked_fill_(in_leaf & ~goes_left, right)
+        if stream is None:
+            # ---- partition by predicate on the split feature's bin
+            goes_left = partition_goes_left(word_column(p[feat // per], feat, per, bits),
+                                            int(default_bin[feat]), dbz, thr, bool(is_cat[feat]))
+            in_leaf = leaf_id == bl
+            leaf_id.masked_fill_(in_leaf & ~goes_left, right)
 
-        # ---- the smaller child by row count direct, the larger by
-        # subtraction (decided on the device: no sync)
-        n_left = (in_leaf & goes_left).sum()
-        n_right = leaf_rows[bl] - n_left
-        left_smaller = n_left < n_right
-        smaller_id = torch.where(left_smaller, bl, right)
-        smaller = hist_of(torch.where(leaf_id == smaller_id, sel_w, 0))
-        larger = histogram_from_parent(pool[bl], smaller)
-        left_hist = torch.where(left_smaller, smaller, larger)
-        right_hist = torch.where(left_smaller, larger, smaller)
+            # ---- the smaller child by row count direct, the larger by
+            # subtraction (decided on the device: no sync)
+            n_left = (in_leaf & goes_left).sum()
+            n_right = leaf_rows[bl] - n_left
+            left_smaller = n_left < n_right
+            smaller_id = torch.where(left_smaller, bl, right)
+            smaller = hist_of(torch.where(leaf_id == smaller_id, sel_w, 0))
+            larger = histogram_from_parent(pool[bl], smaller)
+            left_hist = torch.where(left_smaller, smaller, larger)
+            right_hist = torch.where(left_smaller, larger, smaller)
+        else:
+            # ---- one streamed pass: the partition and both children's
+            # carries; then the same smaller / larger rule
+            n_left, carry_l, carry_r = stream.fold_split(
+                leaf_id, g_w, h_w, sel_w, feat, int(default_bin[feat]), dbz, thr,
+                bool(is_cat[feat]), bl, right, quantized)
+            n_right = leaf_rows[bl] - n_left
+            left_hist, right_hist = stream.pick_children(pool[bl], carry_l, carry_r, n_left,
+                                                         n_right)
         pool[bl] = left_hist
         pool[right] = right_hist
         leaf_rows[bl] = n_left

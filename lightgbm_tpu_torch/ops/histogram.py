@@ -32,8 +32,18 @@ so each call's two launches follow each other on its stream.
 
 ``build_histogram`` is the JAX function's contract on (N, F) bins: it
 packs and takes the float32 branch (B8) or, for integer grad/hess, the
-int32 branch (B9).  The out-of-core ``accumulate_histogram`` waits for
-the out-of-core trainer.
+int32 branch (B9).
+
+Out-of-core training (boosting/ooc.py) folds row chunks into one
+histogram with the kernels' carry mode: ``accumulate_histogram`` adds a
+chunk's selected rows into a caller-owned (F, B, 3) carry, float64 for
+B8 and int32 for B9, without rounding it; ``finalize_histogram`` rounds
+a float64 carry to float32 once, after the last chunk.  The JAX package
+keeps its float32 block adds bit-identical by aligning chunks to
+``ROW_BLOCK`` (its ops/histogram.py:154); here the float64 sums do not
+depend on the cut, so any chunk grid gives the resident histogram (the
+plan still rounds chunks up to ``ROW_BLOCK``, which keeps its
+fingerprint the JAX package's string).
 """
 
 from __future__ import annotations
@@ -46,6 +56,9 @@ import torch
 from ..utils.device import device_of, raw_stream
 from . import _build
 
+# the JAX package's histogram row block (ops/histogram.py ROW_BLOCK): the
+# out-of-core chunk plan rounds its chunks up to a multiple of it
+ROW_BLOCK = 4096
 # the workspace grows in steps of this many words (int32 list entries, or
 # 8-byte accumulator cells), so nearby sizes share one allocation
 WORK_STEP = 1 << 16
@@ -115,10 +128,12 @@ def _check_range(p, lo: int, hi: int) -> None:
         raise ValueError(f"column range [{lo}, {hi}) outside the matrix's {p.shape[1]} columns")
 
 
-def _segment_hist_ref(p, lo, hi, num_features, num_bins, per, bits, rows, quantized):
+def _segment_hist_ref(p, lo, hi, num_features, num_bins, per, bits, rows, quantized,
+                      carry=None):
     """The plain version of both kernels: per feature, one ``index_add_``
     of the rows whose select is not 0, in float64 (int64) and rounded
-    (cast) once."""
+    (cast) once; with ``carry`` (the carry mode) the float64 (int64)
+    sums are added into it instead, and it is returned unrounded."""
     lo, hi = int(lo), int(hi)
     _check_range(p, lo, hi)
     g_row, h_row, s_row = _rows(rows, num_features, per)
@@ -142,6 +157,8 @@ def _segment_hist_ref(p, lo, hi, num_features, num_bins, per, bits, rows, quanti
         b = (words[f // per].to(torch.int64) >> ((f % per) * bits)) & mask
         ok = b < num_bins
         out[f].index_add_(0, b[ok], vals[ok])
+    if carry is not None:
+        return carry.add_(out.to(carry.dtype))
     return out.to(torch.int32) if quantized else out.float()
 
 
@@ -333,6 +350,69 @@ def hist_segment_q(p, lo, hi, num_features, num_bins, per=4, bits=8, rows=None):
 
 
 hist_segment_q.launches = 0
+
+
+def new_carry(num_features: int, num_bins: int, quantized: bool, device) -> torch.Tensor:
+    """A zeroed (F, B, 3) carry: int32 for B9, float64 for B8."""
+    return torch.zeros((num_features, num_bins, 3),
+                       dtype=torch.int32 if quantized else torch.float64, device=device)
+
+
+def accumulate_histogram(carry, p, lo, hi, num_features, num_bins, per=4, bits=8, rows=None):
+    """Add the selected rows of columns [lo, hi) of the packed matrix ``p``
+    into ``carry`` (``new_carry``) without rounding: B8's carry mode for a
+    float64 carry, B9's for an int32 one.  On a CUDA tensor it launches
+    the kernels (counted in ``hist_segment.launches`` or
+    ``hist_segment_q.launches``), on a CPU tensor it runs their plain
+    version.  Returns ``carry``."""
+    quantized = carry.dtype == torch.int32
+    if not quantized and carry.dtype != torch.float64:
+        raise ValueError(f"a carry is float64 or int32, got {carry.dtype}")
+    if tuple(carry.shape) != (num_features, num_bins, 3) or not carry.is_contiguous():
+        raise ValueError(f"the carry must be a contiguous ({num_features}, {num_bins}, 3) tensor")
+    if p.device.type == "cpu":
+        return _segment_hist_ref(p, lo, hi, num_features, num_bins, per, bits, rows, quantized,
+                                 carry=carry)
+    lo, hi = int(lo), int(hi)
+    _check_range(p, lo, hi)
+    if p.device != carry.device:
+        raise ValueError(f"the carry is on {carry.device}, the matrix on {p.device}")
+    if per * bits != 32:
+        raise ValueError(f"{per} bins of {bits} bits do not fill a 32-bit word")
+    if hi == lo:
+        return carry
+    name = "hist_segment_q" if quantized else "hist_segment"
+    r = _rows(rows, num_features, per)
+    lib = _build.lib()
+    with stream_workspace(p, hi - lo, 0) as (w, stream):
+        rc = lib.lgbt_segment_hist_carry(
+            p.data_ptr(), p.shape[1], lo, hi, bits, num_features, num_bins, *r, int(quantized),
+            w.words.data_ptr(), carry.data_ptr(), w.tally.data_ptr() + 8 * TALLY_SLOTS[name],
+            stream)
+    _build.check(rc, name + " (carry)")
+    if quantized:
+        hist_segment_q.launches += 1
+    else:
+        hist_segment.launches += 1
+    return carry
+
+
+def finalize_histogram(carry) -> torch.Tensor:
+    """The (F, B, 3) histogram of a carry: a float64 carry rounded to
+    float32 once (on the card by B8's rounding kernel), an int32 one as it
+    is (a copy)."""
+    if carry.dtype == torch.int32:
+        return carry.clone()
+    if carry.dtype != torch.float64 or not carry.is_contiguous():
+        raise ValueError("a carry is a contiguous float64 or int32 tensor")
+    if carry.device.type == "cpu":
+        return carry.float()
+    out = torch.empty(carry.shape, dtype=torch.float32, device=carry.device)
+    with device_of(carry):
+        rc = _build.lib().lgbt_segment_hist_round(carry.data_ptr(), out.data_ptr(),
+                                                  carry.numel(), raw_stream(carry))
+    _build.check(rc, "hist_segment (round)")
+    return out
 
 
 def build_histogram(bins, grad, hess, select, num_bins: int) -> torch.Tensor:

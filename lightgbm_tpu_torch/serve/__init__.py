@@ -15,7 +15,11 @@ lightgbm_tpu/serve/.
 4. **Hot swap** (``registry.py``, ``fleet.py``): a versioned on-disk
    model registry with atomic CRC'd publishes, and a version-stamped slot
    that swaps at microbatch boundaries (a same-shape retrain in place,
-   with no capture).  The fleet proxy waits for the port's fleet.
+   with no capture).
+5. **The fleet** (``fleet.py``, ``breaker.py``): ``FleetProxy`` in front
+   of N replicas (``spawn_replicas``, ``python -m lightgbm_tpu_torch
+   fleet``) with health ejection, deadline budgets, hedged predicts,
+   latency-outlier circuit breakers and overload shedding.
 
 See docs/SERVING.md for the artifact format and the operational knobs
 (the port adds ``device``; its compiles are CUDA graph captures).
@@ -26,7 +30,8 @@ from .batcher import MicroBatcher, RequestTimeout, ServerOverloaded
 from .compilecache import (BucketedQuantizedPredictor, BucketedRawPredictor, bucket_for,
                            bucket_ladder, pad_qtree_arrays, pad_tree_arrays,
                            tree_shape_bucket)
-from .fleet import SwappablePredictor
+from .breaker import LatencyBreaker
+from .fleet import FleetProxy, SwappablePredictor, spawn_replicas
 from .registry import ModelRegistry
 
 __all__ = [
@@ -44,4 +49,7 @@ __all__ = [
     "RequestTimeout",
     "ModelRegistry",
     "SwappablePredictor",
+    "FleetProxy",
+    "spawn_replicas",
+    "LatencyBreaker",
 ]

@@ -100,21 +100,22 @@ def leaf_row_order(leaf_id: torch.Tensor, num_leaves: int):
     return order, np.concatenate([[0], np.cumsum(counts)])
 
 
-def linear_fit_stats(column, grad, hess, select, leaf_id, feat_idx, feat_valid, value_lut,
-                     num_leaves: int):
-    """The per-leaf normal equations: (L, k+1, k+1) A and (L, k+1) b,
-    float32 on the rows' device (float64 sums rounded once).
+def new_linear_carry(feat_idx, num_leaves: int, device):
+    """Zeroed float64 (L, k+1, k+1) A and (L, k+1) b of (L, k) path planes."""
+    k = np.asarray(feat_idx).shape[1]
+    return (torch.zeros((num_leaves, k + 1, k + 1), dtype=torch.float64, device=device),
+            torch.zeros((num_leaves, k + 1), dtype=torch.float64, device=device))
 
-    ``column(f, rows)``: the int64 bins of features ``f`` at ``rows``
-    (broadcast); grad/hess/select (N,) float32; leaf_id (N,) the grower's
-    partition; feat_idx/feat_valid (L, k) host arrays; value_lut (F, B)
-    float32 on the device."""
+
+def _fold_leaves(a, b, column, grad, hess, select, leaf_id, feat_idx, feat_valid, value_lut,
+                 num_leaves: int) -> None:
+    """Add the normal equations of the rows of ``leaf_id`` into the float64
+    carries ``a``, ``b``: per leaf one matmul over its rows (sorted by
+    leaf, stable) and its path columns, read by ``column(f, rows)``."""
     dev = grad.device
     fi = np.asarray(feat_idx)
     kv = np.asarray(feat_valid).sum(axis=1).astype(np.int64)
-    L, k = fi.shape
-    a = torch.zeros((L, k + 1, k + 1), dtype=torch.float64, device=dev)
-    b = torch.zeros((L, k + 1), dtype=torch.float64, device=dev)
+    L = fi.shape[0]
     order, starts = leaf_row_order(leaf_id, num_leaves)
     hw = (hess * select).double()
     gw = (grad * select).double()
@@ -130,9 +131,33 @@ def linear_fit_stats(column, grad, hess, select, leaf_id, feat_idx, feat_valid, 
             f = fi_dev[leaf, :kl, None]
             xt[1:] = value_lut[f, column(f, rows[None, :])].double()
         h, g = hw[rows], gw[rows]
-        a[leaf, :kl + 1, :kl + 1] = (xt * h) @ xt.T
-        b[leaf, :kl + 1] = xt @ g
+        a[leaf, :kl + 1, :kl + 1] += (xt * h) @ xt.T
+        b[leaf, :kl + 1] += xt @ g
+
+
+def linear_fit_stats(column, grad, hess, select, leaf_id, feat_idx, feat_valid, value_lut,
+                     num_leaves: int):
+    """The per-leaf normal equations: (L, k+1, k+1) A and (L, k+1) b,
+    float32 on the rows' device (float64 sums rounded once).
+
+    ``column(f, rows)``: the int64 bins of features ``f`` at ``rows``
+    (broadcast); grad/hess/select (N,) float32; leaf_id (N,) the grower's
+    partition; feat_idx/feat_valid (L, k) host arrays; value_lut (F, B)
+    float32 on the device."""
+    a, b = new_linear_carry(feat_idx, np.asarray(feat_idx).shape[0], grad.device)
+    _fold_leaves(a, b, column, grad, hess, select, leaf_id, feat_idx, feat_valid, value_lut,
+                 num_leaves)
     return a.float(), b.float()
+
+
+def linear_stats_chunk(a, b, column, grad, hess, select, leaf_id, start: int, stop: int,
+                       feat_idx, feat_valid, value_lut, num_leaves: int) -> None:
+    """Fold rows [start, stop) into the float64 carries ``a``, ``b``
+    (``new_linear_carry``): the out-of-core chunk of ``linear_fit_stats``
+    (JAX tree/linear.py:163).  ``column(f, rows)`` reads the chunk's bins
+    at chunk-local rows; the vectors are the full (N,) ones."""
+    _fold_leaves(a, b, column, grad[start:stop], hess[start:stop], select[start:stop],
+                 leaf_id[start:stop], feat_idx, feat_valid, value_lut, num_leaves)
 
 
 def solve_linear_leaves(a, bv, feat_valid, leaf_cnt, linear_lambda, lambda_l2):
@@ -198,3 +223,12 @@ def linear_leaf_scores(column, leaf_id, feat_idx, feat_valid, coeff, const, fall
     out = fallback[lid]
     return apply_linear(out, lid, feat_idx, feat_valid, coeff, const, is_lin,
                         binned_values(column, value_lut))
+
+
+def linear_scores_chunk(column, leaf_id, start: int, stop: int, feat_idx, feat_valid, coeff, const,
+                        fallback, is_lin, value_lut):
+    """Rows [start, stop)'s outputs of a freshly grown linear tree: the
+    out-of-core chunk of ``linear_leaf_scores`` (JAX tree/linear.py:221);
+    ``column`` reads the chunk's bins at chunk-local rows."""
+    return linear_leaf_scores(column, leaf_id[start:stop], feat_idx, feat_valid, coeff, const,
+                              fallback, is_lin, value_lut)

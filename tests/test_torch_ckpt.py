@@ -19,8 +19,8 @@ byte for byte, for each variant whose state a resume must carry:
   (``best_iteration`` and ``evals_result`` too), and a preemption.
 
 Also the store's retention, corrupt tail and completion marker, and the
-refusals (config, data, boosting type, validation sets, multi-host and
-out-of-core blobs).
+refusals (config, data, boosting type, validation sets, multi-host blobs,
+and a blob whose out-of-core chunk schedule is not the run's).
 
 The port against the JAX package: ``config_fingerprint``,
 ``data_fingerprint`` and ``pack_trees`` of the same model text are
@@ -287,7 +287,7 @@ def test_restore_refusals(what):
         b.add_valid(lgt.Dataset(X[:100], label=y[:100], reference=ds), "v")
     match = {"config": "different training config", "data": "different dataset",
              "boosting": "boosting type", "valid": "valid sets",
-             "world_size": "distributed training", "ooc_schedule": "out-of-core"}[what]
+             "world_size": "distributed training", "ooc_schedule": "chunk schedule"}[what]
     with pytest.raises(CheckpointMismatch, match=match):
         restore(b, st)
 

@@ -15,7 +15,7 @@ against the JAX package's.
   and compiled with g++ (``PredictRaw`` within 1e-6 of the port's raw
   scores), ``task=ingest``, ``is_save_binary_file``, the snapshots, the
   checkpoint keys, ``resume``, ``report`` and ``serve`` without a model,
-  and what the port refuses (``fleet``, ``factory``, other devices);
+  and what the port refuses (``factory``, other devices);
 - one run of ``python -m lightgbm_tpu_torch`` as a subprocess.
 
 The JAX package's own CLI is not run here: under jax 0.9 its
@@ -333,12 +333,13 @@ def test_checkpoint_keys_raise(binary_dir, tmp_path, argv, match):
 
 @pytest.mark.parametrize("sub", ["resume", "report", "serve", "fleet", "factory"])
 def test_subcommands_not_ported_raise(sub, binary_dir, tmp_path, capsys):
-    """``fleet`` and ``factory`` wait for modules not ported yet (``fleet``
-    names the fleet proxy it waits for).  ``resume``, ``report`` and
-    ``serve`` run since the port has checkpoints, observability and
-    serving: ``resume`` with no checkpoint fails (exit 1, "No valid
-    checkpoint"), ``report`` without a trace prints its usage (exit 2),
-    ``serve`` without a model fails (exit 1, "no model file")."""
+    """``factory`` waits for a module not ported yet.  ``resume``,
+    ``report``, ``serve`` and ``fleet`` run since the port has
+    checkpoints, observability, serving and the fleet: ``resume`` with no
+    checkpoint fails (exit 1, "No valid checkpoint"), ``report`` without
+    a trace prints its usage (exit 2), ``serve`` without a model fails
+    (exit 1, "no model file"), ``fleet`` without a model, a registry or
+    backends fails (exit 1, "need model=")."""
     if sub == "resume":
         argv = [sub, f"data={binary_dir / 'binary.train'}", "device=cpu", "num_trees=1"]
         assert _in(tmp_path, lambda: cli.main(argv)) == 1
@@ -352,11 +353,12 @@ def test_subcommands_not_ported_raise(sub, binary_dir, tmp_path, capsys):
         assert cli.main([sub, "data=x"]) == 1
         assert "no model file" in capsys.readouterr().out
         return
+    if sub == "fleet":
+        assert cli.main([sub, "data=x"]) == 1
+        assert "need model=" in capsys.readouterr().out
+        return
     with pytest.raises(NotImplementedError, match=f"the {sub} subcommand"):
         cli.main([sub, "data=x"])
-    if sub == "fleet":
-        with pytest.raises(NotImplementedError, match="FleetProxy"):
-            cli.main([sub])
 
 
 def test_devices(binary_dir, monkeypatch, capsys):

@@ -1297,3 +1297,103 @@ def test_serving_swap_to_another_shape_under_load(dev):
     assert versions == {1, 2}
     for n, out, v in answers:
         np.testing.assert_allclose(out, want[v][:n], rtol=1e-6, atol=1e-6)
+
+
+# ---- out-of-core training: B8/B9's carry mode, the pinned prefetch ring,
+# a streamed tree against the resident one
+CARRY_GRIDS = {"one": (0, N), "uneven": (0, 1, 4096, 4097, 9000, 19999, N),
+               "unaligned": (123, 5000, 5001, 12345, N - 77)}
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["hist_segment", "hist_segment_q"])
+@pytest.mark.parametrize("grid", list(CARRY_GRIDS))
+@pytest.mark.parametrize("nf,nb", [(11, 32), (7, 300)], ids=["8bit", "16bit"])
+def test_hist_carry_mode(dev, quantized, grid, nf, nb):
+    """The carry mode folds column ranges into one float64 (int32) carry:
+    finalized it equals one resident launch over the whole range (B9
+    exactly, B8 after its single rounding); against the plain version's
+    carry B9 is exact and B8's rounded histogram is held as B8's is (its
+    float64 sums in another order may differ in their last bits)."""
+    rng = np.random.default_rng(nf + nb)
+    per, bits = (4, 8) if nb <= 256 else (2, 16)
+    bins = torch.from_numpy(rng.integers(0, nb, (N, nf)).astype(np.int32))
+    sel = torch.from_numpy((rng.random(N) < 0.6).astype(np.float32))
+    if quantized:
+        g = torch.from_numpy(rng.integers(-15, 16, N).astype(np.int16))
+        h = torch.from_numpy(rng.integers(0, 16, N).astype(np.int16))
+        P = th.pack_columns_q(bins, g, h, sel, per, bits)
+        kern, count = th.hist_segment_q, th.hist_segment_q
+    else:
+        g = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+        h = torch.from_numpy(np.abs(rng.standard_normal(N)).astype(np.float32))
+        P = th.pack_columns(bins, g, h, sel, per=per, bits=bits)
+        kern, count = th.hist_segment, th.hist_segment
+    Pk = P.to(dev)
+    edges = CARRY_GRIDS[grid]
+    carry = th.new_carry(nf, nb, quantized, dev)
+    ref = th.new_carry(nf, nb, quantized, "cpu")
+    before = count.launches
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        th.accumulate_histogram(carry, Pk, lo, hi, nf, nb, per, bits)
+        th.accumulate_histogram(ref, P, lo, hi, nf, nb, per, bits)
+    assert count.launches == before + len(edges) - 1
+    whole = kern(Pk, edges[0], edges[-1], nf, nb, per, bits)
+    folded = th.finalize_histogram(carry)
+    torch.cuda.synchronize()
+    assert folded.dtype == whole.dtype and torch.equal(folded, whole)
+    if quantized:
+        assert torch.equal(carry.cpu(), ref) and torch.equal(folded.cpu(), ref)
+    else:
+        _assert_hist(folded, th.finalize_histogram(ref))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("dtype,cols", [(np.uint8, 7), (np.uint8, 28), (np.uint16, 5)])
+def test_prefetch_ring_on_card(dev, depth, dtype, cols):
+    """The pinned ring on its copy stream gives the bytes a synchronous
+    copy gives, chunk for chunk over two passes, with at most ``depth``
+    chunks in flight; the copies are timed."""
+    from lightgbm_tpu_torch.data.prefetch import (ArrayChunkSource, ChunkPlan, ChunkPrefetcher,
+                                                   chunk_layout)
+
+    rng = np.random.default_rng(cols)
+    binned = rng.integers(0, 255 if dtype == np.uint8 else 700, (50_000, cols)).astype(dtype)
+    plan = ChunkPlan(len(binned), 12_288)
+    pf = ChunkPrefetcher(ArrayChunkSource(binned), plan, depth, device=dev)
+    tdtype, padded = chunk_layout(dtype, cols)
+    for _ in range(2):
+        seen = []
+        for i, start, stop, chunk in pf.stream():
+            want = np.zeros((stop - start, padded), binned.dtype)
+            want[:, :cols] = binned[start:stop]
+            want = torch.from_numpy(want.view(np.int16) if dtype == np.uint16 else want)
+            assert chunk.dtype == tdtype and torch.equal(chunk.cpu(), want)
+            seen.append((i, start, stop))
+        assert seen == [(i, s, e) for i, (s, e) in enumerate(plan.bounds)]
+    assert pf.stats.peak_inflight <= depth and pf.stats.passes == 2
+    assert pf.stats.copy_s > 0
+
+
+@pytest.mark.parametrize("params", [dict(objective="binary"),
+                                    dict(objective="regression", use_quantized_grad=True),
+                                    dict(objective="regression", linear_tree=True)],
+                         ids=["float", "quantized", "linear"])
+def test_ooc_tree_equals_resident_on_card(dev, params, monkeypatch):
+    """Out-of-core training on the card (three chunks, B8/B9 in carry
+    mode) gives the resident mask grower's model text."""
+    import lightgbm_tpu_torch as lgt
+
+    monkeypatch.setenv("LIGHTGBM_TPU_PGROW", "0")
+    rng = np.random.default_rng(8)
+    X = rng.standard_normal((10_000, 9)).astype(np.float32)
+    z = X @ rng.standard_normal(9)
+    y = (rng.random(10_000) < 1 / (1 + np.exp(-z))).astype(np.float32)
+    params = dict(dict(num_leaves=31, max_bin=63, min_data_in_leaf=20, verbose=-1), **params)
+    want = lgt.train(params, lgt.Dataset(X, label=y), 3).model_to_string()
+    pk.reset_launch_counts()
+    bst = lgt.train(dict(params, out_of_core="true", ooc_chunk_rows=4096),
+                    lgt.Dataset(X, label=y), 3)
+    assert bst.boosting.ooc is not None and bst.boosting.ooc.plan.num_chunks == 3
+    name = "hist_segment_q" if params.get("use_quantized_grad") else "hist_segment"
+    assert pk.launch_counts()[name] > 0
+    assert bst.model_to_string() == want

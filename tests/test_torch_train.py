@@ -158,7 +158,9 @@ DECLINED = [
     ("Cannot use bagging in GOSS", dict(boosting="goss", bagging_fraction=0.5, bagging_freq=1),
      {}),
     ("tree_learner=data", dict(tree_learner="data"), {}),
-    ("out-of-core training", dict(out_of_core=True), {}),
+    # out-of-core training runs (tests/test_torch_ooc.py); with DART forced
+    # it is refused
+    ("out-of-core training", dict(out_of_core=True, boosting="dart"), {}),
     # checkpoints train (tests/test_torch_ckpt.py); resume="force" with an
     # empty checkpoint directory is refused
     ("checkpoint_dir", {}, dict(checkpoint_dir="checkpoint_dir", checkpoint_resume="force")),
@@ -169,7 +171,8 @@ DECLINED = [
 # the reference's own errors (goss.py:38, config.py's linear_tree checks,
 # engine.py's schema guard); the rest are not ported yet
 RAISES = {"Cannot use bagging in GOSS": LightGBMError, "boosting=dart": LightGBMError,
-          "init_model": LightGBMError, "checkpoint_dir": LightGBMError}
+          "init_model": LightGBMError, "checkpoint_dir": LightGBMError,
+          "out-of-core training": LightGBMError}
 
 
 @pytest.mark.parametrize("what,params,kwargs", DECLINED, ids=[d[0] for d in DECLINED])
