@@ -39,14 +39,18 @@ result line):
      quantized levels of the card against the CPU's; split_stream and
      level_stream at 1M rows x 28 features of 256 bins (features tiled
      over the grid, as at max_bin=255), unselected rows among them;
-  4. small end to end: --small-rows x 28 (binary, 255 leaves) and 50,000
+  4. small end to end (while a background thread makes and bins the
+     higgs-10.5M and mslr-web10k-shaped data; the CPU halves of the
+     sampled, mask-grower, objective and lambdarank checks train in
+     CPU_WORKERS spawned worker processes beside the card's halves):
+     --small-rows x 28 (binary, 255 leaves) and 30,000
      Covertype-shaped rows (K=7, 31 leaves, 2 iterations) trained on the card and on
      the CPU (plain versions) — splits, predictions and AUC / multi
      logloss must agree; then --small-rows x 28 at learning_rate=0.5,
      31 leaves, 6 iterations with bagging and feature_fraction and 4
      with GOSS, on both, with the bagging masks compared; then on the
      mask grower (31 leaves) quantized binary and quantized L2 on
-     --small-rows x 28 (5 iterations) and multiclass GOSS on the 50,000
+     --small-rows x 28 (5 iterations) and multiclass GOSS on the 30,000
      Covertype-shaped rows (4 iterations at learning_rate 0.5: 2 warm-up,
      2 sampled); then each regression objective on --small-rows x 28 (31
      leaves, 1 iteration) and Huber with GOSS (4 iterations at
@@ -112,16 +116,19 @@ result line):
      profiler window and the host syncs of one more iteration;
   5e. the API at full width (phase_api) on the Higgs cell's data, its
      500k held-out rows and the main run's booster: an LGBMClassifier
-     with TRAIN_PARAMS' config fits 10 estimators with an eval set and
-     early stopping (its trees byte-identical to the main run's); lgt.train
-     continues the main booster by 5 iterations through init_model (its
-     first 20 trees byte-identical); rollback_one_iter then update() (the
+     with TRAIN_PARAMS' config fits 10 estimators on the first 1M rows
+     with an eval set and early stopping (its trees byte-identical to
+     lgt.train's on the same rows); lgt.train continues the main booster
+     by 5 iterations through init_model on the first 2.1M rows of the
+     cell's bins (its first 20 trees byte-identical); rollback_one_iter
+     then update() (the
      training scores on 100k rows within 1e-4 of predict, the regrown
      tree's splits against the popped one's); pred_leaf (leaf values
      summing to the raw prediction within 1e-5) and the prediction early
      stop (freq 5, margin 1.0: rows exiting early, |dAUC|, ms); the
-     feature importances; 5-fold cv (five boosters of 8.4M rows on the
-     card at once, 3 rounds; the logloss mean must fall every round);
+     feature importances; 5-fold cv of those 2.1M rows (five boosters of
+     1.68M rows on the card at once, 2 rounds; the logloss mean must
+     fall every round);
      DART (10 iterations on the mask grower, trees dropped each
      iteration, held-out AUC, host syncs of an iteration);
   5f. the tree strategies at full width (phase_strategies) on the Higgs
@@ -135,8 +142,8 @@ result line):
      (> 0.6), peak memory and hist_segment's launches of each;
   5g. "higgs-10.5M-cli" (phase_cli): the command line at full width.
      The main run's binned training set saved with Dataset.save_binary
-     (its size and seconds) and the 500k held-out rows written as a CSV
-     with a header; then, each a `python -m lightgbm_tpu_torch` process
+     (its size and seconds) and the first 100k held-out rows written as
+     a CSV with a header; then, each a `python -m lightgbm_tpu_torch` process
      on the card: task=train from a .conf with the main run's parameters,
      data=the cache, valid_data=the CSV, metric=auc, --iters iterations,
      a checkpoint every 5 iterations, LIGHTGBM_TPU_TRACE and
@@ -148,11 +155,12 @@ result line):
      both processes' launch counts from their logs; `report --json` of
      the two traces must count --iters iteration records; each
      checkpoint's size and capture, serialize and write seconds from the
-     traces, and the restore's), task=predict of the CSV (within 1e-5 relative of the
-     in-process Booster.predict of the file; its AUC within 1e-4 of the
-     main run's) and task=ingest of the CSV with stream_ingest=true (bins
-     and mappers equal to the in-memory Dataset(csv)'s); the native
-     parser must have parsed the CSV in every process;
+     traces, and the restore's), then side by side task=predict of the
+     CSV (within 1e-5 relative of the in-process Booster.predict of the
+     file; its AUC within 1e-4 of the main model's on those rows) and
+     task=ingest of the CSV with stream_ingest=true in 25k-row chunks
+     (bins and mappers equal to the in-memory Dataset(csv)'s); the
+     native parser must have parsed the CSV in every process;
   5h. "higgs-10.5M-serve" (phase_serve): serving on the card.  The main
      model packed as v1 (exact) and v2 (quantized), a 1,000-tree
      artifact (its 20 trees 50 times, leaf values / 50, held against
@@ -164,8 +172,9 @@ result line):
      scores within drift_bound; p50/p99 ms and rows/s at 1, 128 and 2048
      rows, and the host's part of a 128-row request.  Then `python -m
      lightgbm_tpu_torch serve` with a registry: 8 client threads send the
-     500k held-out rows in requests of 1-2048 rows (every answer within
-     1e-6 of Booster.predict, the AUC the main run's; latency, rows/s,
+     first 200k held-out rows in requests of 1-2048 rows (every answer
+     within 1e-6 of Booster.predict, the AUC the main model's on them;
+     latency, rows/s,
      the mean coalesced batch, /metrics, captures after warmup 0, peak
      device memory); a second pass over 150k rows during which a
      same-shape retrain (leaf values x 1.1) is published: 0 failed
@@ -180,7 +189,7 @@ result line):
   5i. "higgs-10.5M-ooc" (phase_ooc, after 5d): the Higgs cell's binned
      data and parameters on the mask grower with the bin matrix
      streamed (out_of_core=true, ~64 MiB chunks through the pinned
-     ring), float and quantized, 3 iterations each, model text
+     ring), float and quantized, 2 iterations each, model text
      byte-identical to the resident mask grower's; then
      out_of_core=auto with LIGHTGBM_TPU_DEVICE_BUDGET below the packed
      bins (1 iteration, routing must engage); s/iter, streamed GB/s,
@@ -197,8 +206,25 @@ result line):
      failed, each answer its version's, the survivor on v2); then the
      replica restarted with a 300 ms LIGHTGBM_TPU_SERVE_FAULT delay (its
      breaker opens, hedges win, 0 failed);
+  5k. "higgs-10.5M-parallel" (phase_parallel, after 5j): the host-driven
+     learners (parallel/hostlearner.py) over 4 LocalComm rank threads on
+     the card, on the main cell's bins cut to PARALLEL_ROWS rows, one
+     tree a mode (data, feature, voting at top_k 14 and 5, quantized
+     data): feature equal to the serial grower, voting(2k >= F) to data
+     and the quantized tree at 1 rank to 4, bitwise; each mode's splits
+     and ledgers against the same mode on the CPU (run by the CPU-half
+     workers beside phase 5's fused cells); ms a tree, bytes by
+     purpose, B8/B9 launches and selected rows;
+  5l. "higgs-10.5M-factory" (phase_factory): the training factory on
+     Higgs-shaped CSV parts: a cold cycle, a clean append canaried on a
+     replica pinned to the candidate behind a FleetProxy under
+     closed-loop clients and promoted (its model text equal to lgt.train
+     of the staged rows with the same init_model), a shuffled-label
+     append rolled back by the eval gate; beside that last cycle, `python
+     -m lightgbm_tpu_torch factory` SIGKILLed after two checkpoints and
+     run again (it resumes and publishes once);
   4b. (after the tree strategies, phase_small_ckpt) resume on the card:
-     K=7 on 50,000 Covertype-shaped rows (31 leaves, 4 iterations), GOSS
+     K=7 on 30,000 Covertype-shaped rows (31 leaves, 4 iterations), GOSS
      (6, learning_rate 0.5), DART (6) and quantized binary (5) on
      --small-rows x 28, each trained uninterrupted, then with a
      checkpoint every 2 or 3 iterations and killed mid-run, then resumed:
@@ -216,13 +242,14 @@ result line):
      iteration, as higgs-10.5M's window gives update_and_root_hist's),
      the seven tree graphs' pool, the host syncs of a tree of every
      class (under "error") and of a chunk, and a tree's device ms;
-     then a 2-iteration one-vs-all run, and one tree grown
+     then a 2-iteration one-vs-all run at 31 leaves, and one tree grown
      with root_hist=None (hist_segments with the level grower on,
      hist_dyn off) against the tree of update_multi_and_hists's class-0
      histogram.
   6b. "covertype-581k-goss": the covertype cell's data and parameters with
-     boosting=goss (top_rate 0.2, other_rate 0.1) on the mask grower, 14
-     iterations (10 warm-up, 4 sampled; 20 before PR 15); prints s/iter of each kind,
+     boosting=goss (top_rate 0.2, other_rate 0.1) on the mask grower, 12
+     iterations (10 warm-up, 2 sampled; cut from 20 to keep the run in time);
+     prints s/iter of each kind,
      held-out multi_logloss and accuracy, hist_segment's launches, and
      a one-iteration profiler window.
   6c. "mslr-web10k-shaped": lambdarank on the mask grower at MSLR-WEB10K
@@ -245,6 +272,8 @@ kernel; the last line is {"ok": true, "device": {...}}.
 
 import argparse
 import collections
+import concurrent.futures
+import glob
 import io
 import json
 import os
@@ -302,9 +331,9 @@ SMALL_SAMPLED_ITERS = 6  # the small bagging phase: bagging_freq=5 redraws at it
 QUANT_PARAMS = dict(TRAIN_PARAMS, use_quantized_grad=True)
 COV_GOSS_PARAMS = dict(COV_PARAMS, boosting="goss", top_rate=0.2, other_rate=0.1)
 MASK_ITERS = 20
-# covertype-581k-goss: 10 warm-up iterations (1 / learning_rate) and 4
-# sampled (20 before PR 15, cut to make room for phase_ooc and phase_fleet)
-COV_GOSS_ITERS = 14
+# covertype-581k-goss: 10 warm-up iterations (1 / learning_rate) and 2
+# sampled (cut from 20 to keep the run inside its time limit)
+COV_GOSS_ITERS = 12
 # the regression objectives of B1 and B10 (csrc/common.cuh ObjKind) with
 # the parameters their phases train with: huber_delta 0.3 puts the Higgs
 # 0/1 targets' rows on both sides of the delta; poisson is the last kind
@@ -338,7 +367,7 @@ COV_NUMERIC = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601), (0, 7117
                (0, 254), (0, 254), (0, 254), (0, 7173))
 COV_TRAIN_ROWS = 464_809  # the first 80 %; the last 116,203 are held out
 COV_ITERS = 12  # 20 before PR 15 (cut to make room for phase_ooc and phase_fleet)
-COV_SMALL_ROWS, COV_SMALL_ITERS = 50_000, 2  # the multiclass card-vs-CPU phase
+COV_SMALL_ROWS, COV_SMALL_ITERS = 30_000, 2  # the multiclass card-vs-CPU phase
 # the API's paths: LGBMClassifier's arguments for TRAIN_PARAMS'
 # config, and the depth of each path
 SKLEARN_PARAMS = dict(num_leaves=255, max_bin=63, learning_rate=0.1, min_child_samples=1,
@@ -348,7 +377,11 @@ API_SMALL_ITERS, SMALL_DART_ITERS = 2, 6  # init_model's 2 + 2; DART card vs CPU
 # skip_drop 0.5), so six iterations drop trees to compare
 SMALL_DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", num_leaves=SMALL_MASK_LEAVES,
                          drop_rate=0.5, skip_drop=0.2)
-API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 3, 10
+API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 2, 10
+# rows of the full-width API paths (cut from the cell's 10.5M): the
+# estimator bins its first 1M (binning 10.5M took ~35 s of its fit);
+# init_model, rollback and cv take the first 2.1M of the cell's bins
+API_CLF_ROWS, API_SUB_ROWS = 1_000_000, 2_100_000
 # the tree strategies: linear leaves (LightGBM's linear_tree) and
 # monotone constraints, card against CPU and at full width
 LINEAR_PARAMS = dict(TRAIN_PARAMS, linear_tree=True)
@@ -358,6 +391,9 @@ SMALL_STRAT_ITERS, STRAT_ITERS = 3, 5
 # phase_small's data or the Covertype-shaped ones, iterations,
 # checkpoint_freq, killed past iteration, the kernels each must launch)
 CLI_CKPT_FREQ, CLI_PREEMPT_AT = 5, 8
+# the CLI's CSV: the first 100k held-out rows (cut from 500k), streamed
+# by task=ingest in 4 chunks a pass
+CLI_CSV_ROWS, CLI_INGEST_CHUNK = 100_000, 25_000
 SMALL_CKPT_CASES = (
     ("multiclass K=7", dict(COV_PARAMS, num_leaves=SMALL_CHECK_LEAVES), "cov", 4, 2, 2,
      ("update_multi_and_hists", "score_add")),
@@ -1483,6 +1519,138 @@ def model_splits(text):
     return trees
 
 
+# the small checks' CPU halves that need nothing of the card's run go to
+# this many spawned worker processes, one torch thread each, which train
+# while the card trains; meanwhile this process keeps SMALL_MAIN_THREADS
+# torch threads, so that with the background data thread no core is
+# oversubscribed (with all 8, beside the workers and that thread, the
+# K=7 CPU half of phase_small_multi ran 7.5 times slower)
+CPU_WORKERS, CPU_WORKER_THREADS, SMALL_MAIN_THREADS = 2, 1, 4
+SMALL_SWITCH_S = 0.0005  # the GIL's switch interval meanwhile (Python's default 0.005)
+_CPU_DATA = {}
+
+
+def _cpu_worker_init(here, threads):
+    """A CPU-half worker's start: the repo importable, few torch threads."""
+    import torch
+
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    torch.set_num_threads(threads)
+
+
+def _cpu_data(key, small_rows):
+    """(the Dataset, the rows to predict) of a small check, made in the
+    worker from the seeds the card's half uses: "small" (phase_small's
+    rows, binned with TRAIN_PARAMS first as there), "small_l2" (its L2
+    targets), "sampled", "cov" (COV_SMALL_ROWS Covertype-shaped rows) and
+    "rank" (RANK_SMALL_QUERIES mslr-web10k-shaped queries).  Cached."""
+    import lightgbm_tpu_torch as lgt
+
+    if key not in _CPU_DATA:
+        if key == "small":
+            X, y = make_higgs_shaped(small_rows, seed=3)
+            ds = lgt.Dataset(X, label=y)
+            ds.construct(TRAIN_PARAMS)
+            X = ds.data  # what phase_small_mask and phase_small_objectives read
+        elif key == "small_l2":
+            X = _cpu_data("small", small_rows)[0].data
+            ds = lgt.Dataset(X, label=small_l2_targets(X))
+        elif key == "sampled":
+            X, y = make_higgs_shaped(small_rows, seed=5)
+            ds = lgt.Dataset(X, label=y)
+        elif key == "cov":
+            Xc, yc = make_covertype_shaped()
+            X = Xc[:COV_SMALL_ROWS]
+            ds = lgt.Dataset(X, label=yc[:COV_SMALL_ROWS])
+        else:
+            X, y, sizes = make_mslr_shaped(RANK_SMALL_QUERIES, seed=51)
+            ds = lgt.Dataset(X, label=y, group=sizes)
+        _CPU_DATA[key] = (ds, X if key == "rank" else X[:50_000])
+    return _CPU_DATA[key]
+
+
+def _cpu_half(case, small_rows):
+    """The CPU half of one small card-vs-CPU check, in a worker process:
+    ``case`` (data key, params, iterations, the grower it must take:
+    "fused", "mask" or None, whether to return the bagging draws)
+    trained with device="cpu" (the plain versions).  Returns the model
+    text, the predictions, the seconds, the launch counts and the draws."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    key, params, iters, grower, draws = case
+    ds, rows = _cpu_data(key, small_rows)
+    t0 = time.perf_counter()
+    pk.reset_launch_counts()
+    bst = lgt.train(params, ds, iters, device="cpu")
+    out = dict(seconds=time.perf_counter() - t0, counts=pk.launch_counts(),
+               text=bst.model_to_string(), pred=bst.predict(rows))
+    pt = bst.boosting.ptrainer
+    assert grower != "mask" or pt is None, f"{key}: the CPU run did not take the mask grower"
+    assert grower != "fused" or pt is not None, f"{key}: the CPU run left the fused path"
+    if draws:
+        out["draws"] = [tuple(None if d is None else d.numpy() for d in pt._draws(it))
+                        for it in range(iters)]
+    return out
+
+
+def small_cpu_cases():
+    """{name: case} of the small checks whose CPU halves run in the
+    workers (phase_small_sampled, phase_small_mask,
+    phase_small_objectives, phase_small_rank)."""
+    mask = dict(num_leaves=SMALL_MASK_LEAVES)
+    check = dict(num_leaves=SMALL_CHECK_LEAVES)
+    cases = {
+        "bagging": ("sampled", dict(BAG_PARAMS, learning_rate=0.5, **check),
+                    SMALL_SAMPLED_ITERS, None, True),
+        "goss": ("sampled", dict(GOSS_PARAMS, learning_rate=0.5, **check), SMALL_GOSS_ITERS,
+                 None, False),
+        "quantized binary": ("small", dict(QUANT_PARAMS, **mask), SMALL_MASK_ITERS, "mask",
+                             False),
+        "quantized l2": ("small_l2", dict(QUANT_PARAMS, objective="regression", **mask),
+                         SMALL_MASK_ITERS, "mask", False),
+        "multiclass goss": ("cov", dict(COV_GOSS_PARAMS, learning_rate=0.5, **mask),
+                            SMALL_GOSS_ITERS, "mask", False),
+        "huber goss": ("small", dict(GOSS_PARAMS, objective="huber", huber_delta=0.3,
+                                     learning_rate=0.5, **check), SMALL_GOSS_ITERS, "fused",
+                       False),
+        "lambdarank": ("rank", dict(RANK_PARAMS, metric="none"), RANK_SMALL_ITERS, "mask",
+                       False),
+    }
+    for name, extra in OBJ_KINDS:
+        cases[name] = ("small", dict(TRAIN_PARAMS, objective=name, **extra, **check),
+                       SMALL_OBJ_ITERS, "fused", False)
+    return cases
+
+
+def start_small_cpu(small_rows):
+    """Spawn the CPU-half workers and hand them every case of
+    small_cpu_cases.  Returns (the pool, {name: future})."""
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init, initargs=(HERE, CPU_WORKER_THREADS))
+    futures = {name: pool.submit(_cpu_half, case, small_rows)
+               for name, case in small_cpu_cases().items()}
+    return pool, futures
+
+
+def cpu_result(cpu, name, what, rows):
+    """The worker's CPU half of check ``name``, logged as the card's half
+    is; ``what`` names the rows and ``rows`` their count."""
+    r = cpu[name].result()
+    log(f"small {name} cpu: {rows} {what}, {r['seconds']:.1f} s (a CPU-half worker); "
+        f"launches {json.dumps({k: v for k, v in r['counts'].items() if v})}")
+    return r
+
+
+def small_l2_targets(X):
+    """phase_small_mask's L2 targets of phase_small's rows."""
+    return (X[:, 0] - 0.5 * X[:, 1] + 0.3 * X[:, 2] * X[:, 3]).astype(np.float32)
+
+
 def phase_small(rows, iters, dev):
     """The same training on the card and on the CPU (plain versions), from
     one binned Dataset.  Returns (X, y, the Dataset, {"cuda": booster,
@@ -1510,11 +1678,11 @@ def phase_small(rows, iters, dev):
     return X, y, ds, boosters
 
 
-def phase_small_sampled(rows, dev):
+def phase_small_sampled(rows, dev, cpu):
     """Bagging with feature_fraction, and GOSS, on the card and on the CPU
-    (plain versions) at learning_rate 0.5, SMALL_CHECK_LEAVES leaves: the
-    same trees (or a first differing split that is a near-tie), and the
-    same bagging masks."""
+    (plain versions, in a CPU-half worker: ``cpu``) at learning_rate 0.5,
+    SMALL_CHECK_LEAVES leaves: the same trees (or a first differing split
+    that is a near-tie), and the same bagging masks."""
     import torch
 
     import lightgbm_tpu_torch as lgt
@@ -1522,138 +1690,128 @@ def phase_small_sampled(rows, dev):
 
     X, y = make_higgs_shaped(rows, seed=5)
     ds = lgt.Dataset(X, label=y)
+    cases = small_cpu_cases()
     # bagging redraws at iteration bagging_freq = 5, so it runs 6; GOSS 4
-    for name, params, iters in (("bagging", BAG_PARAMS, SMALL_SAMPLED_ITERS),
-                                ("goss", GOSS_PARAMS, SMALL_GOSS_ITERS)):
-        params = dict(params, learning_rate=0.5, num_leaves=SMALL_CHECK_LEAVES)
-        out = {}
-        for where, d in (("cuda", dev), ("cpu", "cpu")):
-            t0 = time.perf_counter()
-            pk.reset_launch_counts()
-            bst = lgt.train(params, ds, iters, device=d)
-            out[where] = bst
-            log(f"small {name} {where}: {rows}x28, {iters} iterations, "
-                f"{time.perf_counter() - t0:.1f} s; update_channels launches "
-                f"{pk.launch_counts()['update_channels']}")
-        ndiff = compare_models(f"small {name} cuda vs cpu", out["cpu"].model_to_string(),
-                               out["cuda"].model_to_string())
-        p = [out[w].predict(X[:50_000]) for w in ("cuda", "cpu")]
-        dpred = float(np.abs(p[0] - p[1]).max())
+    for name in ("bagging", "goss"):
+        _, params, iters, _, _ = cases[name]
+        t0 = time.perf_counter()
+        pk.reset_launch_counts()
+        bst = lgt.train(params, ds, iters, device=dev)
+        log(f"small {name} cuda: {rows}x28, {iters} iterations, "
+            f"{time.perf_counter() - t0:.1f} s; update_channels launches "
+            f"{pk.launch_counts()['update_channels']}")
+        ref = cpu_result(cpu, name, "rows x 28", rows)
+        ndiff = compare_models(f"small {name} cuda vs cpu", ref["text"],
+                               bst.model_to_string())
+        dpred = float(np.abs(bst.predict(X[:50_000]) - ref["pred"]).max())
         log(f"small {name} cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
             f"(tol 1e-3)")
         assert dpred <= 1e-3
         if name == "bagging":
-            pts = [out[w].boosting.ptrainer for w in ("cuda", "cpu")]
-            same = all(torch.equal(pts[0]._draws(it)[0].cpu(), pts[1]._draws(it)[0])
-                       and torch.equal(pts[0]._draws(it)[1].cpu(), pts[1]._draws(it)[1])
+            pt = bst.boosting.ptrainer
+            same = all(torch.equal(pt._draws(it)[0].cpu(), torch.from_numpy(ref["draws"][it][0]))
+                       and torch.equal(pt._draws(it)[1].cpu(),
+                                       torch.from_numpy(ref["draws"][it][1]))
                        for it in range(iters))
             log(f"small bagging: bagging and feature masks of all {iters} iterations equal on "
                 f"the card and the CPU: {same}")
             assert same, "the card's bagging masks differ from the CPU's"
 
 
-def phase_small_mask(small_ds, Xc, yc, dev):
-    """The mask grower on the card and on the CPU (plain versions):
-    quantized binary (on phase_small's binned Dataset) and quantized L2 on
-    its rows x 28, and multiclass GOSS on 50,000 Covertype-shaped rows
-    (K=7, learning_rate 0.5: 2 warm-up and 2 sampled iterations); 31
-    leaves.  The same trees (or a first differing split that is a
-    near-tie) and predictions within 1e-3."""
+def phase_small_mask(small_ds, Xc, yc, dev, cpu):
+    """The mask grower on the card and on the CPU (plain versions, in a
+    CPU-half worker: ``cpu``): quantized binary (on phase_small's binned
+    Dataset) and quantized L2 on its rows x 28, and multiclass GOSS on
+    COV_SMALL_ROWS Covertype-shaped rows (K=7, learning_rate 0.5: 2
+    warm-up and 2 sampled iterations); 31 leaves.  The same trees (or a
+    first differing split that is a near-tie) and predictions within
+    1e-3."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import pkernels as pk
 
     X = small_ds.data
-    y_l2 = (X[:, 0] - 0.5 * X[:, 1] + 0.3 * X[:, 2] * X[:, 3]).astype(np.float32)
-    small = dict(num_leaves=SMALL_MASK_LEAVES)
-    cases = (("quantized binary", dict(QUANT_PARAMS, **small), X, small_ds, SMALL_MASK_ITERS,
-              "hist_segment_q"),
-             ("quantized l2", dict(QUANT_PARAMS, objective="regression", **small), X,
-              lgt.Dataset(X, label=y_l2), SMALL_MASK_ITERS, "hist_segment_q"),
-             ("multiclass goss", dict(COV_GOSS_PARAMS, learning_rate=0.5, **small),
-              Xc[:COV_SMALL_ROWS], lgt.Dataset(Xc[:COV_SMALL_ROWS], label=yc[:COV_SMALL_ROWS]),
-              SMALL_GOSS_ITERS, "hist_segment"))
-    for name, params, Xs, ds, iters, kernel in cases:
-        out = {}
-        for where, d in (("cuda", dev), ("cpu", "cpu")):
-            t0 = time.perf_counter()
-            pk.reset_launch_counts()
-            bst = lgt.train(params, ds, iters, device=d)
-            assert bst.boosting.ptrainer is None, f"{name} did not take the mask grower"
-            out[where] = (bst.model_to_string(), bst.predict(Xs[:50_000]))
-            log(f"small {name} {where}: {len(Xs)} rows, {iters} iterations, "
-                f"{time.perf_counter() - t0:.1f} s; {kernel} launches "
-                f"{pk.launch_counts()[kernel]}")
-        ndiff = compare_models(f"small {name} cuda vs cpu", out["cpu"][0], out["cuda"][0])
-        dpred = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    cases = small_cpu_cases()
+    data = {"quantized binary": (X, small_ds, "hist_segment_q"),
+            "quantized l2": (X, lgt.Dataset(X, label=small_l2_targets(X)), "hist_segment_q"),
+            "multiclass goss": (Xc[:COV_SMALL_ROWS], lgt.Dataset(
+                Xc[:COV_SMALL_ROWS], label=yc[:COV_SMALL_ROWS]), "hist_segment")}
+    for name, (Xs, ds, kernel) in data.items():
+        _, params, iters, _, _ = cases[name]
+        t0 = time.perf_counter()
+        pk.reset_launch_counts()
+        bst = lgt.train(params, ds, iters, device=dev)
+        assert bst.boosting.ptrainer is None, f"{name} did not take the mask grower"
+        text, pred = bst.model_to_string(), bst.predict(Xs[:50_000])
+        log(f"small {name} cuda: {len(Xs)} rows, {iters} iterations, "
+            f"{time.perf_counter() - t0:.1f} s; {kernel} launches "
+            f"{pk.launch_counts()[kernel]}")
+        ref = cpu_result(cpu, name, "rows", len(Xs))
+        ndiff = compare_models(f"small {name} cuda vs cpu", ref["text"], text)
+        dpred = float(np.abs(pred - ref["pred"]).max())
         log(f"small {name} cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
-            f"(tol 1e-3); model text byte-identical {out['cuda'][0] == out['cpu'][0]}")
+            f"(tol 1e-3); model text byte-identical {text == ref['text']}")
         assert dpred <= 1e-3
 
 
-def phase_small_objectives(ds, iters, dev):
+def phase_small_objectives(ds, dev, cpu):
     """Each regression objective on the fused path, on phase_small's binned
     Dataset (the Higgs 0/1 targets as regression targets, TRAIN_PARAMS at
-    SMALL_CHECK_LEAVES leaves), then Huber with GOSS at
-    learning_rate 0.5 (update_channels from iteration 2 on), on the card
-    and on the CPU (plain versions): 0 differing splits (both sides take
-    the correctly rounded exp, no FMA, histograms rounded once) and
-    predictions within 1e-3."""
+    SMALL_CHECK_LEAVES leaves, SMALL_OBJ_ITERS iterations), then Huber
+    with GOSS at learning_rate 0.5 (update_channels from iteration 2 on),
+    on the card and on the CPU (plain versions, in a CPU-half worker:
+    ``cpu``): 0 differing splits (both sides take the correctly rounded
+    exp, no FMA, histograms rounded once) and predictions within 1e-3."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import pkernels as pk
 
     X, rows = ds.data, ds.num_data()
-    small = dict(num_leaves=SMALL_CHECK_LEAVES)
-    cases = [(name, dict(TRAIN_PARAMS, objective=name, **extra, **small), iters)
-             for name, extra in OBJ_KINDS]
-    cases.append(("huber goss", dict(GOSS_PARAMS, objective="huber", huber_delta=0.3,
-                                     learning_rate=0.5, **small), SMALL_GOSS_ITERS))
-    for name, params, n_iter in cases:
-        out = {}
-        for where, d in (("cuda", dev), ("cpu", "cpu")):
-            t0 = time.perf_counter()
-            pk.reset_launch_counts()
-            bst = lgt.train(params, ds, n_iter, device=d)
-            assert bst.boosting.ptrainer is not None, f"{name} left the fused path"
-            counts = pk.launch_counts()
-            out[where] = (bst.model_to_string(), bst.predict(X[:50_000]))
-            log(f"small {name} {where}: {rows}x28, {n_iter} iterations, "
-                f"{time.perf_counter() - t0:.1f} s; update_and_root_hist launches "
-                f"{counts['update_and_root_hist']}, update_channels {counts['update_channels']}")
-            if d is dev and dev.type == "cuda" and "goss" in name:
-                assert counts["update_channels"] > 0, "GOSS ran no update_channels"
-        ndiff = compare_models(f"small {name} cuda vs cpu", out["cpu"][0], out["cuda"][0])
-        dpred = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
-        same = trees_text(out["cuda"][0]) == trees_text(out["cpu"][0])
+    cases = small_cpu_cases()
+    for name in [n for n, _ in OBJ_KINDS] + ["huber goss"]:
+        _, params, n_iter, _, _ = cases[name]
+        t0 = time.perf_counter()
+        pk.reset_launch_counts()
+        bst = lgt.train(params, ds, n_iter, device=dev)
+        assert bst.boosting.ptrainer is not None, f"{name} left the fused path"
+        counts = pk.launch_counts()
+        text, pred = bst.model_to_string(), bst.predict(X[:50_000])
+        log(f"small {name} cuda: {rows}x28, {n_iter} iterations, "
+            f"{time.perf_counter() - t0:.1f} s; update_and_root_hist launches "
+            f"{counts['update_and_root_hist']}, update_channels {counts['update_channels']}")
+        if dev.type == "cuda" and "goss" in name:
+            assert counts["update_channels"] > 0, "GOSS ran no update_channels"
+        ref = cpu_result(cpu, name, "rows x 28", rows)
+        ndiff = compare_models(f"small {name} cuda vs cpu", ref["text"], text)
+        dpred = float(np.abs(pred - ref["pred"]).max())
+        same = trees_text(text) == trees_text(ref["text"])
         log(f"small {name} cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
             f"(tol 1e-3); model text byte-identical {same}")
         assert ndiff == 0, f"small {name}: the card's splits differ from the CPU's"
         assert dpred <= 1e-3
 
 
-def phase_small_rank(dev):
+def phase_small_rank(dev, cpu):
     """Lambdarank on the mask grower, RANK_SMALL_QUERIES queries of the
     mslr-web10k-shaped data (~20k documents), on the card and on the CPU
-    (plain versions): the same trees or a first differing split that is a
-    near-tie (the pair sums' float order differs between the two), and
-    predictions within 1e-3."""
+    (plain versions, in a CPU-half worker: ``cpu``): the same trees or a
+    first differing split that is a near-tie (the pair sums' float order
+    differs between the two), and predictions within 1e-3."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import pkernels as pk
 
     X, y, sizes = make_mslr_shaped(RANK_SMALL_QUERIES, seed=51)
-    out = {}
     ds = lgt.Dataset(X, label=y, group=sizes)
-    for where, d in (("cuda", dev), ("cpu", "cpu")):
-        t0 = time.perf_counter()
-        pk.reset_launch_counts()
-        bst = lgt.train(dict(RANK_PARAMS, metric="none"), ds,
-                        RANK_SMALL_ITERS, device=d)
-        assert bst.boosting.ptrainer is None, "lambdarank left the mask grower"
-        out[where] = (bst.model_to_string(), bst.predict(X))
-        log(f"small lambdarank {where}: {len(y)} documents in {len(sizes)} queries, "
-            f"{RANK_SMALL_ITERS} iterations, {time.perf_counter() - t0:.1f} s; hist_segment "
-            f"launches {pk.launch_counts()['hist_segment']}")
-    ndiff = compare_models("small lambdarank cuda vs cpu", out["cpu"][0], out["cuda"][0])
-    dpred = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    _, params, iters, _, _ = small_cpu_cases()["lambdarank"]
+    t0 = time.perf_counter()
+    pk.reset_launch_counts()
+    bst = lgt.train(params, ds, iters, device=dev)
+    assert bst.boosting.ptrainer is None, "lambdarank left the mask grower"
+    text, pred = bst.model_to_string(), bst.predict(X)
+    log(f"small lambdarank cuda: {len(y)} documents in {len(sizes)} queries, "
+        f"{iters} iterations, {time.perf_counter() - t0:.1f} s; hist_segment "
+        f"launches {pk.launch_counts()['hist_segment']}")
+    ref = cpu_result(cpu, "lambdarank", "documents", len(y))
+    ndiff = compare_models("small lambdarank cuda vs cpu", ref["text"], text)
+    dpred = float(np.abs(pred - ref["pred"]).max())
     log(f"small lambdarank cuda vs cpu: {ndiff} split differences, max |dpred| {dpred:.3e} "
         f"(tol 1e-3)")
     assert dpred <= 1e-3
@@ -1863,23 +2021,30 @@ def phase_covertype(ds, Xv, yv, iters, dev):
         f"multi_logloss {ll:.6f} (prior entropy {prior_entropy():.6f}), accuracy {acc:.6f}; "
         f"peak device memory {peak:.2f} GiB; {len(pt.trees.graphs)} tree graphs, their "
         f"shared pool {'not found' if pool is None else f'{pool:.3f} GiB'}")
+    steps, t = {"train": round(wall, 2)}, time.perf_counter()
     syncs = fused_grower_syncs(pt, dev)
     costs = tree_costs(pt, dev)
+    steps["syncs_and_replays"], t = round(time.perf_counter() - t, 2), time.perf_counter()
     assert prob.shape == (len(yv), 7) and np.all(np.isfinite(prob))
     assert ll < prior_entropy(), "held-out multi_logloss is not below the class prior's"
     # one iteration is 7 trees, as many launches as ~7 binary iterations;
     # two, so that a window that loses a launch (as earlier ones did,
     # profile_iters logs it) still records update_multi_and_hists
     prof = profile_iters(ds, dev, COV_PARAMS, n_iter=2, bst=bst) if dev.type == "cuda" else None
+    steps["profile"], t = round(time.perf_counter() - t, 2), time.perf_counter()
 
-    (ova, wall), _ = driven("covertype-581k one-vs-all",
-                            lambda: run(dict(COV_PARAMS, objective="multiclassova"), 2),
+    # one-vs-all at SMALL_CHECK_LEAVES leaves: its K=7 tree graphs' capture,
+    # ~30 s at 255 leaves, scales with the leaves' fixed steps
+    ova_params = dict(COV_PARAMS, objective="multiclassova", num_leaves=SMALL_CHECK_LEAVES)
+    (ova, wall), _ = driven("covertype-581k one-vs-all", lambda: run(ova_params, 2),
                             ("update_multi_and_hists", "level_stream", "score_add"))
     pv = ova.predict(Xv)
-    log(f"covertype one-vs-all: 2 iterations in {wall:.2f} s; held-out accuracy "
+    log(f"covertype one-vs-all: {SMALL_CHECK_LEAVES} leaves, 2 iterations in {wall:.2f} s; "
+        f"held-out accuracy "
         f"{float(np.mean(np.argmax(pv, axis=1) == yv)):.6f}")
     assert pv.shape == (len(yv), 7) and np.all(np.isfinite(pv))
     del ova
+    steps["one_vs_all"], t = round(time.perf_counter() - t, 2), time.perf_counter()
 
     # one tree from the trained state: its root histogram from
     # update_multi_and_hists (class 0), then built by the grower itself
@@ -1910,6 +2075,8 @@ def phase_covertype(ds, Xv, yv, iters, dev):
             assert ok, f"root_hist=None via {what}: a split differs beyond a near-tie"
         else:
             assert int(res.num_splits) == int(want.num_splits)
+    steps["root_hist_none"] = round(time.perf_counter() - t, 2)
+    log(f"covertype: seconds by step {json.dumps(steps)}")
     del bst, pt, p, hists
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2192,14 +2359,12 @@ def graph_pool_gib(pt):
     return sum(sizes) / 2**30 if sizes else None
 
 
-def phase_full(rows, iters, dev, repeat_iters):
-    """The binary main path at full width ("higgs-10.5M").  Returns the
-    launch counts of the main run."""
-    import torch
-
+def prep_higgs(rows):
+    """The higgs-10.5M data: ``rows`` training rows binned with
+    TRAIN_PARAMS and 500,000 held out.  Host work only, so main() runs it
+    on a background thread beside the small phases.  Returns ((the
+    Dataset, held-out X, held-out y), seconds)."""
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops import histogram as th
-    from lightgbm_tpu_torch.ops import pkernels as pk
 
     t0 = time.perf_counter()
     X, y = make_higgs_shaped(rows + 500_000, seed=7)
@@ -2207,7 +2372,23 @@ def phase_full(rows, iters, dev, repeat_iters):
     X, y = X[:rows], y[:rows]
     ds = lgt.Dataset(X, label=y)
     ds.construct(TRAIN_PARAMS)
-    log(f"full: data {rows}x28 + 500000 held out, binned in {time.perf_counter() - t0:.1f} s")
+    return (ds, Xv, yv), time.perf_counter() - t0
+
+
+def phase_full(data, iters, dev, repeat_iters):
+    """The binary main path at full width ("higgs-10.5M") on prep_higgs's
+    ``data`` (a future).  Returns the launch counts of the main run."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import pkernels as pk
+
+    t0 = time.perf_counter()
+    (ds, Xv, yv), prep_s = data.result()
+    rows = ds.num_data()
+    log(f"full: data {rows}x28 + 500000 held out, binned in {prep_s:.1f} s on a background "
+        f"thread beside the small phases (waited {time.perf_counter() - t0:.1f} s for it)")
 
     def run(n_iter):
         if dev.type == "cuda":
@@ -2419,16 +2600,11 @@ def phase_full_objectives(ds, Xv, yv, dev):
     return all_counts, res
 
 
-def phase_rank(dev):
-    """"mslr-web10k-shaped": lambdarank on the mask grower at MSLR-WEB10K
-    Fold1's training size (723,412 documents in 6,000 queries, 136
-    features) with a 2,000-query validation set, RANK_PARAMS, RANK_ITERS
-    iterations: s/iter, the gradient pass's device ms, ndcg@1,3,5,10 on
-    the validation set against a random order's, peak memory, and B8's
-    launches and selected rows.  Returns the path's launch counts and its
-    numbers."""
-    import torch
-
+def prep_mslr():
+    """The mslr-web10k-shaped data, binned with RANK_PARAMS, and its
+    validation set.  Host work only (main() runs it on a background
+    thread).  Returns ((the Dataset, the validation Dataset, labels,
+    validation labels, query sizes, validation query sizes), seconds)."""
     import lightgbm_tpu_torch as lgt
 
     t0 = time.perf_counter()
@@ -2438,12 +2614,28 @@ def phase_rank(dev):
     ds.construct(RANK_PARAMS)
     dv = lgt.Dataset(Xv, label=yv, group=vsizes, reference=ds)
     dv.construct()
-    del X, Xv
+    return (ds, dv, y, yv, sizes, vsizes), time.perf_counter() - t0
+
+
+def phase_rank(data, dev):
+    """"mslr-web10k-shaped": lambdarank on the mask grower at MSLR-WEB10K
+    Fold1's training size (723,412 documents in 6,000 queries, 136
+    features) with a 2,000-query validation set, RANK_PARAMS, RANK_ITERS
+    iterations, on prep_mslr's ``data`` (a future): s/iter, the gradient
+    pass's device ms, ndcg@1,3,5,10 on the validation set against a
+    random order's, peak memory, and B8's launches and selected rows.
+    Returns the path's launch counts and its numbers."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+
+    t0 = time.perf_counter()
+    (ds, dv, y, yv, sizes, vsizes), prep_s = data.result()
     log(f"mslr-web10k-shaped: {len(y)} documents in {len(sizes)} queries (mean "
         f"{sizes.mean():.1f}, largest {sizes.max()}), {MSLR_FEATURES} features, labels 0-4 "
         f"{np.bincount(y.astype(np.int64), minlength=5).tolist()}; validation {len(yv)} "
-        f"documents in {len(vsizes)} queries; built and binned in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"documents in {len(vsizes)} queries; built and binned in {prep_s:.1f} s on a "
+        f"background thread (waited {time.perf_counter() - t0:.1f} s for it)")
     ev = {}
 
     def run():
@@ -2612,17 +2804,20 @@ def phase_api(higgs, main_text, dev):
     """The API's new paths at full width, on the higgs-10.5M data (its
     500k held-out rows) with TRAIN_PARAMS and the main run's model
     (``main_text``, loaded as a Booster on the card): an LGBMClassifier
-    fit with an eval set and early stopping (trees byte-identical to the
-    main run's), init_model continuation of
-    bst, rollback_one_iter then update(), 5-fold cv, DART, pred_leaf and
-    the prediction early stop, and the feature importances.  Returns the
-    launch counts of its paths and its numbers."""
+    fit on the first API_CLF_ROWS rows with an eval set and early
+    stopping (trees byte-identical to lgt.train's on the same rows),
+    init_model continuation of bst on the first API_SUB_ROWS rows
+    (sharing the cell's bins), rollback_one_iter then update(), 5-fold cv
+    of those rows, DART, pred_leaf and the prediction early stop, and the
+    feature importances.  Returns the launch counts of its paths and its
+    numbers."""
     import torch
 
     import lightgbm_tpu_torch as lgt
 
     ds, Xv, yv = higgs
     X, y = ds.data, ds.get_label()
+    sub = ds.subset(np.arange(min(API_SUB_ROWS, len(y))))
     bst = lgt.Booster(model_str=main_text, device=dev)
     n_main = bst.current_iteration()
     counts, res = [], {}
@@ -2637,25 +2832,29 @@ def phase_api(higgs, main_text, dev):
     fused = ("update_and_root_hist", "level_stream", "split_stream", "score_add")
 
     # 1. the scikit-learn estimator
+    n_fit = min(API_CLF_ROWS, len(y))
+
     def fit():
         peak_reset()
         t = time.perf_counter()
         clf = lgt.LGBMClassifier(**SKLEARN_PARAMS, n_estimators=API_CLF_ITERS, device=dev)
-        clf.fit(X, y, eval_set=[(Xv, yv)], early_stopping_rounds=5)
+        clf.fit(X[:n_fit], y[:n_fit], eval_set=[(Xv, yv)], early_stopping_rounds=5)
         sync(dev)
         return clf, time.perf_counter() - t
 
     (clf, wall), c = driven("higgs-10.5M LGBMClassifier", fit, fused)
     counts.append(c)
     n_clf = clf.booster_.current_iteration()
-    same = (tree_blocks(clf.booster_.model_to_string())
-            == tree_blocks(bst.model_to_string(n_clf)))
+    want = lgt.train(TRAIN_PARAMS, lgt.Dataset(X[:n_fit], label=y[:n_fit]), n_clf, device=dev)
+    same = tree_blocks(clf.booster_.model_to_string()) == tree_blocks(want.model_to_string())
+    del want
     a = auc(yv, clf.predict_proba(Xv)[:, 1])
-    log(f"higgs-10.5M LGBMClassifier: fit {API_CLF_ITERS} estimators with an eval set and "
-        f"early_stopping_rounds=5 in {wall:.2f} s (binning included); {n_clf} iterations, "
-        f"best_iteration_ {clf.best_iteration_}; its trees byte-identical to the main run's "
-        f"first {n_clf}: {same}; predict_proba AUC {a:.6f}; peak device memory {peak():.2f} GiB")
-    assert same, "the estimator's trees differ from the main run's"
+    log(f"higgs-10.5M LGBMClassifier: fit {API_CLF_ITERS} estimators on the first {n_fit} rows "
+        f"with an eval set and early_stopping_rounds=5 in {wall:.2f} s (binning included); "
+        f"{n_clf} iterations, best_iteration_ {clf.best_iteration_}; its trees byte-identical "
+        f"to lgt.train's on the same rows: {same}; predict_proba AUC {a:.6f}; peak device "
+        f"memory {peak():.2f} GiB")
+    assert same, "the estimator's trees differ from lgt.train's"
     res["clf"] = dict(wall=wall, auc=a)
     del clf
 
@@ -2663,7 +2862,7 @@ def phase_api(higgs, main_text, dev):
     def cont():
         peak_reset()
         t = time.perf_counter()
-        b = lgt.train(TRAIN_PARAMS, ds, API_CONT_ITERS, init_model=bst, device=dev)
+        b = lgt.train(TRAIN_PARAMS, sub, API_CONT_ITERS, init_model=bst, device=dev)
         sync(dev)
         return b, time.perf_counter() - t
 
@@ -2671,8 +2870,9 @@ def phase_api(higgs, main_text, dev):
     counts.append(c)
     kept = tree_blocks(b2.model_to_string(n_main)) == tree_blocks(main_text)
     a = auc(yv, b2.predict(Xv))
-    log(f"higgs-10.5M init_model: {n_main} + {API_CONT_ITERS} iterations in {wall:.2f} s (the "
-        f"initial model's predictions of the training rows included); its first {n_main} trees "
+    log(f"higgs-10.5M init_model: {n_main} + {API_CONT_ITERS} iterations on the first "
+        f"{sub.num_data()} rows in {wall:.2f} s (the initial model's predictions of the "
+        f"training rows included); its first {n_main} trees "
         f"byte-identical to the main run's: {kept}; AUC after {b2.current_iteration()} "
         f"iterations {a:.6f}; score_add launches {c['score_add']} (the initial scores, then "
         f"each chunk's settle); peak device memory {peak():.2f} GiB")
@@ -2680,7 +2880,8 @@ def phase_api(higgs, main_text, dev):
     res["init_model"] = dict(wall=wall, auc=a, score_add=c["score_add"])
 
     # 3. rollback, then one more iteration
-    rows = np.random.default_rng(1).choice(len(y), min(100_000, len(y)), replace=False)
+    rows = np.random.default_rng(1).choice(sub.num_data(), min(100_000, sub.num_data()),
+                                           replace=False)
     n_it = b2.current_iteration()
     before = b2.model_to_string()
 
@@ -2742,11 +2943,11 @@ def phase_api(higgs, main_text, dev):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # 4. five-fold cv: five boosters of 8.4M rows on the card at once
+    # 4. five-fold cv of API_SUB_ROWS rows: five boosters on the card at once
     def run_cv():
         peak_reset()
         t = time.perf_counter()
-        r = lgt.cv(TRAIN_PARAMS, ds, API_CV_ITERS, nfold=5, seed=0, return_cvbooster=True,
+        r = lgt.cv(TRAIN_PARAMS, sub, API_CV_ITERS, nfold=5, seed=0, return_cvbooster=True,
                    device=dev)
         sync(dev)
         return r, time.perf_counter() - t
@@ -3055,10 +3256,11 @@ def _logged(stdout, prefix):
             if line.startswith("[LightGBM-TPU]") and line.split("] ", 2)[-1].startswith(prefix)]
 
 
-def phase_cli(higgs, main_text, main_auc, iters, dev):
+def phase_cli(higgs, main_text, iters, dev):
     """"higgs-10.5M-cli": the command line at full width on the Higgs
     cell's data.  The main run's binned training set saved as a binary
-    cache; the 500k held-out rows written as a CSV with a header; then,
+    cache; the first CLI_CSV_ROWS held-out rows written as a CSV with a
+    header; then,
     each a ``python -m lightgbm_tpu_torch`` process on the card:
     task=train from a .conf with TRAIN_PARAMS (data=the cache,
     valid_data=the CSV, metric=auc, --iters iterations, a checkpoint every
@@ -3070,9 +3272,10 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
     iteration records; each checkpoint's size and capture, serialize and
     write seconds logged), task=predict of the CSV (within
     1e-5 relative of the in-process Booster.predict of the same file; its
-    AUC within 1e-4 of the main run's) and task=ingest of the CSV with
-    stream_ingest=true (bins and mappers equal to the in-memory
-    Dataset(csv)'s); the native parser must have parsed the CSV in each.
+    AUC within 1e-4 of the main model's on those rows) and task=ingest of
+    the CSV with stream_ingest=true in chunks of CLI_INGEST_CHUNK rows
+    (bins and mappers equal to the in-memory Dataset(csv)'s); the native
+    parser must have parsed the CSV in each.
     Returns the training processes' launch counts (their logs') and the
     phase's numbers."""
     import lightgbm_tpu_torch as lgt
@@ -3080,6 +3283,8 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
     from lightgbm_tpu_torch.ops import pkernels as pk
 
     ds, Xv, yv = higgs
+    Xv, yv = Xv[:CLI_CSV_ROWS], yv[:CLI_CSV_ROWS]
+    main_auc = auc(yv, lgt.Booster(model_str=main_text, device=dev).predict(Xv))
     work = os.path.join(HERE, "build", "chip_cli")
     os.makedirs(work, exist_ok=True)
     cache, csv = os.path.join(work, "higgs.train.bin"), os.path.join(work, "higgs.valid.csv")
@@ -3125,8 +3330,9 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
     counts = {k: c1[k] + c2[k] for k in c1}
     log(f"path higgs-10.5M-cli: launches {json.dumps(counts)} (the preempted process "
         f"{json.dumps(c1)}, the resumed one {json.dumps(c2)})")
-    reports = [json.loads(_cli(["report", tr, "--json"], work)[0].strip().splitlines()[-1])
-               for tr in traces]
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:  # the two reports side by side
+        reports = [json.loads(o.strip().splitlines()[-1]) for o, _ in ex.map(
+            lambda tr: _cli(["report", tr, "--json"], work), traces)]
     n_iter_recs = sum(r["iterations"] for r in reports)
     ckpts, restore_s, recs1 = _ckpt_records(traces[0])
     ckpts2, restore_s, recs2 = _ckpt_records(traces[1])
@@ -3172,8 +3378,14 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
     assert same, "the resumed CLI run's trees differ from the main run's"
     assert native in out, "the training process did not parse the CSV with the native parser"
 
-    out, wall = _cli(["task=predict", f"data={csv}", "header=true", "input_model=model.txt",
-                      "output_result=pred.txt"], work)
+    # task=predict and task=ingest of the CSV: two processes side by side
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        ingest = ex.submit(_cli, [f"config={conf}", "task=ingest", f"data={csv}",
+                                  "stream_ingest=true", f"stream_chunk_rows={CLI_INGEST_CHUNK}",
+                                  "verbosity=2"], work)
+        out, wall = _cli(["task=predict", f"data={csv}", "header=true",
+                          "input_model=model.txt", "output_result=pred.txt"], work)
+        ingest_out, ingest_wall = ingest.result()
     assert native in out, "the prediction process did not use the native parser"
     pred = np.loadtxt(os.path.join(work, "pred.txt"))
     t = time.perf_counter()
@@ -3182,15 +3394,15 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
     rel = float(np.max(np.abs(pred - inproc) / np.maximum(np.abs(inproc), 1e-30)))
     a = auc(yv, pred)
     res.update(predict_wall=wall, predict_rel=rel, predict_auc=a)
-    log(f"higgs-10.5M-cli task=predict: {len(pred)} rows in {wall:.2f} s (the process); "
+    log(f"higgs-10.5M-cli task=predict: {len(pred)} rows in {wall:.2f} s (the process, beside "
+        f"task=ingest's); "
         f"in-process Booster.predict of the file {inproc_s:.2f} s; max relative difference "
         f"{rel:.2e} (limit 1e-5, %g keeps six digits); AUC of the file {a:.6f}, the main "
-        f"run's {main_auc:.6f}")
+        f"model's on these rows {main_auc:.6f}")
     assert pred.shape == (len(yv),) and np.all(np.isfinite(pred))
     assert rel <= 1e-5 and abs(a - main_auc) <= 1e-4
 
-    out, wall = _cli([f"config={conf}", "task=ingest", f"data={csv}", "stream_ingest=true",
-                      "verbosity=2"], work)
+    out, wall = ingest_out, ingest_wall
     assert native in out, "the ingest process did not use the native parser"
     report = json.loads(_logged(out, "Finished ingest: ")[0])
     t = time.perf_counter()
@@ -3205,7 +3417,7 @@ def phase_cli(higgs, main_text, main_auc, iters, dev):
     log(f"higgs-10.5M-cli task=ingest: {report['rows']} rows streamed in {report['wall_s']} s "
         f"({report['chunks_pass1']} + {report['chunks_pass2']} chunks of {report['chunk_rows']} "
         f"rows, host RSS {report['rss_start_mb']} MB at the start, {report['rss_peak_mb']} MB at "
-        f"the peak), the process {wall:.2f} s; the "
+        f"the peak), the process {wall:.2f} s (beside task=predict's); the "
         f"in-memory Dataset(csv) {mem_s:.2f} s; bins equal {same_bins}, mappers equal "
         f"{same_mappers}; parser blocks in this process {json.dumps(parser_blocks())}")
     assert same_bins and same_mappers, "the streamed cache differs from the in-memory load"
@@ -3217,6 +3429,7 @@ SERVE_BATCHES = (1, 128, 2048)  # bench.py _bench_serving's batch sizes
 SERVE_TILES = 50  # the 1,000-tree artifact: the main model's 20 trees 50 times
 SERVE_CLIENTS = 8
 SERVE_MIXED = 200  # mixed-size predicts a warmed predictor answers with no capture
+SERVE_HTTP_ROWS = 200_000  # the first HTTP pass: the first held-out rows (cut from 500k)
 SERVE_SWAP_ROWS = 150_000  # the hot-swap pass: the first held-out rows again
 # the pass that swaps in another shape class: 2 clients send requests of
 # 1-64 rows (the first 20k held-out rows, again until the new model
@@ -3382,7 +3595,7 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def phase_serve(higgs, main_text, main_auc, small_texts, cov_rows, dev):
+def phase_serve(higgs, main_text, small_texts, cov_rows, dev):
     """"higgs-10.5M-serve": serving on the card.  The main model (20 trees
     x 255 leaves, 28 features) packed as v1 (exact) and v2 (quantized), a
     1,000-tree artifact (the 20 trees 50 times, leaf values / 50), the
@@ -3390,9 +3603,10 @@ def phase_serve(higgs, main_text, main_auc, small_texts, cov_rows, dev):
     rows in process, SERVE_MIXED mixed-size predicts with no capture,
     leaves and scores checked, p50/p99 by batch size, and the host's part
     of a request.  Then `python -m lightgbm_tpu_torch serve` with a
-    registry: SERVE_CLIENTS clients send the 500k held-out rows in
-    requests of 1-2048 rows (every answer against Booster.predict, the
-    AUC against the main run's); a second pass over SERVE_SWAP_ROWS rows
+    registry: SERVE_CLIENTS clients send the first SERVE_HTTP_ROWS
+    held-out rows in requests of 1-2048 rows (every answer against
+    Booster.predict, the AUC against the main model's on them); a second
+    pass over SERVE_SWAP_ROWS rows
     during which a same-shape retrain (leaf values x 1.1) is published (in
     place, 0 captures); a third (SERVE_RESHAPE_*) during which the
     1,000-tree artifact (leaf values x 0.9/50) is published (another shape
@@ -3509,16 +3723,18 @@ def phase_serve(higgs, main_text, main_auc, small_texts, cov_rows, dev):
                 preds[a:b] = out
             return worst, dict(versions), preds
 
-        cuts, answers, lat, fails, wall = _traffic(port, X, 2026)
+        Xh = X[:SERVE_HTTP_ROWS]
+        main_auc = auc(yv[:len(Xh)], exp[1][:len(Xh)])  # the main model's on these rows
+        cuts, answers, lat, fails, wall = _traffic(port, Xh, 2026)
         assert not fails, f"failed requests: {fails[:5]}"
         worst, versions, preds = check(cuts, answers)
-        http_auc = auc(yv, preds)
+        http_auc = auc(yv[:len(Xh)], preds)
         st = json.loads(_http(port, "/stats")[2])
         b = st["batcher"]
         fams = parse_text_format(_http(port, "/metrics")[2].decode())
         res["http"] = dict(
-            ready_s=round(ready_s, 2), requests=len(cuts), rows=len(X), clients=SERVE_CLIENTS,
-            wall_s=round(wall, 3), rows_per_s=round(len(X) / wall, 1),
+            ready_s=round(ready_s, 2), requests=len(cuts), rows=len(Xh), clients=SERVE_CLIENTS,
+            wall_s=round(wall, 3), rows_per_s=round(len(Xh) / wall, 1),
             latency_p50_ms=round(float(np.percentile(lat, 50)), 3),
             latency_p99_ms=round(float(np.percentile(lat, 99)), 3),
             mean_batch_rows=round(b["rows"] / max(b["batches"], 1), 2), batches=b["batches"],
@@ -3651,7 +3867,7 @@ def phase_serve(higgs, main_text, main_auc, small_texts, cov_rows, dev):
 
 # ----------------------------------------------------------------------
 # out of core (phase_ooc) and the serving fleet (phase_fleet)
-OOC_ITERS = 3  # each streamed run and its resident twin
+OOC_ITERS = 2  # each streamed run and its resident twin (cut from 3)
 OOC_AUTO_ITERS = 1  # the run that LIGHTGBM_TPU_DEVICE_BUDGET routes
 FLEET_CLIENTS, FLEET_MAX_ROWS = 4, 64
 FLEET_SECONDS, FLEET_FAULT_SECONDS = 6.0, 5.0
@@ -4087,6 +4303,555 @@ def phase_fleet(higgs, main_text, dev):
     return res
 
 
+# ----------------------------------------------------------------------
+# the host-driven parallel learners (phase_parallel) and the training
+# factory (phase_factory)
+PARALLEL_ROWS = 15_000  # the main cell's first rows: 7 trees on the card, 5 on the CPU
+PARALLEL_RANKS = 4
+PARALLEL_MODES = (("data", {}), ("feature", {}), ("voting", {"top_k": 14}),
+                  ("voting", {"top_k": 5}), ("data", {"quantized": True}))
+FACTORY_PARTS = (40_000, 20_000, 60_000)  # cold, the clean append, the shuffled append
+FACTORY_CLI_ROWS = 20_000  # the CLI's SIGKILL drill
+FACTORY_ROUNDS, FACTORY_CLI_ROUNDS = 10, 12
+FACTORY_OBSERVE_S = 2.0
+
+
+def _host_group(mode, shards, params, meta, hyper, dev, **kw):
+    """One tree grown by ``len(shards)`` LocalComm ranks, a thread each, on
+    ``dev``; each shard is (bins, grad, hess).  Returns the ranks'
+    (GrowResult, ledger) and the wall seconds (the last read syncs)."""
+    import threading
+
+    from lightgbm_tpu_torch.parallel import HostParallelLearner, LocalGroup
+
+    group = LocalGroup(len(shards))
+    out, errs = [None] * len(shards), []
+    fmask = torch_ones(meta.num_bins.shape[0], dev)
+
+    def rank(r, comm):
+        try:
+            b, g, h = shards[r]
+            gr = HostParallelLearner(mode, comm, params, **kw).grow(
+                b, g, h, torch_ones(g.shape[0], dev), fmask, meta, hyper)
+            out[r] = (gr, dict(comm.ledger))
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+            group.barrier.abort()
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=rank, args=(r, c), daemon=True)
+               for r, c in enumerate(group.comms())]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+        assert not th.is_alive(), f"a {mode} rank thread hung"
+    if errs:
+        raise errs[0]
+    return out, time.perf_counter() - t
+
+
+def torch_ones(n, dev):
+    import torch
+
+    return torch.ones(int(n), dtype=torch.float32, device=dev)
+
+
+def _tree_fields(gr, skip=("leaf_id",)):
+    """A GrowResult as host arrays, by field."""
+    return {k: (v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v))
+            for k, v in gr._asdict().items() if k not in skip}
+
+
+def _same_tree(a, b, skip=("leaf_id",)):
+    fa, fb = _tree_fields(a, skip), _tree_fields(b, skip)
+    return all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def _split_difference(a, b):
+    """None when two trees' split records (leaf, feature, threshold,
+    default bin) are equal; else (record, gain a, gain b, near-tie), the
+    near-tie rule being gains within 1e-3 relative."""
+    n = int(a.num_splits)
+    fa, fb = _tree_fields(a), _tree_fields(b)
+    if n != int(b.num_splits):
+        return ("num_splits", n, int(b.num_splits), False)
+    keys = ("rec_leaf", "rec_feat", "rec_thr", "rec_dbz")
+    diff = [s for s in range(n) if any(fa[k][s] != fb[k][s] for k in keys)]
+    if not diff:
+        return None
+    s = diff[0]
+    ga, gb = float(fa["rec_gain"][s]), float(fb["rec_gain"][s])
+    return (s, ga, gb, abs(ga - gb) <= 1e-3 * max(abs(ga), abs(gb)))
+
+
+def parallel_inputs(ds, dev):
+    """phase_parallel's inputs from the main cell's Dataset: its first
+    PARALLEL_ROWS rows of bins, the boost-from-average gradients and
+    hessians, the grower's parameters, the split hyperparameters and the
+    feature metadata on ``dev``."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops.grow import GrowParams
+    from lightgbm_tpu_torch.ops.split import FeatureMeta, SplitHyper
+
+    binned = ds.construct(TRAIN_PARAMS)
+    bins = np.ascontiguousarray(np.asarray(binned.binned)[:PARALLEL_ROWS])
+    y = np.asarray(binned.metadata.label, np.float32)[:PARALLEL_ROWS]
+    p = np.float32(y.mean())  # boost from average: the first tree's gradients
+    grad = (p - y).astype(np.float32)
+    hess = np.full(PARALLEL_ROWS, p * (np.float32(1) - p), np.float32)
+    params = GrowParams(num_leaves=TRAIN_PARAMS["num_leaves"], num_bins=int(binned.max_num_bin),
+                        has_categorical=False)
+    hyper = SplitHyper.from_config(Config.from_params(TRAIN_PARAMS))
+    return (bins, grad, hess), params, hyper, FeatureMeta.from_dataset(binned, device=dev)
+
+
+def _parallel_shards(arrays, d, mode, ranks=PARALLEL_RANKS):
+    """The ranks' (bins, grad, hess) on ``d``: row blocks, or every row
+    for each rank in feature mode (its columns are sharded inside)."""
+    import torch
+
+    t = [torch.from_numpy(a).to(d) for a in arrays]
+    if mode == "feature":
+        return [t] * ranks
+    c = np.linspace(0, len(arrays[0]), ranks + 1).astype(int)
+    return [[a[c[r]:c[r + 1]] for a in t] for r in range(ranks)]
+
+
+def _parallel_cpu_half(arrays, params, hyper, meta, mode, kw):
+    """One mode of phase_parallel's CPU half, in a CPU-half worker: the
+    mode over PARALLEL_RANKS rank threads on the CPU (plain versions).
+    Returns (rank 0's tree, the ranks' ledgers, wall seconds)."""
+    import torch
+
+    cpu = torch.device("cpu")
+    ranks, wall = _host_group(mode, _parallel_shards(arrays, cpu, mode), params, meta, hyper,
+                              cpu, **kw)
+    return ranks[0][0], [r[1] for r in ranks], wall
+
+
+def parallel_mode_name(mode, kw):
+    return mode + "".join(f" {k}={v}" for k, v in kw.items())
+
+
+def start_parallel_cpu(pool, ds):
+    """Hand phase_parallel's CPU half to the CPU-half workers of ``pool``,
+    a task a mode (run_phases does so when the main cell's bins exist).
+    Returns {mode name: future}."""
+    import torch
+
+    arrays, params, hyper, meta = parallel_inputs(ds, torch.device("cpu"))
+    return {parallel_mode_name(mode, kw): pool.submit(_parallel_cpu_half, arrays, params,
+                                                      hyper, meta, mode, kw)
+            for mode, kw in PARALLEL_MODES}
+
+
+def phase_parallel(ds, dev, cpu_half):
+    """"higgs-10.5M-parallel": the host-driven learners (parallel/
+    hostlearner.py) over PARALLEL_RANKS LocalComm ranks as threads on the
+    one card, at the main cell's width (its bins cut to the first
+    PARALLEL_ROWS rows, 28 features, max_bin 63, num_leaves 255,
+    min_data_in_leaf 1, min_sum_hessian_in_leaf 100), one tree a mode from
+    the boost-from-average gradients: data, feature, voting at top_k 14
+    (2k >= F) and 5, and quantized data.  Holds feature == the serial
+    grower on the card bitwise, voting(2k >= F) == data bitwise, the
+    quantized tree equal at R = 1 and R = 4, each mode's split records
+    equal to the same mode on the CPU (plain versions, run by the CPU-half
+    workers: the futures ``cpu_half`` of start_parallel_cpu; or a near-tie
+    first difference) and, where they are equal, the ledgers card against
+    CPU.  Prints ms a tree by mode, bytes by purpose, and B8 / B9 launches
+    and selected rows of the card path.  Returns the paths' counts."""
+    from lightgbm_tpu_torch.ops.grow import grow_tree
+    from lightgbm_tpu_torch.ops.histogram import pack_bin_words
+
+    arrays, params, hyper, meta = parallel_inputs(ds, dev)
+    bins = arrays[0]
+    cuts = np.linspace(0, PARALLEL_ROWS, PARALLEL_RANKS + 1).astype(int)
+
+    def shards(d, mode, ranks=PARALLEL_RANKS):
+        return _parallel_shards(arrays, d, mode, ranks)
+
+    res = {"rows": PARALLEL_ROWS, "ranks": PARALLEL_RANKS, "shard_rows": np.diff(cuts).tolist()}
+    counts, card = [], {}
+    for mode, kw in PARALLEL_MODES:
+        name = parallel_mode_name(mode, kw)
+        hk = "hist_segment_q" if kw.get("quantized") else "hist_segment"
+        required = (hk,) if dev.type == "cuda" else ()  # a CPU rehearsal launches nothing
+        (out, wall), c = driven(f"higgs-10.5M-parallel {name}", lambda: _host_group(
+            mode, shards(dev, mode), params, meta, hyper, dev, **kw), required)
+        counts.append(c)
+        trees = [o[0] for o in out]
+        assert all(_same_tree(trees[0], t) for t in trees[1:]), f"{name}: ranks disagree"
+        cpu_tree, cpu_ledgers, cpu_wall = cpu_half[name].result()
+        diff = _split_difference(trees[0], cpu_tree)
+        same_ledgers = [o[1] for o in out] == cpu_ledgers
+        card[name] = trees[0]
+        r = dict(ms_a_tree=round(1e3 * wall, 3), cpu_ms_a_tree=round(1e3 * cpu_wall, 3),
+                 splits=int(trees[0].num_splits), ledger=out[0][1],
+                 ledger_total=sum(out[0][1].values()), launches=c[hk],
+                 selected_rows=c[hk + "_rows"], cpu_split_difference=diff,
+                 ledgers_equal_cpu=same_ledgers)
+        res[name] = r
+        log(f"higgs-10.5M-parallel {name}: {json.dumps(r)}")
+        assert diff is None or diff[3], f"{name}: card and CPU trees differ: {diff}"
+        assert diff is not None or same_ledgers, f"{name}: ledgers differ card against CPU"
+    # the bitwise contracts on the card
+    def serial_tree():
+        b, g, h = shards(dev, "feature", 1)[0]
+        t0 = time.perf_counter()
+        gr = grow_tree(pack_bin_words(b), g, h, torch_ones(PARALLEL_ROWS, dev),
+                       torch_ones(bins.shape[1], dev), meta, hyper, params)
+        return gr, time.perf_counter() - t0
+
+    (serial, wall), c = driven("higgs-10.5M-parallel serial", serial_tree,
+                               ("hist_segment",) if dev.type == "cuda" else ())
+    counts.append(c)
+    res["serial_ms_a_tree"] = round(1e3 * wall, 3)
+    res["feature_equals_serial"] = _same_tree(card["feature"], serial, skip=())
+    res["voting_2k_equals_data"] = _same_tree(card["voting top_k=14"], card["data"])
+    (q1, _), c = driven("higgs-10.5M-parallel quantized R=1", lambda: _host_group(
+        "data", shards(dev, "data", 1), params, meta, hyper, dev, quantized=True),
+        ("hist_segment_q",) if dev.type == "cuda" else ())
+    counts.append(c)
+    res["quantized_r1_equals_r4"] = _same_tree(q1[0][0], card["data quantized=True"])
+    res["hist_payload_data_over_quantized"] = round(
+        res["data"]["ledger"]["hist"] / res["data quantized=True"]["ledger"]["hist_q"], 3)
+    log("higgs-10.5M-parallel: " + json.dumps(res))
+    assert res["feature_equals_serial"], "feature mode differs from the serial grower"
+    assert res["voting_2k_equals_data"], "voting with 2k >= F differs from data mode"
+    assert res["quantized_r1_equals_r4"], "the quantized tree depends on the rank count"
+    return counts, res
+
+
+def _write_part(path, X, y):
+    """A CSV part of the factory's data directory: the label first, then
+    the features, ``%.6g``."""
+    np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.6g")
+
+
+def _timed(res, key, fn):
+    """``fn`` wrapped to add its wall seconds to ``res[key]`` (a list)."""
+    def run(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            res.setdefault(key, []).append(round(time.perf_counter() - t, 3))
+    return run
+
+
+def _factory_cli_drill(work, X, y, env, cpu_args, drill):
+    """phase_factory's CLI drill: `python -m lightgbm_tpu_torch factory` on
+    a fresh workdir over FACTORY_CLI_ROWS rows, SIGKILLed after two
+    checkpoints, then run again: it must resume (its first checkpoint
+    after the restart past iteration 1) and publish once.  Its processes
+    go into ``drill["procs"]`` (phase_factory kills them if it fails
+    first); ``drill["stop"]`` ends the wait for checkpoints.  Returns the
+    drill's numbers."""
+    import re
+    import signal
+
+    from lightgbm_tpu_torch.factory import FactoryState
+    from lightgbm_tpu_torch.serve.registry import ModelRegistry
+
+    cdir = os.path.join(work, "cli")
+    os.makedirs(os.path.join(cdir, "data"))
+    _write_part(os.path.join(cdir, "data", "part-000.csv"), X[:FACTORY_CLI_ROWS],
+                y[:FACTORY_CLI_ROWS])
+    cmd = [sys.executable, "-m", "lightgbm_tpu_torch", "factory",
+           f"data={os.path.join(cdir, 'data')}", f"workdir={os.path.join(cdir, 'work')}",
+           f"registry={os.path.join(cdir, 'registry')}", "max_cycles=1", "poll_ms=50",
+           "debounce_ms=0", f"num_boost_round={FACTORY_CLI_ROUNDS}", "checkpoint_freq=1",
+           "canary_fraction=0"] + [f"{k}={v}" for k, v in dict(TRAIN_PARAMS, verbose=1,
+                                                               **cpu_args).items()]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cdir, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    drill["procs"].append(proc)
+    try:
+        ckpts = []
+        while (time.perf_counter() - t < 240 and len(ckpts) < 2
+               and not drill["stop"].is_set()):
+            assert proc.poll() is None, "the factory CLI ended before the kill"
+            ckpts = glob.glob(os.path.join(cdir, "work", "r*", "ckpt", "ckpt_*.npz"))
+            time.sleep(0.01)
+        assert len(ckpts) >= 2, "no checkpoints before the deadline"
+        proc.send_signal(signal.SIGKILL)
+        killed_s = round(time.perf_counter() - t, 3)
+        assert proc.wait(timeout=30) == -signal.SIGKILL
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    mid = FactoryState.load(os.path.join(cdir, "work"))
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cdir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    drill["procs"].append(proc)
+    try:
+        text = proc.communicate(timeout=600)[0].decode(errors="replace")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, text[-3000:]
+    saves = [int(m) for m in re.findall(r"Checkpoint saved at iteration (\d+)", text)]
+    cli_reg = ModelRegistry(os.path.join(cdir, "registry"))
+    done = FactoryState.load(os.path.join(cdir, "work"))
+    out = dict(killed_after_s=killed_s, resume_s=round(time.perf_counter() - t, 3),
+               first_checkpoint_after_restart=saves[0] if saves else None,
+               versions=[m["version"] for m in cli_reg.list_models()],
+               history=[(h["run_id"], h["verdict"]) for h in done.history],
+               trees=cli_reg.load(1).meta["num_trees"])
+    assert mid.run is not None and saves and saves[0] > 1, out
+    assert out["versions"] == [1] and cli_reg.active_version() == 1, out
+    assert out["history"] == [(mid.run["run_id"], "promoted")], out
+    assert out["trees"] == FACTORY_CLI_ROUNDS, out
+    return out
+
+
+def phase_factory(dev):
+    """"higgs-10.5M-factory": the training factory (factory/supervisor.py)
+    on the card over a data directory of Higgs-shaped CSV parts (28
+    features; FACTORY_PARTS rows: the cut) with the main cell's parameters
+    and FACTORY_ROUNDS new rounds a retrain, checkpointed.  Cycle 1 trains
+    cold and promotes.  Then one `python -m lightgbm_tpu_torch serve`
+    replica on the card serves the registry behind an in-process
+    FleetProxy under closed-loop clients; cycle 2 appends a part: the warm
+    retrain is published inactive, canaried on a spawned replica pinned to
+    it, and promoted; its model text must equal `lgt.train` of the same
+    staged rows with the same init_model.  Cycle 3 appends a part whose
+    labels are shuffled; its gate requires the candidate to beat the
+    promoted model by 5 % on the shuffled rows (eval_max_rows, and
+    metric_rel_tol -0.05:
+    scored on its own training rows, label noise cannot make a candidate
+    worse), so it rolls back and the quarantine records the reason.  From
+    the end of cycle 2 on, beside cycle 3 (not beside the canary, whose
+    device MiB is read), _factory_cli_drill runs the CLI's SIGKILL drill
+    on a thread: it resumes and publishes once.  Holds 0
+    failed client requests, each answer equal to its version's
+    predictions, the verdicts and the state file.  Prints retrain s and
+    publish ms a cycle, the canary's requests, errors and p99, the seconds
+    from the append to the promotion, and the canary replica's device MiB.
+    Returns the three cycles' launch counts."""
+    import signal
+    import threading
+
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.factory import FactoryState, FactorySupervisor
+    from lightgbm_tpu_torch.serve.artifact import PackedPredictor
+    from lightgbm_tpu_torch.serve.fleet import FleetProxy, _free_ports
+    from lightgbm_tpu_torch.serve.registry import ModelRegistry
+
+    work = os.path.join(HERE, "build", "chip_factory")
+    shutil.rmtree(work, ignore_errors=True)
+    data_dir, fdir, reg = (os.path.join(work, d) for d in ("data", "work", "registry"))
+    os.makedirs(data_dir)
+    cpu_args = {"device": "cpu"} if dev.type == "cpu" else {}
+    params = dict(TRAIN_PARAMS, verbose=-1, **cpu_args)
+    knobs = dict(num_boost_round=FACTORY_ROUNDS, checkpoint_freq=5, debounce_ms=0.0)
+    X, y = make_higgs_shaped(sum(FACTORY_PARTS), seed=29)
+    ends = np.cumsum(FACTORY_PARTS)
+    parts = [os.path.join(data_dir, f"part-{i:03d}.csv") for i in range(3)]
+    rows = X[:16].astype(np.float64)  # the clients' request (at most 16 rows: the warmup)
+    body = _jsonl(rows)
+    required = ("update_and_root_hist", "level_stream", "split_stream", "score_add") if (
+        dev.type == "cuda") else ()
+    res, counts, times = {"parts": list(FACTORY_PARTS), "rounds": FACTORY_ROUNDS}, [], {}
+
+    def supervisor(proxy=None, **extra):
+        sup = FactorySupervisor(data_dir, fdir, reg, params=dict(params), proxy=proxy,
+                                **dict(knobs, **extra))
+        sup._retrain = _timed(times, "retrain_s", sup._retrain)
+        sup._publish = _timed(times, "publish_s", sup._publish)
+        return sup
+
+    t = time.perf_counter()
+    _write_part(parts[0], X[:ends[0]], y[:ends[0]])
+    res["write_s"] = round(time.perf_counter() - t, 3)
+    v1, c = driven("higgs-10.5M-factory cold", supervisor(canary_fraction=0.0).run_cycle,
+                   required)
+    counts.append(c)
+    assert v1["verdict"] == "promoted" and v1["version"] == 1 and not v1["warm_start"], v1
+    v1_model = FactoryState.load(fdir).current["model_path"]
+
+    port = _free_ports(1)[0]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("LIGHTGBM_TPU_SERVE_FAULT", None)
+    serve_log = open(os.path.join(work, "replica.log"), "w")
+    replica = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "serve", f"port={port}", f"registry={reg}",
+         "registry_poll_ms=100", "warmup_max_rows=16", "max_delay_ms=1"]
+        + [f"{k}={v}" for k, v in cpu_args.items()],
+        cwd=work, env=env, stdout=serve_log, stderr=subprocess.STDOUT)
+    proxy, stop, threads = None, threading.Event(), []
+    answers = collections.defaultdict(list)
+    fails, lat = [], []
+    lock = threading.Lock()
+
+    def client():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                code, hdr, out = _http(proxy.server_address[1], "/predict", body, timeout=60)
+            except OSError as e:
+                code, hdr, out = -1, {}, repr(e).encode()
+            with lock:
+                lat.append(1e3 * (time.perf_counter() - t0))
+                if code != 200:
+                    fails.append((code, out[:200]))
+                else:
+                    answers[int(hdr.get("X-Model-Version", -1))].append(_answers(out))
+
+    drill, drill_thread = {"procs": [], "stop": threading.Event()}, None
+
+    def run_drill():
+        try:
+            drill["res"] = _factory_cli_drill(work, X, y, env, cpu_args, drill)
+        except BaseException as e:  # noqa: BLE001 - end_drill raises it
+            drill["err"] = e
+
+    def end_drill(kill):
+        """Join the drill's thread, its processes killed first on ``kill``
+        (this phase failed); without, re-raise the drill's failure."""
+        if drill_thread is None:
+            return
+        if kill:
+            drill["stop"].set()
+            for p in drill["procs"]:
+                if p.poll() is None:
+                    p.kill()
+        drill_thread.join(900)
+        assert not drill_thread.is_alive(), "the factory CLI drill hung"
+        if "err" in drill and not kill:
+            raise drill["err"]
+
+    try:
+        t0 = time.perf_counter()
+        res["replica_ready_s"] = _wait_http(port, "/readyz", replica, 240, t0)
+        proxy = FleetProxy(("127.0.0.1", 0), [f"127.0.0.1:{port}"], health_poll_s=0.2,
+                           retry_deadline_s=20.0)
+        threading.Thread(target=proxy.serve_forever, args=(0.02,), daemon=True).start()
+        threads = [threading.Thread(target=client, daemon=True) for _ in range(2)]
+        for th in threads:
+            th.start()
+
+        # cycle 2: a clean append, canaried on a replica pinned to it
+        _write_part(parts[1], X[ends[0]:ends[1]], y[ends[0]:ends[1]])
+        appended = time.time()
+        sup2 = supervisor(proxy=f"127.0.0.1:{proxy.server_address[1]}", canary_fraction=0.5,
+                          observe_s=FACTORY_OBSERVE_S, min_requests=5, canary_warmup_rows=16)
+        canary_mib = {}
+        real_canary = sup2._canary
+
+        def canary(version):
+            base, done = _gpu_used_mib() if dev.type == "cuda" else 0.0, threading.Event()
+            canary_mib["peak"] = base
+
+            def sample():
+                while not done.wait(0.2):
+                    canary_mib["peak"] = max(canary_mib["peak"], _gpu_used_mib())
+
+            th = threading.Thread(target=sample, daemon=True)
+            if dev.type == "cuda":
+                th.start()
+            try:
+                return real_canary(version)
+            finally:
+                done.set()
+                if th.is_alive():
+                    th.join()
+                canary_mib["mib"] = canary_mib["peak"] - base
+
+        sup2._canary = canary
+        v2, c = driven("higgs-10.5M-factory warm", sup2.run_cycle, required)
+        counts.append(c)
+        res["append_to_promotion_s"] = round(v2["t_end"] - appended, 3)
+        res["canary"] = dict(v2["detail"].get("canary", {}), replica_device_mib=canary_mib.get(
+            "mib"))
+        assert v2["verdict"] == "promoted" and v2["version"] == 2 and v2["warm_start"], v2
+        assert res["canary"]["requests"] >= 5 and res["canary"]["errors"] == 0, res["canary"]
+        assert proxy.stats()["canary"] is None
+        deadline = time.monotonic() + 30
+        while not answers.get(2) and time.monotonic() < deadline:  # the fleet swaps to v2
+            time.sleep(0.1)
+        # the CLI drill from here on, beside cycle 3: not beside the canary,
+        # whose device MiB nvidia-smi reads
+        drill_thread = threading.Thread(target=run_drill, daemon=True)
+        drill_thread.start()
+
+        # the promoted text against lgt.train of the same staged rows
+        stage = os.path.join(work, "stage2.data")
+        with open(stage, "wb") as out:
+            for part in parts[:2]:
+                with open(part, "rb") as f:
+                    shutil.copyfileobj(f, out)
+        p2 = dict(params, out_of_core="auto")
+        want = lgt.train(p2, lgt.Dataset(stage, params=dict(p2)), FACTORY_ROUNDS,
+                         init_model=v1_model, device=dev).model_to_string()
+        res["promoted_equals_lgt_train"] = (
+            open(FactoryState.load(fdir).current["model_path"]).read() == want)
+        assert res["promoted_equals_lgt_train"], "the promoted model is not lgt.train's"
+
+        # cycle 3: shuffled labels; the gate rolls back
+        shuffled = np.random.default_rng(3).permutation(y[ends[1]:])
+        _write_part(parts[2], X[ends[1]:], shuffled)
+        v3, c = driven("higgs-10.5M-factory shuffled", supervisor(
+            canary_fraction=0.0, metric_rel_tol=-0.05, metric_abs_tol=0.0,
+            eval_max_rows=FACTORY_PARTS[2]).run_cycle, required)
+        counts.append(c)
+        res["rollback"] = dict(verdict=v3["verdict"], reason=v3.get("reason"),
+                               eval=v3["detail"]["eval"])
+        assert v3["verdict"] == "rolled_back" and "regressed" in v3["reason"], v3
+        registry = ModelRegistry(reg)
+        assert registry.quarantined() == {3: v3["reason"]} and registry.active_version() == 2
+        state = FactoryState.load(fdir)
+        assert [h["verdict"] for h in state.history] == ["promoted", "promoted", "rolled_back"]
+    except BaseException:
+        end_drill(kill=True)
+        raise
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        if proxy is not None:
+            proxy.shutdown()
+            proxy.server_close()
+        replica.send_signal(signal.SIGTERM)
+        try:
+            replica.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            replica.kill()
+            replica.wait()
+        serve_log.close()
+    try:
+        expected = {v: PackedPredictor(ModelRegistry(reg).load(v), device=dev).predict(rows)
+                    for v in answers}
+        wrong = sum(int(np.abs(a - expected[v]).max() > 1e-6) for v, got in answers.items()
+                    for a in got)
+        res["clients"] = dict(requests=len(lat), failed=len(fails), wrong=wrong,
+                              versions={v: len(a) for v, a in answers.items()},
+                              p50_ms=round(float(np.percentile(lat, 50)), 3),
+                              p99_ms=round(float(np.percentile(lat, 99)), 3))
+        res.update(times)
+        log(f"higgs-10.5M-factory cycles: {json.dumps(res)}")
+        assert not fails and not wrong, res["clients"]
+        assert set(answers) == {1, 2}, res["clients"]
+    except BaseException:
+        end_drill(kill=True)
+        raise
+
+    end_drill(kill=False)
+    res["cli"] = drill["res"]
+    log(f"higgs-10.5M-factory cli: {json.dumps(res['cli'])}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log("higgs-10.5M-factory: " + json.dumps(res))
+    return counts, res
+
+
 def phase_strategies(higgs, dev):
     """The tree strategies at full width on the higgs-10.5M cell's binned
     data and parameters, STRAT_ITERS iterations each on the mask grower:
@@ -4195,7 +4960,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--small-rows", type=int, default=50_000)
+    ap.add_argument("--small-rows", type=int, default=30_000)
     ap.add_argument("--small-iters", type=int, default=2)
     ap.add_argument("--repeat-iters", type=int, default=3)
     args = ap.parse_args(argv)
@@ -4244,13 +5009,39 @@ def main(argv=None):
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], v["carry_max_abs_err"])
     phase_feature_tiles(min(args.rows, 1_000_000), dev)
     log(f"kernels checked in {time.perf_counter() - t0:.1f} s")
+    pool, cpu = start_small_cpu(args.small_rows)
+    try:
+        return run_phases(args, dev, pool, cpu, kern, b1_kinds, b10_kinds, Xc, yc, cov)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(args, dev, pool, cpu, kern, b1_kinds, b10_kinds, Xc, yc, cov):
+    """main()'s phases from the small ones on, with the CPU-half workers'
+    ``pool`` (the small checks' futures in ``cpu``); prints the kernels
+    line and the result line."""
+    import torch
+
+    # the two large data sets are made and binned on the host while the
+    # small phases run (after the kernel timings, which they would disturb)
+    prep = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    higgs_data = prep.submit(prep_higgs, args.rows)
+    mslr_data = prep.submit(prep_mslr)
+    prep.shutdown(wait=False)
+    nc = COV_TRAIN_ROWS
     t0 = time.perf_counter()
+    threads, switch = torch.get_num_threads(), sys.getswitchinterval()
+    torch.set_num_threads(min(threads, SMALL_MAIN_THREADS))
+    # the small phases release the GIL at every small torch op; beside the
+    # data thread's Python each would wait up to a switch interval to get
+    # it back, so the interval is short while both run
+    sys.setswitchinterval(SMALL_SWITCH_S)
     small = phase_small(args.small_rows, args.small_iters, dev)
     multi = phase_small_multi(Xc, yc, COV_SMALL_ROWS, COV_SMALL_ITERS, dev)
-    phase_small_sampled(args.small_rows, dev)
-    phase_small_mask(small[2], Xc, yc, dev)
-    phase_small_objectives(small[2], SMALL_OBJ_ITERS, dev)
-    phase_small_rank(dev)
+    phase_small_sampled(args.small_rows, dev, cpu)
+    phase_small_mask(small[2], Xc, yc, dev, cpu)
+    phase_small_objectives(small[2], dev, cpu)
+    phase_small_rank(dev, cpu)
     t1 = time.perf_counter()
     small_api_counts = phase_small_api(small, multi, dev)
     log(f"small API paths in {time.perf_counter() - t1:.1f} s")
@@ -4262,9 +5053,18 @@ def main(argv=None):
     small_ckpt_counts = phase_small_ckpt(small[2], Xc, yc, dev)
     del small, multi
     log(f"small checkpoint resumes in {time.perf_counter() - t1:.1f} s")
-    log(f"small end to end in {time.perf_counter() - t0:.1f} s")
+    torch.set_num_threads(threads)
+    sys.setswitchinterval(switch)
+    log(f"small end to end in {time.perf_counter() - t0:.1f} s (this process on "
+        f"{SMALL_MAIN_THREADS} torch threads, {threads} after; the data thread "
+        f"{'done' if higgs_data.done() and mslr_data.done() else 'still running'})")
     t0 = time.perf_counter()
-    counts, full, higgs = phase_full(args.rows, args.iters, dev, args.repeat_iters)
+    # phase_parallel's CPU half runs in the workers beside the fused cells,
+    # whose times are the card's (CUDA events), not beside its own card
+    # half, whose host-driven ranks it would slow
+    par_cpu = start_parallel_cpu(pool, higgs_data.result()[0][0])
+    counts, full, higgs = phase_full(higgs_data, args.iters, dev, args.repeat_iters)
+    del higgs_data
     log(f"higgs-10.5M in {time.perf_counter() - t0:.1f} s")
     kern["split_stream"].update(phase_split_tail(full["tail_rows"], dev))
     t0 = time.perf_counter()
@@ -4284,14 +5084,20 @@ def main(argv=None):
     api_counts, _ = phase_api(higgs, main_text, dev)
     log(f"higgs-10.5M API paths in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    cli_counts, _ = phase_cli(higgs, main_text, full["auc"], args.iters, dev)
+    cli_counts, _ = phase_cli(higgs, main_text, args.iters, dev)
     log(f"higgs-10.5M-cli in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_serve(higgs, main_text, full["auc"], serve_texts, Xc[nc:][:50_000], dev)
+    phase_serve(higgs, main_text, serve_texts, Xc[nc:][:50_000], dev)
     log(f"higgs-10.5M-serve in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_fleet(higgs, main_text, dev)
     log(f"higgs-10.5M-fleet in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    par_counts, _ = phase_parallel(higgs[0], dev, par_cpu)
+    log(f"higgs-10.5M-parallel in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fac_counts, _ = phase_factory(dev)
+    log(f"higgs-10.5M-factory in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     strat_counts, _ = phase_strategies(higgs, dev)
     del higgs
@@ -4303,7 +5109,8 @@ def main(argv=None):
     goss_counts, cov_goss = phase_covertype_goss(cov, Xc[nc:], yc[nc:], dev)
     log(f"covertype-581k-goss in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rank_counts, _ = phase_rank(dev)
+    rank_counts, _ = phase_rank(mslr_data, dev)
+    del mslr_data
     log(f"mslr-web10k-shaped in {time.perf_counter() - t0:.1f} s")
     # B8 and B9 at their cells' mean selected rows per launch, and each
     # cell's device time an iteration in them (its profile window)
@@ -4338,7 +5145,8 @@ def main(argv=None):
         k = kern[name]
         launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts, cli_counts]
                        + cov_counts + sampled_counts + obj_counts + small_api_counts + ooc_counts
-                       + api_counts + small_strat_counts + strat_counts + small_ckpt_counts)
+                       + api_counts + small_strat_counts + strat_counts + small_ckpt_counts
+                       + par_counts + fac_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,

@@ -1,5 +1,5 @@
-"""GBDT boosting loop — PyTorch counterpart of lightgbm_tpu/boosting/gbdt.py,
-serial core only: init and routing onto one of the two tree learners,
+"""GBDT boosting loop — PyTorch counterpart of lightgbm_tpu/boosting/gbdt.py
+in one process: init and routing onto one of the two tree learners,
 boost-from-average, the iterations of each learner, validation sets and
 their scores, metrics and the early-stopping bookkeeping, model text and
 predict (src/boosting/gbdt.cpp TrainOneIter :381-495, AddValidDataset
@@ -17,6 +17,11 @@ The learners, as the JAX package routes them (gbdt.py:384-392):
   of the (K, N) scores, GOSS's or bagging's row select, per class the
   feature_fraction mask, the optional quantization and one tree, whose
   leaf values then go onto the scores through the grower's ``leaf_id``.
+
+``tree_learner=data|feature|voting`` in one process trains serially, with
+the JAX package's warning (``_route_tree_learner``); over several
+processes it is refused until the multi-process transport is ported (the
+host-driven parallel learners themselves are parallel/hostlearner.py).
 
 The tree strategies (tree/strategy.py, gbdt.py:235-258) run on the mask
 grower, which the partitioned trainer leaves them to: monotone
@@ -39,6 +44,7 @@ prediction.
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from types import SimpleNamespace
@@ -78,14 +84,45 @@ def _read_only_tensor(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a)
 
 
+PARALLEL_LEARNERS = ("data", "feature", "voting")
+
+
+def _machines_from_config(config) -> list:
+    """The machines of ``machine_list_file``, one host:port a line (JAX
+    parallel/distributed.py:96-103)."""
+    if not config.machine_list_file:
+        return []
+    with open(config.machine_list_file) as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
+def requested_processes(config) -> int:
+    """The processes a run asks to train over, from the keys the JAX
+    package's bootstrap reads (parallel/distributed.py:132-141):
+    ``LIGHTGBM_TPU_NUM_PROCESSES``, else ``num_machines`` when a machine
+    list names the machines; 1 otherwise."""
+    nproc = int(os.environ.get("LIGHTGBM_TPU_NUM_PROCESSES", "0") or 0)
+    if nproc > 1:
+        return nproc
+    if config.num_machines > 1 and _machines_from_config(config):
+        return int(config.num_machines)
+    return 1
+
+
 def unsupported_feature(config):
     """The first configured feature neither of the port's tree learners
     runs yet, or None.  (What only the partitioned trainer declines goes
-    to the mask grower: ptrainer.eligible.)"""
+    to the mask grower: ptrainer.eligible.)  A parallel ``tree_learner``
+    trains serially in one process (``GBDT._route_tree_learner``); over
+    several processes it waits for the multi-process transport (queue
+    A2b)."""
     if config.boosting_type.lower() not in ("gbdt", "goss", "dart"):
         return f"boosting={config.boosting_type}"
-    if config.tree_learner.lower() != "serial":
-        return f"tree_learner={config.tree_learner}"
+    learner = config.tree_learner.lower()
+    nproc = requested_processes(config) if learner in PARALLEL_LEARNERS else 1
+    if nproc > 1:
+        return (f"tree_learner={learner} over {nproc} processes (queue A2b: the "
+                "multi-process transport)")
     return None
 
 
@@ -175,6 +212,7 @@ class GBDT:
         self.bag_rng = np.random.RandomState(config.bagging_seed)
         self.feature_rng = Random(config.feature_fraction_seed)
         ooc_rows = self._resolve_out_of_core(config, train_set)
+        self._route_tree_learner(config, ooc_rows)
         if ooc_rows:
             declined = "out-of-core training"
         elif self.supports_partitioned:
@@ -195,16 +233,42 @@ class GBDT:
             Log.info("Using the mask-based tree learner on %s (the partitioned one declines "
                      "%s)", self.device, declined)
 
+    def _route_tree_learner(self, config, ooc_rows: int) -> None:
+        """The tree-learner dispatch of one process, in the JAX package's
+        branch order (gbdt.py:259-380): an elastic fleet (no membership
+        runtime exists, so the knob is ignored, gbdt.py:121-126), then
+        out of core (``tree_learner=data`` streams serially), then the
+        parallel learners, which fall back to serial on one device.  The
+        serial learners then take the run exactly as at
+        ``tree_learner=serial``; several processes were refused before
+        (``unsupported_feature``)."""
+        if config.elastic_membership:
+            Log.warning("elastic_membership=true ignored: no adopted MembershipRuntime "
+                        "(lightgbm_tpu_torch has no membership runtime yet)")
+        learner = config.tree_learner.lower()
+        if ooc_rows:
+            if learner == "data":
+                Log.warning("tree_learner=data requested with out-of-core streaming but only "
+                            "one process is attached; streaming serially")
+        elif learner in PARALLEL_LEARNERS:
+            Log.warning("tree_learner=%s requested but only one device is visible; falling "
+                        "back to serial", learner)
+
     def _resolve_out_of_core(self, config, train_set) -> int:
         """The out-of-core chunk rows, or 0 to train in memory (JAX
-        gbdt.py:167-199): only the serial mask grower streams; a boosting
-        type that cannot is refused when streaming is forced and trains in
-        memory under ``auto``."""
+        gbdt.py:167-199): only the serial mask grower streams; a tree
+        learner or boosting type that cannot is refused when streaming is
+        forced and trains in memory under ``auto``."""
         from .ooc import resolve_out_of_core
 
         on, chunk_rows, why = resolve_out_of_core(config, train_set, self.device)
-        if on and not self.supports_ooc:
+        unsupported = None
+        if config.tree_learner.lower() not in ("serial", "data"):
+            unsupported = (f"tree_learner={config.tree_learner} (streaming supports serial, "
+                           "or data with per-rank shards)")
+        elif not self.supports_ooc:
             unsupported = f"boosting type {type(self).__name__}"
+        if on and unsupported:
             if "forced" in why:
                 Log.fatal("out_of_core=true is not supported with %s (out-of-core training "
                           "replays the mask grower's split loop)", unsupported)

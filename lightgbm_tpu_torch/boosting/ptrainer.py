@@ -447,7 +447,10 @@ def eligible(config, train_set, objective, num_tree_per_iteration: int):
     """Why the partitioned trainer cannot drive this configuration, or
     None when it can: the JAX package's decline rules
     (ptrainer.py:1513-1582).  GBDT sends what it declines to the mask
-    grower (ops/grow.py), as the JAX package does.
+    grower (ops/grow.py), as the JAX package does.  A parallel
+    ``tree_learner`` is taken as serial: GBDT trains it so in one
+    process (boosting/gbdt.py ``_route_tree_learner``), where the JAX
+    package sends feature and voting to its mask grower.
     ``LIGHTGBM_TPU_PGROW=0`` declines everything, so the mask grower can
     be held against the JAX package on data the fused path would take."""
     if os.environ.get("LIGHTGBM_TPU_PGROW", "") == "0":
@@ -472,8 +475,6 @@ def eligible(config, train_set, objective, num_tree_per_iteration: int):
             return f"more than {MAX_CLASSES} classes"
         if config.boosting_type.lower() == "goss":
             return "GOSS with more than one tree per iteration"
-    if config.tree_learner != "serial":
-        return f"tree_learner={config.tree_learner}"
     if np.asarray(train_set.binned).dtype != np.uint8 or train_set.max_num_bin > 256:
         return "more than 256 bins per feature"
     # the JAX kernels' VMEM budget caps the fused path at 512 columns

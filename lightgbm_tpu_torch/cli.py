@@ -32,8 +32,9 @@ value is refused).  ``serve`` runs the prediction server
 the card unless ``device=cpu``); ``fleet`` runs replicas behind the
 load-balancing proxy (serve/fleet.py: ``python -m lightgbm_tpu_torch
 fleet registry=dir replicas=2``, or ``backends=h:p,...`` in front of
-running servers).  Not ported yet, raising NotImplementedError:
-``factory`` waits for the port's training factory.
+running servers); ``factory`` runs the continuous-training supervisor
+(factory/supervisor.py: ``python -m lightgbm_tpu_torch factory data=dir
+workdir=dir registry=dir``, training on the card unless ``device=cpu``).
 """
 
 from __future__ import annotations
@@ -50,12 +51,6 @@ import numpy as np
 from .basic import Booster, Dataset
 from .config import PARAM_ALIASES, Config
 from .utils.log import Log
-
-# subcommands of the JAX package's CLI that wait for modules not ported yet
-_NOT_YET_SUBCOMMANDS = {
-    "factory": "the training factory",
-}
-
 
 def parse_argv(argv: List[str]) -> Dict[str, str]:
     """key=value argv parsing (LoadParameters, application.cpp:48-61)."""
@@ -331,9 +326,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     logged) when the task fails; ``report`` returns its own code."""
     if argv is None:
         argv = sys.argv[1:]
-    if argv and argv[0] in _NOT_YET_SUBCOMMANDS:
-        raise NotImplementedError(f"lightgbm_tpu_torch does not support the {argv[0]} "
-                                  f"subcommand ({_NOT_YET_SUBCOMMANDS[argv[0]]}) yet")
     if argv and argv[0] == "report":
         from .obs.report import main as report_main
 
@@ -346,6 +338,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .serve.fleet import main as fleet_main
 
         return fleet_main(argv[1:])
+    if argv and argv[0] == "factory":
+        from .factory import main as factory_main
+
+        return factory_main(argv[1:])
     if argv and argv[0] == "ingest":
         argv = ["task=ingest"] + argv[1:]
     if argv and argv[0] == "resume":

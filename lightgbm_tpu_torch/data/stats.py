@@ -142,4 +142,4 @@ class SketchCollector:
         bank (the ingest's distributed find-bin): not ported yet."""
         raise NotImplementedError(
             "lightgbm_tpu_torch does not support the distributed find-bin yet "
-            "(tree_learner other than serial)")
+            "(queue A2b: the multi-process transport)")

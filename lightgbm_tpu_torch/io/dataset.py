@@ -5,7 +5,7 @@ The whole dataset is one dense row-major ``(N, F)`` uint8/uint16 matrix
 of bin indices, built on the host with numpy exactly as the JAX package
 builds it (same sample, same mappers, same bins), with the query groups
 of a ranking task, and its row subsets (cv folds) and validation sets.
-Not ported yet: the distributed find-bin (raises NotImplementedError).
+Not ported yet: the distributed find-bin (raises NotImplementedError, queue A2b).
 
 Parity notes:
 - trivial-feature filtering and used-feature mapping ↔ Dataset::Construct
@@ -181,7 +181,9 @@ class BinnedDataset:
             cat_set = set(int(c) for c in categorical_features) if categorical_features else set()
             if getattr(config, "is_parallel_find_bin", False):
                 raise NotImplementedError(
-                    "lightgbm_tpu_torch does not support the distributed find-bin yet")
+                    f"lightgbm_tpu_torch does not support the distributed find-bin of "
+                    f"tree_learner={config.tree_learner} over {config.num_machines} machines "
+                    f"yet (queue A2b: the multi-process transport)")
             mappers = _find_bin_mappers(data, config, cat_set)
             used = [i for i, m in enumerate(mappers) if not m.is_trivial]
             if not used:

@@ -22,8 +22,15 @@ That gives the JAX package's levels bit for bit, on the CPU and on the
 card.  ``x / s + u`` stays a true division followed by an add (both
 IEEE-rounded in PyTorch on either device), then ``floor``.
 
-The wire functions of the JAX module (``derive_count_plane``,
-``pack_hist_q``, ...) serve distributed training and are not here.
+The wire of the host-driven parallel learners (parallel/hostlearner.py,
+JAX qhist.py:186-284) is numpy on the host: ``pack_hist_q`` ships the
+(F, B, 2) integer (g, h) planes as little-endian int16 (int32 when a sum
+leaves int16's range), with the exact count plane as a third plane only
+from a rank whose hessian mass for the node quantized to zero;
+``unpack_hist_q`` tells the four formats apart by length;
+``assemble_hist`` dequantizes the merged planes and derives the count
+plane from the hessian plane and the node's count (``derive_count_plane``,
+the reference's cnt_factor).
 """
 
 from __future__ import annotations
@@ -118,3 +125,73 @@ def dequantize_sums(sums_q, scales) -> np.ndarray:
     sq = np.asarray(sums_q, np.int64).astype(np.int32).astype(np.float32)
     s = np.asarray(scales, np.float32)
     return np.asarray([sq[0] * s[0], sq[1] * s[1], sq[2]], np.float32)
+
+
+def derive_count_plane(hist2: np.ndarray, node_cnt: float, exact: np.ndarray = None) -> np.ndarray:
+    """The count plane of a merged 2-plane quantized histogram:
+    ``rint(sum_qh * cnt_factor)`` with ``cnt_factor = node_cnt /
+    node_sum_qh``, the node's quantized hessian total being feature 0's
+    bins (every row lands in one bin of it).  ``exact`` is the summed (F,
+    B) count plane of the ranks that shipped three planes (their hessian
+    mass was zero, so derivation cannot see their rows): those rows are
+    counted exactly and the rest derived."""
+    hist2 = np.asarray(hist2)
+    qh_tot = int(hist2[0, :, 1].sum())
+    if exact is not None:
+        exact = np.asarray(exact, np.float32)
+        rest = max(float(node_cnt) - float(exact[0, :].sum()), 0.0)
+        cf = np.float32(rest) / np.float32(max(qh_tot, 1))
+        return exact + np.rint(hist2[..., 1].astype(np.float32) * cf).astype(np.float32)
+    if qh_tot == 0 and float(node_cnt) > 0:
+        # no sender shipped counts yet the node holds rows: every bin
+        # derives to zero and min_data_in_leaf prunes the node's splits
+        from ..utils.log import Log
+
+        Log.warning("quantized histogram node with %d rows has zero hessian mass and no "
+                    "exact count plane; its splits will be pruned", int(node_cnt))
+    cf = np.float32(node_cnt) / np.float32(max(qh_tot, 1))
+    return np.rint(hist2[..., 1].astype(np.float32) * cf).astype(np.float32)
+
+
+def assemble_hist(hist2: np.ndarray, scales, node_cnt: float,
+                  counts: np.ndarray = None) -> np.ndarray:
+    """Merged (F, B, 2) integer planes -> the (F, B, 3) float32 histogram
+    of the split scan; ``counts`` is the merged exact count plane of any
+    3-plane payloads (``derive_count_plane``)."""
+    hist2 = np.asarray(hist2)
+    s = np.asarray(scales, np.float32)
+    out = np.empty(hist2.shape[:2] + (3,), np.float32)
+    out[..., 0] = hist2[..., 0].astype(np.float32) * s[0]
+    out[..., 1] = hist2[..., 1].astype(np.float32) * s[1]
+    out[..., 2] = derive_count_plane(hist2, node_cnt, exact=counts)
+    return out
+
+
+def pack_hist_q(hist2, counts=None) -> bytes:
+    """The ``hist_q`` wire of the (F, B, 2) integer (sum_qg, sum_qh)
+    planes: little-endian int16, F*B*4 bytes (the float32 wire's third),
+    or int32 (F*B*8) when a sum leaves int16's range; ``counts``, an exact
+    (F, B) count plane, adds a third plane (F*B*6 / F*B*12 bytes)."""
+    arr = np.ascontiguousarray(np.asarray(hist2, np.int32))
+    if counts is not None:
+        arr = np.ascontiguousarray(np.concatenate(
+            [arr, np.asarray(counts, np.int32)[..., None]], axis=-1))
+    if abs(int(arr.min(initial=0))) <= 32767 and int(arr.max(initial=0)) <= 32767:
+        return arr.astype("<i2").tobytes()
+    return arr.astype("<i4").tobytes()
+
+
+def unpack_hist_q(blob: bytes, num_features: int, num_bins: int) -> np.ndarray:
+    """Inverse of ``pack_hist_q``: (F, B, 2) or (F, B, 3) int32, the
+    format told by the blob's length (the four lengths differ)."""
+    m = num_features * num_bins
+    by_len = {m * 4: ("<i2", 2), m * 8: ("<i4", 2), m * 6: ("<i2", 3), m * 12: ("<i4", 3)}
+    fmt = by_len.get(len(blob))
+    if fmt is None:
+        raise ValueError(
+            f"hist_q payload of {len(blob)} B matches neither the int16 ({m * 4}/{m * 6} B) "
+            f"nor the int32 ({m * 8}/{m * 12} B) 2/3-plane formats for F={num_features}, "
+            f"B={num_bins}")
+    arr = np.frombuffer(blob, fmt[0]).astype(np.int32)
+    return arr.reshape(num_features, num_bins, fmt[1])
+

@@ -174,9 +174,9 @@ def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
     """Per-feature best split for S leaves at once.
 
     hist (S, F, B, 3) f32; sum_g/sum_h/num_data (S,) leaf totals;
-    feature_mask (F,) 0/1; ``xla_prefix`` takes the bin prefix sums in
-    XLA's float32 order instead of float64.  Returns gain_f (S, F),
-    thr_f (S, F), dbz_f (S, F), left_f (S, F, 3).
+    feature_mask (F,) 0/1, or (S, F) a mask a leaf; ``xla_prefix`` takes
+    the bin prefix sums in XLA's float32 order instead of float64.
+    Returns gain_f (S, F), thr_f (S, F), dbz_f (S, F), left_f (S, F, 3).
 
     Monotone constraints (JAX l.141-215): ``monotone`` the (F,) int
     direction vector, ``leaf_lo``/``leaf_hi`` the (S,) float32 output
@@ -260,7 +260,7 @@ def best_split_per_feature(hist, sum_g, sum_h, num_data, meta: FeatureMeta,
         best_dbz_f = db[None, :].expand(S, F).clone()
         best_left_f = _take(base, t_idx)
 
-    fmask = (feature_mask > 0)[None, :]
+    fmask = (feature_mask > 0).reshape(-1, F)  # (1, F), or a row a leaf
     mgs = min_gain_shift[:, :, 0]  # (S, 1)
     if has_categorical:
         # categorical one-vs-rest (FindBestThresholdCategorical,
@@ -321,3 +321,25 @@ def best_split_all_features(hist, sum_g, sum_h, num_data, meta, hyper, feature_m
         has_categorical, xla_prefix, monotone, leaf_lo, leaf_hi)
     return finalize_split(gain_f, thr_f, dbz_f, left_f, sum_g, sum_h, num_data, hyper,
                           leaf_lo if monotone is not None else None, leaf_hi)
+
+
+def slice_features(meta: FeatureMeta, lo: int, hi: int) -> FeatureMeta:
+    """Metadata of the contiguous column block ``[lo, hi)``, the unit the
+    feature-parallel learner shards over (JAX split.py:330)."""
+    return FeatureMeta(meta.num_bins[lo:hi], meta.default_bin[lo:hi],
+                       meta.is_categorical[lo:hi])
+
+
+def best_split_feature_block(hist, lo: int, sum_g, sum_h, num_data, meta_block: FeatureMeta,
+                             hyper: SplitHyper, feature_mask_block, use_missing: bool = True,
+                             has_categorical: bool = True, xla_prefix: bool = False,
+                             monotone=None, leaf_lo=None, leaf_hi=None) -> SplitResult:
+    """Best split per leaf over a column block starting at global feature
+    ``lo`` (JAX split.py:339): ``hist`` (S, F_blk, B, 3), the block's meta,
+    feature mask and monotone directions; the returned ``feature`` is
+    global.  The per-feature scan is elementwise in F, so a block's result
+    equals the matching slice of the whole matrix's scan bit for bit."""
+    res = best_split_all_features(hist, sum_g, sum_h, num_data, meta_block, hyper,
+                                  feature_mask_block, use_missing, has_categorical, xla_prefix,
+                                  monotone, leaf_lo, leaf_hi)
+    return res._replace(feature=res.feature + int(lo))

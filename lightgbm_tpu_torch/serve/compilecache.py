@@ -188,7 +188,7 @@ def _check_shard(shard: bool, device: torch.device) -> None:
     if shard and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "lightgbm_tpu_torch: shard=1 over several cards waits for the distributed "
-            "port (queue A item 10); serve with shard=0 or one visible card")
+            "port (queue A2c); serve with shard=0 or one visible card")
 
 
 class _BucketGraph:

@@ -15,7 +15,7 @@ against the JAX package's.
   and compiled with g++ (``PredictRaw`` within 1e-6 of the port's raw
   scores), ``task=ingest``, ``is_save_binary_file``, the snapshots, the
   checkpoint keys, ``resume``, ``report`` and ``serve`` without a model,
-  and what the port refuses (``factory``, other devices);
+  and what the port refuses (other devices);
 - one run of ``python -m lightgbm_tpu_torch`` as a subprocess.
 
 The JAX package's own CLI is not run here: under jax 0.9 its
@@ -333,13 +333,13 @@ def test_checkpoint_keys_raise(binary_dir, tmp_path, argv, match):
 
 @pytest.mark.parametrize("sub", ["resume", "report", "serve", "fleet", "factory"])
 def test_subcommands_not_ported_raise(sub, binary_dir, tmp_path, capsys):
-    """``factory`` waits for a module not ported yet.  ``resume``,
-    ``report``, ``serve`` and ``fleet`` run since the port has
-    checkpoints, observability, serving and the fleet: ``resume`` with no
+    """Every subcommand runs since the port has checkpoints,
+    observability, serving, the fleet and the factory: ``resume`` with no
     checkpoint fails (exit 1, "No valid checkpoint"), ``report`` without
     a trace prints its usage (exit 2), ``serve`` without a model fails
     (exit 1, "no model file"), ``fleet`` without a model, a registry or
-    backends fails (exit 1, "need model=")."""
+    backends fails (exit 1, "need model="), ``factory`` without its
+    workdir and registry prints its usage (exit 2)."""
     if sub == "resume":
         argv = [sub, f"data={binary_dir / 'binary.train'}", "device=cpu", "num_trees=1"]
         assert _in(tmp_path, lambda: cli.main(argv)) == 1
@@ -357,8 +357,8 @@ def test_subcommands_not_ported_raise(sub, binary_dir, tmp_path, capsys):
         assert cli.main([sub, "data=x"]) == 1
         assert "need model=" in capsys.readouterr().out
         return
-    with pytest.raises(NotImplementedError, match=f"the {sub} subcommand"):
-        cli.main([sub, "data=x"])
+    assert cli.main([sub, "data=x"]) == 2
+    assert "need data=DIR workdir=DIR registry=DIR" in capsys.readouterr().out
 
 
 def test_devices(binary_dir, monkeypatch, capsys):

@@ -1397,3 +1397,146 @@ def test_ooc_tree_equals_resident_on_card(dev, params, monkeypatch):
     name = "hist_segment_q" if params.get("use_quantized_grad") else "hist_segment"
     assert pk.launch_counts()[name] > 0
     assert bst.model_to_string() == want
+
+
+def _host_group(mode, shards, params, meta, hyper, dev, **kw):
+    """One tree grown by LocalComm rank threads on ``dev``: [(GrowResult,
+    ledger)] by rank; a failing rank aborts the group."""
+    import threading
+
+    from lightgbm_tpu_torch.parallel import HostParallelLearner, LocalGroup
+
+    group = LocalGroup(len(shards))
+    out, errs = [None] * len(shards), []
+    fmask = torch.ones(meta.num_bins.shape[0], device=dev)
+
+    def rank(r, comm):
+        try:
+            b, g, h = (t.to(dev) for t in shards[r])
+            out[r] = (HostParallelLearner(mode, comm, params, **kw).grow(
+                b, g, h, torch.ones(g.shape[0], device=dev), fmask, meta, hyper),
+                dict(comm.ledger))
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+            group.barrier.abort()
+
+    threads = [threading.Thread(target=rank, args=(r, c), daemon=True)
+               for r, c in enumerate(group.comms())]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        assert not t.is_alive()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _tree(gr, skip=("leaf_id",)):
+    return {k: (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+            for k, v in gr._asdict().items() if k not in skip}
+
+
+def _assert_trees_equal(a, b, skip=("leaf_id",)):
+    ta, tb = _tree(a, skip), _tree(b, skip)
+    for k in ta:
+        np.testing.assert_array_equal(ta[k], tb[k], err_msg=k)
+
+
+@pytest.fixture
+def host_shards():
+    """4,000 x 13 rows at 32 bins, a few signal columns, and the split
+    hyperparameters and growth parameters of the host learners' tests."""
+    from lightgbm_tpu_torch.ops.grow import GrowParams
+    from lightgbm_tpu_torch.ops.split import FeatureMeta, SplitHyper
+
+    rng = np.random.default_rng(9)
+    n, f, b = 4000, 13, 32
+    bins = rng.integers(0, b, size=(n, f)).astype(np.uint8)
+    grad = (bins[:, :3].astype(np.float32) @ np.array([1.0, -0.7, 0.4], np.float32) / b
+            + 0.1 * rng.standard_normal(n).astype(np.float32))
+    hess = np.ones(n, np.float32)
+    meta = lambda d: FeatureMeta(torch.full((f,), b, dtype=torch.int64, device=d),  # noqa: E731
+                                 torch.zeros(f, dtype=torch.int64, device=d),
+                                 torch.zeros(f, dtype=torch.bool, device=d))
+    hyper = SplitHyper(*(np.float32(v) for v in (0.0, 0.1, 20.0, 1e-3, 0.0)))
+    t = [torch.from_numpy(a) for a in (bins, grad, hess)]
+    return t, meta, hyper, GrowParams(num_leaves=31, num_bins=b)
+
+
+@pytest.mark.parametrize("mode,kw", [("data", {}), ("feature", {}), ("voting", {"top_k": 13}),
+                                     ("voting", {"top_k": 3}), ("data", {"quantized": True})],
+                         ids=["data", "feature", "voting-full", "voting-3", "data-quantized"])
+def test_host_learner_card_equals_cpu(dev, host_shards, mode, kw):
+    """Each mode over 4 rank threads on the card (B8 or B9 a node) grows the
+    CPU's tree (plain versions) with the same ledger; B8/B9 launched."""
+    t, meta, hyper, params = host_shards
+    n = t[0].shape[0]
+    cuts = np.linspace(0, n, 5).astype(int)
+    shards = ([t] * 4 if mode == "feature"
+              else [[a[cuts[r]:cuts[r + 1]] for a in t] for r in range(4)])
+    name = "hist_segment_q" if kw.get("quantized") else "hist_segment"
+    before = getattr(th, name).launches
+    card = _host_group(mode, shards, params, meta(dev), hyper, dev, **kw)
+    assert getattr(th, name).launches > before
+    cpu = _host_group(mode, shards, params, meta("cpu"), hyper, torch.device("cpu"), **kw)
+    for (gc, lc), (gp, lp) in zip(card, cpu):
+        _assert_trees_equal(gc, gp, skip=())
+        assert lc == lp
+    assert int(card[0][0].num_splits) > 5
+
+
+def test_host_learner_contracts_on_card(dev, host_shards):
+    """feature == the serial grower, voting(2k >= F) == data, and the
+    quantized tree at R = 1 == R = 4, all on the card."""
+    from lightgbm_tpu_torch.ops.grow import grow_tree
+
+    t, meta, hyper, params = host_shards
+    n, f = t[0].shape
+    m = meta(dev)
+    serial = grow_tree(th.pack_bin_words(t[0].to(dev)), t[1].to(dev), t[2].to(dev),
+                       torch.ones(n, device=dev), torch.ones(f, device=dev), m, hyper, params)
+    for gr, _ in _host_group("feature", [t] * 4, params, m, hyper, dev):
+        _assert_trees_equal(gr, serial, skip=())
+    cuts = np.linspace(0, n, 5).astype(int)
+    shards = [[a[cuts[r]:cuts[r + 1]] for a in t] for r in range(4)]
+    data = _host_group("data", shards, params, m, hyper, dev)
+    vote = _host_group("voting", shards, params, m, hyper, dev, top_k=f)
+    for (gd, _), (gv, _) in zip(data, vote):
+        _assert_trees_equal(gd, gv, skip=())
+    q4 = _host_group("data", shards, params, m, hyper, dev, quantized=True)
+    q1 = _host_group("data", [t], params, m, hyper, dev, quantized=True)
+    _assert_trees_equal(q1[0][0], q4[0][0])
+
+
+def test_factory_cycle_on_card(dev, tmp_path):
+    """A cold then a warm factory cycle trains on the card (B1 and B5
+    launched) and promotes; the warm model equals lgt.train of the staged
+    rows with the same init_model."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.factory import FactorySupervisor
+
+    rng = np.random.default_rng(2)
+    data = tmp_path / "data"
+    data.mkdir()
+    X = rng.standard_normal((6000, 8))
+    y = (X[:, 0] + 0.5 * X[:, 1] - X[:, 2] > 0).astype(int)
+    for i, rows in enumerate((slice(0, 4000), slice(4000, 6000))):
+        if i:
+            init = sup.state.current["model_path"]
+        np.savetxt(data / f"part-{i}.csv", np.column_stack([y[rows], X[rows]]), delimiter=",",
+                   fmt="%.6g")
+        sup = FactorySupervisor(str(data), str(tmp_path / "work"), str(tmp_path / "reg"),
+                                params=dict(objective="binary", num_leaves=15, verbose=-1),
+                                num_boost_round=5, checkpoint_freq=2, debounce_ms=0.0,
+                                canary_fraction=0.0)
+        before = pk.update_and_root_hist.launches, pk.score_add.launches
+        verdict = sup.run_cycle()
+        assert verdict["verdict"] == "promoted" and verdict["warm_start"] == bool(i)
+        assert pk.update_and_root_hist.launches > before[0] and pk.score_add.launches > before[1]
+    stage = tmp_path / "stage.csv"
+    stage.write_bytes((data / "part-0.csv").read_bytes() + (data / "part-1.csv").read_bytes())
+    p = dict(objective="binary", num_leaves=15, verbose=-1, out_of_core="auto")
+    want = lgt.train(p, lgt.Dataset(str(stage), params=dict(p)), 5, init_model=init,
+                     device=dev).model_to_string()
+    assert open(sup.state.current["model_path"]).read() == want

@@ -157,7 +157,9 @@ DECLINED = [
     ("boosting=dart", dict(boosting="dart", linear_tree=True), {}),
     ("Cannot use bagging in GOSS", dict(boosting="goss", bagging_fraction=0.5, bagging_freq=1),
      {}),
-    ("tree_learner=data", dict(tree_learner="data"), {}),
+    # one process trains a parallel learner serially (tests/test_torch_parallel.py);
+    # over several machines it is refused
+    ("tree_learner=data", dict(tree_learner="data", num_machines=2), {}),
     # out-of-core training runs (tests/test_torch_ooc.py); with DART forced
     # it is refused
     ("out-of-core training", dict(out_of_core=True, boosting="dart"), {}),
