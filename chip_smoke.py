@@ -126,8 +126,8 @@ result line):
      tree's splits against the popped one's); pred_leaf (leaf values
      summing to the raw prediction within 1e-5) and the prediction early
      stop (freq 5, margin 1.0: rows exiting early, |dAUC|, ms); the
-     feature importances; 5-fold cv of those 2.1M rows (five boosters of
-     1.68M rows on the card at once, 2 rounds; the logloss mean must
+     feature importances; 3-fold cv of those 2.1M rows (three boosters of
+     1.4M rows on the card at once, 2 rounds; the logloss mean must
      fall every round);
      DART (10 iterations on the mask grower, trees dropped each
      iteration, held-out AUC, host syncs of an iteration);
@@ -223,6 +223,18 @@ result line):
      append rolled back by the eval gate; beside that last cycle, `python
      -m lightgbm_tpu_torch factory` SIGKILLed after two checkpoints and
      run again (it resumes and publishes once);
+  5m. "higgs-10.5M-distributed" (phase_distributed, after 5l): training
+     over two rank processes on the one card (`python -m
+     lightgbm_tpu_torch train`, a machine list on 127.0.0.1), on the main
+     cell's first DIST_ROWS rows as CSV shards, DIST_ITERS iterations in
+     data, feature, voting (top_k 14) and quantized data: feature equal to
+     the serial mask grower, voting to data, data and quantized to
+     LocalComm rank threads in this process on the ranks' saved bins
+     (texts and ledgers), bitwise; rank 1 killed mid-run (rank 0 exits
+     75 within 2 x DIST_TIMEOUT + 10 s, the rerun resumes to the same
+     model), a wedged rank 1 (rank 0 exits 74), `report merge` of two
+     traces; ms a tree, bytes, allgathers and wait share, bootstrap s,
+     device MiB, the ranks' B8/B9 launches;
   4b. (after the tree strategies, phase_small_ckpt) resume on the card:
      K=7 on 30,000 Covertype-shaped rows (31 leaves, 4 iterations), GOSS
      (6, learning_rate 0.5), DART (6) and quantized binary (5) on
@@ -378,6 +390,7 @@ API_SMALL_ITERS, SMALL_DART_ITERS = 2, 6  # init_model's 2 + 2; DART card vs CPU
 SMALL_DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", num_leaves=SMALL_MASK_LEAVES,
                          drop_rate=0.5, skip_drop=0.2)
 API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 2, 10
+API_CV_FOLDS = 3  # cut from 5 for time (PERF.md §4 lists the cuts)
 # rows of the full-width API paths (cut from the cell's 10.5M): the
 # estimator bins its first 1M (binning 10.5M took ~35 s of its fit);
 # init_model, rollback and cv take the first 2.1M of the cell's bins
@@ -2027,10 +2040,11 @@ def phase_covertype(ds, Xv, yv, iters, dev):
     steps["syncs_and_replays"], t = round(time.perf_counter() - t, 2), time.perf_counter()
     assert prob.shape == (len(yv), 7) and np.all(np.isfinite(prob))
     assert ll < prior_entropy(), "held-out multi_logloss is not below the class prior's"
-    # one iteration is 7 trees, as many launches as ~7 binary iterations;
-    # two, so that a window that loses a launch (as earlier ones did,
-    # profile_iters logs it) still records update_multi_and_hists
-    prof = profile_iters(ds, dev, COV_PARAMS, n_iter=2, bst=bst) if dev.type == "cuda" else None
+    # one iteration is 7 trees, as many launches as ~7 binary iterations
+    # (the profiler's processing of a two-iteration window took ~40 s; a
+    # window that loses B2's one launch records 0 of 1, which
+    # profile_iters logs, and B2's device time is then not measured)
+    prof = profile_iters(ds, dev, COV_PARAMS, n_iter=1, bst=bst) if dev.type == "cuda" else None
     steps["profile"], t = round(time.perf_counter() - t, 2), time.perf_counter()
 
     # one-vs-all at SMALL_CHECK_LEAVES leaves: its K=7 tree graphs' capture,
@@ -2176,8 +2190,10 @@ def profile_iters(ds, dev, params=TRAIN_PARAMS, n_iter=3, top=12, bst=None):
             ("update_multi_and_hists", "update_multi_and_hists", ("MultiUpd",))):
         ms = sum(dev_us(e) for e in evs if any(x in e.key for x in parts)) / 1e3
         calls = sum(e.count for e in evs if RECORDED_AS[key] in e.key)
-        seg[name] = dict(ms_iter=ms / n_iter, calls=calls, ran=ran[key],
-                         ms_call=ms / max(calls, 1))
+        # a kernel the window recorded no call of has no device time here
+        # (None: not measured), not 0
+        seg[name] = dict(ms_iter=ms / n_iter if calls else None, calls=calls, ran=ran[key],
+                         ms_call=ms / calls if calls else None)
         if calls:
             log(f"profile: {name}: {ms / n_iter:.4f} ms an iteration over {calls} recorded "
                 f"calls ({ran[key]} counted), {ms / calls:.4f} ms a call")
@@ -2807,7 +2823,7 @@ def phase_api(higgs, main_text, dev):
     fit on the first API_CLF_ROWS rows with an eval set and early
     stopping (trees byte-identical to lgt.train's on the same rows),
     init_model continuation of bst on the first API_SUB_ROWS rows
-    (sharing the cell's bins), rollback_one_iter then update(), 5-fold cv
+    (sharing the cell's bins), rollback_one_iter then update(), API_CV_FOLDS-fold cv
     of those rows, DART, pred_leaf and the prediction early stop, and the
     feature importances.  Returns the launch counts of its paths and its
     numbers."""
@@ -2943,11 +2959,12 @@ def phase_api(higgs, main_text, dev):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # 4. five-fold cv of API_SUB_ROWS rows: five boosters on the card at once
+    # 4. API_CV_FOLDS-fold cv of API_SUB_ROWS rows: a booster a fold on the card at once
     def run_cv():
         peak_reset()
         t = time.perf_counter()
-        r = lgt.cv(TRAIN_PARAMS, sub, API_CV_ITERS, nfold=5, seed=0, return_cvbooster=True,
+        r = lgt.cv(TRAIN_PARAMS, sub, API_CV_ITERS, nfold=API_CV_FOLDS, seed=0,
+                   return_cvbooster=True,
                    device=dev)
         sync(dev)
         return r, time.perf_counter() - t
@@ -2959,13 +2976,13 @@ def phase_api(higgs, main_text, dev):
     firsts = [b.boosting.ptrainer.chunk_seconds[0][0] for b in folds]
     laters = [s for b in folds for s, _ in b.boosting.ptrainer.chunk_seconds[1:]]
     capture = float(np.median(firsts) - np.median(laters))
-    log(f"higgs-10.5M cv: 5 folds of {folds[0].boosting.num_data} training rows, "
+    log(f"higgs-10.5M cv: {API_CV_FOLDS} folds of {folds[0].boosting.num_data} training rows, "
         f"{API_CV_ITERS} rounds in {wall:.2f} s ({wall / API_CV_ITERS:.2f} s a round, subsets "
         f"and set-up included); a fold's iteration {np.median(laters):.4f} s (chunk wall), its "
         f"first {np.median(firsts):.3f} s (graph capture ~{capture:.3f} s); binary_logloss-mean "
         f"{[round(m, 6) for m in means]}, -stdv {[round(v, 6) for v in r['binary_logloss-stdv']]};"
         f" peak device memory {peak():.2f} GiB")
-    assert len(folds) == 5 and all(b.boosting.ptrainer is not None for b in folds)
+    assert len(folds) == API_CV_FOLDS and all(b.boosting.ptrainer is not None for b in folds)
     assert all(m1 < m0 for m0, m1 in zip(means, means[1:])), "the cv logloss did not fall"
     res["cv"] = dict(wall=wall, s_round=wall / API_CV_ITERS, peak_gib=peak(),
                      capture_s=capture, logloss=means[-1])
@@ -4312,7 +4329,8 @@ PARALLEL_MODES = (("data", {}), ("feature", {}), ("voting", {"top_k": 14}),
                   ("voting", {"top_k": 5}), ("data", {"quantized": True}))
 FACTORY_PARTS = (40_000, 20_000, 60_000)  # cold, the clean append, the shuffled append
 FACTORY_CLI_ROWS = 20_000  # the CLI's SIGKILL drill
-FACTORY_ROUNDS, FACTORY_CLI_ROUNDS = 10, 12
+# cut from 10 and 12 for time (PERF.md §4)
+FACTORY_ROUNDS, FACTORY_CLI_ROUNDS = 6, 6
 FACTORY_OBSERVE_S = 2.0
 
 
@@ -4852,6 +4870,404 @@ def phase_factory(dev):
     return counts, res
 
 
+# ----------------------------------------------------------------------
+# training over several processes (phase_distributed)
+DIST_ROWS = 20_000  # the main cell's first rows: 10,000 a rank (a split's host work sets a tree)
+DIST_ITERS = 3
+DIST_TIMEOUT = 3.0  # the drills' network_timeout, s
+DIST_CALM_TIMEOUT = 10.0  # the four modes' (no fault: a busy host must not read as one)
+DIST_WEDGE_AT = 20  # the wedged rank's stalled collective: in its first tree
+DIST_MODES = (("data", "data", {}), ("feature", "feature", {}),
+              ("voting", "voting", {"top_k": 14}),
+              ("quantized", "data", {"quantized_training": "true"}))
+
+
+class _Ranks:
+    """Two `python -m lightgbm_tpu_torch train` rank processes of one run,
+    bootstrapped from a machine list on 127.0.0.1 with
+    LIGHTGBM_TPU_PROCESS_ID; each logs to <tag>.rank<r>.log and traces to
+    <tag>.rank<r>.jsonl in ``work``."""
+
+    def __init__(self, work, tag, data, kw, extra=(), env=None, device="cuda",
+                 rank0_ends=False, timeout=DIST_TIMEOUT):
+        import socket
+
+        socks = [socket.socket() for _ in range(2)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        ports = [s.getsockname()[1] for s in socks]
+        for s in socks:
+            s.close()
+        # rank0_ends: once rank 0 has exited, rank 1 is killed (the wedge
+        # drill's stalled rank would only find its coordinator gone)
+        self.work, self.tag, self.t0 = work, tag, time.perf_counter()
+        self.rank0_ends = rank0_ends
+        self.ends = [None, None]
+        self.procs, self.logs = [], []
+        for r in range(2):
+            path = os.path.join(work, f"{tag}.rank{r}")
+            self.logs.append(path + ".log")
+            args = ["train", f"data={data[r]}", f"output_model={path}.model.txt",
+                    f"machines=127.0.0.1:{ports[0]},127.0.0.1:{ports[1]}", "num_machines=2",
+                    "pre_partition=true", f"num_iterations={DIST_ITERS}",
+                    f"network_timeout={timeout}", *[f"{k}={v}" for k, v in dict(
+                        TRAIN_PARAMS, verbose=1, **kw).items()], *extra]
+            if device == "cpu":  # a rehearsal on the CPU
+                args.append("device=cpu")
+            e = {k: v for k, v in os.environ.items() if not k.startswith("LIGHTGBM_TPU_")}
+            e.update(PYTHONPATH=HERE, OMP_NUM_THREADS="1", LIGHTGBM_TPU_PROCESS_ID=str(r),
+                     LIGHTGBM_TPU_TRACE=path + ".jsonl", **((env or {}).get(r, {})))
+            with open(path + ".log", "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "lightgbm_tpu_torch", *args], cwd=work, env=e,
+                    stdout=f, stderr=subprocess.STDOUT))
+
+    def poll(self):
+        """Note each rank's exit time; True when both have exited."""
+        for r, p in enumerate(self.procs):
+            if self.ends[r] is None and p.poll() is not None:
+                self.ends[r] = time.perf_counter() - self.t0
+        if self.rank0_ends and self.ends[0] is not None and self.ends[1] is None:
+            self.kill()
+        return all(e is not None for e in self.ends)
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def rcs(self):
+        return [p.returncode for p in self.procs]
+
+    def log_text(self, r):
+        with open(self.logs[r]) as f:
+            return f.read()
+
+    def trace(self, r):
+        from lightgbm_tpu_torch.obs.report import load_trace
+
+        return load_trace(os.path.join(self.work, f"{self.tag}.rank{r}.jsonl"), warn=False)
+
+    def model(self, r):
+        with open(os.path.join(self.work, f"{self.tag}.rank{r}.model.txt")) as f:
+            return f.read()
+
+
+def _wait_ranks(groups, timeout=300):
+    """Wait until every group's ranks have exited (noting the times)."""
+    t = time.perf_counter()
+    while not all(g.poll() for g in groups):
+        if time.perf_counter() - t > timeout:
+            for g in groups:
+                g.kill()
+            raise RuntimeError(f"rank processes still running after {timeout} s: "
+                               f"{[g.tag for g in groups]}")
+        time.sleep(0.02)
+
+
+def _require_ok(g, mode, device="cuda"):
+    """Both ranks exited 0 on the card, over the bootstrapped world, with
+    the host-driven learner: anything else is a fault, never a fallback."""
+    for r in range(2):
+        text = g.log_text(r)
+        if g.rcs()[r] != 0:
+            log(text[-4000:])
+            raise RuntimeError(f"{g.tag} rank {r}: exit {g.rcs()[r]}")
+        assert f"Distributed runtime up: rank {r} of 2" in text, f"{g.tag} rank {r}: no world"
+        assert f"Using host-driven {mode}-parallel learner over 2 processes on {device}" in text, (
+            f"{g.tag} rank {r}: not the host learner on the card")
+
+
+def _collective_calls(trace):
+    """The 1-based collective call of each checkpoint barrier of a rank's
+    trace (its allgathers in the order they ran)."""
+    n, out = 0, []
+    for rec in trace:
+        if rec.get("ev") == "span" and rec.get("name") == "net.allgather":
+            n += 1
+            if rec.get("parent") == "ckpt.barrier":
+                out.append(n)
+    return out, n
+
+
+def _rank_numbers(g, r):
+    """One rank's numbers from its trace and log: ms a tree (median of its
+    iteration records), bootstrap s, allgathers, bytes by purpose (the
+    learner's ledger and every collective's), launches, peak device MiB."""
+    tr = g.trace(r)
+    iters = [1e3 * rec["wall_s"] for rec in tr if rec.get("ev") == "iter"]
+    boot = [rec["secs"] for rec in tr if rec.get("name") == "net.bootstrap"]
+    ledger = [rec["ledger"] for rec in tr if rec.get("name") == "net.ledger"]
+    launches = [rec["counts"] for rec in tr if rec.get("name") == "kernel.launches"]
+    sent = {}
+    for rec in tr:
+        if rec.get("ev") == "counter" and rec.get("name") == "net.bytes":
+            sent[rec["purpose"]] = sent.get(rec["purpose"], 0) + int(rec["value"])
+    peak = _logged(g.log_text(r), "Peak device memory ")
+    return dict(ms_a_tree=round(float(np.median(iters)), 3) if iters else None,
+                trees=len(iters), bootstrap_s=boot[0] if boot else None,
+                allgathers=sum(1 for rec in tr if rec.get("name") == "net.allgather"),
+                ledger=ledger[0] if ledger else None, bytes_sent=sent,
+                launches=launches[0] if launches else None,
+                peak_device_mib=round(float(peak[0].split()[0]) * 1024, 1) if peak else None)
+
+
+def _card_mib_sampler(stop, out):
+    """The card's used MiB (nvidia-smi) every 0.5 s until ``stop``; the
+    largest reading goes into ``out["card_mib"]``."""
+    while not stop.is_set():
+        try:
+            smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True, timeout=10)
+            out["card_mib"] = max(out.get("card_mib", 0), int(smi.stdout.split()[0]))
+        except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+            pass
+        stop.wait(0.5)
+
+
+def phase_distributed(ds, dev):
+    """"higgs-10.5M-distributed": training over several processes on the
+    one card (parallel/distributed.py, collect.py, net.py; the host
+    learners over NetComm, their B8 / B9 in each rank process).  The main
+    cell's first DIST_ROWS rows as CSV files (the label first), a
+    contiguous half a rank (feature mode: every row on both); two `python
+    -m lightgbm_tpu_torch train` processes a run, bootstrapped from a
+    machine list on 127.0.0.1, the main cell's parameters, DIST_ITERS
+    iterations, network_timeout DIST_CALM_TIMEOUT (the drills:
+    DIST_TIMEOUT), each traced.  Modes: data
+    (checkpointed every iteration), feature, voting at top_k 14 (2k >= F),
+    quantized data: data and feature first, then the rest beside the
+    drills and this process's references.  Checks, each a
+    failure when it
+    does not hold: feature's model text == the serial mask grower's on the
+    same CSV in this process; voting's == data's; data's and quantized's
+    == the same mode over LocalComm rank threads in this process on the
+    ranks' saved bins (is_save_binary_file), rank by rank, and each rank's
+    ledger == its thread's; rank 1 SIGKILLed mid-run (LIGHTGBM_TPU_FAULT=
+    die:K at the middle of iteration 2's collectives) makes rank 0 exit 75
+    within 2 x DIST_TIMEOUT + 10 s, and the rerun resumes to data's model
+    text; a wedged rank 1 (a delay fault past the budget at its
+    DIST_WEDGE_AT-th collective) makes rank 0 exit 74; `report merge` of
+    data's two traces: one timeline whose run_ids agree.  Prints ms a tree of each mode (the ranks' iter records),
+    bytes by purpose, allgathers and their wait share, bootstrap s, each
+    rank's peak device MiB and the card's (nvidia-smi), the ranks' launches
+    (which count in the kernels line).  Returns the paths' counts."""
+    import threading
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.obs import report
+    from lightgbm_tpu_torch.parallel.comm import LocalGroup, rank_thread
+
+    work = os.path.join(HERE, "build", "chip_dist")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    X = np.asarray(ds.data[:DIST_ROWS])
+    y = np.asarray(ds.construct(TRAIN_PARAMS).metadata.label[:DIST_ROWS])
+    half = DIST_ROWS // 2
+    files = {}
+    for name, mode, _ in DIST_MODES:  # a file set a run: each rank may save its bins
+        if mode == "feature":
+            path = os.path.join(work, f"{name}.all.csv")
+            np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.9g")
+            files[name] = [path, path]
+            continue
+        files[name] = []
+        for r in range(2):
+            path = os.path.join(work, f"{name}.shard{r}.csv")
+            np.savetxt(path, np.column_stack([y[r * half:(r + 1) * half],
+                                              X[r * half:(r + 1) * half]]),
+                       delimiter=",", fmt="%.9g")
+            files[name].append(path)
+    for tag in ("kill", "wedge"):
+        files[tag] = [shutil.copy(p, p.replace("data.", f"{tag}.")) for p in files["data"]]
+    res, counts, groups = {"rows": DIST_ROWS, "iterations": DIST_ITERS}, [], []
+    stop = threading.Event()
+    sampler = threading.Thread(target=_card_mib_sampler, args=(stop, res), daemon=True)
+    sampler.start()
+    kw_of = {name: dict(kw, tree_learner=mode) for name, mode, kw in DIST_MODES}
+    ck = os.path.join(work, "ck_data")
+    on = dict(device=dev.type)
+    calm = dict(on, timeout=DIST_CALM_TIMEOUT)
+    need = (lambda k: (k,)) if dev.type == "cuda" else (lambda k: ())  # a CPU rehearsal
+    saves = ("is_save_binary_file=true",)
+    try:
+        # wave 1: data (checkpointed) and feature
+        t0 = time.perf_counter()
+        runs = {"data": _Ranks(work, "data", files["data"], kw_of["data"],
+                               saves + (f"checkpoint_dir={ck}", "checkpoint_freq=1"), **calm),
+                "feature": _Ranks(work, "feature", files["feature"], kw_of["feature"], **calm)}
+        groups += runs.values()
+        _wait_ranks(list(runs.values()))
+        wave1 = time.perf_counter() - t0
+        for name in runs:
+            _require_ok(runs[name], kw_of[name]["tree_learner"], dev.type)
+        barriers, total = _collective_calls(runs["data"].trace(1))
+        assert len(barriers) == DIST_ITERS, f"checkpoint barriers {barriers}"
+        die_at = (barriers[0] + barriers[1]) // 2
+        # wave 2: voting and quantized; rank 1 of a data run killed mid-run,
+        # then that run resumed; a data run whose rank 1 stalls a
+        # collective past the budget; this process's references
+        t0 = time.perf_counter()
+        stall_ms = int((2 * DIST_TIMEOUT + 6) * 1000)
+        wedge = _Ranks(work, "wedge", files["wedge"], kw_of["data"], rank0_ends=True,
+                       env={1: {"LIGHTGBM_TPU_FAULT": f"delay:{stall_ms}:after:{DIST_WEDGE_AT}",
+                                "LIGHTGBM_TPU_FAULT_RANK": "1"}}, **on)
+        groups.append(wedge)
+        runs["voting"] = _Ranks(work, "voting", files["voting"], kw_of["voting"], **calm)
+        runs["quantized"] = _Ranks(work, "quantized", files["quantized"], kw_of["quantized"],
+                                   saves, **calm)
+        ck_kill = os.path.join(work, "ck_kill")
+        kill = _Ranks(work, "kill", files["kill"], kw_of["data"],
+                      (f"checkpoint_dir={ck_kill}", "checkpoint_freq=1"),
+                      env={1: {"LIGHTGBM_TPU_FAULT": f"die:{die_at}",
+                               "LIGHTGBM_TPU_FAULT_RANK": "1"}}, **on)
+        groups += [runs["voting"], runs["quantized"], kill]
+        _wait_ranks([kill])
+        kill_log = kill.log_text(0)
+        # the drill's times from the ranks' traces (one clock): rank 1's last
+        # record before its death, rank 0's peer-failure event and its last
+        # record before its exit (a killed process's exit itself lags: the
+        # card's context is torn down first)
+        dead = kill.trace(1)[-1]["ts"]
+        tr0 = kill.trace(0)
+        found = [r["ts"] for r in tr0 if r.get("name") == "net.peer_failure"]
+        res["kill"] = dict(die_at_collective=die_at, collectives_a_run=total, rcs=kill.rcs(),
+                           detected_after_death_s=round(found[0] - dead, 3) if found else None,
+                           rank0_exit_after_death_s=round(tr0[-1]["ts"] - dead, 3),
+                           bound_s=2 * DIST_TIMEOUT + 10)
+        log(f"higgs-10.5M-distributed kill: {json.dumps(res['kill'])}")
+        assert kill.rcs() == [75, -9], f"kill drill exits {kill.rcs()}: {kill_log[-3000:]}"
+        assert res["kill"]["detected_after_death_s"] is not None, kill_log[-3000:]
+        assert res["kill"]["rank0_exit_after_death_s"] <= 2 * DIST_TIMEOUT + 10
+        assert "ranks [1]" in kill_log, kill_log[-3000:]
+        # the rerun resumes, beside the rest of the wave
+        resume = _Ranks(work, "resume", files["kill"], kw_of["data"],
+                        (f"checkpoint_dir={ck_kill}", "checkpoint_freq=1"), **on)
+        groups.append(resume)
+        # this process's references beside them: the serial mask grower
+        # on feature's CSV, and data / quantized over LocalComm rank threads
+        # on the ranks' saved bins, on the card
+        os.environ["LIGHTGBM_TPU_PGROW"] = "0"
+        try:
+            def serial():
+                return lgt.train(dict(TRAIN_PARAMS), lgt.Dataset(files["feature"][0]),
+                                 DIST_ITERS, device=dev).model_to_string()
+
+            serial_text, c = driven("higgs-10.5M-distributed serial", serial,
+                                    need("hist_segment"))
+            counts.append(c)
+        finally:
+            os.environ.pop("LIGHTGBM_TPU_PGROW", None)
+        threads = {}
+        for name in ("data", "quantized"):
+            params = dict(TRAIN_PARAMS, num_machines=2, pre_partition=True,
+                          network_timeout=DIST_CALM_TIMEOUT, **kw_of[name])
+            hk = "hist_segment_q" if name == "quantized" else "hist_segment"
+
+            def group_run(params=params, name=name):
+                group, out, errs = LocalGroup(2), [None, None], []
+
+                def work_rank(r, comm):
+                    try:
+                        with rank_thread(comm):
+                            b = lgt.train(dict(params), lgt.Dataset(files[name][r] + ".bin"),
+                                          DIST_ITERS, device=dev)
+                            out[r] = (b.model_to_string(), dict(comm.ledger))
+                    except BaseException as e:  # noqa: BLE001 - raised below
+                        errs.append(e)
+                        group.barrier.abort()
+
+                ts = [threading.Thread(target=work_rank, args=(r, c), daemon=True)
+                      for r, c in enumerate(group.comms())]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(300)
+                if errs:
+                    raise errs[0]
+                return out
+
+            threads[name], c = driven(f"higgs-10.5M-distributed {name} rank threads",
+                                      group_run, need(hk))
+            counts.append(c)
+        _wait_ranks([runs["voting"], runs["quantized"], wedge, resume])
+        wave2 = time.perf_counter() - t0
+        for name in ("voting", "quantized"):
+            _require_ok(runs[name], kw_of[name]["tree_learner"], dev.type)
+        # rank 1 stalls at its DIST_WEDGE_AT-th collective: from the end of
+        # the one before (its span's record)
+        spans1 = [r["ts"] for r in wedge.trace(1)
+                  if r.get("ev") == "span" and r.get("name") == "net.allgather"]
+        stalled = spans1[DIST_WEDGE_AT - 2]
+        gave_up = [r["ts"] for r in wedge.trace(0) if r.get("name") == "net.timeout"]
+        res["wedge"] = dict(rcs=wedge.rcs(), stall_ms=stall_ms, at_collective=DIST_WEDGE_AT,
+                            rank0_timeout_after_stall_s=round(gave_up[0] - stalled, 3)
+                            if gave_up else None)
+        log(f"higgs-10.5M-distributed wedge: {json.dumps(res['wedge'])}")
+        assert wedge.rcs()[0] == 74, f"wedge drill: {wedge.log_text(0)[-3000:]}"
+        assert "Collective/bootstrap timeout" in wedge.log_text(0)
+        _require_ok(resume, "data", dev.type)
+        resumed = _logged(resume.log_text(0), "Resuming training from checkpoint at iteration ")
+        res["resume"] = dict(from_iteration=int(resumed[0]) if resumed else None,
+                             equals_uninterrupted=resume.model(0) == runs["data"].model(0))
+        log(f"higgs-10.5M-distributed resume: {json.dumps(res['resume'])}")
+        assert res["resume"]["from_iteration"] == 1, resume.log_text(0)[-3000:]
+        assert res["resume"]["equals_uninterrupted"], "the resumed model differs"
+        res["waves_s"] = [round(w, 3) for w in (wave1, wave2)]
+    finally:
+        stop.set()
+        for g in groups:
+            g.kill()
+    sampler.join(15)
+    # the checks
+    res["checks"] = dict(
+        feature_equals_serial=runs["feature"].model(0) == serial_text,
+        voting_equals_data=runs["voting"].model(0) == runs["data"].model(0),
+        ranks_agree=all(g.model(0) == g.model(1) for g in runs.values()),
+        **{f"{name}_equals_rank_threads": all(
+            threads[name][r][0] == runs[name].model(r) for r in range(2))
+           for name in threads})
+    for name, g in runs.items():
+        nums = [_rank_numbers(g, r) for r in range(2)]
+        res[name] = dict(ms_a_tree=[n["ms_a_tree"] for n in nums],
+                         trees=[n["trees"] for n in nums],
+                         bootstrap_s=[n["bootstrap_s"] for n in nums],
+                         allgathers=[n["allgathers"] for n in nums],
+                         ledger=nums[0]["ledger"], bytes_sent=nums[0]["bytes_sent"],
+                         peak_device_mib=[n["peak_device_mib"] for n in nums],
+                         hist_launches=[n["launches"]["hist_segment"] for n in nums],
+                         hist_q_launches=[n["launches"]["hist_segment_q"] for n in nums])
+        if name in threads:
+            res["checks"][f"{name}_ledgers_equal_rank_threads"] = all(
+                threads[name][r][1] == nums[r]["ledger"] for r in range(2))
+        for n in nums:
+            counts.append(n["launches"])
+        log(f"higgs-10.5M-distributed {name}: {json.dumps(res[name])}")
+    resumed_launches = [_rank_numbers(resume, r)["launches"] for r in range(2)]
+    counts += resumed_launches  # the resumed run's processes launched too
+    res["resume"]["hist_launches"] = [c["hist_segment"] for c in resumed_launches]
+    paths = [os.path.join(work, f"data.rank{r}.jsonl") for r in range(2)]
+    merged = report.merge_summary(report.load_rank_traces(paths))
+    res["merge"] = dict(run_id=merged["run_id"], ranks=merged["ranks"],
+                        aligned_iterations=merged["aligned_iterations"],
+                        wait_share=[round(p["barrier_wait_s"] / p["wall_s"], 4)
+                                    if p["wall_s"] else None
+                                    for p in merged["per_rank"].values()],
+                        straggler=merged.get("straggler"))
+    log(report.render_merge(merged).rstrip())
+    log("higgs-10.5M-distributed: " + json.dumps(res))
+    assert all(res["checks"].values()), res["checks"]
+    assert merged["run_id"] and merged["ranks"] == [0, 1], res["merge"]
+    assert merged["aligned_iterations"] == DIST_ITERS, res["merge"]
+    for name in runs:
+        key = "hist_q_launches" if name == "quantized" else "hist_launches"
+        assert dev.type != "cuda" or all(n > 0 for n in res[name][key]), (
+            f"{name}: B8 / B9 not launched in a rank")
+    return counts, res
+
+
 def phase_strategies(higgs, dev):
     """The tree strategies at full width on the higgs-10.5M cell's binned
     data and parameters, STRAT_ITERS iterations each on the mask grower:
@@ -5099,6 +5515,9 @@ def run_phases(args, dev, pool, cpu, kern, b1_kinds, b10_kinds, Xc, yc, cov):
     fac_counts, _ = phase_factory(dev)
     log(f"higgs-10.5M-factory in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    dist_counts, _ = phase_distributed(higgs[0], dev)
+    log(f"higgs-10.5M-distributed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     strat_counts, _ = phase_strategies(higgs, dev)
     del higgs
     log(f"higgs-10.5M-linear and higgs-10.5M-monotone in {time.perf_counter() - t0:.1f} s")
@@ -5146,7 +5565,7 @@ def run_phases(args, dev, pool, cpu, kern, b1_kinds, b10_kinds, Xc, yc, cov):
         launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts, cli_counts]
                        + cov_counts + sampled_counts + obj_counts + small_api_counts + ooc_counts
                        + api_counts + small_strat_counts + strat_counts + small_ckpt_counts
-                       + par_counts + fac_counts)
+                       + par_counts + fac_counts + dist_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,

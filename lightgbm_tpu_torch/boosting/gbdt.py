@@ -5,7 +5,7 @@ their scores, metrics and the early-stopping bookkeeping, model text and
 predict (src/boosting/gbdt.cpp TrainOneIter :381-495, AddValidDataset
 :220-250, OutputMetric :516-622, model save/load :854-1008).
 
-The learners, as the JAX package routes them (gbdt.py:384-392):
+The learners, as the JAX package routes them (gbdt.py:313-392):
 
 - the partitioned trainer (boosting/ptrainer.py), for every
   configuration its ``eligible`` takes: ``train_iters_partitioned``;
@@ -19,9 +19,14 @@ The learners, as the JAX package routes them (gbdt.py:384-392):
   leaf values then go onto the scores through the grower's ``leaf_id``.
 
 ``tree_learner=data|feature|voting`` in one process trains serially, with
-the JAX package's warning (``_route_tree_learner``); over several
-processes it is refused until the multi-process transport is ported (the
-host-driven parallel learners themselves are parallel/hostlearner.py).
+the JAX package's warning (``_route_tree_learner``).  Over several
+processes (parallel/distributed.py forms the world first) every mode
+runs the host-driven learner of parallel/hostlearner.py over ``NetComm``
+on the mask grower's iteration, as the JAX package does on a backend
+without multi-process computations (gbdt.py:313-371): each rank's B8 /
+B9 histograms of its own rows, the exchanges through the store.  The
+label average, the quantization headroom, ranking's group padding and
+the quantization scales are then global.
 
 The tree strategies (tree/strategy.py, gbdt.py:235-258) run on the mask
 grower, which the partitioned trainer leaves them to: monotone
@@ -44,7 +49,6 @@ prediction.
 
 from __future__ import annotations
 
-import os
 import time
 import warnings
 from types import SimpleNamespace
@@ -87,43 +91,22 @@ def _read_only_tensor(a: np.ndarray) -> torch.Tensor:
 PARALLEL_LEARNERS = ("data", "feature", "voting")
 
 
-def _machines_from_config(config) -> list:
-    """The machines of ``machine_list_file``, one host:port a line (JAX
-    parallel/distributed.py:96-103)."""
-    if not config.machine_list_file:
-        return []
-    with open(config.machine_list_file) as f:
-        return [ln.strip() for ln in f if ln.strip()]
-
-
-def requested_processes(config) -> int:
-    """The processes a run asks to train over, from the keys the JAX
-    package's bootstrap reads (parallel/distributed.py:132-141):
-    ``LIGHTGBM_TPU_NUM_PROCESSES``, else ``num_machines`` when a machine
-    list names the machines; 1 otherwise."""
-    nproc = int(os.environ.get("LIGHTGBM_TPU_NUM_PROCESSES", "0") or 0)
-    if nproc > 1:
-        return nproc
-    if config.num_machines > 1 and _machines_from_config(config):
-        return int(config.num_machines)
-    return 1
-
-
 def unsupported_feature(config):
     """The first configured feature neither of the port's tree learners
     runs yet, or None.  (What only the partitioned trainer declines goes
-    to the mask grower: ptrainer.eligible.)  A parallel ``tree_learner``
-    trains serially in one process (``GBDT._route_tree_learner``); over
-    several processes it waits for the multi-process transport (queue
-    A2b)."""
+    to the mask grower: ptrainer.eligible.)"""
     if config.boosting_type.lower() not in ("gbdt", "goss", "dart"):
         return f"boosting={config.boosting_type}"
-    learner = config.tree_learner.lower()
-    nproc = requested_processes(config) if learner in PARALLEL_LEARNERS else 1
-    if nproc > 1:
-        return (f"tree_learner={learner} over {nproc} processes (queue A2b: the "
-                "multi-process transport)")
     return None
+
+
+def _allgather_ints(values):
+    """Each process's int64 ``values``, (P, len) in process order, over
+    the store collectives (parallel/collect.py)."""
+    from ..parallel import collect
+
+    blobs = collect.allgather_bytes(np.asarray(values, np.int64).tobytes())
+    return np.stack([np.frombuffer(b, np.int64) for b in blobs])
 
 
 class GBDT:
@@ -151,6 +134,9 @@ class GBDT:
         self.num_tree_per_iteration = 1
         self.feature_names: List[str] = []
         self.ptrainer = None
+        self.learner = None  # the host-driven parallel learner (several processes)
+        self.nproc = 1
+        self.bins = None  # (N, F) bins on the device, which that learner reads
         self.words = None  # the mask grower's packed bin words (_init_mask_grower)
         self.ooc = None  # the out-of-core learner, which streams the words instead
         self.training_metrics = []
@@ -178,6 +164,12 @@ class GBDT:
         # from config.num_class (gbdt.cpp ResetTrainingData: num_class_)
         num_tree = objective.num_tree_per_iteration if objective is not None else max(
             config.num_class, 1)
+        if config.tree_learner.lower() in PARALLEL_LEARNERS:
+            # the multi-process bootstrap comes before any device use
+            from ..parallel import distributed
+
+            distributed.ensure_initialized(config)
+            self.nproc = distributed.process_count()
         why = unsupported_feature(config)
         if why:
             raise NotImplementedError(f"lightgbm_tpu_torch does not support {why} yet")
@@ -193,15 +185,27 @@ class GBDT:
         self.training_metrics = list(training_metrics)
         self.shrinkage_rate = config.learning_rate
         if objective is not None:
+            md = train_set.metadata
+            if md.query_boundaries is not None and self.nproc > 1:
+                # every shard pads its queries to the global largest group
+                # (gbdt.py:133-154), so the lambda matrices' shapes do not
+                # depend on the world
+                gs = np.diff(np.asarray(md.query_boundaries, np.int64))
+                local_s = int(gs.max()) if len(gs) else 1
+                md.pad_group_size = int(_allgather_ints([local_s]).max())
             objective.init(train_set.metadata, self.num_data)
         self.has_init_score = train_set.metadata.init_score is not None
         self.meta = FeatureMeta.from_dataset(train_set, device=self.device)
         self.hyper = SplitHyper.from_config(config)
-        if config.quantized_training and self.num_data > max_rows_for(config.quantized_grad_bits):
+        n_rows = self.num_data
+        if config.quantized_training and self.nproc > 1:
+            # the data-parallel merge sums every rank's rows into a bin
+            n_rows = int(_allgather_ints([self.num_data]).sum())
+        if config.quantized_training and n_rows > max_rows_for(config.quantized_grad_bits):
             # int32 accumulators sum up to n * QMAX (gbdt.py:195-228)
             Log.warning("quantized_training disabled: %d rows exceed the int32 "
                         "histogram-accumulator headroom (%d rows at quantized_grad_bits=%d); "
-                        "training on f32 gradients", self.num_data,
+                        "training on f32 gradients", n_rows,
                         max_rows_for(config.quantized_grad_bits), config.quantized_grad_bits)
             config.quantized_training = False
         # after the headroom check, so the strategy sees its decline
@@ -212,8 +216,10 @@ class GBDT:
         self.bag_rng = np.random.RandomState(config.bagging_seed)
         self.feature_rng = Random(config.feature_fraction_seed)
         ooc_rows = self._resolve_out_of_core(config, train_set)
-        self._route_tree_learner(config, ooc_rows)
-        if ooc_rows:
+        host_mode = self._route_tree_learner(config, ooc_rows)
+        if host_mode:
+            declined = f"tree_learner={host_mode} over {self.nproc} processes"
+        elif ooc_rows:
             declined = "out-of-core training"
         elif self.supports_partitioned:
             declined = eligible(config, train_set, objective, num_tree)
@@ -229,30 +235,51 @@ class GBDT:
             self.scores = self.ptrainer._scores()
             Log.info("Using partitioned tree learner on %s", self.device)
         else:
-            self._init_mask_grower(init, ooc_rows=ooc_rows)
-            Log.info("Using the mask-based tree learner on %s (the partitioned one declines "
-                     "%s)", self.device, declined)
+            self._init_mask_grower(init, ooc_rows=ooc_rows, keep_bins=bool(host_mode))
+            if host_mode:
+                from ..parallel import HostParallelLearner, NetComm
+                from ..parallel.comm import thread_comm
 
-    def _route_tree_learner(self, config, ooc_rows: int) -> None:
-        """The tree-learner dispatch of one process, in the JAX package's
-        branch order (gbdt.py:259-380): an elastic fleet (no membership
-        runtime exists, so the knob is ignored, gbdt.py:121-126), then
-        out of core (``tree_learner=data`` streams serially), then the
-        parallel learners, which fall back to serial on one device.  The
-        serial learners then take the run exactly as at
-        ``tree_learner=serial``; several processes were refused before
-        (``unsupported_feature``)."""
+                self.learner = HostParallelLearner(
+                    host_mode, thread_comm() or NetComm(), self.grow_params, top_k=config.top_k,
+                    quantized=config.quantized_training,
+                    quant_bits=config.quantized_grad_bits, quant_seed=config.seed)
+                Log.info("Using host-driven %s-parallel learner over %d processes on %s",
+                         host_mode, self.nproc, self.device)
+            else:
+                Log.info("Using the mask-based tree learner on %s (the partitioned one "
+                         "declines %s)", self.device, declined)
+
+    def _route_tree_learner(self, config, ooc_rows: int) -> str:
+        """The tree-learner dispatch, in the JAX package's branch order
+        (gbdt.py:259-380): an elastic fleet (no membership runtime exists,
+        so the knob is ignored, gbdt.py:121-126), then out of core, then
+        the parallel learners.  Over several processes every parallel
+        mode is the host-driven learner over ``NetComm`` (the JAX rule for
+        a backend without multi-process computations); its mode is
+        returned.  In one process ``tree_learner=data`` out of core
+        streams serially and the parallel learners fall back to serial:
+        "" is returned and the serial learners take the run exactly as at
+        ``tree_learner=serial``.  Every rank takes the same branch."""
         if config.elastic_membership:
             Log.warning("elastic_membership=true ignored: no adopted MembershipRuntime "
-                        "(lightgbm_tpu_torch has no membership runtime yet)")
+                        "(lightgbm_tpu_torch has no membership runtime yet: queue A2c)")
         learner = config.tree_learner.lower()
         if ooc_rows:
+            if learner == "data" and self.nproc > 1:
+                raise NotImplementedError(
+                    f"lightgbm_tpu_torch does not support tree_learner=data with out-of-core "
+                    f"streaming over {self.nproc} processes yet (queue A2c: "
+                    "boosting/oocdist.py)")
             if learner == "data":
                 Log.warning("tree_learner=data requested with out-of-core streaming but only "
                             "one process is attached; streaming serially")
         elif learner in PARALLEL_LEARNERS:
+            if self.nproc > 1:
+                return learner
             Log.warning("tree_learner=%s requested but only one device is visible; falling "
                         "back to serial", learner)
+        return ""
 
     def _resolve_out_of_core(self, config, train_set) -> int:
         """The out-of-core chunk rows, or 0 to train in memory (JAX
@@ -279,17 +306,21 @@ class GBDT:
             Log.info("Out-of-core routing: %s", why)
         return chunk_rows if on else 0
 
-    def _init_mask_grower(self, init, scores=None, ooc_rows: int = 0) -> None:
+    def _init_mask_grower(self, init, scores=None, ooc_rows: int = 0,
+                          keep_bins: bool = False) -> None:
         """The mask grower's device state: the packed bin words (or, with
         ``ooc_rows``, the out-of-core learner that streams them in chunks of
         that many rows), labels, weights, (K, N) scores (``scores``, or
-        zeros plus ``init``) and the row select."""
+        zeros plus ``init``) and the row select.  ``keep_bins`` keeps the
+        (N, F) bins on the device too, which the host-driven parallel
+        learner packs a tree at a time."""
         ts, cfg, dev = self.train_set, self.config, self.device
         binned = np.asarray(ts.binned)
         bits = 8 if binned.dtype == np.uint8 else 16
         if not ooc_rows:
             bins = _read_only_tensor(binned if bits == 8 else binned.astype(np.int32)).to(dev)
             self.words = pack_bin_words(bins, 32 // bits, bits)
+            self.bins = bins if keep_bins else None
             del bins
         self.grow_params = GrowParams(
             num_leaves=int(cfg.num_leaves), num_bins=int(ts.max_num_bin),
@@ -443,6 +474,11 @@ class GBDT:
         self.best_iter = [list(map(int, b)) for b in py["best_iter"]]
         self.best_score = [list(map(float, b)) for b in py["best_score"]]
         self.best_msg = [list(map(str, b)) for b in py["best_msg"]]
+        if self.learner is not None:
+            # the learner keys its quantized rounding by the trees grown
+            # (one a class an iteration, empty ones included): re-anchored
+            # so that a resumed run rounds as one that never stopped
+            self.learner._qiter = self.iter * self.num_tree_per_iteration - 1
         if self.ptrainer is not None:
             self.ptrainer.import_perm(arrays.get("pt_rowid"))
 
@@ -457,7 +493,18 @@ class GBDT:
         if (not self.models and self.config.boost_from_average and not self.has_init_score
                 and self.num_class <= 1 and self.objective is not None
                 and self.objective.boost_from_average):
-            init_score = float(np.mean(np.asarray(self.train_set.metadata.label)))
+            label = np.asarray(self.train_set.metadata.label)
+            if self.nproc > 1:
+                # the global label average (GBDT::LabelAverage's Allreduce,
+                # gbdt.cpp:349-379; JAX gbdt.py:494-503): every rank boosts
+                # from the mean over all rows
+                from ..parallel import collect
+
+                sums = np.stack([np.frombuffer(b, np.float64) for b in collect.allgather_bytes(
+                    np.asarray([label.sum(), float(len(label))], np.float64).tobytes())])
+                init_score = float(sums[:, 0].sum() / max(sums[:, 1].sum(), 1.0))
+            else:
+                init_score = float(np.mean(label))
             if self.ptrainer is not None:
                 self.ptrainer.add_score(np.float32(init_score))
                 self.scores = self.ptrainer._scores()
@@ -627,6 +674,10 @@ class GBDT:
         K, L = self.num_tree_per_iteration, self.grow_params.num_leaves
         grown = False
         leaves_grown = 0
+        comm = getattr(self.learner, "comm", None)
+        bytes_before = comm.ledger_total() if comm is not None else 0
+        # the host-driven learner quantizes itself, from the global maxima
+        quantize = self.config.quantized_training and self.learner is None
         with tracer.iteration(self.iter) as irec:
             with timetag.phase("boosting"):
                 if grad is None:
@@ -640,9 +691,12 @@ class GBDT:
                 feature_mask = self._feature_mask()
                 with timetag.phase("tree"):
                     gk, hk, qscale = grad[k], hess[k], None
-                    if self.config.quantized_training:
+                    if quantize:
                         gk, hk, qscale = self._quantize_class(gk, hk, k)
-                    if self.ooc is not None:
+                    if self.learner is not None:
+                        gr = self.learner.grow(self.bins, gk, hk, self.select, feature_mask,
+                                               self.meta, self.hyper)
+                    elif self.ooc is not None:
                         gr = self.ooc.grow(gk, hk, self.select, feature_mask, self.meta,
                                            self.hyper, qscale=qscale, searches=self.searches)
                     else:
@@ -688,6 +742,8 @@ class GBDT:
                 irec["trees"] = K
                 if self.is_bagging:
                     irec["bagged_rows"] = int(self.select.sum())
+                if comm is not None:
+                    irec["net_bytes"] = comm.ledger_total() - bytes_before
         if not grown:
             Log.warning("Stopped training because there are no more leaves that meet "
                         "the split requirements.")

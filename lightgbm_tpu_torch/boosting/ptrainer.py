@@ -448,13 +448,21 @@ def eligible(config, train_set, objective, num_tree_per_iteration: int):
     None when it can: the JAX package's decline rules
     (ptrainer.py:1513-1582).  GBDT sends what it declines to the mask
     grower (ops/grow.py), as the JAX package does.  A parallel
-    ``tree_learner`` is taken as serial: GBDT trains it so in one
-    process (boosting/gbdt.py ``_route_tree_learner``), where the JAX
-    package sends feature and voting to its mask grower.
+    ``tree_learner`` is taken as serial in one process: GBDT trains it so
+    (boosting/gbdt.py ``_route_tree_learner``), where the JAX package
+    sends feature and voting to its mask grower.  Over several processes
+    it is declined: the host-driven learner runs on the mask grower's
+    iteration (the JAX package's ``ShardedPartitionedTrainer``, the fused
+    trainer over a device mesh, is not ported).
     ``LIGHTGBM_TPU_PGROW=0`` declines everything, so the mask grower can
     be held against the JAX package on data the fused path would take."""
     if os.environ.get("LIGHTGBM_TPU_PGROW", "") == "0":
         return "LIGHTGBM_TPU_PGROW=0"
+    if config.tree_learner.lower() in ("data", "feature", "voting"):
+        from ..parallel.distributed import process_count
+
+        if process_count() > 1:
+            return f"tree_learner={config.tree_learner} over {process_count()} processes"
     if objective is None:
         return "a custom objective (objective=none)"
     if getattr(config, "quantized_training", False):

@@ -15,8 +15,8 @@ the run that never stopped:
                   background writes and the SIGTERM flush-and-exit.
 
 Blobs and directories are the JAX package's format: either package
-resumes the other's checkpoints.  The multi-host protocol waits for the
-port's distributed training.
+resumes the other's checkpoints.  Over several processes rank 0 writes
+one canonical container in global row order, which any world resumes.
 """
 
 from .manager import CheckpointManager, PreemptionExit  # noqa: F401

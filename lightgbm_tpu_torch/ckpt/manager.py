@@ -21,9 +21,16 @@ checkpoint synchronously and raises :class:`PreemptionExit`, which
 ``engine.train`` and the CLI catch, finish and return; the next run
 resumes bit for bit.
 
-The JAX package's multi-host protocol (a barrier on the iteration, host 0
-writing the canonical global layout, resharding on resume) waits for the
-port's distributed training.
+Over several processes (the JAX package's protocol, manager.py:156-200,
+:270-330): a save is a barrier, an allgather of each rank's step and
+state; steps that disagree are fatal, and rank 0 writes the ranks' states
+merged into one canonical container in global row order
+(``merge_to_canonical``).  A transport failure in the barrier flushes the
+writer (the last complete checkpoint stays the resume point) and
+re-raises.  A resume gathers the ranks' row counts and fingerprint parts,
+checks the global fingerprint and slices the container to this rank
+(``reshard_to_local``): the same world resumes byte for byte, a static
+world of another size by reslicing.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ from typing import Any, Dict, List, Optional
 
 from ..obs import tracer
 from ..utils.log import Log
-from .state import TrainState, capture, restore
+from .state import (CheckpointMismatch, TrainState, capture, combine_fingerprint_parts,
+                    data_fingerprint_parts, merge_to_canonical, reshard_to_local, restore)
 from .store import CheckpointStore
 
 
@@ -131,6 +139,34 @@ class CheckpointManager:
         step = state.iteration
         with tracer.span("ckpt.serialize", iter=step):
             blob = state.to_bytes()
+        from ..parallel import distributed
+
+        nproc = distributed.process_count()
+        if nproc > 1:
+            from ..parallel.collect import allgather_bytes
+            from ..parallel.net import NetError
+
+            try:
+                with tracer.span("ckpt.barrier", iter=step):
+                    gathered = allgather_bytes(step.to_bytes(8, "little") + blob)
+            except NetError as e:
+                # nothing of this boundary is durable, the last complete
+                # checkpoint is: its write finishes, and the failure goes on
+                # to the cooperative abort
+                self.flush()
+                Log.warning("Checkpoint barrier at iteration %d failed (%s); the last "
+                            "completed checkpoint remains the resume point", step, e)
+                raise
+            steps = [int.from_bytes(g[:8], "little") for g in gathered]
+            if len(set(steps)) != 1:
+                Log.fatal("Checkpoint barrier saw divergent iterations across processes: %s",
+                          steps)
+            self._last_saved = step
+            if distributed.process_index() != 0:
+                return step  # rank 0 writes
+            with tracer.span("ckpt.merge_canonical", iter=step, world=nproc):
+                blob = merge_to_canonical([TrainState.from_bytes(g[8:])
+                                           for g in gathered]).to_bytes()
         self._last_saved = step
         if not sync:
             if self._executor is None:
@@ -173,9 +209,14 @@ class CheckpointManager:
 
     def mark_complete(self, booster) -> None:
         """Training finished normally: flush and leave the completion
-        marker, so the next fresh run does not resume a finished one."""
+        marker, so the next fresh run does not resume a finished one.
+        Over several processes rank 0, which writes the checkpoints,
+        writes the marker."""
         self.flush()
-        self.store.mark_complete(int(booster.boosting.iter))
+        from ..parallel import distributed
+
+        if distributed.process_index() == 0:
+            self.store.mark_complete(int(booster.boosting.iter))
 
     # -- resume --------------------------------------------------------
     def try_restore(self, booster, require: bool = False,
@@ -195,10 +236,43 @@ class CheckpointManager:
             return None
         step, blob = latest
         state = TrainState.from_bytes(blob)
+        if "world_size" in state.meta:
+            state = self._reshard_to_current(booster, state)
         restore(booster, state)
         self._restore_callbacks(state)
         self._last_saved = step
         return state
+
+    def _reshard_to_current(self, booster, state: TrainState) -> TrainState:
+        """A canonical container sliced to this rank of the current world.
+        Every rank enters together (they read the same container): one
+        allgather of the ranks' row counts and CRC parts gives the current
+        partition and proves that the shards, concatenated, are the saved
+        global dataset before anything is sliced."""
+        from ..parallel import collect, distributed
+
+        b = booster.boosting
+        rank, nproc = distributed.process_index(), distributed.process_count()
+        parts = data_fingerprint_parts(b.train_set)
+        entry = {"rows": int(b.num_data), "valid": [int(vs.shape[1]) for vs in b.valid_scores],
+                 "parts": parts}
+        gathered = [json.loads(g) for g in collect.allgather_bytes(json.dumps(entry).encode(),
+                                                                   "ckpt_reshard")]
+        shard_rows = [int(g["rows"]) for g in gathered]
+        valid_shard = [[int(g["valid"][i]) for g in gathered]
+                       for i in range(len(entry["valid"]))]
+        global_fp = combine_fingerprint_parts([g["parts"] for g in gathered])
+        if global_fp != state.meta["data_fingerprint"]:
+            raise CheckpointMismatch(
+                "checkpoint was written against a different global dataset (checkpoint "
+                f"{state.meta['data_fingerprint']}, run {global_fp}); refusing to resume")
+        saved_w = int(state.meta.get("world_size", 1))
+        if saved_w != nproc:
+            Log.info("Resharding checkpoint from world size %d to %d (canonical global "
+                     "layout)", saved_w, nproc)
+        return reshard_to_local(state, rank, shard_rows, valid_shard,
+                                combine_fingerprint_parts([parts]),
+                                bag_seed=int(getattr(b.config, "bagging_seed", 0)))
 
     # -- tracked-callback state ----------------------------------------
     def _callback_state(self) -> Dict[str, Any]:

@@ -28,9 +28,13 @@ booster's device.
 
 An out-of-core run records its chunk schedule (``ooc_schedule``, the JAX
 package's string) and ``restore`` refuses a blob whose schedule is not
-the run's.  Not ported yet: the multi-host canonical layout
-(``merge_to_canonical`` / ``reshard_to_local``; waits for the port's
-distributed training); ``restore`` refuses blobs that carry it.
+the run's.
+
+A run over several processes saves one canonical container in global
+row order (``merge_to_canonical``: the ranks' row arrays concatenated in
+rank order, the global dataset fingerprint combined from the ranks' CRC
+parts with ``crc32_combine``), which any world resumes by slicing it
+(``reshard_to_local``; ckpt/manager.py drives both).
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ _FP_VOLATILE = {
     "convert_model_language", "num_iterations", "num_iteration_predict",
     "snapshot_freq", "verbose", "num_threads", "is_save_binary_file",
     "is_predict_leaf_index", "is_predict_raw_score", "output_freq",
-    "metric_freq", "machine_list_file", "local_listen_port", "time_out",
+    "metric_freq", "machine_list_file", "machines", "local_listen_port", "time_out",
     "checkpoint_dir", "checkpoint_freq", "checkpoint_keep",
     "checkpoint_resume", "is_training_metric", "pred_early_stop",
     "pred_early_stop_freq", "pred_early_stop_margin",
@@ -136,6 +140,77 @@ def data_fingerprint_parts(binned_ds) -> Dict[str, int]:
     }
     binned_ds._ckpt_fp_parts = dict(parts)
     return parts
+
+
+# the global fingerprint from the shards' parts: under pre_partition the
+# global rows are the ranks' shards in rank order, so zlib's identity
+# crc(A||B) = combine(crc(A), crc(B), len(B)) gives it without any rank
+# seeing another's rows
+def _gf2_matrix_times(mat, vec: int) -> int:
+    out = 0
+    i = 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _gf2_matrix_square(square, mat) -> None:
+    for n in range(32):
+        square[n] = _gf2_matrix_times(mat, mat[n])
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """zlib's crc32_combine: the CRC of A||B from ``crc32(A)``,
+    ``crc32(B)`` and ``len(B)`` (GF(2) matrix powers of the polynomial
+    over len2 zero bytes)."""
+    if len2 <= 0:
+        return crc1 & 0xFFFFFFFF
+    even = [0] * 32
+    odd = [0] * 32
+    odd[0] = 0xEDB88320  # the CRC-32 polynomial, reflected
+    row = 1
+    for n in range(1, 32):
+        odd[n] = row
+        row <<= 1
+    _gf2_matrix_square(even, odd)
+    _gf2_matrix_square(odd, even)
+    crc1 &= 0xFFFFFFFF
+    while True:
+        _gf2_matrix_square(even, odd)
+        if len2 & 1:
+            crc1 = _gf2_matrix_times(even, crc1)
+        len2 >>= 1
+        if len2 == 0:
+            break
+        _gf2_matrix_square(odd, even)
+        if len2 & 1:
+            crc1 = _gf2_matrix_times(odd, crc1)
+        len2 >>= 1
+        if len2 == 0:
+            break
+    return (crc1 ^ (crc2 & 0xFFFFFFFF)) & 0xFFFFFFFF
+
+
+def combine_fingerprint_parts(parts) -> str:
+    """Rank-ordered shard parts -> the fingerprint of their concatenated
+    rows (``data_fingerprint`` of the global dataset)."""
+    parts = [dict(p) for p in parts]
+    rows = sum(int(p["rows"]) for p in parts)
+    cols = int(parts[0]["cols"]) if parts else 0
+    crc_b = 0
+    for p in parts:
+        if int(p["cols"]) != cols:
+            raise CheckpointMismatch(f"shard column counts disagree: {cols} vs {p['cols']}")
+        crc_b = crc32_combine(crc_b, int(p["crc_binned"]), int(p["len_binned"]))
+    crc_l, len_l = 0, 0
+    for p in parts:
+        crc_l = crc32_combine(crc_l, int(p["crc_label"]), int(p["len_label"]))
+        len_l += int(p["len_label"])
+    crc = crc32_combine(crc_b, crc_l, len_l)
+    return f"{rows}x{cols}:{crc & 0xFFFFFFFF:08x}"
 
 
 def data_fingerprint(binned_ds) -> str:
@@ -320,13 +395,10 @@ def capture(booster, extra_py: Optional[Dict[str, Any]] = None) -> TrainState:
 def restore(booster, state: TrainState) -> TrainState:
     """Load a :class:`TrainState` into a freshly built ``Booster`` (the same
     params and dataset, its validation sets already added; state.py:438).
-    Refuses a config or dataset mismatch, and what the port cannot resume
-    yet."""
+    Refuses a config or dataset mismatch, as the JAX package's does (a
+    canonical multi-process container is sliced to this rank first, by
+    ckpt/manager.py)."""
     b = booster.boosting
-    if "world_size" in state.meta:
-        raise CheckpointMismatch(
-            f"checkpoint holds the canonical layout of a {state.meta['world_size']}-process "
-            "run; resuming it waits for the port's distributed training")
     cfp, dfp = config_fingerprint(b.config), data_fingerprint(b.train_set)
     if state.meta["config_fingerprint"] != cfp:
         raise CheckpointMismatch(
@@ -363,3 +435,118 @@ def restore(booster, state: TrainState) -> TrainState:
     Log.info("Resumed training state at iteration %d (%d trees)", state.iteration,
              len(b.models))
     return state
+
+
+# ----------------------------------------------------------------------
+# the canonical layout of a run over several processes
+# ----------------------------------------------------------------------
+def merge_to_canonical(states) -> TrainState:
+    """The ranks' ``TrainState``s (rank order) -> one container in global
+    row order (JAX state.py:529): row arrays concatenated in rank order;
+    the replicated state (trees, feature_fraction stream) from rank 0; the
+    per-rank state (the bagging stream, the early-stopping bests, the
+    callbacks) kept per rank, so that a resume in the same partition is
+    byte-identical."""
+    if not states:
+        raise ValueError("merge_to_canonical needs at least one state")
+    base = states[0]
+    iters = {int(s.meta["iteration"]) for s in states}
+    if len(iters) != 1:
+        raise CheckpointMismatch(
+            f"cannot merge rank states from divergent iterations: {sorted(iters)}")
+    nv = int(base.meta["num_valid"])
+    shard_rows = [int(s.meta["num_data"]) for s in states]
+    parts = []
+    for r, s in enumerate(states):
+        p = s.meta.get("data_fingerprint_parts")
+        if not p:
+            raise ValueError(f"rank {r} state lacks data_fingerprint_parts; cannot derive the "
+                             "global dataset fingerprint")
+        parts.append(p)
+    valid_shard = [[int(np.asarray(s.arrays[f"valid_scores_{i}"]).shape[1]) for s in states]
+                   for i in range(nv)]
+    arrays = dict(base.arrays)
+    arrays["scores"] = np.concatenate([np.asarray(s.arrays["scores"]) for s in states], axis=1)
+    arrays["select"] = np.concatenate([np.asarray(s.arrays["select"]) for s in states], axis=0)
+    for i in range(nv):
+        arrays[f"valid_scores_{i}"] = np.concatenate(
+            [np.asarray(s.arrays[f"valid_scores_{i}"]) for s in states], axis=1)
+    arrays.pop("bag_rng_keys", None)
+    for r, s in enumerate(states):
+        arrays[f"bag_rng_keys_r{r}"] = np.asarray(s.arrays["bag_rng_keys"], np.uint32)
+    py = dict(base.py)
+    py["per_rank"] = {
+        str(r): {"py": {k: v for k, v in s.py.items() if k != "per_rank"},
+                 "best_iteration": int(s.meta.get("best_iteration", -1))}
+        for r, s in enumerate(states)}
+    meta = dict(base.meta)
+    meta.pop("data_fingerprint_parts", None)
+    meta["world_size"] = len(states)
+    meta["shard_rows"] = shard_rows
+    meta["valid_shard_rows"] = valid_shard
+    meta["num_data"] = int(sum(shard_rows))
+    meta["data_fingerprint"] = combine_fingerprint_parts(parts)
+    return TrainState(meta, py, arrays)
+
+
+def reshard_to_local(state: TrainState, rank: int, shard_rows, valid_shard_rows,
+                     local_fp: str, bag_seed: int = 0) -> TrainState:
+    """A canonical container sliced to one rank of the current world
+    (JAX state.py:589): ``shard_rows`` / ``valid_shard_rows`` are the
+    current contiguous partition in rank order (the caller has checked
+    the global fingerprint).  The same partition restores the rank's own
+    bagging stream, bests and callbacks exactly; another one reslices the
+    row arrays and reseeds the bagging stream from (``bag_seed``, the
+    iteration, the rank)."""
+    meta = dict(state.meta)
+    saved_rows = [int(x) for x in meta.get("shard_rows", [])]
+    saved_valid = [[int(x) for x in v] for v in meta.get("valid_shard_rows", [])]
+    shard_rows = [int(x) for x in shard_rows]
+    valid_shard_rows = [[int(x) for x in v] for v in valid_shard_rows]
+    total = sum(shard_rows)
+    if total != int(meta["num_data"]):
+        raise CheckpointMismatch(f"checkpoint holds {meta['num_data']} global rows but the "
+                                 f"current topology partitions {total}")
+    for i, v in enumerate(valid_shard_rows):
+        if i < len(saved_valid) and sum(v) != sum(saved_valid[i]):
+            raise CheckpointMismatch(f"valid set {i} holds {sum(saved_valid[i])} global rows "
+                                     f"but the current topology partitions {sum(v)}")
+    same_partition = saved_rows == shard_rows and saved_valid == valid_shard_rows
+    start = sum(shard_rows[:rank])
+    stop = start + shard_rows[rank]
+    with tracer.span("ckpt.reshard", rank=rank, saved_world=int(meta.get("world_size", 1)),
+                     world=len(shard_rows), same_partition=same_partition):
+        arrays: Dict[str, np.ndarray] = {}
+        for key, val in state.arrays.items():
+            if key == "scores":
+                arrays[key] = np.asarray(val)[:, start:stop]
+            elif key == "select":
+                arrays[key] = np.asarray(val)[start:stop]
+            elif key.startswith("valid_scores_"):
+                i = int(key[len("valid_scores_"):])
+                vs = sum(valid_shard_rows[i][:rank])
+                arrays[key] = np.asarray(val)[:, vs:vs + valid_shard_rows[i][rank]]
+            elif key.startswith("bag_rng_keys_r"):
+                continue  # the per-rank streams, below
+            else:
+                arrays[key] = val
+        py = {k: v for k, v in state.py.items() if k != "per_rank"}
+        if same_partition:
+            pr = (state.py.get("per_rank") or {}).get(str(rank))
+            if pr is not None:
+                py = dict(pr["py"])
+                meta["best_iteration"] = int(pr.get("best_iteration", -1))
+            arrays["bag_rng_keys"] = np.asarray(state.arrays[f"bag_rng_keys_r{rank}"],
+                                                np.uint32)
+        else:
+            rs = np.random.RandomState([int(bag_seed) & 0xFFFFFFFF,
+                                        int(meta["iteration"]) & 0xFFFFFFFF, int(rank)])
+            st = rs.get_state()
+            arrays["bag_rng_keys"] = np.asarray(st[1], np.uint32)
+            py["bag_rng"] = [str(st[0]), int(st[2]), int(st[3]), float(st[4])]
+            py["need_re_bagging"] = True
+        meta["num_data"] = shard_rows[rank]
+        meta["data_fingerprint"] = local_fp
+        for key in ("world_size", "shard_rows", "valid_shard_rows"):
+            meta.pop(key, None)
+    return TrainState(meta, py, arrays)

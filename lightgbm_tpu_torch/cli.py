@@ -10,7 +10,8 @@ snapshots at ``snapshot_freq``, training checkpoints and their resume),
 ``predict`` (one ``%g`` line a row,
 tab-separated columns for several outputs), ``convert_model`` (the
 standalone C++ predictor) and ``ingest`` (a text file streamed into the
-binary cache ``<data>.bin``; also the ``ingest`` subcommand).
+binary cache ``<data>.bin``; also the ``ingest`` subcommand; ``train`` is
+the subcommand of ``task=train``).
 
 Checkpoints (as the JAX CLI, cli.py:85-190): every ``task=train`` with
 ``checkpoint_freq`` or ``snapshot_freq`` > 0 writes the whole training
@@ -22,8 +23,16 @@ chunk's end and the process returns 0, logging "preempted".  SIGUSR1 and
 the fatal path dump the flight recorder; ``LIGHTGBM_TPU_METRICS=path``
 writes the Prometheus metrics at the end of training;
 ``LIGHTGBM_TPU_XPROF=dir`` captures a few iterations with the PyTorch
-profiler.  ``report`` summarizes a trace or diffs two audit trails
-(obs/report.py).
+profiler.  ``report`` summarizes a trace, diffs two audit trails or
+merges the ranks' traces of one run (obs/report.py).
+
+Several processes (``tree_learner=data|feature|voting`` with
+``num_machines`` and ``machines`` / ``machine_list_file``, or the
+launcher's ``LIGHTGBM_TPU_COORDINATOR`` / ``_NUM_PROCESSES`` /
+``_PROCESS_ID``): a transport failure flushes the checkpoint and the
+process exits 75 (``EXIT_PEER_FAILURE``, a peer died) or 74
+(``EXIT_NET_TIMEOUT``, a collective or the bootstrap timed out), through
+``net.hard_exit`` when the world formed; a rerun resumes.
 
 Training and prediction run on the CUDA card unless the ``device``
 parameter says ``cpu`` (``gpu`` and ``cuda`` name the card; any other
@@ -51,6 +60,11 @@ import numpy as np
 from .basic import Booster, Dataset
 from .config import PARAM_ALIASES, Config
 from .utils.log import Log
+
+# exit codes (sysexits): a retryable death of a peer (EX_TEMPFAIL), and a
+# collective or bootstrap that timed out with its peers alive (EX_IOERR)
+EXIT_PEER_FAILURE = 75
+EXIT_NET_TIMEOUT = 74
 
 def parse_argv(argv: List[str]) -> Dict[str, str]:
     """key=value argv parsing (LoadParameters, application.cpp:48-61)."""
@@ -147,6 +161,7 @@ def run_train(config: Config, params: Dict[str, str], device=None) -> Booster:
     ``output_model`` (not after a preemption)."""
     from .ckpt import CheckpointManager, PreemptionExit
     from .obs import flight
+    from .parallel.net import NetError
     from .utils.profiling import maybe_xprof_capture
 
     if not config.data:
@@ -220,6 +235,12 @@ def run_train(config: Config, params: Dict[str, str], device=None) -> Booster:
                     px.step)
         _log_resources(booster)
         return booster
+    except NetError:
+        # a peer died or a collective timed out: the last complete
+        # checkpoint is made durable, and main maps the error to its code
+        if mgr is not None:
+            mgr.flush()
+        raise
     finally:
         if xprof is not None:
             xprof.close()
@@ -233,8 +254,10 @@ def run_train(config: Config, params: Dict[str, str], device=None) -> Booster:
 
 
 def _log_resources(booster: Booster) -> None:
-    """The process's peak host and device memory and, at verbosity 2,
-    every kernel's launches."""
+    """The process's peak host and device memory, a parallel learner's
+    bytes by purpose and, at verbosity 2, every kernel's launches; with
+    tracing on, the launches and the bytes are also ``kernel.launches``
+    and ``net.ledger`` events of the trace."""
     Log.info("Peak host memory %.3f GiB (resident)",
              resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
     if booster.device.type == "cuda":
@@ -242,10 +265,16 @@ def _log_resources(booster: Booster) -> None:
 
         peak = torch.cuda.max_memory_allocated(booster.device) / 2**30
         Log.info("Peak device memory %.3f GiB", peak)
-    if Log.get_level() >= 2:
-        from .ops import pkernels
+    from .obs import tracer
+    from .ops import pkernels
 
+    if Log.get_level() >= 2:
         Log.debug("Kernel launches: %s", json.dumps(pkernels.launch_counts()))
+    tracer.event("kernel.launches", counts=pkernels.launch_counts())
+    learner = getattr(booster.boosting, "learner", None)
+    if learner is not None:  # a parallel learner's bytes sent, by purpose
+        Log.info("Bytes sent by purpose: %s", json.dumps(learner.comm.ledger))
+        tracer.event("net.ledger", ledger=dict(learner.comm.ledger))
 
 
 def _dump_metrics_if_requested() -> None:
@@ -322,8 +351,9 @@ _TASKS = {"train": run_train, "predict": run_predict, "prediction": run_predict,
 
 def main(argv: Optional[List[str]] = None) -> int:
     """Application::Run (application.h:82, main.cpp:4-21): 0 on success
-    (and after a preemption's flushed checkpoint), 1 (with the error
-    logged) when the task fails; ``report`` returns its own code."""
+    (and after a preemption's flushed checkpoint), 75 or 74 after a
+    transport failure, 1 (with the error logged) when the task fails;
+    ``report`` returns its own code."""
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "report":
@@ -342,12 +372,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .factory import main as factory_main
 
         return factory_main(argv[1:])
-    if argv and argv[0] == "ingest":
-        argv = ["task=ingest"] + argv[1:]
+    if argv and argv[0] in ("ingest", "train"):
+        argv = [f"task={argv[0]}"] + argv[1:]
     if argv and argv[0] == "resume":
         # task=train that requires a checkpoint (plain task=train already
         # resumes an interrupted run)
         argv = ["task=train", "checkpoint_resume=force"] + argv[1:]
+    from .parallel.net import CollectiveTimeoutError, PeerFailureError
+
     try:
         params = load_all_params(argv)
         config = Config.from_params(params)
@@ -360,6 +392,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
             device = resolve_device(device)
         run(config, params, device)
+    except PeerFailureError as ex:
+        Log.warning("Peer failure after %.1fs (ranks %s): %s — restart the job to auto-resume "
+                    "from the last checkpoint", ex.elapsed_s, list(ex.ranks), ex)
+        return _net_exit(EXIT_PEER_FAILURE)
+    except CollectiveTimeoutError as ex:
+        Log.warning("Collective/bootstrap timeout after %.1fs: %s — restart the job to "
+                    "auto-resume from the last checkpoint", ex.elapsed_s, ex)
+        return _net_exit(EXIT_NET_TIMEOUT)
     except Exception as ex:  # main.cpp catches and exits non-zero
         from .obs import flight
 
@@ -367,6 +407,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         Log.warning("Met Exceptions: %s", ex)
         return 1
     return 0
+
+
+def _net_exit(code: int) -> int:
+    """Leave after a transport failure: with several processes up, or a
+    bootstrap call still stuck in the store's native code, through
+    ``net.hard_exit`` (the flushed tracer, then ``os._exit``): the store's
+    shutdown barrier would wait on the dead peer, and the stuck thread
+    would abort the interpreter's exit; else return the code."""
+    from .parallel import distributed, net
+
+    if distributed.process_count() > 1 or net.abandoned_calls():
+        net.hard_exit(code)  # never returns
+    return code
 
 
 if __name__ == "__main__":

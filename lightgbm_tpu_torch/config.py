@@ -281,6 +281,10 @@ class Config:
     local_listen_port: int = 12400
     time_out: int = 120
     machine_list_file: str = ""
+    # "host:port,host:port,..." in rank order (the reference's
+    # ``machines``); the first is the coordinator, whose port the
+    # store of parallel/distributed.py listens on
+    machines: str = ""
     # --- hardened transport (parallel/net.py; TPU-specific extension,
     # docs/ROBUSTNESS.md).  network_timeout is the per-collective wait
     # window in SECONDS (the TPU-era replacement of the reference's

@@ -178,7 +178,11 @@ def stream_dataset(path: str, config, *, feature_name="auto", categorical_featur
                 tick()
             sampled = collector.finish(partial=reader.bad_rows > 0)[:, keep]
         if getattr(config, "is_parallel_find_bin", False):
-            sketches.merge_across_hosts()
+            from ..parallel.distributed import ensure_initialized
+
+            if ensure_initialized(config):
+                # every process ends with the same merged sketch bank
+                sketches.merge_across_hosts()
         mappers = find_bin_mappers_from_sample(sampled, n, config, cats)
         used = [i for i, m in enumerate(mappers) if not m.is_trivial]
         if not used:

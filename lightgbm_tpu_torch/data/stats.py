@@ -14,6 +14,7 @@ waits for the port's distributed learners and raises.
 
 from __future__ import annotations
 
+import pickle
 from typing import List, Optional
 
 import numpy as np
@@ -138,8 +139,32 @@ class SketchCollector:
         }
 
     def merge_across_hosts(self) -> None:
-        """The allgather and feature-wise merge of every host's sketch
-        bank (the ingest's distributed find-bin): not ported yet."""
-        raise NotImplementedError(
-            "lightgbm_tpu_torch does not support the distributed find-bin yet "
-            "(queue A2b: the multi-process transport)")
+        """The allgather and feature-wise merge of every process's sketch
+        bank, the ingest's mirror of the distributed find-bin (JAX
+        stats.py:149); nothing in one process."""
+        from ..parallel import collect, distributed
+
+        if distributed.process_count() == 1:
+            return
+        blobs = collect.allgather_bytes(pickle.dumps(self.sketches,
+                                                     protocol=pickle.HIGHEST_PROTOCOL))
+        lists = [pickle.loads(b) for b in blobs]
+        width = max(len(lst) for lst in lists)
+        for lst in lists:
+            # a process that saw fewer LibSVM columns: zero-backfilled
+            # sketches widen its list, so the feature-wise merge lines up
+            rows = lst[0].total_cnt if lst else 0
+            while len(lst) < width:
+                sk = self._new_sketch(len(lst))
+                sk.total_cnt += rows
+                if isinstance(sk, NumericSketch):
+                    sk.zero_cnt += rows
+                else:
+                    sk.counts[0] = sk.counts.get(0, 0) + rows
+                lst.append(sk)
+        merged = lists[0]
+        for other in lists[1:]:
+            for mine, theirs in zip(merged, other):
+                mine.merge(theirs)
+        self.sketches = merged
+        self.rows_seen = merged[0].total_cnt if merged else 0

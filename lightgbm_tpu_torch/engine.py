@@ -38,6 +38,7 @@ from .ckpt.manager import PreemptionExit
 from .config import canonicalize_params
 from .obs import tracer
 from .obs.audit import audit
+from .parallel.net import NetError
 from .utils.log import Log
 
 
@@ -238,11 +239,13 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
 
     try:
         iterate()
-    except BaseException:
+    except BaseException as e:
         if ckpt_mgr is not None:  # the last checkpoint is durable before the error leaves
             ckpt_mgr.flush()
             if own_mgr:
                 ckpt_mgr.close()
+        if isinstance(e, NetError):
+            _net_abort(e)
         raise
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration()
@@ -254,6 +257,15 @@ def train(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100
         if own_mgr:
             ckpt_mgr.close()
     return booster
+
+
+def _net_abort(e: NetError) -> None:
+    """The cooperative abort (JAX engine.py:166-180): a peer died or a
+    collective timed out, the last complete checkpoint has been flushed;
+    the typed error goes on to the caller (the CLI maps it to exit code 75
+    or 74) and the next run resumes from that checkpoint."""
+    Log.warning("Training aborted by transport failure (%s): %s — latest completed "
+                "checkpoint preserved; rerun to auto-resume", type(e).__name__, e)
 
 
 def _record_best_score(booster: Booster, best_score_list) -> None:

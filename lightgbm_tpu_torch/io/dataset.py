@@ -5,7 +5,8 @@ The whole dataset is one dense row-major ``(N, F)`` uint8/uint16 matrix
 of bin indices, built on the host with numpy exactly as the JAX package
 builds it (same sample, same mappers, same bins), with the query groups
 of a ranking task, and its row subsets (cv folds) and validation sets.
-Not ported yet: the distributed find-bin (raises NotImplementedError, queue A2b).
+Over several processes the find-bin is distributed (each process its
+feature block, the mappers allgathered: ``_find_bin_mappers_distributed``).
 
 Parity notes:
 - trivial-feature filtering and used-feature mapping ↔ Dataset::Construct
@@ -179,12 +180,7 @@ class BinnedDataset:
             ds.max_bin = reference.max_bin
         else:
             cat_set = set(int(c) for c in categorical_features) if categorical_features else set()
-            if getattr(config, "is_parallel_find_bin", False):
-                raise NotImplementedError(
-                    f"lightgbm_tpu_torch does not support the distributed find-bin of "
-                    f"tree_learner={config.tree_learner} over {config.num_machines} machines "
-                    f"yet (queue A2b: the multi-process transport)")
-            mappers = _find_bin_mappers(data, config, cat_set)
+            mappers = _find_bin_mappers_distributed(data, config, cat_set)
             used = [i for i, m in enumerate(mappers) if not m.is_trivial]
             if not used:
                 Log.fatal("Cannot construct Dataset: all features are trivial (constant)")
@@ -364,6 +360,39 @@ class BinnedDataset:
                     "max_val": fl[2], "bin_upper_bound": z[f"m{i}_bounds"],
                     "bin_2_categorical": z[f"m{i}_cats"]}))
         return ds
+
+
+def _find_bin_mappers_distributed(data: np.ndarray, config: Config,
+                                  categorical: set) -> List[BinMapper]:
+    """The distributed find-bin (dataset_loader.cpp:733-835; JAX
+    io/dataset.py:404-446): over several processes each finds the bins of
+    its contiguous feature block, ``step = ceil(F / M)`` features from
+    ``rank * step``, from its own rows, and the pickled mapper states are
+    allgathered, so every process ends with the same list.  One process,
+    or a run that is not ``is_parallel_find_bin``, finds them all."""
+    if not getattr(config, "is_parallel_find_bin", False):
+        return _find_bin_mappers(data, config, categorical)
+    from ..parallel import distributed
+
+    if not distributed.ensure_initialized(config):
+        return _find_bin_mappers(data, config, categorical)
+    import pickle
+
+    from ..parallel.collect import allgather_blob_lists
+
+    nproc, rank = distributed.process_count(), distributed.process_index()
+    f_total = data.shape[1]
+    step = max(1, -(-f_total // nproc))
+    start = min(rank * step, f_total)
+    stop = min(start + step, f_total)
+    local_cats = {c - start for c in categorical if start <= c < stop}
+    local = _find_bin_mappers(data[:, start:stop], config, local_cats) if stop > start else []
+    gathered = allgather_blob_lists([pickle.dumps(m.state()) for m in local], list_len=step)
+    mappers: List[BinMapper] = []
+    for f in range(f_total):
+        r, i = divmod(f, step)
+        mappers.append(BinMapper.from_state(pickle.loads(gathered[r][i])))
+    return mappers
 
 
 def _find_bin_mappers(data: np.ndarray, config: Config, categorical: set) -> List[BinMapper]:

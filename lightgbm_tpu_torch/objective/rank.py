@@ -49,23 +49,24 @@ def max_dcg_at_k(k: int, labels: np.ndarray, label_gain: np.ndarray) -> float:
     return float(np.sum(gains * dcg_discounts(k)[: len(gains)]))
 
 
-def pad_queries(starts: np.ndarray, sizes: np.ndarray):
+def pad_queries(starts: np.ndarray, sizes: np.ndarray, pad_to: int = 0):
     """(Q, S) document indices of the queries [start, start + size), each
-    padded to the largest (S), and their (Q, S) valid mask; pads point at
-    document 0.  The queries need not be adjacent (a bucket's are not)."""
-    pos = np.arange(max(int(sizes.max(initial=1)), 1), dtype=np.int64)
+    padded to the largest (S), or to ``pad_to`` when larger, and their
+    (Q, S) valid mask; pads point at document 0.  The queries need not be
+    adjacent (a bucket's are not)."""
+    pos = np.arange(max(int(sizes.max(initial=1)), int(pad_to), 1), dtype=np.int64)
     valid = pos[None, :] < sizes[:, None]
     return np.where(valid, starts[:, None] + pos[None, :], 0), valid
 
 
-def size_buckets(sizes: np.ndarray, budget: int) -> List[np.ndarray]:
+def size_buckets(sizes: np.ndarray, budget: int, pad_to: int = 0) -> List[np.ndarray]:
     """The query indices in buckets: ascending size, a bucket closed when
     one more query would take its (count, S, S) pair matrix past
-    ``budget`` elements."""
+    ``budget`` elements (S at least ``pad_to``)."""
     order = np.argsort(sizes, kind="stable")
     buckets, cur = [], []
     for qi in order:
-        s = max(int(sizes[qi]), 1)
+        s = max(int(sizes[qi]), int(pad_to), 1)
         if cur and (len(cur) + 1) * s * s > budget:
             buckets.append(np.asarray(cur, np.int64))
             cur = []
@@ -78,8 +79,8 @@ def size_buckets(sizes: np.ndarray, budget: int) -> List[np.ndarray]:
 class _Bucket:
     """One bucket's queries padded to its largest, as tensors on a device."""
 
-    def __init__(self, qb, queries, label, gain, inv_max_dcg, device):
-        doc_idx, valid = pad_queries(qb[queries], qb[queries + 1] - qb[queries])
+    def __init__(self, qb, queries, label, gain, inv_max_dcg, device, pad_to=0):
+        doc_idx, valid = pad_queries(qb[queries], qb[queries + 1] - qb[queries], pad_to)
         flat = valid.reshape(-1)
         self.valid = torch.from_numpy(valid).to(device)
         self.label = torch.from_numpy(label[doc_idx]).to(device)
@@ -117,7 +118,11 @@ class LambdarankNDCG(ObjectiveFunction):
             inv[i] = 1.0 / m if m > 0.0 else 0.0
         self.inverse_max_dcg = inv.astype(np.float32)  # (hpp:58-69)
         self.gain_of_doc = self.label_gain[self.label.astype(np.int64)].astype(np.float32)
-        s = int(self.sizes.max()) if self.num_queries else 1
+        # over several processes every query pads to the global largest
+        # group (boosting/gbdt.py sets it), so a query's lambdas add in the
+        # same order whatever rank holds it (JAX objective/rank.py:95-96)
+        self.pad_to = int(getattr(metadata, "pad_group_size", None) or 0)
+        s = max(int(self.sizes.max()) if self.num_queries else 1, self.pad_to)
         self.discount = dcg_discounts(s).astype(np.float32)
         self._on = {}
 
@@ -127,7 +132,8 @@ class LambdarankNDCG(ObjectiveFunction):
         key = (str(device), self.pair_budget)
         if key not in self._on:
             buckets = [_Bucket(self.qb, q, self.label, self.gain_of_doc, self.inverse_max_dcg,
-                               device) for q in size_buckets(self.sizes, self.pair_budget)]
+                               device, self.pad_to)
+                       for q in size_buckets(self.sizes, self.pair_budget, self.pad_to)]
             w = None if self.weights is None else torch.from_numpy(self.weights).to(device)
             self._on[key] = (buckets, torch.from_numpy(self.discount).to(device), w)
         return self._on[key]

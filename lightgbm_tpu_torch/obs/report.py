@@ -12,11 +12,18 @@ PyTorch-port copy of lightgbm_tpu/obs/report.py.
                                     leaf, feature, threshold, gain); exit
                                     1 on divergence, like diff(1)
 
-Not ported yet, each raising NotImplementedError: ``report merge`` (the
-cross-rank timeline; waits for the port's distributed training),
-``report costs`` (waits for a torch form of the JAX package's
-``obs/costmodel.py`` and ``compilewatch.JitWatch``) and ``report
-bench-trend`` (waits for the port's benchmark).
+  report merge <dir|trace.jsonl...>  the ranks' traces of one run over
+                                    several processes as one timeline:
+                                    iterations aligned across ranks, each
+                                    split into compute and collective
+                                    wait, the straggler and the wait
+                                    behind it, bytes by purpose; warns
+                                    when the files' run_ids disagree
+
+Not ported yet, each raising NotImplementedError: ``report costs``
+(waits for a torch form of the JAX package's ``obs/costmodel.py`` and
+``compilewatch.JitWatch``) and ``report bench-trend`` (waits for the
+port's benchmark).
 
 The loaders skip torn or garbage lines (a run killed mid-write) with a
 warning on stderr.  The record schema is the JAX package's, so either
@@ -25,13 +32,13 @@ package's ``report`` reads either package's traces.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import sys
 from typing import Any, Dict, List, Optional
 
 _NOT_YET = {
-    "merge": "the cross-rank merge waits for the port's distributed training",
     "costs": ("the cost report waits for a torch form of obs/costmodel.py and "
               "compilewatch.JitWatch"),
     "bench-trend": "the benchmark trend waits for the port's benchmark",
@@ -62,6 +69,44 @@ def load_trace(path: str, warn: bool = True, rotated: bool = True) -> List[Dict[
                     continue
                 records.append(rec)
     return records
+
+
+def net_bytes_by_purpose(records: List[Dict[str, Any]]) -> Dict[str, float]:
+    """Total ``net.bytes`` counter value per purpose tag (``hist``,
+    ``hist_q``, ``best_split``, ...) across a trace stream."""
+    out: Dict[str, float] = {}
+    for r in records:
+        if r.get("ev") == "counter" and r.get("name") == "net.bytes":
+            p = str(r.get("purpose", "misc"))
+            out[p] = out.get(p, 0.0) + float(r.get("value", 0.0))
+    return out
+
+
+def quantized_wire_summary(purpose_bytes: Dict[str, float],
+                           iters: int) -> Optional[Dict[str, Any]]:
+    """Quantized-vs-f32 histogram payload accounting from the purpose
+    ledger.  ``hist_q`` blobs are int16 (g,h) planes — by wire-format
+    arithmetic the f32x3 payload for the SAME histograms is exactly 3x
+    the bytes (F*B*12 vs F*B*4) — so the f32 equivalent is derivable
+    without a second run.  Returns None when no histogram purpose was
+    seen.  ``ratio`` is f32-equivalent over actually-sent histogram
+    bytes: 1.0 for an unquantized run, approaching 3.0 when every
+    histogram rides the quantized wire."""
+    hq = purpose_bytes.get("hist_q", 0.0)
+    hf = purpose_bytes.get("hist", 0.0)
+    if hq <= 0 and hf <= 0:
+        return None
+    sent = hq + hf
+    equiv = 3.0 * hq + hf
+    n = max(iters, 1)
+    return {
+        "hist_q_bytes": int(hq),
+        "hist_f32_bytes": int(hf),
+        "hist_q_bytes_per_iter": round(hq / n, 1),
+        "f32_equiv_bytes_per_iter": round(equiv / n, 1),
+        "ratio": round(equiv / sent, 3) if sent > 0 else None,
+    }
+
 
 
 def summarize(records: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -170,6 +215,325 @@ def render(summary: Dict[str, Any], path: str = "") -> str:
     return "\n".join(lines) + "\n"
 
 
+# ----------------------------------------------------------------------
+# cross-rank merge (report merge <dir|files...>)
+# ----------------------------------------------------------------------
+def _rank_of(records: List[Dict[str, Any]], fallback: int) -> int:
+    for r in records:
+        if "rank" in r:
+            return int(r["rank"])
+    return fallback
+
+
+def load_rank_traces(paths: List[str]) -> Dict[int, List[Dict[str, Any]]]:
+    """Load per-rank trace files into {rank: records}.  Rank comes from
+    the records themselves (the tracer stamps ``rank`` in multi-rank
+    runs); files without a rank field fall back to their argument
+    order, with a warning."""
+    by_rank: Dict[int, List[Dict[str, Any]]] = {}
+    for i, p in enumerate(sorted(paths)):
+        recs = load_trace(p)
+        rank = _rank_of(recs, fallback=i)
+        if not any("rank" in r for r in recs):
+            sys.stderr.write(
+                f"warning: {p}: records carry no rank field; assuming "
+                f"rank {rank} from argument order\n"
+            )
+        if rank in by_rank:
+            sys.stderr.write(
+                f"warning: {p}: duplicate rank {rank}; concatenating\n"
+            )
+            by_rank[rank].extend(recs)
+        else:
+            by_rank[rank] = recs
+    return by_rank
+
+
+def _iter_wait_s(phases: Dict[str, float]) -> float:
+    """Barrier-wait attributed inside one iteration record.  net.barrier
+    spans nest a net.allgather span and BOTH accumulate into the phases
+    map, so take the max of the pair rather than their sum."""
+    return max(float(phases.get("net.barrier", 0.0)),
+               float(phases.get("net.allgather", 0.0)))
+
+
+def _rank_net_wait_s(records: List[Dict[str, Any]]) -> float:
+    """Total barrier/collective wait from this rank's span records:
+    top-level net.barrier spans plus net.allgather spans that are NOT
+    nested inside a barrier (double-count guard via the parent field)."""
+    total = 0.0
+    for r in records:
+        if r.get("ev") != "span":
+            continue
+        name = r.get("name", "")
+        if name == "net.barrier":
+            total += float(r.get("dur_s", 0.0))
+        elif name == "net.allgather" and r.get("parent") != "net.barrier":
+            total += float(r.get("dur_s", 0.0))
+    return total
+
+
+def merge_summary(by_rank: Dict[int, List[Dict[str, Any]]]) -> Dict[str, Any]:
+    """Cross-rank aggregation aligned on iteration boundaries.
+
+    Per rank and per common iteration (present on EVERY rank — torn
+    tails shrink the aligned window rather than skewing it):
+    ``wall_s`` and its split into ``wait_s`` (the net.barrier /
+    net.allgather share of the iteration) and ``compute_s`` (the rest).
+    The straggler is the rank with the largest aligned compute total;
+    ``slowest_rank_share`` is its share of fleet compute, and
+    ``wait_behind_straggler_s`` is what every other rank spent parked
+    in barriers — the time a rebalance could reclaim (ROADMAP item 3).
+    """
+    ranks = sorted(by_rank)
+    run_ids = {r.get("run_id") for recs in by_rank.values()
+               for r in recs if r.get("run_id") is not None}
+    worlds = {int(r["world"]) for recs in by_rank.values()
+              for r in recs if "world" in r}
+    if len(run_ids) > 1:
+        sys.stderr.write(
+            f"warning: traces carry {len(run_ids)} distinct run_ids "
+            f"{sorted(map(str, run_ids))} — are these files from one run?\n"
+        )
+    iters: Dict[int, Dict[int, Dict[str, float]]] = {}  # rank -> it -> rec
+    phases: Dict[str, Dict[int, float]] = {}            # phase -> rank -> s
+    for rank in ranks:
+        per_it: Dict[int, Dict[str, float]] = {}
+        for r in by_rank[rank]:
+            if r.get("ev") != "iter":
+                continue
+            it = int(r.get("iter", -1))
+            ph = r.get("phases") or {}
+            wall = float(r.get("wall_s", 0.0))
+            wait = min(_iter_wait_s(ph), wall)
+            per_it[it] = {"wall_s": wall, "wait_s": wait,
+                          "compute_s": wall - wait,
+                          "net_bytes": float(r.get("net_bytes", 0.0))}
+            for name, dur in ph.items():
+                phases.setdefault(name, {})
+                phases[name][rank] = phases[name].get(rank, 0.0) + float(dur)
+        iters[rank] = per_it
+    common = sorted(set.intersection(*(set(iters[r]) for r in ranks))
+                    if ranks else set())
+    timeline = []
+    for it in common:
+        walls = {r: iters[r][it]["wall_s"] for r in ranks}
+        computes = {r: iters[r][it]["compute_s"] for r in ranks}
+        slowest = max(ranks, key=lambda r: computes[r])
+        timeline.append({
+            "iter": it,
+            "wall_s": {r: round(walls[r], 6) for r in ranks},
+            "compute_s": {r: round(computes[r], 6) for r in ranks},
+            "wait_s": {r: round(iters[r][it]["wait_s"], 6) for r in ranks},
+            "slowest_rank": slowest,
+        })
+    per_rank = {}
+    for rank in ranks:
+        wall = sum(iters[rank][it]["wall_s"] for it in common)
+        wait = sum(iters[rank][it]["wait_s"] for it in common)
+        nbytes = sum(iters[rank][it]["net_bytes"] for it in common)
+        per_rank[rank] = {
+            "iterations": len(iters[rank]),
+            "aligned_iterations": len(common),
+            "wall_s": round(wall, 6),
+            "compute_s": round(wall - wait, 6),
+            "barrier_wait_s": round(wait, 6),
+            "net_wait_total_s": round(_rank_net_wait_s(by_rank[rank]), 6),
+            "net_bytes": int(nbytes),
+            "bytes_per_iter": round(nbytes / len(common), 1) if common
+            else 0.0,
+        }
+        # quantized-training wire accounting: per-rank histogram-payload
+        # ratio (f32-equivalent / sent; 1.0 = unquantized, ->3.0 = fully
+        # quantized) from the purpose-tagged net.bytes counters
+        qw = quantized_wire_summary(
+            net_bytes_by_purpose(by_rank[rank]), len(common))
+        if qw is not None:
+            per_rank[rank]["hist_q_bytes"] = qw["hist_q_bytes"]
+            per_rank[rank]["quantized_ratio"] = qw["ratio"]
+        # out-of-core streaming accounting (boosting/ooc.py gauges): how
+        # long this rank's folds sat stalled on its prefetch ring —
+        # attributes streaming stragglers the way barrier_wait_s
+        # attributes compute stragglers
+        ooc_stall = ooc_fetch = 0.0
+        saw_ooc = False
+        for r in by_rank[rank]:
+            if r.get("ev") != "gauge":
+                continue
+            if r.get("name") == "ooc.stall_ms":
+                ooc_stall += float(r.get("value", 0.0))
+                saw_ooc = True
+            elif r.get("name") == "ooc.fetch_ms":
+                ooc_fetch += float(r.get("value", 0.0))
+                saw_ooc = True
+        if saw_ooc:
+            per_rank[rank]["ooc_stall_s"] = round(ooc_stall / 1e3, 6)
+            per_rank[rank]["ooc_fetch_s"] = round(ooc_fetch / 1e3, 6)
+            per_rank[rank]["ooc_stall_share"] = (
+                round(ooc_stall / (wall * 1e3), 4) if wall > 0 else None)
+    out: Dict[str, Any] = {
+        "ranks": ranks,
+        "world_size": (sorted(worlds)[-1] if worlds else len(ranks)),
+        "run_id": (sorted(map(str, run_ids))[0] if len(run_ids) == 1
+                   else None),
+        "aligned_iterations": len(common),
+        "per_rank": per_rank,
+        "phases": {
+            name: {r: round(v, 6) for r, v in sorted(vals.items())}
+            for name, vals in sorted(
+                phases.items(),
+                key=lambda kv: -sum(kv[1].values()))
+        },
+        "timeline": timeline,
+    }
+    if ranks and common:
+        compute = {r: per_rank[r]["compute_s"] for r in ranks}
+        total_compute = sum(compute.values())
+        straggler = max(ranks, key=lambda r: compute[r])
+        slowest_counts = [t["slowest_rank"] for t in timeline]
+        out["straggler"] = {
+            "rank": straggler,
+            "slowest_rank_share": round(
+                compute[straggler] / total_compute, 4
+            ) if total_compute > 0 else None,
+            "slowest_in_iters": slowest_counts.count(straggler),
+            "wait_behind_straggler_s": round(
+                sum(per_rank[r]["barrier_wait_s"]
+                    for r in ranks if r != straggler), 6),
+        }
+    # shard-rebalance events (rebalance.plan, boosting/gbdt.py): per-rank
+    # rows owned before/after each move, plus the fleet barrier-wait
+    # share on either side of it — did the move actually reclaim wait?
+    # Every rank emits the identical event; dedupe on the iteration.
+    events: Dict[int, Dict[str, Any]] = {}
+    for recs in by_rank.values():
+        for r in recs:
+            if r.get("ev") == "event" and r.get("name") == "rebalance.plan":
+                events.setdefault(int(r.get("iter", -1)), r)
+    if events:
+        def _wait_share(its):
+            wall = sum(iters[r][it]["wall_s"] for r in ranks for it in its)
+            wait = sum(iters[r][it]["wait_s"] for r in ranks for it in its)
+            return round(wait / wall, 4) if wall > 0 else None
+
+        out["rebalance"] = []
+        for ev_it in sorted(events):
+            ev = events[ev_it]
+            out["rebalance"].append({
+                "iter": ev_it,
+                "rows_before": [int(c) for c in ev.get("before", [])],
+                "rows_after": [int(c) for c in ev.get("after", [])],
+                "wait_share_before": _wait_share(
+                    [it for it in common if it < ev_it]),
+                "wait_share_after": _wait_share(
+                    [it for it in common if it >= ev_it]),
+            })
+    return out
+
+
+def render_merge(m: Dict[str, Any]) -> str:
+    lines = []
+    rid = f" run_id={m['run_id']}" if m.get("run_id") else ""
+    lines.append(
+        f"=== lightgbm_tpu cross-rank report: {len(m['ranks'])} rank(s), "
+        f"world={m['world_size']}, {m['aligned_iterations']} aligned "
+        f"iteration(s){rid} ===")
+    ranks = m["ranks"]
+    # quantized-wire column only when some rank exchanged histograms;
+    # OOC stall column only when some rank streamed its bin matrix
+    show_q = any("quantized_ratio" in m["per_rank"][r] for r in ranks)
+    show_ooc = any("ooc_stall_s" in m["per_rank"][r] for r in ranks)
+    lines.append("")
+    lines.append(f"{'rank':<8}{'iters':>7}{'wall_s':>10}{'compute_s':>11}"
+                 f"{'barrier_wait_s':>16}"
+                 + (f"{'ooc_stall_s':>13}{'stall%':>8}" if show_ooc else "")
+                 + f"{'bytes/iter':>12}"
+                 + (f"{'q_ratio':>9}" if show_q else ""))
+    for r in ranks:
+        pr = m["per_rank"][r]
+        qr = pr.get("quantized_ratio")
+        os_ = pr.get("ooc_stall_s")
+        osh = pr.get("ooc_stall_share")
+        lines.append(f"{r:<8}{pr['aligned_iterations']:>7}"
+                     f"{pr['wall_s']:>10.3f}{pr['compute_s']:>11.3f}"
+                     f"{pr['barrier_wait_s']:>16.3f}"
+                     + (((f"{os_:>13.3f}" if os_ is not None
+                          else f"{'-':>13}")
+                         + (f"{100.0 * osh:>7.1f}%" if osh is not None
+                            else f"{'-':>8}"))
+                        if show_ooc else "")
+                     + f"{pr.get('bytes_per_iter', 0.0):>12.0f}"
+                     + ((f"{qr:>9.2f}" if qr is not None else f"{'-':>9}")
+                        if show_q else ""))
+    st = m.get("straggler")
+    if st:
+        share = st["slowest_rank_share"]
+        share_txt = f"{100.0 * share:.1f}% of fleet compute" \
+            if share is not None else "n/a"
+        lines.append("")
+        lines.append(
+            f"straggler: rank {st['rank']} — {share_txt}, slowest in "
+            f"{st['slowest_in_iters']}/{m['aligned_iterations']} "
+            f"iteration(s); other ranks spent "
+            f"{st['wait_behind_straggler_s']:.3f} s in barrier wait")
+    if m.get("rebalance"):
+        lines.append("")
+        lines.append(f"{'rebalance':<14}{'rows/rank before -> after':<40}"
+                     f"{'wait share':>14}")
+        for ev in m["rebalance"]:
+            wb, wa = ev["wait_share_before"], ev["wait_share_after"]
+            trend = (f"{wb:.2f} -> {wa:.2f}"
+                     if wb is not None and wa is not None else "n/a")
+            lines.append(
+                f"{'@ iter ' + str(ev['iter']):<14}"
+                f"{str(ev['rows_before']) + ' -> ' + str(ev['rows_after']):<40}"
+                f"{trend:>14}")
+    if m["phases"]:
+        lines.append("")
+        header = f"{'phase':<24}" + "".join(f"rank{r:>2}/s{'':>3}"
+                                            for r in ranks)
+        lines.append(header)
+        for name, vals in m["phases"].items():
+            row = f"{name:<24}" + "".join(
+                f"{vals.get(r, 0.0):>10.3f}" for r in ranks)
+            lines.append(row)
+    return "\n".join(lines) + "\n"
+
+
+def merge_main(argv: List[str]) -> int:
+    args = [a for a in argv if not a.startswith("--")]
+    as_json = "--json" in argv
+    if not args:
+        sys.stderr.write(
+            "usage: python -m lightgbm_tpu_torch report merge <dir|trace.jsonl...>"
+            " [--json]\n")
+        return 2
+    paths: List[str] = []
+    for a in args:
+        if os.path.isdir(a):
+            paths.extend(p for p in glob.glob(os.path.join(a, "*.jsonl"))
+                         if not p.endswith(".crash.jsonl"))
+        else:
+            paths.append(a)
+    if not paths:
+        sys.stderr.write(f"no trace files found under {args}\n")
+        return 1
+    try:
+        by_rank = load_rank_traces(paths)
+    except OSError as e:
+        sys.stderr.write(f"cannot read traces: {e}\n")
+        return 1
+    m = merge_summary(by_rank)
+    if as_json:
+        sys.stdout.write(json.dumps(m) + "\n")
+    else:
+        sys.stdout.write(render_merge(m))
+    return 0
+
+
+# ----------------------------------------------------------------------
+# stream diff (report diff a.jsonl b.jsonl)
+# ----------------------------------------------------------------------
 def first_divergence(a: List[Dict[str, Any]],
                      b: List[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
     """The first record index where the streams differ, with the fields
@@ -234,17 +598,19 @@ def diff_main(argv: List[str]) -> int:
 
 
 def main(argv: List[str]) -> int:
-    """``python -m lightgbm_tpu_torch report {<trace.jsonl> | diff <a> <b>}
-    [--json]``."""
+    """``python -m lightgbm_tpu_torch report {<trace.jsonl> | diff <a> <b> |
+    merge <dir|files...>} [--json]``."""
     if argv and argv[0] in _NOT_YET:
         raise NotImplementedError(f"lightgbm_tpu_torch does not support report {argv[0]} "
                                   f"yet: {_NOT_YET[argv[0]]}")
     if argv and argv[0] == "diff":
         return diff_main(argv[1:])
+    if argv and argv[0] == "merge":
+        return merge_main(argv[1:])
     args = [a for a in argv if not a.startswith("--")]
     if not args:
         sys.stderr.write("usage: python -m lightgbm_tpu_torch report "
-                         "{<trace.jsonl> | diff <a> <b>} [--json]\n")
+                         "{<trace.jsonl> | diff <a> <b> | merge <dir|files...>} [--json]\n")
         return 2
     path = args[0]
     try:

@@ -162,9 +162,15 @@ class Tracer:
         self._bytes = 0
         self._max_bytes = 0
         self._lock = threading.Lock()
-        self._stack = []
+        # each thread's open spans: a span's parent is its own thread's
+        # (the heartbeat thread's spans run inside the main thread's)
+        self._local = threading.local()
         self._iter_phases: Optional[Dict[str, float]] = None
         self._atexit_registered = False
+        # rank, world and run_id stamped onto every record of a run over
+        # several processes, so ``report merge`` can correlate the ranks'
+        # files (empty in one process: records keep their schema)
+        self._ident: Dict[str, Any] = {}
         # records processed (emitted and mirrored): stays 0 with tracing
         # off, which the tests pin
         self.work_ops = 0
@@ -173,10 +179,35 @@ class Tracer:
     def refresh_from_env(self) -> None:
         """(Re-)read LIGHTGBM_TPU_TRACE; called at the training entry
         points so tests and the CLI toggle tracing by the environment."""
+        self._ident_from_env()
         self._max_bytes = _max_bytes_from_env()
         path = os.environ.get("LIGHTGBM_TPU_TRACE", "")
         if path and path != self.path:
             self.configure(path)
+
+    def _ident_from_env(self) -> None:
+        """The identity the launcher's env gives before the bootstrap
+        (parallel/distributed.py refines it with ``set_identity``)."""
+        rank = os.environ.get("LIGHTGBM_TPU_PROCESS_ID", "").strip()
+        world = os.environ.get("LIGHTGBM_TPU_NUM_PROCESSES", "").strip()
+        if rank and world:
+            self.set_identity(rank=int(rank), world_size=int(world))
+
+    def set_identity(self, rank: Optional[int] = None, world_size: Optional[int] = None,
+                     run_id: Optional[str] = None) -> None:
+        """Stamp rank, world and run_id onto every later record.
+        ``run_id`` defaults to LIGHTGBM_TPU_RUN_ID, else the coordinator's
+        address: the same on every rank of one run, which ``report merge``
+        checks before it correlates the files."""
+        if rank is not None:
+            self._ident["rank"] = int(rank)
+        if world_size is not None:
+            self._ident["world"] = int(world_size)
+        if run_id is None:
+            run_id = (os.environ.get("LIGHTGBM_TPU_RUN_ID", "").strip()
+                      or os.environ.get("LIGHTGBM_TPU_COORDINATOR", "").strip())
+        if run_id:
+            self._ident["run_id"] = str(run_id)
 
     def configure(self, path: str) -> None:
         """Open (truncate) the JSONL sink at ``path`` and enable tracing."""
@@ -217,6 +248,8 @@ class Tracer:
 
     # -- emission ------------------------------------------------------
     def _emit(self, rec: Dict[str, Any]) -> None:
+        for k, v in self._ident.items():
+            rec.setdefault(k, v)
         rec.setdefault("ts", round(time.time(), 6))
         line = json.dumps(rec, default=str)
         self.work_ops += 1
@@ -241,9 +274,17 @@ class Tracer:
         self._bytes = 0
         meta = {"ev": "meta", "version": 1, "pid": os.getpid(), "rotated": True,
                 "ts": round(time.time(), 6)}
+        meta.update(self._ident)
         line = json.dumps(meta)
         self._f.write(line + "\n")
         self._bytes += len(line) + 1
+
+    @property
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     def span(self, name: str, **attrs):
         """Timed nested span (the no-op singleton when disabled)."""

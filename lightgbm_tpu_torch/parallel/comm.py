@@ -3,9 +3,18 @@ PyTorch counterpart of lightgbm_tpu/parallel/comm.py.
 
 The learners (``hostlearner.py``) express every exchange as an allgather
 of opaque byte blobs: best-split records, partition bitmaps, vote
-ballots, elected-column histograms.  ``LocalComm`` runs R ranks as
-threads of one process with a barrier-synchronized slot exchange; its
-byte counts are exactly what a multi-process communicator would send.
+ballots, elected-column histograms.  ``NetComm`` runs them across
+processes over the store collectives of ``collect.py``; ``LocalComm``
+runs R ranks as threads of one process with a barrier-synchronized slot
+exchange.  Both send the same bytes, so their ledgers are equal.
+
+``rank_thread(comm)`` makes the calling thread rank ``comm.rank`` of an
+in-process world of ``LocalComm`` ranks: parallel/distributed.py reports
+that rank and world, parallel/collect.py exchanges through the group, and
+GBDT trains over that comm in place of ``NetComm`` — the whole
+multi-process path (find-bin, label average, learners, checkpoint
+barrier) with rank threads, which the checks hold the processes' models
+and ledgers against.
 
 Every communicator keeps an always-on ``ledger``, purpose -> bytes this
 rank sent: ``hist`` (float32 (g, h, count) histograms), ``best_split``
@@ -17,8 +26,9 @@ Each exchange also emits the tracer counter ``net.bytes``.
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ..obs import tracer
 
@@ -43,6 +53,22 @@ class Comm:
 
     def allgather(self, blob: bytes, purpose: str = "misc") -> List[bytes]:
         raise NotImplementedError
+
+
+class NetComm(Comm):
+    """A rank of a multi-process run, over parallel/collect.py's bounded
+    allgather (which emits the ``net.bytes`` counter)."""
+
+    def __init__(self):
+        from . import distributed
+
+        super().__init__(distributed.process_index(), distributed.process_count())
+
+    def allgather(self, blob: bytes, purpose: str = "misc") -> List[bytes]:
+        from . import collect
+
+        self._account(blob, purpose)
+        return collect.allgather_bytes(blob, purpose=purpose)
 
 
 class LocalGroup:
@@ -74,6 +100,12 @@ class LocalComm(Comm):
     def allgather(self, blob: bytes, purpose: str = "misc") -> List[bytes]:
         self._account(blob, purpose)
         tracer.counter("net.bytes", float(len(blob)), purpose=purpose, transport="local")
+        return self.exchange(blob)
+
+    def exchange(self, blob: bytes) -> List[bytes]:
+        """The slot exchange itself, not in the ledger (parallel/collect.py's
+        collectives in a rank thread, which ``NetComm``'s ledger does not
+        count either)."""
         if self.nproc == 1:
             return [blob]
         self.group.slots[self.rank] = blob
@@ -81,3 +113,23 @@ class LocalComm(Comm):
         out = list(self.group.slots)
         self.group.barrier.wait()
         return out
+
+
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def rank_thread(comm: LocalComm):
+    """Within the block the calling thread is rank ``comm.rank`` of the
+    in-process world of ``comm``'s group."""
+    prev = getattr(_tls, "comm", None)
+    _tls.comm = comm
+    try:
+        yield comm
+    finally:
+        _tls.comm = prev
+
+
+def thread_comm() -> Optional[LocalComm]:
+    """The ``LocalComm`` of the calling rank thread, or None."""
+    return getattr(_tls, "comm", None)

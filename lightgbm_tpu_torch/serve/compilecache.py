@@ -187,8 +187,9 @@ def _check_shard(shard: bool, device: torch.device) -> None:
     nothing."""
     if shard and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
-            "lightgbm_tpu_torch: shard=1 over several cards waits for the distributed "
-            "port (queue A2c); serve with shard=0 or one visible card")
+            "lightgbm_tpu_torch: shard=1 over several cards waits for the port's "
+            "multi-card learners and transport (queue A2d); serve with shard=0 or one "
+            "visible card")
 
 
 class _BucketGraph:

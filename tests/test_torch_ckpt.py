@@ -19,8 +19,9 @@ byte for byte, for each variant whose state a resume must carry:
   (``best_iteration`` and ``evals_result`` too), and a preemption.
 
 Also the store's retention, corrupt tail and completion marker, and the
-refusals (config, data, boosting type, validation sets, multi-host blobs,
-and a blob whose out-of-core chunk schedule is not the run's).
+refusals (config, data, boosting type, validation sets, and a blob whose
+out-of-core chunk schedule is not the run's), and a blob that carries a
+``world_size``, which both packages' ``restore`` takes alike.
 
 The port against the JAX package: ``config_fingerprint``,
 ``data_fingerprint`` and ``pack_trees`` of the same model text are
@@ -285,9 +286,19 @@ def test_restore_refusals(what):
     b = lgt.Booster(params=dict(q), train_set=ds, device="cpu")
     if what == "valid":
         b.add_valid(lgt.Dataset(X[:100], label=y[:100], reference=ds), "v")
+    if what == "world_size":
+        # a world_size key refuses nothing in the JAX package's restore (the
+        # manager slices a canonical container first): both packages restore it
+        jb = lgb.Booster(params=dict(q), train_set=lgb.Dataset(Xq, label=y))
+        jst = jstate.restore(jb, jstate.TrainState.from_bytes(st.to_bytes()))
+        assert restore(b, st).iteration == jst.iteration == 2
+        assert len(b.boosting.models) == len(jb.boosting.models)
+        np.testing.assert_array_equal(b.boosting.scores.cpu().numpy(),
+                                      np.asarray(jb.boosting.scores))
+        return
     match = {"config": "different training config", "data": "different dataset",
              "boosting": "boosting type", "valid": "valid sets",
-             "world_size": "distributed training", "ooc_schedule": "chunk schedule"}[what]
+             "ooc_schedule": "chunk schedule"}[what]
     with pytest.raises(CheckpointMismatch, match=match):
         restore(b, st)
 

@@ -1540,3 +1540,68 @@ def test_factory_cycle_on_card(dev, tmp_path):
     want = lgt.train(p, lgt.Dataset(str(stage), params=dict(p)), 5, init_model=init,
                      device=dev).model_to_string()
     assert open(sup.state.current["model_path"]).read() == want
+
+
+@pytest.mark.parametrize("mode", ["data", "quantized"])
+def test_rank_processes_on_card_equal_rank_threads(dev, tmp_path, mode):
+    """Two `python -m lightgbm_tpu_torch train` rank processes on the card
+    (the env bootstrap, each rank's B8 or B9 on its shard) write the model
+    of LocalComm rank threads in this process on the ranks' saved bins."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import threading
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.parallel import LocalGroup
+    from lightgbm_tpu_torch.parallel.comm import rank_thread
+
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((4000, 8))
+    y = (X[:, 0] + 0.5 * X[:, 1] - X[:, 2] * X[:, 3] > 0).astype(np.float32)
+    params = dict(objective="binary", tree_learner="data", num_machines=2,
+                  pre_partition="true", num_leaves=15, network_timeout=10, verbose=1,
+                  **({"quantized_training": "true"} if mode == "quantized" else {}))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for r in range(2):
+        part = tmp_path / f"shard{r}.csv"
+        rows = slice(r * 2000, (r + 1) * 2000)
+        np.savetxt(part, np.column_stack([y[rows], X[rows]]), delimiter=",", fmt="%.9g")
+        env = {k: v for k, v in os.environ.items() if not k.startswith("LIGHTGBM_TPU_")}
+        env.update(PYTHONPATH=repo, LIGHTGBM_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   LIGHTGBM_TPU_NUM_PROCESSES="2", LIGHTGBM_TPU_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch", "train", f"data={part}",
+             f"output_model={tmp_path / f'model{r}.txt'}", "num_iterations=3",
+             "is_save_binary_file=true", *[f"{k}={v}" for k, v in params.items()]],
+            cwd=str(tmp_path), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+        assert "learner over 2 processes on cuda" in log, log[-3000:]
+    ledgers = [json.loads(log.split("Bytes sent by purpose: ")[1].splitlines()[0])
+               for log in logs]
+    group, out = LocalGroup(2), [None, None]
+
+    def rank(r, comm):
+        with rank_thread(comm):
+            b = lgt.train(dict(params, verbose=-1),
+                          lgt.Dataset(str(tmp_path / f"shard{r}.csv.bin")), 3, device=dev)
+            out[r] = (b.model_to_string(), dict(comm.ledger))
+
+    ts = [threading.Thread(target=rank, args=(r, c)) for r, c in enumerate(group.comms())]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    for r in range(2):
+        assert out[r][0] == (tmp_path / f"model{r}.txt").read_text()
+        assert out[r][1] == ledgers[r]

@@ -317,7 +317,12 @@ def test_tried_set_bound(fleet_mod):
         assert not p.has_untried({b.addr}) and p.has_untried({a.addr})
 
 
-def test_fleet_cli_needs_a_model_or_backends(capsys):
+def test_fleet_cli_needs_a_model_or_backends(capsys, monkeypatch):
+    # the usage line is a warning: at the default verbosity, whatever an
+    # earlier test in this process left the log level at
+    from lightgbm_tpu_torch.utils.log import Log
+
+    monkeypatch.setattr(Log, "_level", 1)
     assert cli.main(["fleet", "device=cpu"]) == 1
     assert "need model=" in capsys.readouterr().out
 

@@ -68,6 +68,29 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_transport_imports_with_jax_blocked():
+    """The multi-process transport (parallel/net.py, distributed.py,
+    collect.py) imports and runs its one-process paths with jax and the
+    JAX package made unimportable."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'lightgbm_tpu'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "from lightgbm_tpu_torch.parallel import net, distributed, collect, NetComm\n"
+            "assert distributed.process_count() == 1 and not distributed.ensure_initialized()\n"
+            "assert collect.allgather_bytes(b'x') == [b'x']\n"
+            "assert net.parse_fault_spec('die:2') == [('die', 2.0)]\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("LIGHTGBM_TPU_COORDINATOR", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|lightgbm_tpu)(?:[\s.]|$)", re.M)
 
 

@@ -195,8 +195,13 @@ def test_sketch_collector_matches_jax():
     jax.update(X[:10])
     assert port.summary() == jax.summary()
     assert [_sketch_state(s) for s in port.sketches] == [_sketch_state(s) for s in jax.sketches]
-    with pytest.raises(NotImplementedError, match="distributed find-bin"):
-        port.merge_across_hosts()
+    # one process: the merge across hosts changes nothing, as the JAX package's
+    before = [_sketch_state(s) for s in port.sketches]
+    port.merge_across_hosts()
+    jax.merge_across_hosts()
+    assert [_sketch_state(s) for s in port.sketches] == before
+    assert [_sketch_state(s) for s in jax.sketches] == before
+    assert port.rows_seen == jax.rows_seen
 
 
 def test_jax_ingest_cache_trains_in_port(tmp_path):

@@ -180,10 +180,13 @@ def test_report_diff_and_not_ported(tmp_path, capsys):
     assert cli.main(["report", "diff", str(a), str(b), "--json"]) == 1
     div = json.loads(capsys.readouterr().out)
     assert div["index"] == 1 and div["fields"] == ["gain"]
-    for sub, why in (("merge", "distributed"), ("costs", "costmodel"),
-                     ("bench-trend", "benchmark")):
+    for sub, why in (("costs", "costmodel"), ("bench-trend", "benchmark")):
         with pytest.raises(NotImplementedError, match=why):
             cli.main(["report", sub, str(a)])
+    # merge runs now: a file whose records carry no rank is rank 0 of its argument order
+    assert cli.main(["report", "merge", str(a), "--json"]) == 0
+    merged = json.loads(capsys.readouterr().out)
+    assert merged["ranks"] == [0] and merged["aligned_iterations"] == 0
 
 
 def test_cli_metrics_flight_and_profiler(tmp_path, monkeypatch, capsys):
@@ -310,3 +313,31 @@ def test_names_are_registered(traced, tmp_path, monkeypatch):
     for name in sorted(names):
         assert (name in documented or name in mirrors
                 or re.sub("_total$", "", name) in mirrors), name
+
+
+def test_spans_nest_per_thread(traced):
+    """A span on another thread (the transport's heartbeat) neither takes
+    the main thread's span as its parent nor leaves it on the stack when
+    the two close out of order."""
+    import threading
+
+    path, records = traced
+    tracer.refresh_from_env()
+    inside, release = threading.Event(), threading.Event()
+
+    def beat():
+        with tracer.span("net.heartbeat"):
+            inside.set()
+            release.wait(10)
+
+    t = threading.Thread(target=beat)
+    with tracer.span("net.allgather"):
+        t.start()
+        inside.wait(10)
+    release.set()
+    t.join(10)
+    with tracer.span("after"):
+        pass
+    spans = {r["name"]: r for r in records() if r.get("ev") == "span"}
+    for name in ("net.heartbeat", "net.allgather", "after"):
+        assert spans[name]["parent"] is None and spans[name]["depth"] == 0, spans[name]

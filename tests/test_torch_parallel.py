@@ -21,15 +21,19 @@ package on the CPU.
 - C1: each parallel mode in one process trains the serial model with the
   JAX package's warning, through ``lgt.train`` and through a .conf given
   to the CLI in process, and matches the JAX package's model (split
-  lines and header equal, predictions within 3e-3); several processes,
-  forced out of core with voting, and ``top_k < 1`` are refused.
+  lines and header equal, predictions within 3e-3); the launcher's
+  process count without a coordinator trains serially, a machine list
+  whose peer never joins fails within its bound, and forced out of core
+  with voting and ``top_k < 1`` are refused.
 
 Rank threads are joined with a time limit, and a rank that raises aborts
 the group's barrier, so a fault fails the test instead of hanging it.
 """
 
 import os
+import socket
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -564,18 +568,39 @@ def test_data_learner_out_of_core_streams_serially(c1_data, capsys):
 
 
 @pytest.mark.parametrize("how", ["env", "machine_list"])
-def test_several_processes_are_refused(c1_data, how, tmp_path, monkeypatch):
-    X, y = c1_data[:2]
+def test_several_processes_are_refused(c1_data, how, tmp_path, monkeypatch, capsys):
+    """Several processes asked for but not formed: the launcher's process
+    count alone (no coordinator) trains serially with the JAX package's
+    warning; a machine list whose peer never joins fails loudly, with
+    ``CollectiveTimeoutError`` within its bound, and never trains alone."""
+    from lightgbm_tpu_torch.parallel import CollectiveTimeoutError, distributed, net
+
+    X, y, _, serial_text, _ = c1_data
     params = dict(C1_PARAMS, tree_learner="voting")
     if how == "env":
         monkeypatch.setenv("LIGHTGBM_TPU_NUM_PROCESSES", "2")
-    else:
-        (tmp_path / "mlist.txt").write_text("127.0.0.1:12400\n127.0.0.1:12401\n")
-        params.update(num_machines=2, machine_list_file=str(tmp_path / "mlist.txt"))
-    # a machine list makes the binning distributed first (its find-bin)
-    match = "tree_learner=voting over 2 processes" if how == "env" else "find-bin"
-    with pytest.raises(NotImplementedError, match=f"{match}.*A2b"):
-        lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+        text = lgt.train(params, lgt.Dataset(X, label=y), 3, device="cpu").model_to_string()
+        assert "only one device is visible; falling back to serial" in capsys.readouterr().out
+        assert text == serial_text and distributed.process_count() == 1
+        return
+    ports = []
+    for _ in range(2):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    (tmp_path / "mlist.txt").write_text("".join(f"127.0.0.1:{p}\n" for p in ports))
+    # this process is rank 0 (its listen port), and rank 1 never comes
+    params.update(num_machines=2, machine_list_file=str(tmp_path / "mlist.txt"),
+                  local_listen_port=ports[0], network_timeout=1.5, network_retries=0)
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(CollectiveTimeoutError, match="rank 1 of 2 did not join"):
+            lgt.train(params, lgt.Dataset(X, label=y), 1, device="cpu")
+    finally:
+        net._reset_for_tests()
+    assert time.monotonic() - t0 < 2 * 1.5 + 10
+    assert distributed.process_count() == 1
 
 
 def test_elastic_membership_is_ignored_without_a_runtime(c1_data, capsys):

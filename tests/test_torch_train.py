@@ -157,9 +157,10 @@ DECLINED = [
     ("boosting=dart", dict(boosting="dart", linear_tree=True), {}),
     ("Cannot use bagging in GOSS", dict(boosting="goss", bagging_fraction=0.5, bagging_freq=1),
      {}),
-    # one process trains a parallel learner serially (tests/test_torch_parallel.py);
-    # over several machines it is refused
-    ("tree_learner=data", dict(tree_learner="data", num_machines=2), {}),
+    # parallel learners train over several processes (tests/test_torch_distributed.py);
+    # out-of-core data-parallel training over two ranks (threads here) is refused
+    ("tree_learner=data", dict(tree_learner="data", num_machines=2, out_of_core=True),
+     dict(ranks=2)),
     # out-of-core training runs (tests/test_torch_ooc.py); with DART forced
     # it is refused
     ("out-of-core training", dict(out_of_core=True, boosting="dart"), {}),
@@ -188,9 +189,45 @@ def test_declined_feature_raises(what, params, kwargs):
     if kwargs.get("init_model") == "narrow":
         kwargs = dict(init_model=lgt.train(dict(objective="binary", verbose=-1),
                                            lgt.Dataset(X[:, :3], label=y), 2, device="cpu"))
+    if kwargs.get("ranks"):
+        _raises_in_every_rank(kwargs["ranks"], RAISES.get(what, NotImplementedError), what,
+                              lambda: lgt.train(dict(dict(objective="binary", verbose=-1),
+                                                     **params), lgt.Dataset(X, label=y), 2,
+                                                device="cpu"))
+        return
     with pytest.raises(RAISES.get(what, NotImplementedError), match=what):
         lgt.train(dict(dict(objective="binary", verbose=-1), **params), ds, 2, device="cpu",
                   **kwargs)
+
+
+def _raises_in_every_rank(nproc, exc, match, fn):
+    """``fn`` on ``nproc`` LocalComm rank threads (parallel/comm.py
+    rank_thread) must raise ``exc`` matching ``match`` in every rank."""
+    import re
+    import threading
+
+    from lightgbm_tpu_torch.parallel import LocalGroup
+    from lightgbm_tpu_torch.parallel.comm import rank_thread
+
+    group = LocalGroup(nproc)
+    errs = [None] * nproc
+
+    def run(r, comm):
+        with rank_thread(comm):
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 - checked below
+                errs[r] = e
+                group.barrier.abort()
+
+    ts = [threading.Thread(target=run, args=(r, c), daemon=True)
+          for r, c in enumerate(group.comms())]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    for e in errs:
+        assert isinstance(e, exc) and re.search(match, str(e)), repr(e)
 
 
 def test_efb_bundles_raise():
