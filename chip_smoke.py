@@ -235,6 +235,20 @@ result line):
      model), a wedged rank 1 (rank 0 exits 74), `report merge` of two
      traces; ms a tree, bytes, allgathers and wait share, bootstrap s,
      device MiB, the ranks' B8/B9 launches;
+  5n. "higgs-10.5M-elastic" (phase_elastic, after 5m): member fleets
+     (`python -m lightgbm_tpu_torch.factory.member_worker`, ELASTIC_WIDTH:
+     20,000 integer-valued rows x 28 features of 63 values, 255 leaves,
+     quantized binary) coordinating through fleet directories: a fleet of
+     one; a churn run (a SIGTERM leave, a SIGKILL, a joiner) and a
+     coordinator SIGKILL, whose finishers train the fleet of one's bytes;
+     a rebalance drill (member 0 slowed by a collective delay fault,
+     rows moved, the trees unchanged); rank-sharded out of core (two CLI
+     ranks on the main cell's first 20,000 rows, ooc_chunk_rows 4,096,
+     equal to LocalComm rank threads in memory, a 2-rank checkpoint
+     resumed at 3 ranks to the same bytes); `factory spot` (its cost and
+     zero lost iterations); ms a tree, resize pauses, bytes by purpose,
+     rows moved, streamed GB/s and stall share, start to first
+     iteration, the card's used MiB, B9 launches in every process;
   4b. (after the tree strategies, phase_small_ckpt) resume on the card:
      K=7 on 30,000 Covertype-shaped rows (31 leaves, 4 iterations), GOSS
      (6, learning_rate 0.5), DART (6) and quantized binary (5) on
@@ -290,6 +304,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -389,8 +404,9 @@ API_SMALL_ITERS, SMALL_DART_ITERS = 2, 6  # init_model's 2 + 2; DART card vs CPU
 # skip_drop 0.5), so six iterations drop trees to compare
 SMALL_DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", num_leaves=SMALL_MASK_LEAVES,
                          drop_rate=0.5, skip_drop=0.2)
-API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 10, 5, 2, 10
-API_CV_FOLDS = 3  # cut from 5 for time (PERF.md §4 lists the cuts)
+# the estimator's fit cut from 10 to 6 estimators
+API_CLF_ITERS, API_CONT_ITERS, API_CV_ITERS, API_DART_ITERS = 6, 5, 2, 10
+API_CV_FOLDS = 2  # cut from 5, then 3, for time (PERF.md §4 lists the cuts)
 # rows of the full-width API paths (cut from the cell's 10.5M): the
 # estimator bins its first 1M (binning 10.5M took ~35 s of its fit);
 # init_model, rollback and cv take the first 2.1M of the cell's bins
@@ -3605,11 +3621,9 @@ def _traffic(port, X, seed, on_request=None, until_version=None, clients=SERVE_C
 
 
 def _free_port():
-    import socket
+    from lightgbm_tpu_torch.serve.fleet import _free_ports
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    return _free_ports(1)[0]
 
 
 def phase_serve(higgs, main_text, small_texts, cov_rows, dev):
@@ -4275,11 +4289,28 @@ def phase_fleet(higgs, main_text, dev):
         assert events["published"][2] == 2 and 2 in versions, res["swap_and_kill"]
         assert surv["model_version"] == 2
 
-        # the killed replica back on its port, wounded: every predict late
+        # the killed replica back on its port, wounded: every predict late.
+        # The port came from the ephemeral range, so one of the clients'
+        # connections can hold it as its local port for a moment: a start
+        # that exits before it answers is logged and tried again
         t2 = time.perf_counter()
-        start("r0_fault", ["serve", f"port={ports[0]}"] + serve_args,
-              {"LIGHTGBM_TPU_SERVE_FAULT": FLEET_FAULT})
-        restart = dict(start_s=_wait_http(ports[0], "/healthz", procs["r0_fault"], 240, t2),
+        for attempt in range(3):
+            if attempt:
+                logs["r0_fault"].close()
+                with open(os.path.join(work, "r0_fault.log")) as f:
+                    log(f"fleet: the restarted replica exited "
+                        f"{procs['r0_fault'].returncode}; starting it again: "
+                        f"{f.read()[-600:]!r}")
+                time.sleep(1.0)
+            start("r0_fault", ["serve", f"port={ports[0]}"] + serve_args,
+                  {"LIGHTGBM_TPU_SERVE_FAULT": FLEET_FAULT})
+            try:
+                start_s = _wait_http(ports[0], "/healthz", procs["r0_fault"], 240, t2)
+                break
+            except RuntimeError:
+                if procs["r0_fault"].poll() is None or attempt == 2:
+                    raise
+        restart = dict(start_s=start_s,
                        ready_s=_wait_http(ports[0], "/readyz", procs["r0_fault"], 240, t2))
         addr = f"127.0.0.1:{ports[0]}"
         for _ in range(100):  # the proxy's prober restores it
@@ -4873,7 +4904,7 @@ def phase_factory(dev):
 # ----------------------------------------------------------------------
 # training over several processes (phase_distributed)
 DIST_ROWS = 20_000  # the main cell's first rows: 10,000 a rank (a split's host work sets a tree)
-DIST_ITERS = 3
+DIST_ITERS = 2  # cut from 3, for time
 DIST_TIMEOUT = 3.0  # the drills' network_timeout, s
 DIST_CALM_TIMEOUT = 10.0  # the four modes' (no fault: a busy host must not read as one)
 DIST_WEDGE_AT = 20  # the wedged rank's stalled collective: in its first tree
@@ -4883,33 +4914,30 @@ DIST_MODES = (("data", "data", {}), ("feature", "feature", {}),
 
 
 class _Ranks:
-    """Two `python -m lightgbm_tpu_torch train` rank processes of one run,
-    bootstrapped from a machine list on 127.0.0.1 with
+    """``nranks`` (two) `python -m lightgbm_tpu_torch train` rank processes
+    of one run, bootstrapped from a machine list on 127.0.0.1 with
     LIGHTGBM_TPU_PROCESS_ID; each logs to <tag>.rank<r>.log and traces to
     <tag>.rank<r>.jsonl in ``work``."""
 
     def __init__(self, work, tag, data, kw, extra=(), env=None, device="cuda",
-                 rank0_ends=False, timeout=DIST_TIMEOUT):
-        import socket
+                 rank0_ends=False, timeout=DIST_TIMEOUT, nranks=2, iters=DIST_ITERS):
+        from lightgbm_tpu_torch.serve.fleet import _free_ports
 
-        socks = [socket.socket() for _ in range(2)]
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        ports = [s.getsockname()[1] for s in socks]
-        for s in socks:
-            s.close()
+        ports = _free_ports(nranks)
         # rank0_ends: once rank 0 has exited, rank 1 is killed (the wedge
         # drill's stalled rank would only find its coordinator gone)
         self.work, self.tag, self.t0 = work, tag, time.perf_counter()
+        self.started = time.time()  # the host clock of the spawn (trace records' ts)
         self.rank0_ends = rank0_ends
-        self.ends = [None, None]
+        self.ends = [None] * nranks
         self.procs, self.logs = [], []
-        for r in range(2):
+        machines = ",".join(f"127.0.0.1:{p}" for p in ports)
+        for r in range(nranks):
             path = os.path.join(work, f"{tag}.rank{r}")
             self.logs.append(path + ".log")
             args = ["train", f"data={data[r]}", f"output_model={path}.model.txt",
-                    f"machines=127.0.0.1:{ports[0]},127.0.0.1:{ports[1]}", "num_machines=2",
-                    "pre_partition=true", f"num_iterations={DIST_ITERS}",
+                    f"machines={machines}", f"num_machines={nranks}",
+                    "pre_partition=true", f"num_iterations={iters}",
                     f"network_timeout={timeout}", *[f"{k}={v}" for k, v in dict(
                         TRAIN_PARAMS, verbose=1, **kw).items()], *extra]
             if device == "cpu":  # a rehearsal on the CPU
@@ -4939,6 +4967,9 @@ class _Ranks:
 
     def rcs(self):
         return [p.returncode for p in self.procs]
+
+    def ranks(self):
+        return range(len(self.procs))
 
     def log_text(self, r):
         with open(self.logs[r]) as f:
@@ -5268,6 +5299,452 @@ def phase_distributed(ds, dev):
     return counts, res
 
 
+ELASTIC_ROWS = 20_000  # the global rows of every elastic path (the -distributed cut)
+ELASTIC_TREES = 6  # cut from 10, for time
+# the rebalance drill's trees: three before the move, one after; held to
+# the reference's first four
+ELASTIC_REBALANCE_TREES = 4
+ELASTIC_REBALANCE_MEMBERS = 3  # the controller's median is then a fast member's
+# the member worker at the main cell's width: integer-valued features of
+# 63 values (every contiguous slice sees them all, so each member's bin
+# mappers are the same), max_bin 63, 255 leaves
+ELASTIC_WIDTH = {"MEMBER_ROWS": str(ELASTIC_ROWS), "MEMBER_FEATURES": "28",
+                 "MEMBER_MAX_BIN": "63", "MEMBER_LEAVES": "255",
+                 "MEMBER_TREES": str(ELASTIC_TREES)}
+ELASTIC_TIMEOUT = "5"  # the members' network_timeout, s: a kill is seen within ~2x it
+ELASTIC_OOC_ITERS = 3
+ELASTIC_OOC_CHUNK = 4096  # 10,000 rows a rank: 3 chunks a pass (2 of 4,096, one of 1,808)
+ELASTIC_SPOT = ("nproc=3", "script=preempt@3;spawn@6", "trees=6", f"rows={ELASTIC_ROWS}",
+                "features=28", "max_bin=63", "leaves=255")
+
+
+class _Fleet:
+    """One elastic fleet of member workers (python -m lightgbm_tpu_torch.
+    factory.member_worker) in its own fleet directory under ``work``:
+    ``nproc`` launch-time members and ``joiners`` mid-run arrivals, each
+    logging to member.<key>.log; a member's ``env`` overrides the common
+    ones (ELASTIC_WIDTH, the timeout)."""
+
+    def __init__(self, work, tag, nproc, per=None, joiners=0, extra=None, device="cuda"):
+        self.dir = os.path.join(work, tag)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        self.tag, self.out = tag, os.path.join(self.dir, "out")
+        self.procs, self.started = {}, {}
+        keys = list(range(nproc)) + ["join"] * joiners
+        for i, key in enumerate(keys):
+            e = {k: v for k, v in os.environ.items()
+                 if not k.startswith(("LIGHTGBM_TPU_", "MEMBER_"))}
+            e.update(ELASTIC_WIDTH, PYTHONPATH=HERE, OMP_NUM_THREADS="1",
+                     MEMBER_NPROC=str(nproc), LIGHTGBM_TPU_NET_TIMEOUT=ELASTIC_TIMEOUT)
+            if device == "cpu":  # a rehearsal on the CPU
+                e["MEMBER_DEVICE"] = "cpu"
+            e.update(extra or {})
+            name = str(key) if key != "join" else f"join{i - nproc}"
+            e.update((per or {}).get(key if key != "join" else name, {}))
+            with open(os.path.join(self.dir, f"member.{name}.log"), "w") as f:
+                self.started[name] = time.time()
+                self.procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "lightgbm_tpu_torch.factory.member_worker", str(key),
+                     self.dir, self.out], cwd=HERE, env=e, stdout=f, stderr=subprocess.STDOUT)
+
+    def done(self):
+        return all(p.poll() is not None for p in self.procs.values())
+
+    def kill(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def rcs(self):
+        return {k: p.returncode for k, p in self.procs.items()}
+
+    def log_text(self, key):
+        with open(os.path.join(self.dir, f"member.{key}.log")) as f:
+            return f.read()
+
+    def ids(self, suffix):
+        return sorted(int(f.split(".m")[1].split(".")[0]) for f in os.listdir(self.dir)
+                      if f.startswith("out.m") and f.endswith(suffix))
+
+    def meta(self, mid):
+        with open(f"{self.out}.m{mid}.json") as f:
+            return json.load(f)
+
+    def model(self, mid):
+        with open(f"{self.out}.m{mid}.txt") as f:
+            return f.read()
+
+    def dump(self):
+        return "\n".join(f"--- {k} rc={p.returncode} ---\n{self.log_text(k)[-2500:]}"
+                         for k, p in self.procs.items())
+
+
+def _wait_all(groups, timeout=400):
+    """Wait until every fleet's and rank group's processes have exited."""
+    t = time.perf_counter()
+    while not all(g.done() if isinstance(g, _Fleet) else g.poll() for g in groups):
+        if time.perf_counter() - t > timeout:
+            for g in groups:
+                g.kill()
+            raise RuntimeError(f"processes still running after {timeout} s: "
+                               f"{[g.tag for g in groups]}")
+        time.sleep(0.05)
+
+
+def _member_numbers(fleet, mid, key):
+    """A finished member's numbers: ms a tree (median iteration), the
+    resize pauses, bytes by purpose, B8 / B9 launches, the seconds from its
+    spawn to its first iteration's end."""
+    m = fleet.meta(mid)
+    its = m.get("iter_s") or []
+    return dict(member=mid, ms_a_tree=round(1e3 * float(np.median(its)), 3) if its else None,
+                trees=m.get("trees"), resize_pause_s=m.get("resize_pauses"),
+                final_members=m.get("final_members"), final_counts=m.get("final_counts"),
+                bytes=m.get("ledger"), hist_segment_q=m.get("launches", {}).get("hist_segment_q"),
+                hist_segment=m.get("launches", {}).get("hist_segment"), device=m.get("device"),
+                start_to_first_iter_s=(round(m["first_iter_at"] - fleet.started[key], 3)
+                                       if m.get("first_iter_at") else None))
+
+
+def _tree_blocks(text):
+    """A model text's tree blocks, each from its ``Tree=`` line on."""
+    return ["Tree=" + b.split("\n\n")[0] for b in text.split("Tree=")[1:]]
+
+
+def _count_line_diff(a, b):
+    """The lines of two model texts that differ, by key (``leaf_count``,
+    ...); None when the line counts differ."""
+    la, lb = a.splitlines(), b.splitlines()
+    if len(la) != len(lb):
+        return None
+    keys = {}
+    for x, z in zip(la, lb):
+        if x != z:
+            k = x.split("=")[0]
+            keys[k] = keys.get(k, 0) + 1
+    return keys
+
+
+def _ooc_rank_numbers(g, r):
+    """A streaming rank's numbers: ms a tree, streamed GB/s (its ooc.bytes
+    over its iterations' wall), B9 launches, spawn to first iteration."""
+    tr = g.trace(r)
+    iters = [rec for rec in tr if rec.get("ev") == "iter"]
+    streamed = sum(rec["value"] for rec in tr if rec.get("ev") == "counter"
+                   and rec.get("name") == "ooc.bytes")
+    wall = sum(rec["wall_s"] for rec in iters)
+    launches = [rec["counts"] for rec in tr if rec.get("name") == "kernel.launches"]
+    return dict(ms_a_tree=round(1e3 * float(np.median([rec["wall_s"] for rec in iters])), 3)
+                if iters else None,
+                streamed_gb_s=round(streamed / wall / 1e9, 4) if wall else None,
+                streamed_bytes=int(streamed),
+                launches=launches[0] if launches else {},
+                start_to_first_iter_s=round(iters[0]["ts"] - g.started, 3) if iters else None)
+
+
+def phase_elastic(ds, dev):
+    """"higgs-10.5M-elastic": elastic and rank-sharded training over
+    several processes on the one card (parallel/membership.py, shardplan.py,
+    boosting/oocdist.py, factory/spot.py), B8 / B9 in every member and rank
+    process.  Wave 1, three fleets at once (member worker, ELASTIC_WIDTH,
+    quantized binary, ELASTIC_TREES trees): the static reference (one
+    member, all ELASTIC_ROWS global rows); the churn run (members 0-2 and a
+    joiner; member 1 SIGTERMs itself at iteration 2, member 2 is SIGKILLed
+    at iteration 4, member 0 paced 0.4 s an iteration); the coordinator
+    drill (members 0-2, member 0 SIGKILLed at iteration 3).  Wave 2: the
+    rebalance drill (ELASTIC_REBALANCE_MEMBERS members with
+    MEMBER_REBALANCE=1, member 0 slowed by
+    a collective delay fault sized from the reference's ms a tree,
+    ELASTIC_REBALANCE_TREES trees); rank-sharded out of core (the main
+    cell's first ELASTIC_ROWS rows and parameters, quantized, `python -m
+    lightgbm_tpu_torch train` ranks on binary caches of one binning,
+    ooc_chunk_rows ELASTIC_OOC_CHUNK: two ranks for ELASTIC_OOC_ITERS
+    iterations, two checkpointing for one fewer, then three resuming that
+    checkpoint; in this process the same rows over LocalComm rank threads
+    in memory, streamed in one process and on the resident mask grower);
+    `factory spot` (ELASTIC_SPOT) through the CLI.  Checks: exits 0 / 0 /
+    -SIGKILL / 0 and the leaver writes no model, the joiner's id >= 3, each
+    finisher's model text byte-identical to the reference's, final counts
+    summing to ELASTIC_ROWS, the survivor's ELASTIC_TREES epochs_seen; the
+    drill's survivors [1, 2] with the reference's bytes; a rebalance.plan
+    event, rows moved off member 0, trees equal to the reference's first
+    ones; the ranks' model == the rank threads' and == the 3-rank resume,
+    and the one-process and resident models equal it but for their
+    quantized leaf counts; the spot run's cost and zero lost iterations.
+    Prints each member's ms a tree, resize pauses, bytes by purpose,
+    launches and start to first iteration, rows moved, each rank's
+    streamed GB/s and stall share (report merge), the card's used MiB."""
+    import threading
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.obs import report
+    from lightgbm_tpu_torch.parallel.comm import LocalGroup, rank_thread
+
+    work = os.path.join(HERE, "build", "chip_elastic")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    res, counts, groups = {"rows": ELASTIC_ROWS, "trees": ELASTIC_TREES}, [], []
+    stop = threading.Event()
+    sampler = threading.Thread(target=_card_mib_sampler, args=(stop, res), daemon=True)
+    sampler.start()
+    need = (lambda k: (k,)) if dev.type == "cuda" else (lambda k: ())  # a CPU rehearsal
+    try:
+        # ---- wave 1: the reference, the churn run, the coordinator drill
+        t0 = time.perf_counter()
+        ref = _Fleet(work, "reference", 1, device=dev.type)
+        churn = _Fleet(work, "churn", 3, joiners=1, device=dev.type,
+                       per={0: {"MEMBER_ITER_SLEEP": "0.4"}, 1: {"MEMBER_SIGTERM_ITER": "2"},
+                            2: {"MEMBER_KILL_ITER": "4"}})
+        coord = _Fleet(work, "coordinator", 3, device=dev.type,
+                       per={0: {"MEMBER_KILL_ITER": "3"}})
+        groups += [ref, churn, coord]
+        _wait_all([ref, churn, coord])
+        res["wave1_s"] = round(time.perf_counter() - t0, 3)
+        assert ref.rcs() == {"0": 0}, ref.dump()
+        ref_text = ref.model(0)
+        ref_num = _member_numbers(ref, 0, "0")
+        res["reference"] = ref_num
+        log(f"higgs-10.5M-elastic reference: {json.dumps(ref_num)}")
+        # churn: exits 0 / 0 / -SIGKILL / 0, the leaver writes no model
+        rcs = churn.rcs()
+        joiner = max(churn.ids(".json"))
+        res["churn"] = dict(rcs=rcs, joiner_id=joiner, leaver=churn.meta(1),
+                            members=[_member_numbers(churn, m, str(m) if m < 3 else "join0")
+                                     for m in (0, joiner)])
+        log(f"higgs-10.5M-elastic churn: {json.dumps(res['churn'])}")
+        assert rcs == {"0": 0, "1": 0, "2": -signal.SIGKILL, "join0": 0}, churn.dump()
+        assert not os.path.exists(churn.out + ".m1.txt") and joiner >= 3, churn.dump()
+        for m in (0, joiner):
+            meta = churn.meta(m)
+            assert churn.model(m) == ref_text, f"churn member {m}: not the reference's bytes"
+            assert sum(meta["final_counts"]) == int(ELASTIC_WIDTH["MEMBER_ROWS"])
+            assert meta["trees"] == ELASTIC_TREES
+            assert joiner in meta["final_members"] and not {1, 2} & set(meta["final_members"])
+        assert len(churn.meta(0)["epochs_seen"]) == ELASTIC_TREES  # no lost iteration
+        # the coordinator drill
+        rcs = coord.rcs()
+        res["coordinator"] = dict(rcs=rcs, members=[_member_numbers(coord, m, str(m))
+                                                    for m in (1, 2)])
+        log(f"higgs-10.5M-elastic coordinator: {json.dumps(res['coordinator'])}")
+        assert rcs == {"0": -signal.SIGKILL, "1": 0, "2": 0}, coord.dump()
+        for m in (1, 2):
+            assert coord.meta(m)["final_members"] == [1, 2], coord.dump()
+            assert coord.model(m) == ref_text, f"coordinator drill member {m}: other bytes"
+        for f, mids in ((ref, (0,)), (churn, (0, joiner)), (coord, (1, 2))):
+            counts += [f.meta(m)["launches"] for m in mids]
+
+        # ---- wave 2: rebalance, rank-sharded out of core, factory spot
+        t0 = time.perf_counter()
+        # member 0's delay is 1.5 times the reference's host work a
+        # collective: the controller's threshold (1.5x the median, a fast
+        # member's compute) then holds while a fast member's tree, beside
+        # the wave's other processes, takes up to three reference trees
+        # (with two members the median is their mean, and member 0's
+        # compute must pass three times its peer's)
+        colls = 3 * (int(ELASTIC_WIDTH["MEMBER_LEAVES"]) - 1) + 4  # a tree's collectives
+        delay_ms = max(2, int(round(1.5 * ref_num["ms_a_tree"] / colls)))
+        reb = _Fleet(work, "rebalance", ELASTIC_REBALANCE_MEMBERS, device=dev.type,
+                     extra={"MEMBER_REBALANCE": "1",
+                            "MEMBER_TREES": str(ELASTIC_REBALANCE_TREES)},
+                     per={0: {"LIGHTGBM_TPU_FAULT": f"delay:{delay_ms}:after:5",
+                              "LIGHTGBM_TPU_FAULT_RANK": "0",
+                              "LIGHTGBM_TPU_TRACE": os.path.join(work, "rebalance.m0.jsonl")},
+                          **{m: {"LIGHTGBM_TPU_TRACE": os.path.join(work, f"rebalance.m{m}.jsonl")}
+                             for m in range(1, ELASTIC_REBALANCE_MEMBERS)}})
+        groups.append(reb)
+        spot_dir = os.path.join(work, "spot")
+        spot_env = {k: v for k, v in os.environ.items()
+                    if not k.startswith(("LIGHTGBM_TPU_", "MEMBER_"))}
+        spot_env.update(PYTHONPATH=HERE, OMP_NUM_THREADS="1",
+                        LIGHTGBM_TPU_NET_TIMEOUT=ELASTIC_TIMEOUT)
+        spot_args = [sys.executable, "-m", "lightgbm_tpu_torch", "factory", "spot",
+                     f"fleet={spot_dir}", *ELASTIC_SPOT]
+        if dev.type == "cpu":
+            spot_args.append("device=cpu")
+        spot_log = os.path.join(work, "spot.log")
+        with open(spot_log, "w") as f:
+            spot = subprocess.Popen(spot_args, cwd=HERE, env=spot_env, stdout=f,
+                                    stderr=subprocess.STDOUT)
+        # the out-of-core rows: the main cell's first ELASTIC_ROWS, binned
+        # once; the ranks' shards are binary caches of that binning
+        X = np.asarray(ds.data[:ELASTIC_ROWS])
+        y = np.asarray(ds.construct(TRAIN_PARAMS).metadata.label[:ELASTIC_ROWS])
+        full = lgt.Dataset(X, label=y, params=dict(TRAIN_PARAMS))
+        full.construct(TRAIN_PARAMS)
+        caches = {}
+        for world in (2, 3):
+            caches[world] = []
+            for r in range(world):
+                lo, hi = r * ELASTIC_ROWS // world, (r + 1) * ELASTIC_ROWS // world
+                path = os.path.join(work, f"ooc.w{world}.s{r}.bin")
+                lgt.Dataset(X[lo:hi], label=y[lo:hi], reference=full).save_binary(path)
+                caches[world].append(path)
+        okw = dict(tree_learner="data", out_of_core="true", quantized_training="true",
+                   ooc_chunk_rows=ELASTIC_OOC_CHUNK)
+        ck = os.path.join(work, "ck_ooc")
+        on = dict(device=dev.type, timeout=DIST_CALM_TIMEOUT)
+        ooc = _Ranks(work, "ooc", caches[2], okw, iters=ELASTIC_OOC_ITERS, **on)
+        ooc_ck = _Ranks(work, "ooc_ck", caches[2], okw, (f"checkpoint_dir={ck}",
+                                                         "checkpoint_freq=1"),
+                        iters=ELASTIC_OOC_ITERS - 1, **on)
+        groups += [ooc, ooc_ck]
+        _wait_all([ooc_ck])
+        assert ooc_ck.rcs() == [0, 0], ooc_ck.log_text(0)[-3000:]
+        resume = _Ranks(work, "ooc_resume", caches[3], okw, (f"checkpoint_dir={ck}",
+                                                             "checkpoint_resume=force"),
+                        nranks=3, iters=ELASTIC_OOC_ITERS, **on)
+        groups.append(resume)
+        # this process's references, beside the ranks
+        params = dict(TRAIN_PARAMS, num_machines=2, pre_partition=True,
+                      network_timeout=DIST_CALM_TIMEOUT, tree_learner="data",
+                      quantized_training=True, out_of_core="false")
+
+        def threads_run():
+            group, out, errs = LocalGroup(2), [None, None], []
+
+            def work_rank(r, comm):
+                try:
+                    with rank_thread(comm):
+                        out[r] = lgt.train(dict(params), lgt.Dataset(caches[2][r]),
+                                           ELASTIC_OOC_ITERS, device=dev).model_to_string()
+                except BaseException as e:  # noqa: BLE001 - raised below
+                    errs.append(e)
+                    group.barrier.abort()
+
+            ts = [threading.Thread(target=work_rank, args=(r, c), daemon=True)
+                  for r, c in enumerate(group.comms())]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(300)
+            if errs:
+                raise errs[0]
+            return out
+
+        thread_texts, c = driven("higgs-10.5M-elastic ooc rank threads", threads_run,
+                                 need("hist_segment_q"))
+        counts.append(c)
+        one_params = dict(TRAIN_PARAMS, tree_learner="data", quantized_training=True,
+                          out_of_core="true", ooc_chunk_rows=ELASTIC_OOC_CHUNK)
+        one_text, c = driven("higgs-10.5M-elastic ooc one process", lambda: lgt.train(
+            dict(one_params), full, ELASTIC_OOC_ITERS, device=dev).model_to_string(),
+            need("hist_segment_q"))
+        counts.append(c)
+        os.environ["LIGHTGBM_TPU_PGROW"] = "0"
+        try:
+            resident_text, c = driven("higgs-10.5M-elastic resident mask grower", lambda: lgt.train(
+                dict(TRAIN_PARAMS, quantized_training=True), full, ELASTIC_OOC_ITERS,
+                device=dev).model_to_string(), need("hist_segment_q"))
+            counts.append(c)
+        finally:
+            os.environ.pop("LIGHTGBM_TPU_PGROW", None)
+        _wait_all([reb, ooc, resume])
+        spot_rc = spot.wait(timeout=400)
+        res["wave2_s"] = round(time.perf_counter() - t0, 3)
+    finally:
+        stop.set()
+        for g in groups:
+            g.kill()
+        if "spot" in locals() and spot.poll() is None:
+            spot.kill()
+    sampler.join(15)
+
+    # ---- rebalance
+    reb_ids = range(ELASTIC_REBALANCE_MEMBERS)
+    assert reb.rcs() == {str(m): 0 for m in reb_ids}, reb.dump()
+    moved, plans = 0.0, []
+    for rec in report.load_trace(os.path.join(work, "rebalance.m0.jsonl"), warn=False):
+        if rec.get("name") == "rebalance.move_rows":
+            moved += rec["value"]
+        elif rec.get("name") == "rebalance.plan":
+            plans.append(dict(iter=rec["iter"], before=rec["before"], after=rec["after"]))
+    reb_blocks = _tree_blocks(reb.model(0))
+    res["rebalance"] = dict(delay_ms=delay_ms, plans=plans, rows_moved=int(moved),
+                            members=[_member_numbers(reb, m, str(m)) for m in reb_ids],
+                            trees_equal_reference=reb_blocks == _tree_blocks(ref_text)[
+                                :ELASTIC_REBALANCE_TREES],
+                            ranks_agree=all(reb.model(m) == reb.model(0) for m in reb_ids))
+    log(f"higgs-10.5M-elastic rebalance: {json.dumps(res['rebalance'])}")
+    assert plans and plans[-1]["after"][0] < plans[0]["before"][0], reb.dump()
+    assert res["rebalance"]["trees_equal_reference"] and res["rebalance"]["ranks_agree"]
+    for m in reb_ids:
+        counts.append(reb.meta(m)["launches"])
+
+    # ---- rank-sharded out of core
+    for g, n in ((ooc, 2), (resume, 3)):
+        assert g.rcs() == [0] * n, g.log_text(0)[-3000:]
+        for r in range(n):
+            text = g.log_text(r)
+            assert f"Distributed runtime up: rank {r} of {n}" in text, f"{g.tag} rank {r}"
+            assert f"Using distributed out-of-core data-parallel learner over {n} processes on " \
+                   f"{dev.type}" in text, f"{g.tag} rank {r}: not the rank-sharded stream"
+    resumed = _logged(resume.log_text(0), "Resuming training from checkpoint at iteration ")
+    ooc_text = ooc.model(0)
+    merged = report.merge_summary(report.load_rank_traces(
+        [os.path.join(work, f"ooc.rank{r}.jsonl") for r in range(2)]))
+    nums = [_ooc_rank_numbers(ooc, r) for r in range(2)]
+    res["ooc"] = dict(
+        ranks=[dict(n, stall_share=merged["per_rank"][r].get("ooc_stall_share"),
+                    hist_segment_q=n["launches"].get("hist_segment_q"))
+               for r, n in enumerate(nums)],
+        chunks_a_pass=[_logged(ooc.log_text(r), "Distributed out-of-core training: ")[0]
+                       for r in range(2)],
+        checks=dict(ranks_agree=all(ooc.model(r) == ooc_text for r in range(2)),
+                    equals_rank_threads=thread_texts == [ooc_text, ooc_text],
+                    resumed_at_3_equals=all(resume.model(r) == ooc_text for r in range(3)),
+                    resumed_from=int(resumed[0]) if resumed else None),
+        one_process_differs_in=_count_line_diff(one_text, ooc_text),
+        resident_differs_in=_count_line_diff(resident_text, ooc_text))
+    log(f"higgs-10.5M-elastic ooc: {json.dumps(res['ooc'])}")
+    chk = res["ooc"]["checks"]
+    assert chk["ranks_agree"] and chk["equals_rank_threads"], res["ooc"]
+    assert chk["resumed_at_3_equals"] and chk["resumed_from"] == ELASTIC_OOC_ITERS - 1
+    for diff in (res["ooc"]["one_process_differs_in"], res["ooc"]["resident_differs_in"]):
+        # the same trees: only the quantized leaf counts, which the serial
+        # grower derives from the hessians, differ from the exact counts
+        assert diff is not None and set(diff) <= {"leaf_count", "internal_count"}, diff
+    for g, n in ((ooc, 2), (ooc_ck, 2), (resume, 3)):
+        for r in range(n):
+            c = _ooc_rank_numbers(g, r)["launches"]
+            assert dev.type != "cuda" or c.get("hist_segment_q", 0) > 0, f"{g.tag} rank {r}"
+            counts.append(dict({k: 0 for k in KERNEL_NAMES}, **c))
+
+    # ---- factory spot
+    with open(spot_log) as f:
+        spot_out = f.read()
+    lines = spot_out.splitlines()
+    first = max(i for i, ln in enumerate(lines) if ln == "{")
+    summary = json.loads("\n".join(lines[first:]))
+    spot_metas = summary.get("metas", {})
+    res["spot"] = dict(rc=spot_rc, cost=summary.get("cost"),
+                       zero_lost_iterations=summary.get("zero_lost_iterations"),
+                       wall_s=summary.get("wall_s"), exits=summary.get("exits"),
+                       baseline="not run on the card (tests/test_torch_spot.py prices one)",
+                       members={k: dict(ms_a_tree=round(1e3 * float(np.median(m["iter_s"])), 3)
+                                        if m.get("iter_s") else None,
+                                        resize_pause_s=m.get("resize_pauses"),
+                                        start_to_first_iter_s=round(
+                                            m["first_iter_at"] - summary["started"][
+                                                k if k in summary["started"] else "join1"], 3)
+                                        if m.get("first_iter_at") else None)
+                                for k, m in spot_metas.items() if "trees" in m})
+    log(f"higgs-10.5M-elastic spot: {json.dumps(res['spot'])}")
+    assert spot_rc == 0 and res["spot"]["cost"] is not None, spot_out[-4000:]
+    assert res["spot"]["zero_lost_iterations"], spot_out[-4000:]
+    for m in spot_metas.values():
+        if "launches" in m:
+            counts.append(m["launches"])
+    res["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in ("hist_segment", "hist_segment_q")}
+    log("higgs-10.5M-elastic: " + json.dumps(res))
+    if dev.type == "cuda":
+        for c in counts:
+            assert c.get("hist_segment_q", 0) > 0, "B9 not launched in a process of the path"
+    return counts, res
+
+
 def phase_strategies(higgs, dev):
     """The tree strategies at full width on the higgs-10.5M cell's binned
     data and parameters, STRAT_ITERS iterations each on the mask grower:
@@ -5518,6 +5995,9 @@ def run_phases(args, dev, pool, cpu, kern, b1_kinds, b10_kinds, Xc, yc, cov):
     dist_counts, _ = phase_distributed(higgs[0], dev)
     log(f"higgs-10.5M-distributed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    elastic_counts, _ = phase_elastic(higgs[0], dev)
+    log(f"higgs-10.5M-elastic in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     strat_counts, _ = phase_strategies(higgs, dev)
     del higgs
     log(f"higgs-10.5M-linear and higgs-10.5M-monotone in {time.perf_counter() - t0:.1f} s")
@@ -5565,7 +6045,7 @@ def run_phases(args, dev, pool, cpu, kern, b1_kinds, b10_kinds, Xc, yc, cov):
         launches = sum(c[name] for c in [counts, q_counts, goss_counts, rank_counts, cli_counts]
                        + cov_counts + sampled_counts + obj_counts + small_api_counts + ooc_counts
                        + api_counts + small_strat_counts + strat_counts + small_ckpt_counts
-                       + par_counts + fac_counts + dist_counts)
+                       + par_counts + fac_counts + dist_counts + elastic_counts)
         assert launches > 0, f"{name} was launched on no path"
         entries.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=launches,

@@ -28,6 +28,18 @@ B9 histograms of its own rows, the exchanges through the store.  The
 label average, the quantization headroom, ranking's group padding and
 the quantization scales are then global.
 
+Elastic training (gbdt.py:112-130, :427-440, :563-593, :1132-1627): with
+``elastic_membership`` and an adopted ``MembershipRuntime``
+(parallel/membership.py) the data-parallel host learner runs over a
+``MembershipComm`` whose rank and world follow the fleet's epoch; a peer
+failure inside an iteration rolls it back to the boundary and the fleet
+resizes, and at every boundary a sync merges the members' states to the
+canonical layout, commits the next epoch and reshards in RAM.  With
+``rebalance`` a controller moves rows off stragglers
+(parallel/shardplan.py).  Out of core over several processes with
+``tree_learner=data`` every rank streams its own shard
+(boosting/oocdist.py).
+
 The tree strategies (tree/strategy.py, gbdt.py:235-258) run on the mask
 grower, which the partitioned trainer leaves them to: monotone
 constraints in its split search, and linear leaves fitted after each
@@ -151,6 +163,12 @@ class GBDT:
         self.strategy = TreeStrategy()
         self._value_lut = None  # (F, B) bin values of the linear fits, built at first use
         self._linear_k = None  # the fits' pinned coefficient width
+        self._membership = None  # the adopted MembershipRuntime of an elastic fleet
+        self._membership_pauses: List[float] = []  # each transition's seconds
+        self._rebalance = None  # the armed shard-rebalance state
+        self._initial_local_rows = 0
+        self._iter_complete = False
+        self._member_iter_snapshot = None
 
     # ------------------------------------------------------------------
     def init(self, config, train_set, objective, training_metrics=()):
@@ -170,6 +188,20 @@ class GBDT:
 
             distributed.ensure_initialized(config)
             self.nproc = distributed.process_count()
+        self._membership = None
+        self._membership_pauses = []
+        if config.elastic_membership:
+            # armed only with an adopted runtime (bootstrap() or join() ran
+            # before the booster); off, the static path runs unchanged
+            from ..parallel import membership
+
+            rt = membership.runtime() or membership.runtime_from_env()
+            if rt is None or rt.epoch < 0:
+                Log.warning("elastic_membership=true ignored: no adopted MembershipRuntime "
+                            "(call bootstrap()/join(), or set LIGHTGBM_TPU_MEMBER_DIR, before "
+                            "training)")
+            else:
+                self._membership = rt
         why = unsupported_feature(config)
         if why:
             raise NotImplementedError(f"lightgbm_tpu_torch does not support {why} yet")
@@ -198,7 +230,11 @@ class GBDT:
         self.meta = FeatureMeta.from_dataset(train_set, device=self.device)
         self.hyper = SplitHyper.from_config(config)
         n_rows = self.num_data
-        if config.quantized_training and self.nproc > 1:
+        if self._membership is not None:
+            # the fleet's global rows, from the runtime: a joiner issues no
+            # collective here (the survivors are mid-iteration)
+            n_rows = int(self._membership.num_data)
+        elif config.quantized_training and self.nproc > 1:
             # the data-parallel merge sums every rank's rows into a bin
             n_rows = int(_allgather_ints([self.num_data]).sum())
         if config.quantized_training and n_rows > max_rows_for(config.quantized_grad_bits):
@@ -240,37 +276,71 @@ class GBDT:
                 from ..parallel import HostParallelLearner, NetComm
                 from ..parallel.comm import thread_comm
 
+                if self._membership is not None:
+                    from ..parallel.membership import MembershipComm
+
+                    comm = MembershipComm(self._membership)
+                else:
+                    comm = thread_comm() or NetComm()
                 self.learner = HostParallelLearner(
-                    host_mode, thread_comm() or NetComm(), self.grow_params, top_k=config.top_k,
+                    host_mode, comm, self.grow_params, top_k=config.top_k,
                     quantized=config.quantized_training,
                     quant_bits=config.quantized_grad_bits, quant_seed=config.seed)
-                Log.info("Using host-driven %s-parallel learner over %d processes on %s",
-                         host_mode, self.nproc, self.device)
+                if self._membership is not None:
+                    rt = self._membership
+                    Log.info("Using host-driven elastic data-parallel learner: member=%d "
+                             "rank=%d/%d epoch=%d on %s", rt.id, rt.rank, rt.nproc, rt.epoch,
+                             self.device)
+                else:
+                    Log.info("Using host-driven %s-parallel learner over %d processes on %s",
+                             host_mode, self.nproc, self.device)
+            elif self.ooc is not None and self.learner is not None:
+                Log.info("Using distributed out-of-core data-parallel learner over %d "
+                         "processes on %s", self.nproc, self.device)
             else:
                 Log.info("Using the mask-based tree learner on %s (the partitioned one "
                          "declines %s)", self.device, declined)
+        # straggler rebalancing (parallel/shardplan.py): armed only where
+        # the learner owns a row shard; off, no collective is added
+        self._rebalance = None
+        self._initial_local_rows = int(self.num_data)
+        if config.rebalance:
+            self._init_rebalance()
+        # an elastic joiner takes the fleet's canonical state, which the
+        # coordinator published at admission (no collective: the
+        # survivors are mid-iteration)
+        if self._membership is not None and self._membership.joined_mid_run:
+            self._membership_join_restore()
 
     def _route_tree_learner(self, config, ooc_rows: int) -> str:
         """The tree-learner dispatch, in the JAX package's branch order
-        (gbdt.py:259-380): an elastic fleet (no membership runtime exists,
-        so the knob is ignored, gbdt.py:121-126), then out of core, then
-        the parallel learners.  Over several processes every parallel
-        mode is the host-driven learner over ``NetComm`` (the JAX rule for
-        a backend without multi-process computations); its mode is
-        returned.  In one process ``tree_learner=data`` out of core
-        streams serially and the parallel learners fall back to serial:
-        "" is returned and the serial learners take the run exactly as at
-        ``tree_learner=serial``.  Every rank takes the same branch."""
-        if config.elastic_membership:
-            Log.warning("elastic_membership=true ignored: no adopted MembershipRuntime "
-                        "(lightgbm_tpu_torch has no membership runtime yet: queue A2c)")
+        (gbdt.py:259-380): an elastic fleet (the data-parallel host learner
+        over the fleet), then out of core (over several processes with
+        ``tree_learner=data``, each rank streaming its shard:
+        ``_init_mask_grower``), then the parallel learners.  Over several
+        processes every parallel mode is the host-driven learner over
+        ``NetComm`` (the JAX rule for a backend without multi-process
+        computations); its mode is returned.  In one process
+        ``tree_learner=data`` out of core streams serially and the parallel
+        learners fall back to serial: "" is returned and the serial
+        learners take the run exactly as at ``tree_learner=serial``.  Every
+        rank takes the same branch."""
         learner = config.tree_learner.lower()
+        if self._membership is not None:
+            # every member is a process of its own, and the host-driven
+            # data learner runs over the fleet's store (gbdt.py:259-286)
+            if ooc_rows:
+                Log.fatal("elastic_membership is not supported with out-of-core streaming: "
+                          "membership transitions reshard rows in RAM, but streamed rows are "
+                          "disk-resident")
+            if self.train_set.metadata.query_boundaries is not None:
+                Log.fatal("elastic_membership does not support query-grouped (ranking) "
+                          "datasets yet: transitions cannot re-derive group boundaries across "
+                          "the new world")
+            return "data"
         if ooc_rows:
             if learner == "data" and self.nproc > 1:
-                raise NotImplementedError(
-                    f"lightgbm_tpu_torch does not support tree_learner=data with out-of-core "
-                    f"streaming over {self.nproc} processes yet (queue A2c: "
-                    "boosting/oocdist.py)")
+                return ""  # rank-sharded streaming (boosting/oocdist.py)
             if learner == "data":
                 Log.warning("tree_learner=data requested with out-of-core streaming but only "
                             "one process is attached; streaming serially")
@@ -327,7 +397,17 @@ class GBDT:
             max_depth=int(cfg.max_depth), use_missing=bool(cfg.use_missing),
             has_categorical=bool(self.meta.is_categorical.any()), bits=bits,
             monotone=self.strategy.split_gain.monotone)
-        if ooc_rows:
+        if ooc_rows and cfg.tree_learner.lower() == "data" and self.nproc > 1:
+            # every rank streams its own shard; node histograms merge over
+            # the byte collectives (gbdt.py:287-302)
+            from ..parallel import NetComm
+            from ..parallel.comm import thread_comm
+            from .oocdist import DistributedOocTrainer
+
+            self.ooc = DistributedOocTrainer(ts, cfg, self.grow_params, ooc_rows,
+                                             thread_comm() or NetComm(), dev)
+            self.learner = self.ooc
+        elif ooc_rows:
             from .ooc import OocTrainer
 
             self.ooc = OocTrainer(ts, cfg, self.grow_params, ooc_rows, dev)
@@ -494,7 +574,15 @@ class GBDT:
                 and self.num_class <= 1 and self.objective is not None
                 and self.objective.boost_from_average):
             label = np.asarray(self.train_set.metadata.label)
-            if self.nproc > 1:
+            if self._membership is not None:
+                # the global label average over the live fleet (the same
+                # Allreduce, on the membership transport)
+                sums = np.stack([np.frombuffer(b, np.float64) for b in
+                                 self._membership.comm_allgather(
+                                     np.asarray([label.sum(), float(len(label))],
+                                                np.float64).tobytes(), what="label_average")])
+                init_score = float(sums[:, 0].sum() / max(sums[:, 1].sum(), 1.0))
+            elif self.nproc > 1:
                 # the global label average (GBDT::LabelAverage's Allreduce,
                 # gbdt.cpp:349-379; JAX gbdt.py:494-503): every rank boosts
                 # from the mean over all rows
@@ -666,10 +754,35 @@ class GBDT:
     def _train_one_iter_mask(self, grad=None, hess=None) -> bool:
         """One boosting iteration on the mask grower, on the objective's
         gradients or the (K, N) ``grad`` and ``hess`` given; True when no
-        class found a split (its empty trees are then dropped).  With
-        tracing on, the iteration is a trace record whose phases are the
-        JAX package's (gbdt.py:616-690), each fenced on the card."""
+        class found a split (its empty trees are then dropped).
+
+        Under elastic membership this is a bounded retry (gbdt.py:563-593):
+        a peer's death surfaces as ``net.PeerFailureError`` from some
+        collective, the survivors roll the iteration back, resize the
+        fleet at this boundary and replay it (or, when its trees had
+        landed and only the boundary's bookkeeping was cut short, go
+        on)."""
+        if self._membership is None:
+            return self._train_one_iter_impl(grad, hess)
+        from ..parallel import net
+
+        for _attempt in range(3):
+            self._iter_complete = False
+            try:
+                return self._train_one_iter_impl(grad, hess)
+            except net.PeerFailureError as e:
+                self._membership_recover(e)
+                if self._iter_complete:
+                    return False
+        raise net.PeerFailureError("membership recovery did not converge after 3 attempts")
+
+    def _train_one_iter_impl(self, grad=None, hess=None) -> bool:
+        """The iteration's body.  With tracing on, the iteration is a trace
+        record whose phases are the JAX package's (gbdt.py:616-690), each
+        fenced on the card."""
         t0 = time.perf_counter()
+        if self._membership is not None:
+            self._member_iter_snapshot = self._membership_snapshot()
         self._boost_from_average()
         K, L = self.num_tree_per_iteration, self.grow_params.num_leaves
         grown = False
@@ -750,9 +863,16 @@ class GBDT:
             del self.models[len(self.models) - K:]
             return True
         self.iter += 1
+        self._iter_complete = True
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.iter_seconds.append(time.perf_counter() - t0)
+        if self._rebalance is not None:
+            # in lockstep on every rank: the tree above was collective
+            self._maybe_rebalance(time.perf_counter() - t0)
+        if self._membership is not None:
+            # churn drains to the same boundary
+            self._maybe_membership()
         return False
 
     # ------------------------------------------------------------------
@@ -888,6 +1008,443 @@ class GBDT:
                 + 1) & 0xFFFFFFFF
         gq, hq = quantize_rows(gk, hk, qscale, seed, bits)
         return gq, hq, qscale
+
+    # ------------------------------------------------------------------
+    # rows that change owner: a rebalance or a membership transition
+    def _rebind_rows(self) -> None:
+        """Rebuild every row-derived binding after the training set's rows
+        changed (``train_set.binned`` and its metadata already hold the new
+        shard): the device bins and packed words, labels and weights, the
+        objective's and metrics' row state, and the fingerprint caches."""
+        ts, dev = self.train_set, self.device
+        md = ts.metadata
+        self.num_data = int(ts.num_data)
+        md.num_data = self.num_data
+        for attr in ("_ckpt_fp_parts", "_ckpt_crc_all"):
+            if hasattr(ts, attr):
+                delattr(ts, attr)
+        if self.words is not None:
+            binned = np.asarray(ts.binned)
+            bits = self.grow_params.bits
+            bins = torch.from_numpy(binned if bits == 8 else binned.astype(np.int32)).to(dev)
+            self.words = pack_bin_words(bins, 32 // bits, bits)
+            self.bins = bins if self.bins is not None else None
+        self.label_t = torch.from_numpy(np.asarray(md.label, np.float32)).to(dev)
+        self.weight_t = (None if md.weights is None else
+                         torch.from_numpy(np.asarray(md.weights, np.float32)).to(dev))
+        if self.objective is not None:
+            self.objective.init(md, self.num_data)
+        for metric in self.training_metrics:
+            metric.init(md, self.num_data)
+
+    # ------------------------------------------------------------------
+    # straggler rebalancing (parallel/shardplan.py; gbdt.py:1132-1337)
+    def _rebalance_gather(self, blob: bytes):
+        """The rebalance controller's allgather: an elastic fleet's over its
+        learner comm, a static world's over the byte collectives."""
+        if self._membership is not None:
+            return self.learner.comm.allgather(blob, purpose="rebalance")
+        from ..parallel.collect import allgather_bytes
+
+        return allgather_bytes(blob, purpose="rebalance")
+
+    def _init_rebalance(self) -> None:
+        """Arm the rebalance controller when this run owns a row shard;
+        otherwise say why the key is ignored."""
+        from ..parallel import distributed
+        from ..parallel.hostlearner import HostParallelLearner
+        from ..parallel.shardplan import RebalanceController, ShardPlan
+
+        rt = self._membership
+        nproc = rt.nproc if rt is not None else self.nproc
+        md = self.train_set.metadata
+        why = None
+        if nproc <= 1 and rt is None:
+            why = "single process (nothing to rebalance)"
+        elif self.ptrainer is not None:
+            why = "fused partitioned trainer (static device layout)"
+        elif self.ooc is not None:
+            why = "out-of-core streaming (rows are disk-resident)"
+        elif self.learner is None:
+            why = "serial learner"
+        elif isinstance(self.learner, HostParallelLearner) and self.learner.mode == "feature":
+            why = "feature-parallel learner (columns are sharded, not rows)"
+        elif md.init_score is not None:
+            why = "per-row init_score is not relocatable yet"
+        if why is not None:
+            Log.warning("rebalance=true ignored: %s", why)
+            return
+        if rt is not None:
+            counts, rank = list(rt.counts), rt.rank
+        else:
+            counts = [int.from_bytes(g, "little") for g in self._rebalance_gather(
+                int(self.num_data).to_bytes(8, "little"))]
+            rank = distributed.process_index()
+        group_bounds = None
+        if md.query_boundaries is not None:
+            # ranking data: moves snap to whole query groups, so the ranks'
+            # group sizes are exchanged once and the controller keeps the
+            # global cumulative boundaries
+            sizes = np.diff(np.asarray(md.query_boundaries, np.int64))
+            blobs = self._rebalance_gather(np.ascontiguousarray(sizes, np.int64).tobytes())
+            all_sizes = np.concatenate([np.frombuffer(b, np.int64) for b in blobs])
+            group_bounds = np.concatenate(([0], np.cumsum(all_sizes)))
+        cfg = self.config
+        self._rebalance = {
+            "plan": ShardPlan.from_counts(counts),
+            "ctl": RebalanceController(threshold=cfg.rebalance_threshold,
+                                       patience=cfg.rebalance_patience,
+                                       max_move_frac=cfg.rebalance_max_move_frac,
+                                       group_bounds=group_bounds),
+            "rank": rank,
+            "group_bounds": group_bounds,
+        }
+        Log.info("Shard rebalancing armed: shards=%s threshold=%.2f patience=%d "
+                 "max_move_frac=%.2f groups=%s", counts, cfg.rebalance_threshold,
+                 cfg.rebalance_patience, cfg.rebalance_max_move_frac,
+                 "whole-query" if group_bounds is not None else "row")
+
+    def _maybe_rebalance(self, wall_s: float) -> None:
+        """Once an iteration, in lockstep on every rank: the small per-rank
+        table of compute, wait and heartbeat age is exchanged, the same
+        deterministic controller reads it, and a plan it proposes is
+        applied at this boundary."""
+        import json
+
+        from ..parallel import net
+
+        rb = self._rebalance
+        wait_s = net.wait_clock_drain()
+        compute_s = max(wall_s - wait_s, 0.0)
+        hb_age = 0.0
+        watch = self._membership.watch if self._membership is not None else net.peer_watch()
+        if watch is not None:
+            ages = watch.ages()
+            if ages:
+                hb_age = max(float(v) for v in ages.values())
+        entry = {"compute_s": compute_s, "wait_s": wait_s, "hb_age": hb_age}
+        table = [json.loads(g) for g in self._rebalance_gather(json.dumps(entry).encode())]
+        plan = rb["plan"]
+        new_plan = rb["ctl"].observe(plan, [t["compute_s"] for t in table],
+                                     [t["hb_age"] for t in table])
+        if new_plan is None:
+            return
+        tracer.event("rebalance.trigger", iter=self.iter,
+                     compute_s=[round(float(t["compute_s"]), 4) for t in table],
+                     wait_s=[round(float(t["wait_s"]), 4) for t in table])
+        self._apply_rebalance(plan, new_plan)
+
+    def _apply_rebalance(self, old_plan, new_plan) -> None:
+        """Move row blocks to the new plan, with the slice semantics of the
+        elastic restore (ckpt/state.py ``reshard_to_local``) applied to the
+        live bins, labels, scores and select, then rebind what reads them."""
+        from ..parallel import net
+        from ..parallel.shardplan import exchange_rows
+
+        rank = self._rebalance["rank"]
+        ts = self.train_set
+        md = ts.metadata
+        blocks = {
+            "binned": (np.asarray(ts.binned), 0),
+            "label": (np.asarray(md.label), 0),
+            "scores": (self.scores.cpu().numpy(), 1),
+            "select": (self.select.cpu().numpy(), 0),
+        }
+        if md.weights is not None:
+            blocks["weights"] = (np.asarray(md.weights), 0)
+        if getattr(ts, "bundled", None) is not None:
+            blocks["bundled"] = (np.asarray(ts.bundled), 0)
+        comm = self.learner.comm if self._membership is not None else None
+        moved = exchange_rows(old_plan, new_plan, rank, blocks, comm=comm)
+        ts.binned = moved["binned"]
+        if "bundled" in moved:
+            ts.bundled = moved["bundled"]
+        md.num_data = int(new_plan.counts[rank])
+        md.label = moved["label"]
+        if "weights" in moved:
+            md.weights = moved["weights"]
+        gb = self._rebalance.get("group_bounds")
+        if gb is not None:
+            # whole-group cuts start and end the new range on global group
+            # boundaries: the local query layout follows from them
+            s, e = new_plan.rank_range(rank)
+            md.set_query(np.diff(gb[(gb >= s) & (gb <= e)]))
+        self._rebind_rows()
+        self.scores = torch.from_numpy(np.ascontiguousarray(moved["scores"])).to(self.device)
+        self.select = torch.from_numpy(np.ascontiguousarray(moved["select"])).to(self.device)
+        if self.learner is not None and hasattr(self.learner, "set_plan"):
+            self.learner.set_plan(new_plan)
+        self._rebalance["plan"] = new_plan
+        if self._membership is not None:
+            # the eviction's synthesis reads the runtime's counts as the live
+            # layout; every member applies the same plan in lockstep
+            self._membership.counts = tuple(int(c) for c in new_plan.counts)
+        # an injected per-collective delay models a host slow per row: its
+        # stall shrinks with the rank's share of rows
+        net.set_delay_scale(self.num_data / max(self._initial_local_rows, 1))
+        moved_rows = sum(max(0, a - b) for a, b in zip(old_plan.counts, new_plan.counts))
+        tracer.counter("rebalance.move_rows", float(moved_rows))
+        tracer.event("rebalance.plan", iter=self.iter, before=list(old_plan.counts),
+                     after=list(new_plan.counts))
+        Log.info("Rebalanced shards at iteration %d: %s -> %s (%d rows moved)", self.iter,
+                 list(old_plan.counts), list(new_plan.counts), moved_rows)
+
+    # ------------------------------------------------------------------
+    # live elastic membership (parallel/membership.py; gbdt.py:1339-1627)
+    def _maybe_membership(self) -> None:
+        """The boundary's membership sync, in lockstep on every member: a
+        small intent allgather; on churn, an epoch transition here."""
+        decision = self._membership.sync()
+        if decision is not None:
+            self._apply_membership_change(decision)
+
+    def _membership_recover(self, err) -> None:
+        """A collective raised PeerFailureError: roll the iteration grown so
+        far back, converge on who is alive, and resize."""
+        rt = self._membership
+        dead = tuple(r for r in getattr(err, "ranks", ()) if r != rt.id)
+        Log.warning("Peer failure under elastic membership: %s — negotiating a fleet resize "
+                    "(evidence: %s)", err, list(dead))
+        if not self._iter_complete:
+            self._membership_rollback_partial()
+        decision = rt.sync(known_dead=dead)
+        if decision is not None:
+            self._apply_membership_change(decision)
+
+    def _membership_snapshot(self) -> dict:
+        """The boundary's state, for an exact replay after a peer's failure
+        mid-iteration: the score and select tensors change in place, so
+        they are copied (on the card, bit for bit), with the random
+        streams, the trees' count and the learner's quantization counter."""
+        return {
+            "bag_rng": self.bag_rng.get_state(),
+            "feature_rng": self.feature_rng.get_state(),
+            "select": self.select.clone(),
+            "num_models": len(self.models),
+            "boost_from_average": self.boost_from_average_,
+            "scores": self.scores.clone(),
+            "valid_scores": [vs.clone() for vs in self.valid_scores],
+            "qiter": getattr(self.learner, "_qiter", None),
+        }
+
+    def _membership_rollback_partial(self) -> None:
+        """Undo a partly grown iteration so that the retry replays from the
+        boundary, bit for bit: the boundary's copies of the scores, the
+        select and the validation scores go back (on the card), with the
+        random streams, the trees and the learner's quantization counter.
+        A first-iteration failure after ``_boost_from_average`` rolls its
+        constant tree back too; the retry derives the same average over the
+        resized fleet (the global rows do not change)."""
+        snap = self._member_iter_snapshot
+        if snap is None:
+            return
+        del self.models[snap["num_models"]:]
+        self.boost_from_average_ = snap["boost_from_average"]
+        self.scores.copy_(snap["scores"])
+        for vs, saved in zip(self.valid_scores, snap["valid_scores"]):
+            vs.copy_(saved)
+        self.bag_rng.set_state(snap["bag_rng"])
+        self.feature_rng.set_state(snap["feature_rng"])
+        self.select.copy_(snap["select"])
+        if snap["qiter"] is not None:
+            self.learner._qiter = snap["qiter"]
+
+    def _membership_capture(self):
+        """This member's TrainState (``ckpt.capture`` without the Booster:
+        the same meta, so the canonical merge and reshard apply)."""
+        from ..ckpt.state import (FORMAT_VERSION, TrainState, config_fingerprint,
+                                  data_fingerprint, data_fingerprint_parts, pack_trees)
+
+        arrays, py = self.export_train_state()
+        arrays.update(pack_trees(self.models))
+        meta = {
+            "format_version": FORMAT_VERSION,
+            "iteration": int(self.iter),
+            "boosting_type": type(self).__name__.lower(),
+            "num_models": len(self.models),
+            "num_tree_per_iteration": int(self.num_tree_per_iteration),
+            "num_data": int(self.num_data),
+            "config_fingerprint": config_fingerprint(self.config),
+            "data_fingerprint": data_fingerprint(self.train_set),
+            "data_fingerprint_parts": data_fingerprint_parts(self.train_set),
+            "num_valid": len(self.valid_scores),
+            "best_iteration": -1,
+        }
+        return TrainState(meta, py, arrays)
+
+    def _membership_replay_scores(self, binned: np.ndarray) -> np.ndarray:
+        """The (K, n) float32 scores of re-binned rows, by replaying every
+        tree in training order: one float32 add of one tree's output at a
+        time, skipping the empty alignment trees, which is the sequence of
+        adds the rows' owner made, so the replay is bit-identical to the
+        scores it lost (a float64 sum, or one walk of all the trees, is
+        not)."""
+        k = self.num_tree_per_iteration
+        raw = binned if binned.dtype == np.uint8 else binned.astype(np.int32)
+        bins = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
+        scores = torch.zeros((k, binned.shape[0]), dtype=torch.float32, device=self.device)
+        offset = 1 if self.boost_from_average_ else 0
+        for i, tree in enumerate(self.models):
+            if tree.num_leaves <= 1:
+                continue  # an empty alignment tree added nothing
+            kk = 0 if i < offset else (i - offset) % k
+            arrays = stack_trees([tree])
+            scores[kk] += predict_binned(bins, arrays, self._lut_of(arrays))
+        return scores.cpu().numpy().astype(np.float32, copy=False)
+
+    def _membership_synthesize(self, member: int, own_state):
+        """An evicted (SIGKILLed) member's TrainState, made without it: its
+        rows from the ``row_provider`` seam, binned with this member's
+        mappers (every member's are the same: the pre-partition contract),
+        its scores replayed.  Deterministic, so every survivor makes the
+        same bytes."""
+        import zlib
+
+        from ..ckpt.state import TrainState, combine_fingerprint_parts
+        from ..io.dataset import _bin_matrix
+        from ..parallel import net
+        from ..parallel.shardplan import ShardPlan
+
+        rt = self._membership
+        if rt.row_provider is None:
+            raise net.PeerFailureError(
+                f"cannot synthesize evicted member {member}'s shard: no row_provider seam "
+                "armed (MembershipRuntime.row_provider)")
+        if self.valid_scores:
+            raise net.PeerFailureError("eviction with registered valid sets is not supported: "
+                                       "the dead member's valid-score shard is unrecoverable")
+        if type(self).__name__.lower() != "gbdt":
+            raise net.PeerFailureError(
+                f"eviction under boosting type {type(self).__name__} is not supported: score "
+                "replay assumes immutable past trees")
+        # the live layout: a rebalance moves rows mid-epoch, so its applied
+        # plan, not the epoch record, says who held what
+        old_plan = (self._rebalance["plan"] if self._rebalance is not None
+                    else ShardPlan.from_counts(rt.counts))
+        lo, hi = old_plan.rank_range(rt.members.index(member))
+        X, y = rt.row_provider(lo, hi)
+        ts = self.train_set
+        binned = _bin_matrix(np.asarray(X, np.float64), ts.bin_mappers, ts.used_feature_map)
+        label = np.asarray(y, np.asarray(ts.metadata.label).dtype)
+        lab_bytes = np.ascontiguousarray(label).tobytes()
+        parts = {
+            "rows": int(binned.shape[0]), "cols": int(binned.shape[1]),
+            "crc_binned": zlib.crc32(np.ascontiguousarray(binned).tobytes()) & 0xFFFFFFFF,
+            "len_binned": int(binned.nbytes),
+            "crc_label": zlib.crc32(lab_bytes) & 0xFFFFFFFF,
+            "len_label": len(lab_bytes),
+        }
+        st = np.random.RandomState(self.config.bagging_seed).get_state()
+        arrays = dict(own_state.arrays)
+        arrays["scores"] = self._membership_replay_scores(binned)
+        # a fleet without bagging never changes the select; with bagging the
+        # dead member's mask is lost, and need_re_bagging draws anew
+        arrays["select"] = np.ones(binned.shape[0], np.float32)
+        arrays["bag_rng_keys"] = np.asarray(st[1], np.uint32)
+        py = dict(own_state.py)
+        py["bag_rng"] = [str(st[0]), int(st[2]), int(st[3]), float(st[4])]
+        py["need_re_bagging"] = True
+        meta = dict(own_state.meta)
+        meta["num_data"] = int(binned.shape[0])
+        meta["data_fingerprint"] = combine_fingerprint_parts([parts])
+        meta["data_fingerprint_parts"] = parts
+        meta["best_iteration"] = -1
+        return TrainState(meta, py, arrays)
+
+    def _apply_membership_change(self, decision) -> None:
+        """One epoch transition at an iteration boundary: every living
+        participant's TrainState gathered, the evicted ones synthesized, all
+        merged to the canonical global layout, the new epoch committed and
+        this member's new slice resharded, in RAM."""
+        from ..ckpt import state as ckpt_state
+        from ..parallel import membership
+        from ..parallel.shardplan import _largest_remainder
+
+        rt = self._membership
+        t0 = time.perf_counter()
+        own = self._membership_capture()
+        blobs = rt.gather_states(own.to_bytes(), decision.participants)
+        states = dict(zip(decision.participants,
+                          (ckpt_state.TrainState.from_bytes(b) for b in blobs)))
+        for d in decision.dead:
+            states[d] = self._membership_synthesize(d, own)
+        canonical = ckpt_state.merge_to_canonical([states[m] for m in rt.members])
+        if rt.id in decision.leavers:
+            raise membership.CleanLeave(rt.epoch + 1)  # the shard is handed off
+        world = len(decision.new_members)
+        total = int(canonical.meta["num_data"])
+        counts = _largest_remainder([total / world] * world, total)
+        handoff = canonical.to_bytes() if decision.joiners else None
+        rt.commit_epoch(decision, counts, self.iter, total, handoff)
+        self._membership_adopt(canonical, counts)
+        pause = time.perf_counter() - t0
+        tracer.gauge("member.resize_pause_s", pause)
+        self._membership_pauses.append(pause)
+        Log.info("Membership epoch %d at iteration %d: members=%s counts=%s (rank %d/%d)",
+                 rt.epoch, self.iter, list(rt.members), list(counts), rt.rank, rt.nproc)
+
+    def _membership_adopt(self, canonical, counts) -> None:
+        """Rebuild this member's new slice and restore its training state
+        from the canonical container (a reshard in RAM)."""
+        from ..ckpt import state as ckpt_state
+        from ..io.dataset import _bin_matrix
+        from ..parallel import collect, net
+        from ..parallel.shardplan import ShardPlan
+
+        rt = self._membership
+        # collect.py's gathers from here on are scoped to the adopted epoch
+        collect.set_epoch(rt.epoch)
+        plan = ShardPlan.from_counts(counts)
+        lo, hi = plan.rank_range(rt.rank)
+        ts = self.train_set
+        md = ts.metadata
+        X, y = rt.row_provider(lo, hi)
+        ts.binned = _bin_matrix(np.asarray(X, np.float64), ts.bin_mappers, ts.used_feature_map)
+        md.num_data = hi - lo
+        md.set_label(np.asarray(y))
+        self._rebind_rows()
+        # ids map to other ranks at every epoch: never resume a sibling's
+        # per-rank stream, always the resized path
+        canonical.meta.pop("shard_rows", None)
+        local_fp = ckpt_state.combine_fingerprint_parts([ckpt_state.data_fingerprint_parts(ts)])
+        state = ckpt_state.reshard_to_local(canonical, rt.rank, list(counts), [], local_fp,
+                                            bag_seed=self.config.bagging_seed)
+        self.models = ckpt_state.unpack_trees(state.arrays)
+        self.import_train_state(state.arrays, state.py)
+        if self.learner is not None and hasattr(self.learner, "set_plan"):
+            self.learner.set_plan(plan)
+        net.set_delay_scale(self.num_data / max(self._initial_local_rows, 1))
+        if self._rebalance is not None:
+            self._rebalance["plan"] = plan
+            self._rebalance["rank"] = rt.rank
+            self._rebalance["ctl"].reset()
+
+    def _membership_join_restore(self) -> None:
+        """A mid-run joiner takes the canonical handoff the coordinator
+        published at admission; the worker built its Dataset for the
+        admitted slice already, so only the trees and the state come."""
+        from ..ckpt import state as ckpt_state
+
+        rt = self._membership
+        if int(rt.counts[rt.rank]) != int(self.num_data):
+            Log.fatal("elastic join: this worker holds %d rows but epoch %d assigns rank %d "
+                      "%d rows", self.num_data, rt.epoch, rt.rank, int(rt.counts[rt.rank]))
+        canonical = ckpt_state.TrainState.from_bytes(rt.read_handoff())
+        own_fp = ckpt_state.config_fingerprint(self.config)
+        theirs = canonical.meta.get("config_fingerprint")
+        if theirs is not None and theirs != own_fp:
+            Log.fatal("elastic join: this worker's training config (fingerprint %s) differs "
+                      "from the fleet's (%s) — a joiner must run the identical parameters",
+                      own_fp, theirs)
+        canonical.meta.pop("shard_rows", None)
+        local_fp = ckpt_state.combine_fingerprint_parts(
+            [ckpt_state.data_fingerprint_parts(self.train_set)])
+        state = ckpt_state.reshard_to_local(canonical, rt.rank, list(rt.counts), [], local_fp,
+                                            bag_seed=self.config.bagging_seed)
+        self.models = ckpt_state.unpack_trees(state.arrays)
+        self.import_train_state(state.arrays, state.py)
+        Log.info("Joined fleet at epoch %d, iteration %d: rank %d/%d, %d rows, %d trees",
+                 rt.epoch, self.iter, rt.rank, rt.nproc, self.num_data, len(self.models))
 
     # ------------------------------------------------------------------
     def eval_and_check_early_stopping(self) -> bool:

@@ -149,13 +149,15 @@ class OocTrainer:
         grid (rollback's score pass when the matrix is not resident)."""
         return self.folder.streamed_scores(score_k, arrays, lut)
 
-    def _emit_stream_obs(self, before: dict) -> None:
-        """A tree's stream records (the JAX package's names)."""
+    def _emit_stream_obs(self, before: dict, **attrs) -> None:
+        """A tree's stream records (the JAX package's names); ``attrs``
+        (a rank-sharded stream's ``rank``) go on each, so `report merge`
+        keys its per-rank stall share on them."""
         if not tracer.enabled:
             return
         now = self.stats.as_dict()
-        tracer.counter("ooc.chunks", now["chunks"] - before["chunks"])
-        tracer.counter("ooc.bytes", now["bytes"] - before["bytes"])
-        tracer.gauge("ooc.fetch_ms", (now["fetch_s"] - before["fetch_s"]) * 1e3)
-        tracer.gauge("ooc.stall_ms", (now["stall_s"] - before["stall_s"]) * 1e3)
-        tracer.gauge("ooc.overlap_pct", now["overlap_pct"])
+        tracer.counter("ooc.chunks", now["chunks"] - before["chunks"], **attrs)
+        tracer.counter("ooc.bytes", now["bytes"] - before["bytes"], **attrs)
+        tracer.gauge("ooc.fetch_ms", (now["fetch_s"] - before["fetch_s"]) * 1e3, **attrs)
+        tracer.gauge("ooc.stall_ms", (now["stall_s"] - before["stall_s"]) * 1e3, **attrs)
+        tracer.gauge("ooc.overlap_pct", now["overlap_pct"], **attrs)

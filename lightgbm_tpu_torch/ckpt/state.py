@@ -28,7 +28,8 @@ booster's device.
 
 An out-of-core run records its chunk schedule (``ooc_schedule``, the JAX
 package's string) and ``restore`` refuses a blob whose schedule is not
-the run's.
+the run's, unless both are a rank's ``dist/`` schedule (rank-sharded
+streaming, which resumes at another world size on another grid).
 
 A run over several processes saves one canonical container in global
 row order (``merge_to_canonical``: the ranks' row arrays concatenated in
@@ -420,7 +421,15 @@ def restore(booster, state: TrainState) -> TrainState:
     ooc = getattr(b, "ooc", None)
     want_sched = state.meta.get("ooc_schedule")
     have_sched = ooc.schedule_fingerprint() if ooc is not None else None
-    if want_sched != have_sched:
+    if (isinstance(want_sched, str) and isinstance(have_sched, str)
+            and want_sched.startswith("dist/") and have_sched.startswith("dist/")):
+        # rank-sharded streaming (boosting/oocdist.py): the schedule is a
+        # rank's, so a resume at another world size streams another local
+        # grid, which is sound (quantized folds are associative, float
+        # carries round once a pass) while the global dataset fingerprint
+        # above still gates the resume
+        pass
+    elif want_sched != have_sched:
         raise CheckpointMismatch(
             f"checkpoint out-of-core chunk schedule {want_sched!r} != this run's "
             f"{have_sched!r}; resuming on another streaming grid is refused — rerun with "

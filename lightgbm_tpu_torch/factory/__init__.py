@@ -7,13 +7,13 @@ serving registry, canaries the candidate on a slice of live traffic and
 promotes or rolls back on the eval metric and the serving SLO
 (``supervisor.py``).  Its state is an atomic CRC'd file (``state.py``),
 so a kill anywhere restarts into the same run without publishing twice.
-``spot.py`` holds the preemptible-capacity trace and cost ledger; its
-fleet runner waits for the elastic membership runtime.
+``spot.py`` runs elastic member fleets (``member_worker.py``) against a
+preemptible-capacity trace and prices them in a cost ledger.
 """
 
-from .spot import CostLedger, SpotEvent, SpotSchedule
+from .spot import CostLedger, SpotEvent, SpotFleet, SpotSchedule, run_static_baseline
 from .state import FactoryState
 from .supervisor import DEFAULTS, FactorySupervisor, main
 
 __all__ = ["CostLedger", "DEFAULTS", "FactoryState", "FactorySupervisor", "SpotEvent",
-           "SpotSchedule", "main"]
+           "SpotFleet", "SpotSchedule", "main", "run_static_baseline"]

@@ -13,18 +13,34 @@ lightgbm_tpu/factory/spot.py, its trace and its ledger:
     ``zero_lost_iterations``, the proof that churn lost and redid no
     iteration.  The JAX package's ledger files load here and back.
 
-The fleet runner (``SpotFleet``, ``run_static_baseline`` and ``python -m
-lightgbm_tpu_torch factory spot``) drives membership workers, which wait
-for the elastic membership runtime (parallel/membership.py in the JAX
-package): ``main`` refuses until then.
+``SpotFleet``
+    Drives real member processes (the port's
+    ``lightgbm_tpu_torch.factory.member_worker`` by default) over one
+    shared fleet directory: a ``preempt`` event SIGKILLs a live member
+    mid-iteration, a ``spawn`` event starts a mid-run joiner that resumes
+    from the coordinator's handoff, and the survivors train on throughout
+    (parallel/membership.py does the recovery; SpotFleet only sends
+    signals and reads the store).
+
+``python -m lightgbm_tpu_torch factory spot fleet=DIR ...`` runs one fleet
+against a schedule and prints the ledger; ``baseline=1`` runs the static
+on-demand reference (``run_static_baseline``) instead, so the two ledgers
+compare (``factory.cost_per_model`` against ``factory.cost_baseline``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
+import subprocess
+import sys
+import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
+
+from ..obs import tracer
+from ..utils.log import Log
 
 #: on-demand price of one member for one second — the unit every spot
 #: price in a trace is a fraction of
@@ -235,10 +251,255 @@ class CostLedger:
         return ledger
 
 
-def main(argv: List[str]) -> int:
-    """``factory spot``: refused until the elastic membership runtime,
-    which its fleet's workers ride, is ported."""
-    del argv
-    raise NotImplementedError(
-        "lightgbm_tpu_torch does not support 'factory spot' yet: its fleet drives elastic "
-        "membership workers (queue A2c)")
+# ----------------------------------------------------------------------
+# the fleet runner
+# ----------------------------------------------------------------------
+def _default_worker() -> List[str]:
+    return [sys.executable, "-m", "lightgbm_tpu_torch.factory.member_worker"]
+
+
+def _worker_argv(worker) -> List[str]:
+    """A worker given as a script path runs under this interpreter; a
+    sequence is the command itself."""
+    if worker is None:
+        return _default_worker()
+    if isinstance(worker, str):
+        return [sys.executable, worker]
+    return list(worker)
+
+
+class SpotFleet:
+    """One elastic training fleet of real processes run against a
+    :class:`SpotSchedule`, every member-second priced into a
+    :class:`CostLedger`.
+
+    SpotFleet only sends signals and reads the shared store: eviction,
+    resize and the joiner's restore are the members' own membership
+    runtime, as under a cloud scheduler."""
+
+    def __init__(self, fleet_dir: str, schedule: SpotSchedule, nproc: int, ledger_path: str,
+                 trees: int = 12, rows: int = 600, worker=None,
+                 extra_env: Optional[Dict[str, str]] = None, poll_s: float = 0.2):
+        self.fleet_dir = os.path.abspath(fleet_dir)
+        self.schedule = schedule
+        self.nproc = int(nproc)
+        self.trees = int(trees)
+        self.rows = int(rows)
+        self.worker = _worker_argv(worker)
+        self.extra_env = dict(extra_env or {})
+        self.poll_s = float(poll_s)
+        self.ledger = CostLedger(ledger_path)
+        self.out = os.path.join(self.fleet_dir, "out")
+        self._procs: List[dict] = []  # {proc, key, kind, log, started}
+        self._spawned_joiners = 0
+
+    # -- workers -------------------------------------------------------
+    def _env(self) -> Dict[str, str]:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("LIGHTGBM_TPU_", "MEMBER_"))}
+        # the port's package wherever the fleet runs from
+        pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        env["LIGHTGBM_TPU_NET_TIMEOUT"] = os.environ.get("LIGHTGBM_TPU_NET_TIMEOUT", "8")
+        env.update({
+            "MEMBER_NPROC": str(self.nproc),
+            "MEMBER_ROWS": str(self.rows),
+            "MEMBER_TREES": str(self.trees),
+            "MEMBER_PROGRESS": "1",
+            # pace iterations so that scripted event times land mid-run;
+            # the ledger prices member-seconds, so the pacing inflates the
+            # spot run and the baseline alike
+            "MEMBER_ITER_SLEEP": "0.3",
+        })
+        env.update(self.extra_env)
+        return env
+
+    def _spawn(self, member_arg) -> dict:
+        key = str(member_arg)
+        if member_arg == "join":
+            # ledger keys are unique a worker, not an argv form
+            key = f"join{sum(1 for r in self._procs if r['kind'] == 'join') + 1}"
+        # a log file a member, not a pipe: nothing drains a pipe until the
+        # run ends, and a chatty member would block on a full pipe
+        os.makedirs(self.fleet_dir, exist_ok=True)
+        log_path = os.path.join(self.fleet_dir, f"worker.{key}.log")
+        with open(log_path, "w") as log_fh:
+            proc = subprocess.Popen(self.worker + [str(member_arg), self.fleet_dir, self.out],
+                                    env=self._env(), stdout=log_fh, stderr=subprocess.STDOUT,
+                                    text=True)
+        rec = dict(proc=proc, key=key, log=log_path, started=time.time(),
+                   kind="join" if member_arg == "join" else "bootstrap")
+        self._procs.append(rec)
+        return rec
+
+    def _live(self) -> List[dict]:
+        return [r for r in self._procs if r["proc"].poll() is None]
+
+    def _preempt(self, ev: SpotEvent, t: float) -> None:
+        live = self._live()
+        victim = None
+        if ev.target is not None:
+            victim = next((r for r in live if r["key"] == str(ev.target)), None)
+        elif live:
+            victim = live[-1]  # the youngest capacity goes first
+        if victim is None:
+            Log.warning("spot: preempt@%.1fs found no live member", ev.t_s)
+            return
+        victim["proc"].send_signal(signal.SIGKILL)
+        victim["proc"].wait()
+        tracer.event("spot.preempt", member=victim["key"], t_s=round(t, 3))
+        self.ledger.event(t, "preempt", member=victim["key"])
+
+    def _spawn_joiner(self, t: float) -> None:
+        self._spawned_joiners += 1
+        self._spawn("join")
+        tracer.event("spot.spawn", ordinal=self._spawned_joiners, t_s=round(t, 3))
+        self.ledger.event(t, "spawn", ordinal=self._spawned_joiners)
+
+    # -- progress ------------------------------------------------------
+    def _harvest_progress(self, t: float) -> None:
+        from ..parallel.membership import FileKVClient
+
+        client = FileKVClient(os.path.join(self.fleet_dir, "kv"))
+        for key, value in client.key_value_dir_get("progress/"):
+            it = int(key.rsplit("/", 1)[-1])
+            try:
+                epoch = int(json.loads(value)["epoch"])
+            except (ValueError, KeyError, TypeError):
+                epoch = -1
+            self.ledger.iteration(it, epoch, t)
+        for key, _value in client.key_value_dir_get("attempts/"):
+            # "attempts/<it>.m<member>.e<epoch>": one write-once key an
+            # attempt, for the nothing-redone proof
+            name = key.rsplit("/", 1)[-1]
+            try:
+                it_s, m_s, e_s = name.split(".")
+                self.ledger.attempt(int(it_s), m_s[1:], int(e_s[1:]))
+            except (ValueError, IndexError):
+                Log.warning("spot: unparsable attempt key %r", key)
+
+    # -- run -----------------------------------------------------------
+    def run(self, timeout_s: float = 300.0) -> dict:
+        """Start the fleet, play the schedule against it until every
+        member has exited (or ``timeout_s``, when the rest are killed), and
+        return the summary: wall, cost, ``zero_lost_iterations``, each
+        member's exit code, model text and result record."""
+        os.makedirs(self.fleet_dir, exist_ok=True)
+        for m in range(self.nproc):
+            self._spawn(m)
+        t0 = time.monotonic()
+        last = 0.0
+        self.ledger.event(0.0, "price", price=self.schedule.base_price)
+        while True:
+            time.sleep(self.poll_s)
+            t = time.monotonic() - t0
+            price = self.schedule.price_at(t)
+            for rec in self._live():
+                self.ledger.charge(rec["key"], t - last, price)
+            for ev in self.schedule.due(last, t):
+                if ev.kind == "preempt":
+                    self._preempt(ev, t)
+                elif ev.kind == "spawn":
+                    self._spawn_joiner(t)
+            self._harvest_progress(t)
+            self.ledger.flush()
+            last = t
+            if not self._live():
+                break
+            if t > timeout_s:
+                Log.warning("spot: fleet timeout after %.0fs — killing", t)
+                for rec in self._live():
+                    rec["proc"].kill()
+                break
+        wall = time.monotonic() - t0
+        results = self._collect()
+        if results["models"]:
+            self.ledger.finish(self.trees)
+        self.ledger.event(wall, "done", completed=bool(results["models"]))
+        self.ledger.flush()
+        cost = self.ledger.cost_per_model()
+        if cost is not None:
+            tracer.gauge("factory.cost_per_model", cost, fleet=os.path.basename(self.fleet_dir))
+        return dict(wall_s=round(wall, 3), cost=cost,
+                    zero_lost_iterations=self.ledger.zero_lost_iterations(),
+                    ledger=self.ledger.path, **results)
+
+    def _collect(self) -> dict:
+        exits, models, metas, started = {}, {}, {}, {}
+        for rec in self._procs:
+            rec["proc"].wait()
+            exits[rec["key"]] = rec["proc"].returncode
+            started[rec["key"]] = rec["started"]
+        for name in sorted(os.listdir(self.fleet_dir)):
+            if name.startswith("out.m") and name.endswith(".txt"):
+                with open(os.path.join(self.fleet_dir, name)) as fh:
+                    models[name[len("out.m"):-len(".txt")]] = fh.read()
+            elif name.startswith("out.m") and name.endswith(".json"):
+                with open(os.path.join(self.fleet_dir, name)) as fh:
+                    metas[name[len("out.m"):-len(".json")]] = json.load(fh)
+        return dict(exits=exits, models=models, metas=metas, started=started)
+
+
+def run_static_baseline(fleet_dir: str, nproc: int, ledger_path: str, trees: int = 12,
+                        rows: int = 600, worker=None,
+                        extra_env: Optional[Dict[str, str]] = None,
+                        timeout_s: float = 300.0) -> dict:
+    """The on-demand reference: the same fleet with no churn, every
+    member-second priced at :data:`ON_DEMAND_PRICE`."""
+    fleet = SpotFleet(fleet_dir, SpotSchedule([], base_price=ON_DEMAND_PRICE), nproc,
+                      ledger_path, trees=trees, rows=rows, worker=worker, extra_env=extra_env)
+    summary = fleet.run(timeout_s=timeout_s)
+    if summary["cost"] is not None:
+        tracer.gauge("factory.cost_baseline", summary["cost"],
+                     fleet=os.path.basename(os.path.abspath(fleet_dir)))
+    return summary
+
+
+# the member's width and device, as ``factory spot`` keys (the JAX
+# package's worker has no such knobs)
+_WORKER_KEYS = {"leaves": "MEMBER_LEAVES", "features": "MEMBER_FEATURES",
+                "max_bin": "MEMBER_MAX_BIN"}
+
+
+def main(argv: Sequence[str]) -> int:
+    """``python -m lightgbm_tpu_torch factory spot fleet=DIR [nproc=3]
+    [trees=12] [rows=600] [script=preempt@3;spawn@6] [seed=N] [horizon=30]
+    [price=0.3] [baseline=1] [ledger=PATH] [leaves=7] [features=10]
+    [max_bin=31] [device=cpu]``: the JAX package's keys, and the members'
+    width and device (on the card without ``device``)."""
+    from ..cli import parse_argv
+    from .supervisor import EXIT_BAD_ARGS, EXIT_OK
+
+    tracer.refresh_from_env()
+    params = parse_argv(list(argv))
+    fleet_dir = params.get("fleet")
+    if not fleet_dir:
+        Log.warning("factory spot: need fleet=DIR [nproc=3] [trees=12] [script=...|seed=N] "
+                    "[price=0.3] [baseline=1]")
+        return EXIT_BAD_ARGS
+    nproc = int(params.get("nproc", "3"))
+    trees = int(params.get("trees", "12"))
+    rows = int(params.get("rows", "600"))
+    price = float(params.get("price", "0.3"))
+    ledger = params.get("ledger", os.path.join(fleet_dir, "cost_ledger.json"))
+    extra = {env: str(int(params[key])) for key, env in _WORKER_KEYS.items() if key in params}
+    device = params.get("device", "").strip().lower()
+    if device == "cpu":
+        extra["MEMBER_DEVICE"] = "cpu"
+    elif device not in ("", "gpu", "cuda"):
+        Log.warning("factory spot: device must be cpu, gpu or cuda, got %r", device)
+        return EXIT_BAD_ARGS
+    if params.get("baseline", "0") == "1":
+        summary = run_static_baseline(fleet_dir, nproc, ledger, trees=trees, rows=rows,
+                                      extra_env=extra)
+    else:
+        if "script" in params:
+            schedule = SpotSchedule.from_script(params["script"], price)
+        else:
+            schedule = SpotSchedule.sample(int(params.get("seed", "0")),
+                                           float(params.get("horizon", "30")), base_price=price)
+        summary = SpotFleet(fleet_dir, schedule, nproc, ledger, trees=trees, rows=rows,
+                            extra_env=extra).run()
+    print(json.dumps({k: v for k, v in summary.items() if k != "models"}, indent=1,
+                     sort_keys=True))
+    return EXIT_OK if summary["cost"] is not None else 1

@@ -383,18 +383,28 @@ class FactorySupervisor:
         detail: Dict = {"canary": {"fraction": fraction,
                                    "window_s": float(self.opts["observe_s"])}}
         det = detail["canary"]
-        port = _free_ports(1, self.host)[0]
         # retention-protect the candidate for the whole window
         self.registry.set_canary(int(version))
-        proc = spawn_replicas(1, {
-            "registry": self.registry_dir, "pin_version": int(version),
-            "warmup_max_rows": int(self.opts["canary_warmup_rows"]),
-            "max_delay_ms": 1, "registry_poll_ms": 1000,
-        }, ports=[port], host=self.host, device=self.device)[0][0]
+        deadline = time.monotonic() + float(self.opts["ready_timeout_ms"]) / 1e3
+        proc, ready = None, False
         installed = False
         try:
-            if not _wait_ready(self.host, port,
-                               float(self.opts["ready_timeout_ms"]) / 1e3):
+            # a replica that exits before it is ready most likely lost its
+            # port to another socket before its bind: respawn on a fresh one
+            for _ in range(3):
+                port = _free_ports(1, self.host)[0]
+                proc = spawn_replicas(1, {
+                    "registry": self.registry_dir, "pin_version": int(version),
+                    "warmup_max_rows": int(self.opts["canary_warmup_rows"]),
+                    "max_delay_ms": 1, "registry_poll_ms": 1000,
+                }, ports=[port], host=self.host, device=self.device)[0][0]
+                ready = _wait_ready(self.host, port,
+                                    max(deadline - time.monotonic(), 0.0), proc)
+                if ready or proc.poll() is None:
+                    break
+                Log.warning("factory: canary replica on port %d exited %s "
+                            "before it was ready", port, proc.returncode)
+            if not ready:
                 det["reason"] = "canary replica never became ready"
                 return False, detail
             _http_json(proxy_host, proxy_port, "POST", "/fleet/canary",
@@ -446,11 +456,12 @@ class FactorySupervisor:
                     self.registry.clear_canary()
             except Exception:
                 pass
-            proc.terminate()
-            try:
-                proc.wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                proc.kill()
+            if proc is not None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
 
     # -- verdict -------------------------------------------------------
     def _finish(self, run: Dict, run_dir: str, model_path: str,
@@ -538,8 +549,7 @@ def main(argv: List[str]) -> int:
     from ..cli import parse_argv
 
     if argv and argv[0] == "spot":
-        # the preemptible-capacity loop (factory/spot.py) waits for the
-        # elastic membership runtime
+        # the preemptible-capacity loop (factory/spot.py)
         from .spot import main as spot_main
 
         return spot_main(argv[1:])

@@ -70,9 +70,13 @@ def is_multiprocess() -> bool:
 
 
 def current_epoch() -> int:
-    """The live membership epoch: 0, as in a static JAX world (the
-    elastic membership is not ported)."""
-    return 0
+    """The live membership epoch of this process's fleet, the stamp an
+    elastic transition bumps (parallel/membership.py); a static world and
+    a run with no adopted runtime report 0."""
+    from . import membership
+
+    rt = membership.runtime()
+    return max(rt.epoch, 0) if rt is not None else 0
 
 
 def _split_address(addr: str):

@@ -20,7 +20,9 @@ Each node histogram is B8 (``hist_segment``) or, quantized, B9
 (``hist_segment_q``) over the rank's shard: the shard's bin words are
 packed once a tree, and each node rewrites only the select row, the
 rank's select masked to the node's rows.  The larger child is the
-parent less the smaller, as in the serial grower.
+parent less the smaller, as in the serial grower (quantized data mode
+histograms both children: exact integers, the same cells, and one read
+of the card carries them with the left count).
 
 Bit-parity contracts (tests/test_torch_parallel.py):
 
@@ -114,6 +116,16 @@ def _q_counts_if_degenerate(hist3: np.ndarray):
     return None
 
 
+def _read_children(hl, hr, n_left):
+    """Two children's (F, B, 3) int32 histograms and the left row count (a
+    0-d int64 tensor) in one read from the device: (n_left, (2, F, B, 3)
+    int32 host array)."""
+    m = hl.numel()
+    flat = torch.cat([hl.reshape(-1).to(torch.int64), hr.reshape(-1).to(torch.int64),
+                      n_left.reshape(1).to(torch.int64)]).cpu().numpy()
+    return int(flat[-1]), flat[:2 * m].astype(np.int32).reshape((2,) + tuple(hl.shape))
+
+
 def _split_rows(res) -> np.ndarray:
     """The (S, 7) float64 host rows [gain, feat, thr, dbz, lg, lh, lc] of
     a SplitResult of S leaves (one device read)."""
@@ -180,28 +192,29 @@ class HostParallelLearner:
         return _split_rows(res)
 
     def _merge_node(self, hist, node_cnt, f):
-        """Data mode: this rank's node histogram allgathered and merged,
-        (F, B, 3) float32 on the host: the float32 wire merged in rank
-        order, or the 2-plane int16 ``hist_q`` wire merged in exact
+        """Data mode: this rank's node histogram (a host array) allgathered
+        and merged, (F, B, 3) float32 on the host: the float32 wire merged
+        in rank order, or the 2-plane int16 ``hist_q`` wire merged in exact
         integers with the count plane derived from the hessian plane and
         the node's count (a rank with zero hessian mass here ships its
         counts)."""
         B = self.params.num_bins
         if self.quant:
-            h3 = hist.cpu().numpy()
             blobs = self.comm.allgather(
-                qhist.pack_hist_q(h3[..., :2], _q_counts_if_degenerate(h3)), "hist_q")
+                qhist.pack_hist_q(hist[..., :2], _q_counts_if_degenerate(hist)), "hist_q")
             merged, exact_cnt = _merge_q(blobs, f, B)
             return qhist.assemble_hist(merged, self._qscales, float(node_cnt), counts=exact_cnt)
-        blobs = self.comm.allgather(hist.cpu().numpy().tobytes(), "hist")
+        blobs = self.comm.allgather(np.ascontiguousarray(hist).tobytes(), "hist")
         return _merge_f32(blobs, (f, B, 3))
 
-    def _find_best(self, hists, sums, depth_ok, meta, hyper, feature_mask, f, lo, mono=None):
+    def _find_best(self, hists, sums, depth_ok, meta, hyper, feature_mask, f, lo, mono=None,
+                   host=None):
         """[(gain, feat, thr, dbz, left (3,))] of the S leaves of ``hists``
         (this rank's (F, B, 3) histograms, None for a rank without
         columns), the same on every rank.  The exchanges go leaf by leaf,
         in the JAX package's order; the scans of the leaves are one
-        batched call."""
+        batched call.  ``host``: data mode's (S, F, B, 3) copy of
+        ``hists`` already read from the card."""
         S = len(hists)
         if self.mode == "feature":
             if hists[0] is not None:
@@ -225,7 +238,9 @@ class HostParallelLearner:
                                                       mono)
                 fmask = feature_mask[None, :] * upload(torch.from_numpy(vmasks), dev)
             else:
-                ghists = [self._merge_node(h, sums[i, 2], f) for i, h in enumerate(hists)]
+                if host is None:  # the leaves' histograms read from the card at once
+                    host = torch.stack(hists).cpu().numpy()
+                ghists = [self._merge_node(h, sums[i, 2], f) for i, h in enumerate(host)]
                 fmask = feature_mask
             rows = self._search(upload(torch.from_numpy(np.stack(ghists)), dev), 0, sums, meta,
                                 hyper, fmask, mono)
@@ -406,13 +421,13 @@ class HostParallelLearner:
         leaf_rows[0] = n
         pool: Dict[int, torch.Tensor] = {0: root_hist}
 
-        def find(hists, sums, depth_ok, leaves):
+        def find(hists, sums, depth_ok, leaves, host=None):
             mono = None
             if hmono is not None:
                 b = upload(torch.from_numpy(np.stack([leaf_lo[leaves], leaf_hi[leaves]])), dev)
                 mono = (hmono, b[0], b[1])
             return self._find_best(hists, np.asarray(sums, np.float32).reshape(-1, 3), depth_ok,
-                                   hmeta, hyper, hmask, f, lo, mono)
+                                   hmeta, hyper, hmask, f, lo, mono, host)
 
         def store(leaf, res):
             bs_gain[leaf], bs_feat[leaf], bs_thr[leaf], bs_dbz[leaf] = res[:4]
@@ -463,7 +478,17 @@ class HostParallelLearner:
                                                 bool(is_cat[feat]))
             in_leaf = leaf_id == bl
             leaf_id.masked_fill_(in_leaf & ~goes_left, right)
-            n_left = int((in_leaf & goes_left).sum())
+            host = None
+            if self.mode == "data" and self.quant:
+                # exact integer histograms: both children direct are the
+                # parent-less-sibling rule's, and one read from the card
+                # carries them and the left count (each read waits for the
+                # card, which every other process on it also holds)
+                hl, hr = node_hist(leaf_id, bl), node_hist(leaf_id, right)
+                n_left, host = _read_children(hl, hr, (in_leaf & goes_left).sum())
+                pool[bl], pool[right] = hl, hr
+            else:
+                n_left = int((in_leaf & goes_left).sum())
             n_right = int(leaf_rows[bl]) - n_left
 
             # ---- the smaller child by global row count; the larger is
@@ -474,16 +499,17 @@ class HostParallelLearner:
                 g_left, g_right = sum(c[0] for c in cnts), sum(c[1] for c in cnts)
             else:
                 g_left, g_right = n_left, n_right
-            left_smaller = g_left < g_right
-            smaller = node_hist(leaf_id, bl if left_smaller else right)
-            larger = None if smaller is None else pool[bl] - smaller
-            pool[bl], pool[right] = (smaller, larger) if left_smaller else (larger, smaller)
+            if host is None:
+                left_smaller = g_left < g_right
+                smaller = node_hist(leaf_id, bl if left_smaller else right)
+                larger = None if smaller is None else pool[bl] - smaller
+                pool[bl], pool[right] = (smaller, larger) if left_smaller else (larger, smaller)
 
             # ---- both children's best splits (the max_depth gate)
             depth = int(leaf_depth[bl]) + 1
             ok = p.max_depth <= 0 or depth < p.max_depth
             lres, rres = find([pool[bl], pool[right]], np.stack([left, rsum]), ok,
-                              [bl, right])
+                              [bl, right], host)
 
             rec_i[:, s] = (bl, feat, thr, dbz)
             rec_f[:, s] = (bs_gain[bl], lval, rval, left[2], rsum[2], leaf_value[bl])

@@ -939,9 +939,40 @@ FLEET_DEFAULTS = {
 }
 
 
+def _ephemeral_range() -> Optional[Tuple[int, int]]:
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return None
+
+
 def _free_ports(n: int, host: str = "127.0.0.1") -> List[int]:
+    """``n`` distinct ports that bind on ``host`` now, for processes this
+    one is about to start.  They are drawn below the kernel's ephemeral
+    range where it can be read: ``connect()`` hands ports of that range
+    to outgoing sockets, so under client load one of them can take the
+    port between this probe and the child's bind (EADDRINUSE).  Without
+    the range (or room below it) the kernel picks them (``bind`` to 0)."""
+    import random
     import socket
 
+    rng = _ephemeral_range()
+    if rng is not None and rng[0] - 1024 >= 4 * n:
+        pool = range(max(1024, rng[0] - 16384), rng[0])
+        ports: List[int] = []
+        for port in random.SystemRandom().sample(pool, min(len(pool), 64 * n)):
+            s = socket.socket()
+            try:
+                s.bind((host, port))
+            except OSError:
+                continue
+            finally:
+                s.close()
+            ports.append(port)
+            if len(ports) == n:
+                return ports
     socks, ports = [], []
     try:
         for _ in range(n):
@@ -955,7 +986,10 @@ def _free_ports(n: int, host: str = "127.0.0.1") -> List[int]:
     return ports
 
 
-def _wait_ready(host: str, port: int, timeout_s: float) -> bool:
+def _wait_ready(host: str, port: int, timeout_s: float,
+                proc: Optional[subprocess.Popen] = None) -> bool:
+    """True once ``/readyz`` answers 200; False at the deadline, or as
+    soon as ``proc`` (the replica) has exited."""
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
         try:
@@ -968,6 +1002,8 @@ def _wait_ready(host: str, port: int, timeout_s: float) -> bool:
                 conn.close()
         except (OSError, http.client.HTTPException):
             pass
+        if proc is not None and proc.poll() is not None:
+            return False
         time.sleep(0.1)
     return False
 
@@ -1054,9 +1090,9 @@ def main(argv: List[str]) -> int:
                  if int(opts["base_port"]) else None)
         procs = spawn_replicas(n, passthrough, ports=ports, host=host)
         backends = [f"{host}:{port}" for _, port in procs]
-        for _, port in procs:
+        for proc, port in procs:
             if not _wait_ready(host, port,
-                               float(opts["ready_timeout_ms"]) / 1e3):
+                               float(opts["ready_timeout_ms"]) / 1e3, proc):
                 Log.warning("fleet: replica on port %d never became ready",
                             port)
                 for p, _ in procs:

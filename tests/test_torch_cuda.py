@@ -1605,3 +1605,79 @@ def test_rank_processes_on_card_equal_rank_threads(dev, tmp_path, mode):
     for r in range(2):
         assert out[r][0] == (tmp_path / f"model{r}.txt").read_text()
         assert out[r][1] == ledgers[r]
+
+
+def test_member_fleet_on_card(dev, tmp_path):
+    """Two fleet members on the card (python -m lightgbm_tpu_torch.factory.
+    member_worker, B9 in each) train a fleet of one's model bytes, and a
+    member SIGKILLed mid-run leaves its survivor the same bytes."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def fleet(tag, nproc, per=None):
+        d = tmp_path / tag
+        procs = []
+        for m in range(nproc):
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith(("LIGHTGBM_TPU_", "MEMBER_"))}
+            env.update(PYTHONPATH=repo, MEMBER_NPROC=str(nproc), MEMBER_TREES="6",
+                       LIGHTGBM_TPU_NET_TIMEOUT="8", **(per or {}).get(m, {}))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "lightgbm_tpu_torch.factory.member_worker", str(m),
+                 str(d), str(d / "out")], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+        return d, [p.returncode for p in procs], logs
+
+    ref, rcs, logs = fleet("ref", 1)
+    assert rcs == [0], logs[0][-3000:]
+    two, rcs, logs = fleet("two", 2, {1: {"MEMBER_KILL_ITER": "2"}})
+    assert rcs == [0, -9], logs[0][-3000:]
+    meta = json.loads((two / "out.m0.json").read_text())
+    assert meta["device"] == "cuda" and meta["launches"]["hist_segment_q"] > 0
+    assert meta["final_members"] == [0] and meta["trees"] == 6
+    assert (two / "out.m0.txt").read_text() == (ref / "out.m0.txt").read_text()
+
+
+def test_distributed_ooc_card_equals_cpu(dev):
+    """Rank-sharded out of core over 2 LocalComm rank threads, quantized:
+    the card (B9's carry mode in each rank) trains the CPU's model bytes."""
+    import threading
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.factory.member_worker import make_data
+    from lightgbm_tpu_torch.parallel import LocalGroup
+    from lightgbm_tpu_torch.parallel.comm import rank_thread
+
+    X, y = make_data(12000, 10, 5)
+    full = lgt.Dataset(X, label=y, params={"max_bin": 31})
+    p = dict(objective="binary", tree_learner="data", pre_partition=True, num_leaves=15,
+             quantized_training=True, out_of_core="true", ooc_chunk_rows=1000, verbose=-1)
+
+    def run(device):
+        group, out = LocalGroup(2), [None, None]
+
+        def rank(r, comm):
+            with rank_thread(comm):
+                ds = lgt.Dataset(X[r * 6000:(r + 1) * 6000], label=y[r * 6000:(r + 1) * 6000],
+                                 reference=full)
+                b = lgt.train(dict(p), ds, 3, device=device)
+                out[r] = (b.model_to_string(), type(b.boosting.learner).__name__)
+
+        ts = [threading.Thread(target=rank, args=(r, c)) for r, c in enumerate(group.comms())]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+        return out
+
+    before = th.hist_segment_q.launches
+    card = run(dev)
+    assert th.hist_segment_q.launches > before
+    cpu = run("cpu")
+    assert card[0][1] == "DistributedOocTrainer"
+    assert card[0][0] == card[1][0] == cpu[0][0]

@@ -10,7 +10,8 @@ factory``) against the JAX package's, on the CPU.
   functions;
 - ``SpotSchedule.from_script`` / ``sample`` and ``CostLedger`` against
   the JAX classes on the same seed and operations, ledgers loading across
-  packages; ``factory spot`` refused;
+  packages; ``factory spot`` without its fleet directory refused (its
+  fleets: tests/test_torch_spot.py);
 - in process, the JAX package's drills ``test_cold_then_warm_promote``,
   ``test_kill_after_publish_never_double_publishes`` and
   ``test_eval_gate_rollback_records_verdict`` run by both packages'
@@ -230,9 +231,15 @@ def test_cost_ledger_matches_jax(jfac, tmp_path):
         CostLedger.load(str(tmp_path / "v.json"))
 
 
-def test_factory_spot_is_refused():
-    with pytest.raises(NotImplementedError, match="factory spot.*A2c"):
-        cli.main(["factory", "spot", "fleet=x"])
+def test_factory_spot_is_refused(capsys, monkeypatch):
+    # ``factory spot`` runs member fleets now (tests/test_torch_spot.py);
+    # without its fleet directory it is refused with the usage line, as
+    # the JAX package's is, and starts no process
+    from lightgbm_tpu_torch.utils.log import Log
+
+    monkeypatch.setattr(Log, "_level", 1)
+    assert cli.main(["factory", "spot", "nproc=2"]) == 2
+    assert "factory spot: need fleet=DIR" in capsys.readouterr().out
 
 
 def test_factory_cli_needs_its_directories(capsys, monkeypatch):
@@ -380,7 +387,7 @@ def test_eval_gate_rollback_records_verdict(jfac, tmp_path, monkeypatch):
 # ----------------------------------------------------------------------
 # the canary
 # ----------------------------------------------------------------------
-def test_canary_promotes_under_traffic(tmp_path):
+def _canary_cycle(tmp_path):
     """v1 served by an in-process replica behind the port's proxy; an
     appended chunk's warm retrain is published inactive, canaried on a
     spawned replica pinned to it, promoted; no client request fails, and
@@ -444,6 +451,60 @@ def test_canary_promotes_under_traffic(tmp_path):
         srv.server_close()
     assert seen["errors"] == [], seen["errors"][:5]
     assert seen["n"] > 0 and 2 in seen["versions"]
+
+
+def test_canary_promotes_under_traffic(tmp_path):
+    _canary_cycle(tmp_path)
+
+
+def test_canary_respawns_when_its_port_is_taken(tmp_path, monkeypatch):
+    """The canary's first port is taken by another socket before the
+    replica binds it: that replica exits, the supervisor respawns on a
+    fresh port, and the cycle promotes as without the collision."""
+    import socket
+
+    from lightgbm_tpu_torch.factory import supervisor as sup_mod
+
+    held = socket.socket()
+    held.bind(("127.0.0.1", 0))
+    held.listen(1)
+    picks = []
+    real = sup_mod._free_ports
+
+    def free_ports(n, host="127.0.0.1"):
+        picks.append(held.getsockname()[1] if not picks else real(n, host)[0])
+        return picks[-1:]
+
+    monkeypatch.setattr(sup_mod, "_free_ports", free_ports)
+    try:
+        _canary_cycle(tmp_path)
+    finally:
+        held.close()
+    assert len(picks) == 2 and picks[0] != picks[1], picks
+
+
+def test_free_ports_bind_below_the_ephemeral_range():
+    import socket
+
+    from lightgbm_tpu_torch.serve import fleet as tfleet
+
+    ports = tfleet._free_ports(4)
+    assert len(set(ports)) == 4
+    rng = tfleet._ephemeral_range()
+    if rng is not None:
+        assert all(1024 <= p < rng[0] for p in ports), (ports, rng)
+    for p in ports:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", p))
+
+
+def test_wait_ready_stops_when_the_replica_exits():
+    from lightgbm_tpu_torch.serve import fleet as tfleet
+
+    proc = subprocess.Popen([sys.executable, "-c", "raise SystemExit(3)"])
+    t0 = time.monotonic()
+    assert not tfleet._wait_ready("127.0.0.1", tfleet._free_ports(1)[0], 60.0, proc)
+    assert proc.returncode == 3 and time.monotonic() - t0 < 30
 
 
 # ----------------------------------------------------------------------

@@ -57,7 +57,9 @@ def test_import_pulls_in_no_jax():
             "lightgbm_tpu_torch.ckpt, lightgbm_tpu_torch.obs.report, "
             "lightgbm_tpu_torch.obs.metrics, lightgbm_tpu_torch.obs.audit, "
             "lightgbm_tpu_torch.utils.profiling, lightgbm_tpu_torch.serve.server, "
-            "lightgbm_tpu_torch.ops.qpredict; "
+            "lightgbm_tpu_torch.ops.qpredict, lightgbm_tpu_torch.parallel.shardplan, "
+            "lightgbm_tpu_torch.parallel.membership, lightgbm_tpu_torch.boosting.oocdist, "
+            "lightgbm_tpu_torch.factory.spot, lightgbm_tpu_torch.factory.member_worker; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.')]; "
             "assert not bad, bad; print('ok')")
@@ -79,7 +81,12 @@ def test_transport_imports_with_jax_blocked():
             "            raise ImportError('blocked: ' + name)\n"
             "sys.meta_path.insert(0, Block())\n"
             "from lightgbm_tpu_torch.parallel import net, distributed, collect, NetComm\n"
+            "from lightgbm_tpu_torch.parallel import membership, shardplan\n"
+            "from lightgbm_tpu_torch.boosting import oocdist\n"
+            "from lightgbm_tpu_torch.factory import spot, member_worker\n"
             "assert distributed.process_count() == 1 and not distributed.ensure_initialized()\n"
+            "assert distributed.current_epoch() == 0 and membership.runtime() is None\n"
+            "assert shardplan.ShardPlan((2, 3)).rank_range(1) == (2, 5)\n"
             "assert collect.allgather_bytes(b'x') == [b'x']\n"
             "assert net.parse_fault_spec('die:2') == [('die', 2.0)]\n"
             "print('ok')\n")
@@ -95,7 +102,7 @@ IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|lightgbm_tpu)(?:[\s.]
 
 
 # the scripts at the repo root that run the port on the card
-CHIP_SCRIPTS = ["chip_ab.py", "chip_smoke.py"]
+CHIP_SCRIPTS = ["chip_ab.py", "chip_contention.py", "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix()
@@ -148,6 +155,19 @@ def test_new_entry_points_raise_when_no_card(name, monkeypatch):
     y = (X[:, 0] > 0).astype(np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NO_CARD_CALLS[name](lgt, X, y)
+
+
+def test_member_worker_fails_without_a_card(tmp_path):
+    """A fleet member not asked for the CPU (``MEMBER_DEVICE``) trains on
+    the card; with none it fails, and writes no model."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("LIGHTGBM_TPU_", "MEMBER_"))}
+    env.update(PYTHONPATH=str(REPO), MEMBER_NPROC="1", CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch.factory.member_worker", "0",
+                          str(tmp_path), str(tmp_path / "out")], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not (tmp_path / "out.m0.txt").exists()
 
 
 def test_data_files_pull_in_no_optional_packages(tmp_path):

@@ -157,9 +157,11 @@ DECLINED = [
     ("boosting=dart", dict(boosting="dart", linear_tree=True), {}),
     ("Cannot use bagging in GOSS", dict(boosting="goss", bagging_fraction=0.5, bagging_freq=1),
      {}),
-    # parallel learners train over several processes (tests/test_torch_distributed.py);
-    # out-of-core data-parallel training over two ranks (threads here) is refused
-    ("tree_learner=data", dict(tree_learner="data", num_machines=2, out_of_core=True),
+    # parallel learners train over several processes (tests/test_torch_distributed.py),
+    # and out of core with tree_learner=data every rank streams its shard
+    # (tests/test_torch_oocdist.py); over two ranks (threads here) out of core
+    # with voting is refused, naming tree_learner=data
+    ("tree_learner=data", dict(tree_learner="voting", num_machines=2, out_of_core=True),
      dict(ranks=2)),
     # out-of-core training runs (tests/test_torch_ooc.py); with DART forced
     # it is refused
@@ -175,7 +177,7 @@ DECLINED = [
 # engine.py's schema guard); the rest are not ported yet
 RAISES = {"Cannot use bagging in GOSS": LightGBMError, "boosting=dart": LightGBMError,
           "init_model": LightGBMError, "checkpoint_dir": LightGBMError,
-          "out-of-core training": LightGBMError}
+          "out-of-core training": LightGBMError, "tree_learner=data": LightGBMError}
 
 
 @pytest.mark.parametrize("what,params,kwargs", DECLINED, ids=[d[0] for d in DECLINED])
